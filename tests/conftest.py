@@ -54,3 +54,8 @@ try:
     settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "dev"))
 except ModuleNotFoundError:  # property tests skip via _hypothesis_compat
     pass
+
+
+def pytest_configure(config):
+    # tests of the port's CUDA kernels: they skip without an NVIDIA GPU
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU (CUDA kernels of repro_torch)")
