@@ -7,20 +7,29 @@ Phases (each failure exits non-zero):
 1. device line (``nvidia-smi`` name and power limit); TF32 off;
 2. build the Hopper kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
 3. kernel parity: each kernel against its plain PyTorch version on the
-   card at the main path's shapes (bits 1/2/3/4, dead row blocks, G = 1 and
-   2, windows, ragged lengths, permuted block tables; f32 and bf16), then
-   its time beside the plain version, one library call and its bound;
+   card at the main path's shapes (bits 1/2/3/4, dead row blocks, K ending
+   mid-group and K < group, G = 1 and 2, windows, ragged lengths, length 0,
+   permuted block tables, all-zero int8 rows; f32 and bf16), then its time
+   beside the plain version, one library call and its bound;
 4. tiny end-to-end parity: ``moonshot-v1-16b-a3b.reduced()`` (f32, PMQ +
-   OTP, one seed) served on the card and on the CPU — identical greedy
-   tokens, per-step logits within 1e-3·max|logit|; then one decode
-   megastep on the card under ``set_sync_debug_mode("error")``, which
-   fails if anything inside the horizon waits on the host;
-5. full-width serving: the workload of ``repro_torch.launch.workload``
-   (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, 4
-   requests of 64 prompt and 32 new tokens) through ``PagedServingEngine``;
-   every kernel must launch during serving and a second engine must emit
-   byte-identical tokens;
+   OTP, one seed) served on the card and on the CPU, with fp KV and with
+   int8 KV plus the prefix cache — identical greedy tokens, per-step
+   logits within 1e-3·max|logit|; then one fp and one int8 decode megastep
+   on the card under ``set_sync_debug_mode("error")``, which fails if
+   anything inside the horizon waits on the host;
+5. full-width serving of the two workloads of ``repro_torch.launch.workload``
+   (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
+   set of weights) through ``PagedServingEngine``, each path with the
+   launch counts set to 0 just before it and read just after:
+   the fp path (4 requests of 64 prompt and 32 new tokens; its kernels must
+   launch, a second engine must emit byte-identical tokens), then the int8
+   KV + shared-prefix path (``SHARED_PREFIX``: ``paged_attention_quant``
+   must launch, the fp attention kernel must not; tokens byte-identical to
+   an int8 engine without the prefix cache and to a second prefix engine;
+   prefill chunks and copy-on-write copies as the reference's rules give);
 6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   ``binary_matmul`` has no serving caller (as in the reference), so its
+   launches are those of phase 3.
 
 It imports nothing of JAX or of the JAX package, and refuses to run
 without a CUDA device.
@@ -45,8 +54,11 @@ from repro_torch.core.quantizers import quantize_parts  # noqa: E402
 from repro_torch.core.synthetic import bucket_counts, build_synthetic  # noqa: E402
 from repro_torch.core.tree import to_device, weight_bytes  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.core.quantizers import dequantize_kv_rows, quantize_kv_rows  # noqa: E402
+from repro_torch.core.packing import pack_bits, unpack_bits  # noqa: E402
+from repro_torch.kernels.binary_matmul import binary_matmul  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.launch import workload  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity  # noqa: E402
@@ -60,6 +72,7 @@ from repro_torch.serving import EngineConfig, PagedKVCache, PagedServingEngine, 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 TC / f32 CUDA cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # × max|plain|, see module docstring
+RAGGED_K, SHORT_K = 3 * 128 + 64, 64  # K ending mid-group, K < group (group 128)
 KERNELS = {
     "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul.py:99"),
@@ -67,6 +80,10 @@ KERNELS = {
     "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:93"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:225"),
+    "paged_attention_quant": ("src/repro_torch/csrc/paged_attention.cu",
+                              "src/repro/kernels/paged_attention.py:158"),
+    "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
+                      "src/repro/kernels/binary_matmul.py:48"),
 }
 DEV = torch.device("cuda")
 
@@ -159,6 +176,16 @@ def parity_quant_matmul(gen, results):
             got = quant_matmul(x, data, s[0], z[0], bits=bits)
             want = ref.quant_matmul_ref(x, data, s[0], z[0], bits=bits)
             errs.append(compare(f"quant_matmul b{bits} {m}x{k}x{n} {dtype}", got, want, dtype))
+        # K ending mid-group (3 groups + 64) and K < group: the last group is bounded
+        for bits in (1, 2, 3, 4):
+            for m, k, n in ((5, RAGGED_K, 96), (4, SHORT_K, 96)):
+                (data, s, z) = rand_weights(gen, 1, k, n, bits)
+                data = tuple(t[0] for t in data) if bits == 3 else data[0]
+                x = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
+                got = quant_matmul(x, data, s[0], z[0], bits=bits)
+                want = ref.quant_matmul_ref(x, data, s[0], z[0], bits=bits)
+                errs.append(compare(f"quant_matmul ragged b{bits} K={k} {dtype}", got, want,
+                                    dtype))
     # main-path decode shape: wq at 4 slots, 4-bit, bf16
     m, k, n = 4, 2048, 2048
     (data, s, z) = rand_weights(gen, 1, k, n, 4)
@@ -213,6 +240,9 @@ def parity_moe(gen, results, cfg):
                 live = rng.integers(0, 3, size=experts).tolist()
                 live[0] = max(live[0], 1)
                 errs.append(_gmm_case(gen, kind, bits, dtype, cap, experts, live, k, n)[0])
+                for k_r in (RAGGED_K, SHORT_K):  # the last group is bounded
+                    errs.append(_gmm_case(gen, kind, bits, dtype, decode_cap, 3, [1, 2, 0],
+                                          k_r, 96)[0])
         # main-path decode shape: the 2-bit bucket at 4 slots, bf16; 20 live experts
         _, n2, _ = bucket_counts(cfg.num_experts)
         live = [1] * 16 + [2] * 4 + [0] * (n2 - 20)
@@ -268,6 +298,9 @@ def parity_paged_attention(gen, results):
         for g, hkv, window in [(1, 16, None), (2, 8, None), (2, 8, 20), (1, 16, 7)]:
             errs.append(_attn_case(gen, dtype, 4, hkv, g, 128, 16, 40, 6,
                                    [1, 17, 80, 96], window)[0])
+            # length 0: every position masked, the reference averages V over the table
+            errs.append(_attn_case(gen, dtype, 4, hkv, g, 128, 16, 40, 6,
+                                   [0, 17, 80, 0], window)[0])
     # main-path decode shape: 4 slots mid-decode (prompt 64 + 16 new), bf16
     b, hkv, g, dh, bs, mb = 4, 16, 1, 128, 16, 6
     lengths = [80, 80, 80, 80]
@@ -294,14 +327,104 @@ def parity_paged_attention(gen, results):
     )
 
 
+def _attn_quant_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
+    """int8 pools quantized on the card from random rows (page 0 all zero,
+    as unwritten pages are), permuted tables; the kernel against its plain
+    version."""
+    q = torch.randn((b, hkv, g, dh), generator=gen, device=DEV).to(dtype)
+    pools = []
+    for _ in range(2):
+        rows = torch.randn((nb, bs, hkv, dh), generator=gen, device=DEV) * 2
+        rows[0] = 0.0
+        pools.append(quantize_kv_rows(rows))
+    (kc, ks, kz), (vc, vs, vz) = pools
+    quant = (ks, kz, vs, vz)
+    perm = torch.randperm(nb, generator=gen, device=DEV)[: b * mb]
+    tables = perm.reshape(b, mb).to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    got = paged_attention_quant(q, kc, vc, *quant, tables, lens, window=window)
+    want = ref.paged_attention_ref(q, kc, vc, tables, lens, window=window, quant=quant)
+    err = compare(f"paged_attention_quant G{g} win{window} len{lengths} {dtype}", got, want,
+                  dtype)
+    return err, (q, kc, vc, quant, tables, lens)
+
+
+def parity_paged_attention_quant(gen, results):
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for g, hkv, window in [(1, 16, None), (2, 8, None), (2, 8, 20), (1, 16, 7)]:
+            for lengths in ([1, 17, 80, 96], [0, 17, 80, 0]):
+                errs.append(_attn_quant_case(gen, dtype, 4, hkv, g, 128, 16, 40, 6, lengths,
+                                             window)[0])
+    # the slice's decode shape: 4 slots mid-decode (prompt 64 + 16 new), bf16 q
+    b, hkv, g, dh, bs, mb = 4, 16, 1, 128, 16, 6
+    lengths = [80, 80, 80, 80]
+    err, (q, kc, vc, quant, tables, lens) = _attn_quant_case(
+        gen, torch.bfloat16, b, hkv, g, dh, bs, 24, mb, lengths, None)
+    errs.append(err)
+    pages = sum(-(-n // bs) for n in lengths)
+    # per visited row and KV head: dh code bytes of K and of V, 4 f32 table entries
+    kv_bytes = pages * bs * hkv * (2 * dh + 16)
+    phys = (tables.long()[:, :, None] * bs + torch.arange(bs, device=DEV)).reshape(b, -1)
+    ks, kz, vs, vz = (t.reshape(-1, hkv)[phys] for t in quant)
+    k_g = dequantize_kv_rows(kc.reshape(-1, hkv, dh)[phys], ks, kz).to(torch.bfloat16)
+    v_g = dequantize_kv_rows(vc.reshape(-1, hkv, dh)[phys], vs, vz).to(torch.bfloat16)
+    k_g, v_g = k_g.permute(0, 2, 1, 3), v_g.permute(0, 2, 1, 3)
+    mask = (torch.arange(mb * bs, device=DEV)[None, :] < lens[:, None].long())[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results["paged_attention_quant"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: paged_attention_quant(q, kc, vc, *quant, tables, lens)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kc, vc, tables, lens, quant=quant)),
+        library_ms=time_ms(lambda: sdpa(q, k_g, v_g, attn_mask=mask)),
+        shape=f"B={b} Hkv={hkv} G={g} dh={dh} BS={bs} len={lengths[0]} int8 pools, bf16 q",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(kv_bytes + 2 * nbytes(q) + nbytes(tables, lens),
+                         4 * b * hkv * g * sum(lengths) * dh, torch.bfloat16))),
+    )
+
+
+def _binary_case(gen, dtype, m, k, n):
+    w = torch.randn((k, n), generator=gen, device=DEV)
+    b_packed = pack_bits((w >= 0).to(torch.uint8), 1, axis=0)
+    alpha = w.abs().mean(dim=0, keepdim=True)
+    x = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
+    got = binary_matmul(x, b_packed, alpha)
+    want = ref.binary_matmul_ref(x, b_packed, alpha)
+    return compare(f"binary_matmul {m}x{k}x{n} {dtype}", got, want, dtype), (x, b_packed, alpha)
+
+
+def parity_binary_matmul(gen, results, cfg):
+    """Eq. 9 at an expert's gate/up shape (K = d_model, N = d_ff_expert) and
+    a ragged M; no serving caller, as in the reference."""
+    k, n = cfg.d_model, cfg.d_ff_expert
+    errs = [_binary_case(gen, dtype, m, k, n)[0]
+            for dtype in (torch.float32, torch.bfloat16) for m in (16, 5)]
+    m = 16
+    err, (x, b_packed, alpha) = _binary_case(gen, torch.bfloat16, m, k, n)
+    errs.append(err)
+    w_pm = ((unpack_bits(b_packed, 1, axis=0)[:k].float() * 2 - 1) * alpha).to(torch.bfloat16)
+    results["binary_matmul"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: binary_matmul(x, b_packed, alpha)),
+        plain_ms=time_ms(lambda: ref.binary_matmul_ref(x, b_packed, alpha)),
+        library_ms=time_ms(lambda: torch.matmul(x, w_pm)),
+        shape=f"M={m} K={k} N={n} 1-bit bf16",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes(x, b_packed, alpha) + m * n * 2, 2 * m * k * n,
+                         torch.bfloat16))),
+    )
+
+
 # ------------------------------------------------ phase 4: tiny parity
-def greedy_logits(cfg, params, prompt, max_new, device):
+def greedy_logits(cfg, params, prompt, max_new, device, kv_bits=None):
     """Greedy decode of one request through the paged model functions,
     returning the tokens and the logits that chose each of them."""
     ecfg = EngineConfig()
     mcfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=1,
-                         max_blocks_per_slot=8, device=device)
+                         max_blocks_per_slot=8, device=device, kv_bits=kv_bits)
+    qs = cache.quant_tables
     slot = cache.acquire_slot(len(prompt) + max_new)
     table = cache.tables_device()
     steps, toks = [], []
@@ -310,7 +433,7 @@ def greedy_logits(cfg, params, prompt, max_new, device):
         chunk = torch.zeros((1, ecfg.prefill_chunk), dtype=torch.long, device=device)
         chunk[0, :n] = torch.as_tensor(prompt[off:off + n], device=device)
         logits, _ = paged_prefill_chunk(params, cache.k, cache.v, table[slot:slot + 1], chunk,
-                                        off, n, mcfg, block_size=16)
+                                        off, n, mcfg, block_size=16, qs=qs)
     for i in range(max_new):
         steps.append(logits[0, -1].float().cpu())
         toks.append(int(torch.argmax(steps[-1])))
@@ -319,18 +442,18 @@ def greedy_logits(cfg, params, prompt, max_new, device):
         logits, _, _ = _paged_decode_core(
             params, cache.k, cache.v, table, torch.tensor([[toks[-1]]], device=device),
             torch.tensor([len(prompt) + i], device=device, dtype=torch.int32),
-            torch.ones(1, dtype=torch.bool, device=device), mcfg, 8, 16, use_otp=True,
+            torch.ones(1, dtype=torch.bool, device=device), mcfg, 8, 16, use_otp=True, qs=qs,
         )
     return toks, steps
 
 
-def sync_free_megastep(cfg, params):
+def sync_free_megastep(cfg, params, kv_bits=None):
     """One decode megastep on the card under ``set_sync_debug_mode("error")``:
     anything inside the horizon that waits on the device (an ``.item()``, a
     ``bincount``, a blocking copy) raises."""
     mcfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2,
-                         max_blocks_per_slot=4, device=DEV)
+                         max_blocks_per_slot=4, device=DEV, kv_bits=kv_bits)
     cache.acquire_slot(40)
     cache.acquire_slot(30)
     i32 = dict(dtype=torch.int32, device=DEV)
@@ -338,7 +461,7 @@ def sync_free_megastep(cfg, params):
             torch.tensor([[3], [5]], device=DEV), torch.tensor([20, 7], **i32),
             torch.ones(2, dtype=torch.bool, device=DEV), mcfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
-              eos_ids=torch.full((2,), -1, **i32))
+              eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -347,25 +470,36 @@ def sync_free_megastep(cfg, params):
         torch.cuda.set_sync_debug_mode("default")
     if emits.sum(dim=0).tolist() != [4, 2]:
         raise AssertionError(f"sync-free megastep emitted {emits.sum(dim=0).tolist()}")
-    log("decode megastep under sync debug mode 'error': no host sync inside the horizon")
+    log(f"{'int8' if kv_bits else 'fp'} decode megastep under sync debug mode 'error': "
+        f"no host sync inside the horizon")
 
 
-def tiny_parity():
+def tiny_parity(kv_bits=None):
+    """The reduced model on the card against the CPU: fp KV, or int8 KV with
+    the prefix cache over prompts that share a 32-token prefix (one of them
+    repeated: a full hit ending mid-page)."""
     cfg = get_config("moonshot-v1-16b-a3b").reduced()
     params_cpu = build_synthetic(cfg, seed=0, device="cpu")
     params_gpu = to_device(params_cpu, DEV)
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
+    if kv_bits is None:
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
+    else:
+        system = rng.integers(0, cfg.vocab_size, size=32)
+        prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, size=n)])
+                   .astype(np.int32) for n in (10, 5)]
+        prompts.append(prompts[1].copy())
     ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
-                        prefill_chunk=16, decode_horizon=4)
+                        prefill_chunk=16, decode_horizon=4, kv_bits=kv_bits,
+                        prefix_cache=kv_bits is not None)
     outs = {}
     for name, dev, params in (("card", DEV, params_gpu), ("cpu", "cpu", params_cpu)):
         eng = PagedServingEngine(cfg, params, ecfg, device=dev)
         outs[name] = eng.serve(Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
     worst = 0.0
     for i, p in enumerate(prompts):
-        tg, lg = greedy_logits(cfg, params_gpu, p, 12, DEV)
-        tc, lc = greedy_logits(cfg, params_cpu, p, 12, "cpu")
+        tg, lg = greedy_logits(cfg, params_gpu, p, 12, DEV, kv_bits)
+        tc, lc = greedy_logits(cfg, params_cpu, p, 12, "cpu", kv_bits)
         for s, (a, b) in enumerate(zip(lg, lc)):
             rel = (a - b).abs().max().item() / b.abs().max().item()
             worst = max(worst, rel)
@@ -381,12 +515,46 @@ def tiny_parity():
                 break
         if outs["card"][i] != outs["cpu"][i] and tg == tc:
             raise AssertionError(f"request {i}: engine tokens differ between card and cpu")
-    log(f"tiny parity: {len(prompts)} requests, engine tokens card == cpu: "
+    kind = "fp KV" if kv_bits is None else "int8 KV + prefix cache"
+    log(f"tiny parity ({kind}): {len(prompts)} requests, engine tokens card == cpu: "
         f"{outs['card'] == outs['cpu']}, worst per-step logit diff {worst:.2e}·max")
-    sync_free_megastep(cfg, params_gpu)
+    sync_free_megastep(cfg, params_gpu, kv_bits)
 
 
 # ------------------------------------------------ phase 5: full width
+#: kernels each serving path must launch (binary_matmul has no serving caller)
+FP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
+INT8_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention_quant")
+
+
+def _serve(cfg, params, ecfg, reqs):
+    eng = PagedServingEngine(cfg, params, ecfg, device=DEV)
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    return eng, out
+
+
+def _drive(name, cfg, params, ecfg, reqs, needed):
+    """One serving path with the launch counts set to 0 just before it and
+    read just after; fails on a bad output or a kernel of the path that
+    never launched (or the other attention kernel launching)."""
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    eng, out = _serve(cfg, params, ecfg, reqs)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for rid, toks in out.items():
+        if len(toks) != workload.MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{name} request {rid}: bad output {toks}")
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched while serving: {missing}")
+    stray = [k for k, v in launches.items() if v and k not in needed]
+    if stray:
+        raise AssertionError(f"{name}: kernels off this path launched: {stray}")
+    return eng, out, launches, peak
+
+
 def full_width():
     t0 = time.perf_counter()
     cfg, params = workload.build(DEV)
@@ -395,36 +563,55 @@ def full_width():
         f"experts={cfg.num_experts} top-{cfg.top_k} vocab={cfg.vocab_size} bf16; "
         f"built in {time.perf_counter() - t0:.1f} s; "
         f"weights on device {weight_bytes(params) / 1e9:.3f} GB")
-    max_new = workload.MAX_NEW
 
-    def serve():
-        eng = PagedServingEngine(cfg, params, workload.ENGINE, device=DEV)
-        out = eng.serve(workload.requests(cfg))
-        torch.cuda.synchronize()
-        return eng, out
-
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    eng, out = serve()
-    launches = dict(build.LAUNCHES)
-    for rid, toks in out.items():
-        if len(toks) != max_new or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {rid}: bad output {toks}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched while serving: {missing}")
-    _, out2 = serve()
+    # the fp path
+    eng, out, fp_launches, peak = _drive("fp path", cfg, params, workload.ENGINE,
+                                         workload.requests(cfg), FP_PATH)
+    _, out2 = _serve(cfg, params, workload.ENGINE, workload.requests(cfg))
     if out2 != out:
-        raise AssertionError("a second engine served different tokens")
+        raise AssertionError("fp path: a second engine served different tokens")
     s = eng.summary()
-    log(f"full width serving: {len(out)} requests x {max_new} tokens; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; TTFT mean {s['ttft_mean_s']:.3f} s "
+    log(f"full width serving (fp KV): {len(out)} requests x {workload.MAX_NEW} tokens; "
+        f"peak device memory {peak / 1e9:.3f} GB; TTFT mean {s['ttft_mean_s']:.3f} s "
         f"max {s['ttft_max_s']:.3f} s; decode {s['decode_tokens']} tokens in "
         f"{s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; "
-        f"OTP expert activation {s['expert_activation']:.4f}; launches {launches}; "
-        f"second engine tokens identical")
-    log("full width serving summary: " + json.dumps(s))
-    return launches
+        f"OTP expert activation {s['expert_activation']:.4f}; launches {fp_launches}; "
+        f"second engine (full depth) tokens identical")
+    log("full width serving summary (fp KV): " + json.dumps(s))
+
+    # the int8 KV + shared-prefix path
+    reqs = workload.shared_prefix_requests
+    eng, out, q_launches, peak = _drive("int8 prefix path", cfg, params, workload.SHARED_PREFIX,
+                                        reqs(cfg), INT8_PATH)
+    s = eng.summary()
+    if (s["prefill_chunks"], s["cow_copies"]) != (workload.SHARED_PREFIX_CHUNKS,
+                                                  workload.SHARED_PREFIX_COW_COPIES):
+        raise AssertionError(f"int8 prefix path: {s['prefill_chunks']} prefill chunks and "
+                             f"{s['cow_copies']} COW copies, expected "
+                             f"{workload.SHARED_PREFIX_CHUNKS} and "
+                             f"{workload.SHARED_PREFIX_COW_COPIES}")
+    if out[2] != out[3]:
+        raise AssertionError("int8 prefix path: the retried prompt served other tokens")
+    off = dataclasses.replace(workload.SHARED_PREFIX, prefix_cache=False)
+    eng_off, out_off = _serve(cfg, params, off, reqs(cfg))
+    if out_off != out:
+        raise AssertionError("int8 prefix path: tokens differ without the prefix cache")
+    _, out2 = _serve(cfg, params, workload.SHARED_PREFIX, reqs(cfg))
+    if out2 != out:
+        raise AssertionError("int8 prefix path: a second engine served different tokens")
+    c = eng.cache
+    bf16_pool = 2 * cfg.num_layers * c.k.shape[1] * cfg.num_kv_heads * cfg.head_dim * 2
+    log(f"full width serving (int8 KV + prefix cache): {len(out)} requests x "
+        f"{workload.MAX_NEW} tokens; prefill chunks {s['prefill_chunks']} (without the cache "
+        f"{eng_off.summary()['prefill_chunks']}), COW copies {s['cow_copies']}, prefix hits "
+        f"{s['prefix_hits']} reusing {s['cached_tokens']} prompt tokens; peak device memory "
+        f"{peak / 1e9:.3f} GB; KV pool {c.pool_bytes} bytes int8 codes + tables against "
+        f"{bf16_pool} bytes bf16 ({c.pool_bytes / bf16_pool:.4f}); TTFT mean "
+        f"{s['ttft_mean_s']:.3f} s max {s['ttft_max_s']:.3f} s; decode {s['decode_tokens']} "
+        f"tokens in {s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; launches "
+        f"{q_launches}; tokens identical without the cache and in a second engine")
+    log("full width serving summary (int8 KV + prefix cache): " + json.dumps(s))
+    return fp_launches, q_launches
 
 
 def main() -> int:
@@ -448,6 +635,10 @@ def main() -> int:
     parity_quant_matmul(gen, results)
     parity_moe(gen, results, cfg)
     parity_paged_attention(gen, results)
+    parity_paged_attention_quant(gen, results)
+    build.reset_launches()
+    parity_binary_matmul(gen, results, cfg)
+    binary_launches = build.LAUNCHES["binary_matmul"]
     for name, r in results.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {name} [{r['shape']}]: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -455,11 +646,18 @@ def main() -> int:
             f"max|err| {r['max_abs_err']:.3e}")
 
     tiny_parity()
-    launches = full_width()
+    tiny_parity(kv_bits=8)
+    fp_launches, q_launches = full_width()
 
+    # launches of each kernel on the path that runs it; binary_matmul has no
+    # serving caller (none in the reference either), so its count is phase 3's
+    counted = {name: (fp_launches[name], "fp serving") for name in FP_PATH}
+    counted["paged_attention_quant"] = (q_launches["paged_attention_quant"],
+                                        "int8 KV + prefix serving")
+    counted["binary_matmul"] = (binary_launches, "phase 3 (no serving caller)")
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
+         "replaces": KERNELS[name][1], "launches": counted[name][0], "path": counted[name][1],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in results.items()

@@ -7,6 +7,10 @@ zero = 0.5), and packing into :class:`PackedTensor`. Weights are
 ``W ∈ R[..., K, N]`` with quantization groups along K (dim -2); leading
 dims batch independent matrices (one bucket of experts at a time), each
 quantized exactly as the reference quantizes a single ``[K, N]``.
+
+Also the per-row int8 KV quantizer of the serving pools
+(:func:`quantize_kv_rows` / :func:`dequantize_kv_rows`): Eq. 3 with one
+group spanning a KV row's ``head_dim``.
 """
 from __future__ import annotations
 
@@ -19,9 +23,13 @@ from .packing import PackedTensor, pack_bits, pad_to_multiple
 
 __all__ = [
     "affine_params",
+    "dequantize_kv_rows",
     "hqq_refine",
+    "kv_quant_codes",
+    "kv_quant_params",
     "quantize_affine",
     "quantize_binary",
+    "quantize_kv_rows",
     "quantize_parts",
     "quantize_to_packed",
     "rtn_codes",
@@ -38,16 +46,54 @@ def _group_reshape(w: torch.Tensor, group: int) -> torch.Tensor:
     return w.reshape(*w.shape[:-2], ngroups, group, w.shape[-1])
 
 
-def affine_params(w: torch.Tensor, bits: int, group: int = 128):
-    """Per-(group, column) ``scale, zero`` ``[..., K/group, N]`` f32 (Eq. 3),
-    computed in ``w``'s dtype as the reference does."""
-    wg = _group_reshape(w, group)
-    wmax = wg.amax(dim=-2)
-    wmin = wg.amin(dim=-2)
+#: XLA's CPU backend rewrites an f32 reduction longer than this into
+#: windows of this size (``TreeReductionRewriter``)
+_XLA_REDUCE_WINDOW = 32
+
+
+def _xla_mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``mean(x, dim)`` in the reference's summation order, so f32 means
+    come out byte-identical to XLA's on the CPU.
+
+    XLA sums a reduction of ``n > 32`` elements as a reduce-window of 32
+    (zero padding split evenly, the odd element at the high end), each
+    window added in order, and then reduces the ``ceil(n/32)`` window sums
+    the same way; ``n ≤ 32`` elements add in order. The mean multiplies the
+    sum by the f32 reciprocal of ``n`` (XLA folds the division by a
+    constant into that product)."""
+    n = x.shape[dim]
+    x = x.movedim(dim, 0)
+    while x.shape[0] > _XLA_REDUCE_WINDOW:
+        nw = -(-x.shape[0] // _XLA_REDUCE_WINDOW)
+        pad = nw * _XLA_REDUCE_WINDOW - x.shape[0]
+        lo = x.new_zeros((pad // 2, *x.shape[1:]))
+        hi = x.new_zeros((pad - pad // 2, *x.shape[1:]))
+        x = torch.cat([lo, x, hi]).reshape(nw, _XLA_REDUCE_WINDOW, *x.shape[1:])
+        acc = x[:, 0].clone()
+        for i in range(1, _XLA_REDUCE_WINDOW):
+            acc += x[:, i]
+        x = acc
+    acc = x[0].clone()
+    for i in range(1, x.shape[0]):
+        acc += x[i]
+    return acc * float(np.float32(1.0 / n))
+
+
+def _affine(wmax: torch.Tensor, wmin: torch.Tensor, bits: int):
+    """``scale, zero`` from the range, in its dtype, then cast to f32 — the
+    reference's Python floats are weak-typed, so a bf16 range rounds to
+    bf16 at every step."""
     qmax = 2.0**bits - 1.0
     scale = torch.clamp_min((wmax - wmin) / qmax, 1e-8)
     zero = -wmin / scale
     return scale.float(), zero.float()
+
+
+def affine_params(w: torch.Tensor, bits: int, group: int = 128):
+    """Per-(group, column) ``scale, zero`` ``[..., K/group, N]`` f32 (Eq. 3),
+    computed in ``w``'s dtype as the reference does."""
+    wg = _group_reshape(w, group)
+    return _affine(wg.amax(dim=-2), wg.amin(dim=-2), bits)
 
 
 def rtn_codes(w, scale, zero, bits: int, group: int = 128) -> torch.Tensor:
@@ -76,7 +122,7 @@ def hqq_refine(w, scale, zero, bits: int, group: int = 128, iters: int = 20):
         shrunk = torch.sign(err) * torch.clamp_min(
             mag - (mag ** (p - 1.0) + 1e-8) / float(beta), 0.0
         )
-        zero = torch.mean(q - (wg - shrunk) / s, dim=-2)
+        zero = _xla_mean(q - (wg - shrunk) / s, dim=-2)
         beta = np.float32(beta * kappa)
     return scale, zero
 
@@ -93,7 +139,7 @@ def quantize_binary(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """1-bit sign quantization (Eqs. 4/8): ``B~ = (w >= 0)`` and the
     per-column L1 scale ``mean|W[:, j]|`` ``[..., 1, N]`` f32."""
     b01 = (w >= 0).to(torch.uint8)
-    return b01, w.abs().mean(dim=-2, keepdim=True).float()
+    return b01, _xla_mean(w.abs(), dim=-2).unsqueeze(-2).float()
 
 
 def quantize_parts(w: torch.Tensor, bits: int, group: int = 128, refine: bool = True):
@@ -121,3 +167,40 @@ def quantize_to_packed(w: torch.Tensor, bits: int, group: int = 128,
     data, scale, zero = quantize_parts(w, bits, group, refine)
     return PackedTensor(data=data, scale=scale, zero=zero, bits=bits, shape=tuple(w.shape),
                         group=group)
+
+
+# ----------------------------------------------------- KV-row quantization
+# The int8 KV pools store uint8 codes with one affine (scale, zero) pair per
+# KV row — per (layer, page, page offset, kv head) — so a row written once
+# never needs requantizing and a shared prefix page dequantizes identically
+# for every reader. Eq. 3 with the group spanning head_dim.
+
+def kv_quant_params(x: torch.Tensor, bits: int = 8):
+    """Per-row ``scale, zero`` over the trailing ``head_dim`` axis: ``x [...,
+    dh]`` → two f32 tensors shaped ``x.shape[:-1]``."""
+    return _affine(x.amax(dim=-1), x.amin(dim=-1), bits)
+
+
+def kv_quant_codes(x: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                   bits: int = 8) -> torch.Tensor:
+    """RTN codes of KV rows: uint8 shaped like ``x`` (``x / scale`` promotes
+    to f32, as in the reference)."""
+    q = torch.round(x / scale[..., None] + zero[..., None])
+    return torch.clamp(q, 0.0, 2.0**bits - 1.0).to(torch.uint8)
+
+
+def quantize_kv_rows(x: torch.Tensor, bits: int = 8):
+    """``(codes, scale, zero)`` of KV rows ``x [..., dh]``. An all-zero row
+    (an unwritten page) round-trips to exactly zero: scale floors at 1e-8,
+    zero and codes are 0."""
+    scale, zero = kv_quant_params(x, bits)
+    return kv_quant_codes(x, scale, zero, bits), scale, zero
+
+
+def dequantize_kv_rows(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
+    """``(q − z) · s`` in f32 — the exact expression of the int8 paged-attention
+    kernel's dequant epilogue, so prefill and decode read a page's rows as
+    bit-identical floats."""
+    x = codes.float() - zero[..., None].float()
+    return (x * scale[..., None].float()).to(dtype)

@@ -5,7 +5,11 @@
 //
 // q is unpacked from uint8 along K: code k of a column sits in byte k / per
 // at shift (k % per) * bits; 3-bit weights are a (hi: 2-bit, lo: 1-bit)
-// plane pair with q = (hi << 1) | lo.
+// plane pair with q = (hi << 1) | lo. K need not hold whole groups: the
+// codes are padded to a whole byte (3 bits: to a multiple of 8) and the last
+// group covers only K - g * group codes, so the kernel bounds its loop there
+// and computes what the reference's padded dequant computes (its padding
+// rows meet no x columns).
 //
 // Tiling (static shapes only, so a row's result never depends on M or its
 // neighbours): one thread block per (row block of BM rows, 32-column tile).
@@ -33,14 +37,16 @@ namespace {
 
 // Packed rows of one quantization group for a pow-2 width, or (hi, lo)
 // rows for 3 bits.
+// rows0/rows1(n): packed rows of n codes (n a whole group, a ragged last
+// group or all of K), the codes padded to a whole byte.
 template <int BITS> struct Planes {
     static constexpr int kPer = 8 / BITS;
-    __host__ __device__ static int rows0(int group) { return group / kPer; }
+    __host__ __device__ static int rows0(int n) { return (n + kPer - 1) / kPer; }
     __host__ __device__ static int rows1(int) { return 0; }
 };
 template <> struct Planes<3> {
-    __host__ __device__ static int rows0(int group) { return group / 4; }
-    __host__ __device__ static int rows1(int group) { return group / 8; }
+    __host__ __device__ static int rows0(int n) { return (n + 7) / 8 * 2; }
+    __host__ __device__ static int rows1(int n) { return (n + 7) / 8; }
 };
 
 // Code kk (0 <= kk < group) of column c from a staged tile laid out
@@ -57,20 +63,26 @@ __device__ __forceinline__ int tile_code(const uint8_t* t, int kk, int c, int gr
     }
 }
 
-// Stage the packed bytes of group g for columns [n0, n0 + 32) of one
-// expert's planes (p0: [K/per or K/4, N], p1: [K/8, N] for 3 bits).
+// Stage the packed bytes of group g (kg codes) for columns [n0, n0 + 32) of
+// one expert's planes (p0: [rows0(K), N], p1: [rows1(K), N] for 3 bits) into
+// a tile laid out [rows0(group) + rows1(group)][32]; rows past the kg codes
+// are zero and never read.
 template <int BITS>
 __device__ __forceinline__ void stage_tile(uint8_t* t, const uint8_t* p0, const uint8_t* p1,
-                                           int g, int group, int N, int n0, int tid,
+                                           int g, int group, int kg, int N, int n0, int tid,
                                            int nthreads) {
     const int r0 = Planes<BITS>::rows0(group);
     const int r1 = Planes<BITS>::rows1(group);
+    const int v0 = Planes<BITS>::rows0(kg), v1 = Planes<BITS>::rows1(kg);
     for (int idx = tid; idx < (r0 + r1) * 32; idx += nthreads) {
         const int r = idx >> 5, c = idx & 31, col = n0 + c;
         uint8_t v = 0;
         if (col < N) {
-            v = r < r0 ? p0[(size_t)(g * r0 + r) * N + col]
-                       : p1[(size_t)(g * r1 + (r - r0)) * N + col];
+            if (r < r0) {
+                if (r < v0) v = p0[(size_t)(g * r0 + r) * N + col];
+            } else if (r - r0 < v1) {
+                v = p1[(size_t)(g * r1 + (r - r0)) * N + col];
+            }
         }
         t[idx] = v;
     }
@@ -123,9 +135,9 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
     uint8_t* tiles = reinterpret_cast<uint8_t*>(red + nw * BM * NOP * 32);
     const int tbytes = tile_bytes<BITS>(group);
 
-    const int ngroups = K / group;
-    const int r0 = Planes<BITS>::rows0(group) * ngroups;  // plane rows per expert
-    const int r1 = Planes<BITS>::rows1(group) * ngroups;
+    const int ngroups = (K + group - 1) / group;
+    const int r0 = Planes<BITS>::rows0(K);  // plane rows per expert
+    const int r1 = Planes<BITS>::rows1(K);
     const Operand ops[2] = {a, b};
     const uint8_t* p0[NOP];
     const uint8_t* p1[NOP];
@@ -148,14 +160,17 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
     const int slice = group / nw;
     const int k_lo = wid * slice;
     for (int g = 0; g < ngroups; ++g) {
+        const int kg = min(group, K - g * group);  // codes in this group
         __syncthreads();  // previous group fully consumed
         for (int idx = tid; idx < BM * group; idx += nthreads) {
             const int m = idx / group, kk = idx - m * group;
-            xs[idx] = (m0 + m < M) ? to_f32(x[(size_t)(m0 + m) * K + g * group + kk]) : 0.f;
+            xs[idx] = (m0 + m < M && kk < kg)
+                          ? to_f32(x[(size_t)(m0 + m) * K + g * group + kk]) : 0.f;
         }
 #pragma unroll
         for (int o = 0; o < NOP; ++o) {
-            stage_tile<BITS>(tiles + o * tbytes, p0[o], p1[o], g, group, N, n0, tid, nthreads);
+            stage_tile<BITS>(tiles + o * tbytes, p0[o], p1[o], g, group, kg, N, n0, tid,
+                             nthreads);
             if (tid < 32) {
                 const bool ok = n0 + tid < N;
                 sz[o * 64 + tid] = ok ? sc[o][(size_t)g * N + n0 + tid] : 0.f;
@@ -167,7 +182,7 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
         for (int o = 0; o < NOP; ++o) {
             const float s = sz[o * 64 + lane], z = sz[o * 64 + 32 + lane];
             const uint8_t* t = tiles + o * tbytes;
-            for (int kk = k_lo; kk < k_lo + slice; ++kk) {
+            for (int kk = k_lo; kk < min(k_lo + slice, kg); ++kk) {
                 const float q = (float)tile_code<BITS>(t, kk, lane, group);
                 const float w = round_compute<T>(__fmul_rn(__fsub_rn(q, z), s));
 #pragma unroll

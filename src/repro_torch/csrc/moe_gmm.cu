@@ -23,8 +23,8 @@
 // f32 accumulation, sliced-K across the block's warps with a fixed-order
 // reduction. The SwiGLU variant feeds two accumulators from one staged x
 // tile and applies silu(g) * u before its single store. bm is 8 or 16 (the
-// row block of gmm_block_rows), bits 1/2/3/4, and K any multiple of the
-// quantization group (K = 1408 = 11 groups for the down projection).
+// row block of gmm_block_rows), bits 1/2/3/4, and any K (K = 1408 = 11
+// groups for the down projection; a ragged last group is bounded).
 #include "dequant_gemm.cuh"
 
 extern "C" int repro_moe_gmm(const void* x, const void* w0, const void* w1, const void* scale,

@@ -56,6 +56,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: launches per kernel wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "quant_matmul": 0, "moe_gmm": 0, "moe_gmm_swiglu": 0, "paged_attention": 0,
+    "paged_attention_quant": 0, "binary_matmul": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -71,6 +72,11 @@ _SIGNATURES = {
     # q, k_pool, v_pool, tables, lengths, out, B, Hkv, G, dh, BS, MB,
     # window, scale, dtype, stream
     "repro_paged_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k_pool, v_pool, k_scale, k_zero, v_scale, v_zero, tables, lengths,
+    # out, B, Hkv, G, dh, BS, MB, window, scale, dtype, stream
+    "repro_paged_attention_quant": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # x, b_packed, alpha, y, M, K, N, dtype, stream
+    "repro_binary_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

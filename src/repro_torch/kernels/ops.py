@@ -12,11 +12,13 @@ from typing import Optional
 import torch
 
 from ..core.packing import PackedTensor
+from . import binary_matmul as _bm
 from . import moe_gmm as _gmm
 from . import paged_attention as _pa
 from . import quant_matmul as _qm
 
 __all__ = [
+    "binary_matmul",
     "moe_gmm",
     "moe_gmm_swiglu",
     "paged_attention",
@@ -42,18 +44,10 @@ def quant_matmul_parts(x: torch.Tensor, w_packed, scale, zero, *, bits: int,
     return y.reshape(*lead, y.shape[-1])
 
 
-def _gmm_blocks(k: int, group: int) -> None:
-    """The kernels tile K one quantization group at a time (the port's
-    counterpart of the Pallas ``bk``): K must hold whole groups."""
-    if k % group:
-        raise ValueError(f"grouped GEMM needs K={k} to be a multiple of group={group}")
-
-
 def moe_gmm(x_padded, w_packed, scale, zero, block_expert, num_active, *, bits: int,
             group: int = 128, bm: int = 16) -> torch.Tensor:
     """Grouped expert GEMM with the ragged skip of row blocks at or past
     ``num_active[0]`` (the routed-token frontier)."""
-    _gmm_blocks(x_padded.shape[-1], group)
     return _gmm.moe_gmm(x_padded.contiguous(), w_packed, scale, zero, block_expert,
                         num_active, bits=bits, group=group, bm=bm)
 
@@ -62,15 +56,27 @@ def moe_gmm_swiglu(x_padded, wg_packed, wu_packed, g_scale, g_zero, u_scale, u_z
                    block_expert, num_active, *, bits: int, group: int = 128,
                    bm: int = 16) -> torch.Tensor:
     """Fused gate/up grouped GEMM + SwiGLU epilogue."""
-    _gmm_blocks(x_padded.shape[-1], group)
     return _gmm.moe_gmm_swiglu(x_padded.contiguous(), wg_packed, wu_packed, g_scale, g_zero,
                                u_scale, u_zero, block_expert, num_active, bits=bits,
                                group=group, bm=bm)
 
 
+def binary_matmul(x: torch.Tensor, b_packed, alpha) -> torch.Tensor:
+    """Eq. 9 ``(x @ (2·B~ − 1)) · alpha`` for any leading x shape."""
+    k = x.shape[-1]
+    lead = x.shape[:-1]
+    y = _bm.binary_matmul(x.reshape(-1, k).contiguous(), b_packed, alpha)
+    return y.reshape(*lead, y.shape[-1])
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None, quant=None) -> torch.Tensor:
     """Decode attention through a paged KV pool (serving hot path);
-    ``q [B, Hkv, G, dh]`` → ``[B, Hkv, G, dh]``."""
+    ``q [B, Hkv, G, dh]`` → ``[B, Hkv, G, dh]``. ``quant = (k_scale, k_zero,
+    v_scale, v_zero)`` (each ``[NB, BS, Hkv]`` f32) reads uint8 pools through
+    the int8 kernel's dequant epilogue."""
+    if quant is not None:
+        return _pa.paged_attention_quant(q.contiguous(), k_pool, v_pool, *quant, block_tables,
+                                         lengths, window=window)
     return _pa.paged_attention(q.contiguous(), k_pool, v_pool, block_tables, lengths,
                                window=window)

@@ -39,15 +39,19 @@ def check_operand(name, w_packed, scale, zero, *, bits, group, k, n, lead, devic
     ``[*lead, K/4, N]``, lo ``[*lead, K/8, N]``) and its ``[*lead, K/g, N]``
     f32 scale/zero before its pointers reach the kernel."""
     p0, p1 = planes(w_packed, bits)
-    shapes = ((p0, k // 4), (p1, k // 8)) if bits == 3 else ((p0, k // _PER[bits]),)
+    # codes are padded to a whole byte (3 bits: to a multiple of 8), groups
+    # to a whole group — a ragged K keeps the reference's padded layout
+    k8 = -(-k // 8)
+    shapes = ((p0, 2 * k8), (p1, k8)) if bits == 3 else ((p0, -(-k // _PER[bits])),)
+    ng = -(-k // group)
     for t, rows in shapes:
         require(t.dtype == torch.uint8, f"{name}: packed weights must be uint8")
         require(tuple(t.shape) == (*lead, rows, n),
                 f"{name}: packed plane {tuple(t.shape)} != {(*lead, rows, n)}")
     for t in (scale, zero):
         require(t.dtype == torch.float32, f"{name}: scale/zero must be float32")
-        require(tuple(t.shape) == (*lead, k // group, n),
-                f"{name}: scale/zero {tuple(t.shape)} != {(*lead, k // group, n)}")
+        require(tuple(t.shape) == (*lead, ng, n),
+                f"{name}: scale/zero {tuple(t.shape)} != {(*lead, ng, n)}")
     for t in (p0, p1, scale, zero):
         if t is None:
             continue
@@ -62,8 +66,6 @@ def check_activations(name, x, *, group):
     require(x.is_contiguous(), f"{name}: x must be contiguous")
     require(group % 16 == 0 and 16 <= group <= 256,
             f"{name}: group must be a multiple of 16 in [16, 256], got {group}")
-    require(x.shape[1] % group == 0,
-            f"{name}: K={x.shape[1]} must be a multiple of group={group}")
 
 
 def ptr(t) -> int:

@@ -15,6 +15,7 @@ import torch
 from ..core.packing import unpack_bits
 
 __all__ = [
+    "binary_matmul_ref",
     "dequant_ref",
     "moe_gmm_ref",
     "moe_gmm_swiglu_ref",
@@ -57,6 +58,16 @@ def quant_matmul_ref(x, w_packed, scale, zero, *, bits: int, group: int = 128,
     return _dot(x, w, cd).to(out_dtype or x.dtype)
 
 
+def binary_matmul_ref(x, b_packed, alpha, *, out_dtype=None) -> torch.Tensor:
+    """Eq. 9: ``(x @ (2·B~ − 1)) · alpha`` with ``b_packed [K/8, N]`` (bit
+    ``i`` of byte ``r`` is row ``8r + i``) and ``alpha [1, N]`` f32 applied
+    after the f32-accumulated product."""
+    k = x.shape[-1]
+    cd = compute_dtype(x)
+    w = unpack_bits(b_packed, 1, axis=0)[:k].to(cd) * 2 - 1
+    return (_dot(x, w, cd) * alpha).to(out_dtype or x.dtype)
+
+
 def moe_gmm_ref(x_padded, w_packed, scale, zero, block_expert, num_active, *,
                 bits: int, group: int = 128, bm: int = 128, out_dtype=None) -> torch.Tensor:
     """Row-block ``i`` of ``x_padded`` hits expert ``block_expert[i]``; blocks
@@ -85,13 +96,20 @@ def moe_gmm_swiglu_ref(x_padded, wg_packed, wu_packed, g_scale, g_zero, u_scale,
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *, window=None,
-                        out_dtype=None) -> torch.Tensor:
+                        out_dtype=None, quant=None) -> torch.Tensor:
     """Gather each sequence's pages through its block table, then masked
-    softmax decode attention in f32 (fp pools).
+    softmax decode attention in f32.
 
     ``q [B, Hkv, G, dh]``; pools ``[NB, BS, Hkv, dh]``; ``block_tables
     [B, MB]``; ``lengths [B]`` (newest token at ``lengths - 1``); ``window``
-    keeps ``kv_pos > (lengths - 1) - window`` (None = full attention).
+    keeps ``kv_pos > (lengths - 1) - window`` (None = full attention). A
+    sequence with no valid position scores every position alike and so
+    averages V over all ``MB·BS`` positions of its table.
+
+    ``quant = (k_scale, k_zero, v_scale, v_zero)`` (each ``[NB, BS, Hkv]``
+    f32) reads uint8 pools: the gathered rows become ``(codes − z) · s`` in
+    f32 (:func:`repro_torch.core.quantizers.dequantize_kv_rows`) before the
+    attention math.
     """
     b, hkv, g, dh = q.shape
     nb, bs = k_pool.shape[0], k_pool.shape[1]
@@ -102,6 +120,10 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *, window=None
     phys = (block_tables.long()[:, :, None] * bs + ar[None, None, :]).reshape(b, mb * bs)
     k = flat_k[phys].float()  # [B, S_log, Hkv, dh]
     v = flat_v[phys].float()
+    if quant is not None:
+        ks, kz, vs, vz = (a.reshape(nb * bs, hkv)[phys][..., None].float() for a in quant)
+        k = (k - kz) * ks
+        v = (v - vz) * vs
     kv_pos = torch.arange(mb * bs, device=q.device)
     lengths = lengths.long()
     valid = kv_pos[None, :] < lengths[:, None]

@@ -1,6 +1,7 @@
 """Serve PMQ + OTP compressed requests through the port's paged engine.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --pmq [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --pmq [--kv-bits 8] [--prefix-cache] \
+        [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
 ``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the model is
@@ -35,6 +36,11 @@ def main() -> None:
                    help="serve PMQ-compressed experts (required in this slice)")
     p.add_argument("--decode-horizon", type=int, default=8, metavar="H",
                    help="decode steps per fused megastep")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="share cached prompt prefixes copy-on-write and skip their "
+                        "prefill (outputs stay bit-identical)")
+    p.add_argument("--kv-bits", type=int, choices=[8], default=None, metavar="B",
+                   help="store the KV pool as B-bit codes with per-row f32 scales")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args()
     if not args.pmq:
@@ -49,15 +55,21 @@ def main() -> None:
         cfg, params,
         EngineConfig(max_slots=args.slots, block_size=args.block_size,
                      num_blocks=args.slots * blocks_per_req,
-                     max_blocks_per_slot=blocks_per_req, decode_horizon=args.decode_horizon),
+                     max_blocks_per_slot=blocks_per_req, decode_horizon=args.decode_horizon,
+                     prefix_cache=args.prefix_cache, kv_bits=args.kv_bits),
         device=args.device,
     )
     out = engine.serve(Request(rid=i, prompt=prompts[i], max_new=args.max_new)
                        for i in range(args.requests))
     for rid, toks in sorted(out.items()):
         print(f"request {rid}: {toks}")
-    print(f"served {len(out)} requests on {args.device}; metrics: "
-          f"{json.dumps(engine.summary())}")
+    m = engine.summary()
+    print(f"served {len(out)} requests on {args.device}; metrics: {json.dumps(m)}")
+    if args.prefix_cache:
+        print(f"prefix cache: {m['prefix_hits']} hits, {m['cached_tokens']} prompt tokens "
+              f"reused, {m['cow_copies']} COW copies")
+    print(f"KV pool: {engine.cache.pool_bytes} bytes "
+          f"({'int8 codes + f32 row tables' if args.kv_bits else 'fp'})")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,24 @@
-"""The full-width serving workload: what ``chip_smoke.py`` serves and
+"""The full-width serving workloads: what ``chip_smoke.py`` serves and
 :mod:`repro_torch.launch.profile_decode` traces. One definition, so the
 profile describes the run whose tokens/s are reported beside it.
 
 ``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16 with random
-PMQ + OTP weights from seed 0 (:func:`build_synthetic`); 4 requests of 64
-prompt tokens (numpy seed 2) and 32 new tokens each, served 4 slots at a
-time with 16-token pages, 16-token prefill chunks and 8-step megasteps.
+PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
+
+* ``ENGINE`` / :func:`requests`: fp KV; 4 requests of 64 prompt tokens
+  (numpy seed 2) and 32 new tokens each, served 4 slots at a time with
+  16-token pages, 16-token prefill chunks and 8-step megasteps.
+* ``SHARED_PREFIX`` / :func:`shared_prefix_requests`: the same geometry
+  with int8 KV and the prefix cache — chat serving where every request
+  carries one 48-token system prompt (3 pages), plus a retried prompt.
+  r0 and r1 add 16 tokens each, r2 adds 8, and r3 repeats r2 exactly: a
+  full hit ending mid-page, whose tail page is copied (codes and tables).
+  By the reference's admission rules this prefills 6 chunks instead of 16
+  (r0 4, r1 1, r2 1, r3 none) with one copy-on-write page copy.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -17,12 +27,26 @@ from ..configs import get_config
 from ..core.synthetic import build_synthetic
 from ..serving import EngineConfig, Request
 
-__all__ = ["ARCH", "ENGINE", "MAX_NEW", "build", "requests"]
+__all__ = [
+    "ARCH",
+    "ENGINE",
+    "MAX_NEW",
+    "SHARED_PREFIX",
+    "SHARED_PREFIX_CHUNKS",
+    "SHARED_PREFIX_COW_COPIES",
+    "build",
+    "requests",
+    "shared_prefix_requests",
+]
 
 ARCH = "moonshot-v1-16b-a3b"
 PROMPT_LEN, MAX_NEW, NUM_REQUESTS = 64, 32, 4
 ENGINE = EngineConfig(max_slots=4, block_size=16, num_blocks=24, max_blocks_per_slot=6,
                       prefill_chunk=16, decode_horizon=8, reserve_full=True, use_otp=True)
+SHARED_PREFIX = dataclasses.replace(ENGINE, kv_bits=8, prefix_cache=True)
+SYSTEM_PROMPT_LEN = 48
+#: prefill chunks and COW page copies of SHARED_PREFIX under the reference's rules
+SHARED_PREFIX_CHUNKS, SHARED_PREFIX_COW_COPIES = 6, 1
 
 
 def build(device="cuda") -> Tuple[object, Dict]:
@@ -37,3 +61,14 @@ def requests(cfg) -> List[Request]:
     return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=PROMPT_LEN)
                     .astype(np.int32), max_new=MAX_NEW)
             for i in range(NUM_REQUESTS)]
+
+
+def shared_prefix_requests(cfg) -> List[Request]:
+    """Fresh :class:`Request`s of the shared-prefix workload: one 48-token
+    system prompt (numpy seed 3), r0/r1 + 16 tokens, r2 + 8, r3 = r2."""
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, cfg.vocab_size, size=SYSTEM_PROMPT_LEN)
+    tails = [rng.integers(0, cfg.vocab_size, size=n) for n in (16, 16, 8)]
+    prompts = [np.concatenate([system, t]).astype(np.int32) for t in tails]
+    prompts.append(prompts[2].copy())
+    return [Request(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)]

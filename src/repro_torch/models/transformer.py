@@ -8,6 +8,9 @@ Pools are ``[L, NB·BS + 1, Hkv, dh]``: the extra row per layer is a scratch
 destination for the KV writes of inactive slots and right-padded prefill
 positions (the reference scatters those out of range with ``mode="drop"``;
 torch would raise), and ``pool[l, :NB·BS]`` is the layer's paged view.
+int8 pools (``kv_bits=8``) are uint8 codes with four per-row f32 tables
+``qs = (k_scale, k_zero, v_scale, v_zero)``, each ``[L, NB·BS + 1, Hkv]``
+with the same scratch row; ``qs = ()`` means fp pools.
 
 Params: ``{"embed": [V, D], "final_norm": [D], "unembed"?: [V, D],
 "layers": [{"ln1", "attn": {"wq"|"wk"|"wv"|"wo": {"w"}}, "ln2", "moe":
@@ -21,14 +24,35 @@ import numpy as np
 import torch
 
 from ..core.compressed_moe import compressed_moe_layer
+from ..core.quantizers import dequantize_kv_rows, quantize_kv_rows
 from ..kernels import ops
 from . import layers as L
 
 __all__ = [
+    "KV_QUANT_BITS",
     "layer_windows_static",
     "paged_decode_horizon",
     "paged_prefill_chunk",
 ]
+
+
+KV_QUANT_BITS = 8
+
+
+def _write_kv(kf, vf, qs, l: int, dest, k_rows, v_rows):
+    """Write the new K/V rows ``[n, Hkv, dh]`` of layer ``l`` to the flat
+    rows ``dest`` — as they are on fp pools, or quantized per row (codes
+    plus their four table entries) on int8 pools."""
+    if not qs:
+        kf[l].index_copy_(0, dest, k_rows.to(kf.dtype))
+        vf[l].index_copy_(0, dest, v_rows.to(vf.dtype))
+        return
+    kc, ks, kz = quantize_kv_rows(k_rows, KV_QUANT_BITS)
+    vc, vs, vz = quantize_kv_rows(v_rows, KV_QUANT_BITS)
+    kf[l].index_copy_(0, dest, kc)
+    vf[l].index_copy_(0, dest, vc)
+    for table, rows in zip(qs, (ks, kz, vs, vz)):
+        table[l].index_copy_(0, dest, rows)
 
 
 def layer_windows_static(cfg, s: int) -> np.ndarray:
@@ -68,11 +92,12 @@ def _ffn_delta(p, h, cfg, *, use_otp: bool, count_weight=None):
 
 
 def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb: int,
-                       bs: int, *, use_otp: bool):
+                       bs: int, *, use_otp: bool, qs=()):
     """One decode step over the flattened pools ``kf``/``vf`` ``[L, NB·BS+1,
-    Hkv, dh]`` (written in place). ``tables [B, MB]`` int32, ``token [B, 1]``,
-    ``positions [B]``, ``active [B]`` bool. Returns ``(logits [B, 1, V],
-    per_slot_act [B], slot_counts [L, num_slots])``."""
+    Hkv, dh]`` (written in place; ``qs`` their int8 tables or ``()``).
+    ``tables [B, MB]`` int32, ``token [B, 1]``, ``positions [B]``, ``active
+    [B]`` bool. Returns ``(logits [B, 1, V], per_slot_act [B], slot_counts
+    [L, num_slots])``."""
     x = L.embed_tokens(params["embed"], token)
     b = token.shape[0]
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -87,13 +112,13 @@ def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb
     for l, p_l in enumerate(params["layers"]):
         h = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
         q, k_new, v_new = L._qkv(p_l["attn"], h, cfg, positions[:, None])
-        kf[l].index_copy_(0, dest, k_new[:, 0].to(kf.dtype))
-        vf[l].index_copy_(0, dest, v_new[:, 0].to(vf.dtype))
+        _write_kv(kf, vf, qs, l, dest, k_new[:, 0], v_new[:, 0])
         attn = ops.paged_attention(
             q.reshape(b, hkv, g, dh),
             kf[l, : nb * bs].view(nb, bs, hkv, dh),
             vf[l, : nb * bs].view(nb, bs, hkv, dh),
             tables, lengths, window=int(windows[l]),
+            quant=tuple(t[l, : nb * bs].view(nb, bs, hkv) for t in qs) if qs else None,
         )
         x = x + L.linear(p_l["attn"]["wo"], attn.reshape(b, 1, hq * dh).to(x.dtype))
         h2 = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
@@ -113,7 +138,7 @@ def _masked_activation(per_slot, active):
 
 def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, *,
                          block_size: int, horizon: int, budgets, eos_ids,
-                         use_otp: bool = True):
+                         use_otp: bool = True, qs=()):
     """``H`` greedy decode steps, each exactly :func:`_paged_decode_core`,
     with on-device argmax feeding the next step and per-slot stop logic in
     the carried ``active`` mask (budget spent, EOS emitted). Nothing syncs
@@ -130,7 +155,7 @@ def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, 
     toks, emits, acts, counts = [], [], [], []
     for _ in range(horizon):
         logits, per_slot, cnt = _paged_decode_core(
-            params, kf, vf, tables, cur, pos, act, cfg, nb, bs, use_otp=use_otp
+            params, kf, vf, tables, cur, pos, act, cfg, nb, bs, use_otp=use_otp, qs=qs
         )
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         emit = act
@@ -145,14 +170,18 @@ def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, 
 
 
 def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len: int,
-                        cfg, *, block_size: int, use_otp: bool = True):
+                        cfg, *, block_size: int, use_otp: bool = True, qs=()):
     """Chunked prefill of ONE request into its pages.
 
     ``tokens [1, C]`` is one fixed-size chunk (the tail right-padded);
     ``start`` counts tokens already written and ``valid_len ≤ C`` is the
     chunk's real length (host ints). Padded positions write the scratch
-    row and never enter the gathered kv. ``table_row [1, MB]``. Returns
-    ``(logits [1, 1, V] of the last valid token, slot_counts [L, num_slots])``.
+    row and never enter the gathered kv. ``table_row [1, MB]``. On int8
+    pools (``qs``) the gathered rows are dequantized with
+    :func:`dequantize_kv_rows`, the decode kernel's epilogue, so attention
+    over a shared prefix page reads the floats every later decode reads.
+    Returns ``(logits [1, 1, V] of the last valid token, slot_counts [L,
+    num_slots])``.
     """
     bs = block_size
     x = L.embed_tokens(params["embed"], tokens)
@@ -176,11 +205,16 @@ def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len
     for l, p_l in enumerate(params["layers"]):
         h = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
         k_new, v_new = L._kv_only(p_l["attn"], h, cfg, pos2d)
-        kf[l].index_copy_(0, dest, k_new[0].to(kf.dtype))
-        vf[l].index_copy_(0, dest, v_new[0].to(vf.dtype))
+        _write_kv(kf, vf, qs, l, dest, k_new[0], v_new[0])
+        if qs:
+            ks, kz, vs, vz = (t[l][phys] for t in qs)
+            k_log = dequantize_kv_rows(kf[l][phys], ks, kz)
+            v_log = dequantize_kv_rows(vf[l][phys], vs, vz)
+        else:
+            k_log, v_log = kf[l][phys], vf[l][phys]
         x = x + L.attention(
             p_l["attn"], h, cfg, positions=pos2d, causal=True, window=int(windows[l]),
-            kv_override=(kf[l][phys][None], vf[l][phys][None], kv_pos),
+            kv_override=(k_log[None], v_log[None], kv_pos),
         )
         h2 = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
         delta, _, cnt = _ffn_delta(p_l, h2, cfg, use_otp=use_otp, count_weight=count_weight)

@@ -1,5 +1,5 @@
 """Continuous-batching engine over the paged KV pool (port of
-``repro/serving/engine.py``, slice 1).
+``repro/serving/engine.py``, slices 1 and 2).
 
 * **prefill** — an admitted request's prompt streams through
   :func:`paged_prefill_chunk` in fixed-size chunks, writing K/V straight
@@ -15,11 +15,17 @@ slots, reserving ``prompt + max_new`` pages (``reserve_full``). Expert
 capacity is raised to the drop-free bound (capacity factor = number of
 experts), so a request's tokens never depend on who it shares a step with.
 
+``kv_bits=8`` stores the pools as uint8 per-row affine codes (read through
+``paged_attention_quant``); ``prefix_cache=True`` shares cached prompt
+prefixes copy-on-write, so a hit prefills only the uncached suffix and a
+full hit dispatches no prefill at all. Greedy outputs are bit-identical with
+the cache on or off: cached pages hold exactly the KV the skipped prefill
+would have written.
+
 This slice honours only the :class:`EngineConfig` fields below. Growth and
-preemption (``reserve_full=False``), swap, prefix cache, int8 KV, expert
-offload, temperature sampling, the controller, faults and tracing are later
-slices: their settings do not exist here, and ``reserve_full=False`` is
-refused.
+preemption (``reserve_full=False``), swap, expert offload, temperature
+sampling, the controller, faults and tracing are later slices: their
+settings do not exist here, and ``reserve_full=False`` is refused.
 """
 from __future__ import annotations
 
@@ -31,10 +37,10 @@ import numpy as np
 import torch
 
 from ..models.transformer import paged_decode_horizon, paged_prefill_chunk
-from .kvcache import PagedKVCache
+from .kvcache import PagedKVCache, PoolExhausted
 from .scheduler import Request, Scheduler
 
-__all__ = ["EngineConfig", "PagedServingEngine"]
+__all__ = ["EngineConfig", "PagedServingEngine", "quantized_greedy_reference"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +57,27 @@ class EngineConfig:
     # pages for prompt + max_new are reserved at admission; False (growth +
     # preemption) is a later slice and refused
     reserve_full: bool = True
+    # shared-prefix KV reuse over refcounted copy-on-write pages
+    prefix_cache: bool = False
+    # 8 stores the pools as uint8 per-row affine codes; None keeps fp pools
+    kv_bits: Optional[int] = None
+
+
+def quantized_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *,
+                               kv_bits: int = 8, block_size: int = 16, use_otp: bool = True,
+                               device="cuda") -> List[int]:
+    """Greedy oracle of int8-KV engines: a fresh single-slot, ``H = 1``,
+    prefix-cache-off engine with the same ``kv_bits``. Per-row quantization
+    depends only on the row, so a request's tokens are the same here as in
+    a loaded, prefix-sharing engine."""
+    prompt = np.ascontiguousarray(prompt, np.int32)
+    pages = -(-(len(prompt) + max_new) // block_size)
+    eng = PagedServingEngine(cfg, params, EngineConfig(
+        max_slots=1, block_size=block_size, num_blocks=pages, max_blocks_per_slot=pages,
+        prefill_chunk=block_size, decode_horizon=1, reserve_full=True, use_otp=use_otp,
+        kv_bits=kv_bits, prefix_cache=False,
+    ), device=device)
+    return eng.serve([Request(rid=0, prompt=prompt, max_new=max_new)])[0]
 
 
 class PagedServingEngine:
@@ -80,13 +107,14 @@ class PagedServingEngine:
         self.cache = PagedKVCache(
             cfg, num_blocks=self.ecfg.num_blocks, block_size=self.ecfg.block_size,
             max_slots=self.ecfg.max_slots, max_blocks_per_slot=self.ecfg.max_blocks_per_slot,
-            device=self.device,
+            device=self.device, kv_bits=self.ecfg.kv_bits, prefix_cache=self.ecfg.prefix_cache,
         )
         self.scheduler = Scheduler(self.cache)
         self.results: Dict[int, List[int]] = {}
         self.metrics = {
             "ttft_s": [], "prefill_chunks": 0, "megasteps": 0, "decode_s": 0.0,
-            "decode_tokens": 0, "expert_activation": [],
+            "decode_tokens": 0, "expert_activation": [], "prefix_hits": 0,
+            "cached_tokens": 0,
         }
         # the last megastep's per-step emit mask [H, slots] and expert
         # dispatch counts [H, L, num_slots] (which expert rows it touched)
@@ -128,28 +156,48 @@ class PagedServingEngine:
         if self.scheduler.active:
             self._decode_megastep()
         elif self.scheduler.waiting:
-            raise RuntimeError("idle pool cannot admit the queue head "
-                               f"(request {self.scheduler.waiting[0].rid})")
+            head = self.scheduler.waiting[0]
+            if self.cache.prefix is None or not self.cache.prefix.pages_held:
+                raise PoolExhausted(
+                    f"request {head.rid} needs {self.cache.blocks_needed(head.total_tokens)} "
+                    f"blocks but cannot be admitted ({self.cache.allocator.num_free} free)")
+            # a blocked head on an otherwise idle pool: the prefix cache is an
+            # optimisation, and its match's protected pages can pin pages that
+            # eviction never reclaims — drop it and retry at the next boundary
+            self.cache.clear_prefix_cache()
         return self.scheduler.has_work()
 
     # ------------------------------------------------------------ prefill
     def _prefill(self, req: Request) -> None:
+        """Stream the prompt through chunked prefill into the slot's pages,
+        from ``req.cached_tokens`` on (a prefix hit's pages already hold the
+        rest); a full hit takes its cached logits and dispatches no chunk.
+        Then the prompt registers its own prefixes in the cache."""
         c = self.ecfg.prefill_chunk
         p_len = len(req.prompt)
-        table_row = torch.as_tensor(self.cache.block_tables[req.slot:req.slot + 1],
-                                    device=self.device)
-        logits = None
-        for off in range(0, p_len, c):
-            n = min(c, p_len - off)
-            chunk = np.zeros((1, c), np.int64)
-            chunk[0, :n] = req.prompt[off:off + n]
-            logits, _ = paged_prefill_chunk(
-                self.params, self.cache.k, self.cache.v, table_row,
-                torch.as_tensor(chunk, device=self.device), off, n, self.model_cfg,
-                block_size=self.ecfg.block_size, use_otp=self.ecfg.use_otp,
-            )
-            self.metrics["prefill_chunks"] += 1
-        tok = int(torch.argmax(logits[0, -1]))  # the one host sync of the prefill
+        off0 = min(req.cached_tokens, p_len)
+        if req.cached_tokens:
+            self.metrics["prefix_hits"] += 1
+            self.metrics["cached_tokens"] += req.cached_tokens
+        if req.cached_logits is not None and off0 >= p_len:
+            last = req.cached_logits
+        else:
+            table_row = torch.as_tensor(self.cache.block_tables[req.slot:req.slot + 1],
+                                        device=self.device)
+            for off in range(off0, p_len, c):
+                n = min(c, p_len - off)
+                chunk = np.zeros((1, c), np.int64)
+                chunk[0, :n] = req.prompt[off:off + n]
+                logits, _ = paged_prefill_chunk(
+                    self.params, self.cache.k, self.cache.v, table_row,
+                    torch.as_tensor(chunk, device=self.device), off, n, self.model_cfg,
+                    block_size=self.ecfg.block_size, use_otp=self.ecfg.use_otp,
+                    qs=self.cache.quant_tables,
+                )
+                self.metrics["prefill_chunks"] += 1
+            last = logits[0, -1]
+        self.cache.register_prefix(req.prompt, req.slot, last_logits=last)
+        tok = int(torch.argmax(last))  # the one host sync of the prefill
         self.metrics["ttft_s"].append(time.time() - req.arrival_s)
         req.out.append(tok)
         req.pos = p_len
@@ -177,6 +225,7 @@ class PagedServingEngine:
             block_size=self.ecfg.block_size, horizon=h,
             budgets=torch.as_tensor(budgets, device=dev),
             eos_ids=torch.as_tensor(eos_ids, device=dev), use_otp=self.ecfg.use_otp,
+            qs=self.cache.quant_tables,
         )
         toks, emits, acts = toks.cpu().numpy(), emits.cpu().numpy(), acts.cpu().numpy()
         self.metrics["decode_s"] += time.time() - t0
@@ -210,4 +259,7 @@ class PagedServingEngine:
             "decode_s": m["decode_s"],
             "decode_tokens_per_s": m["decode_tokens"] / m["decode_s"] if m["decode_s"] else 0.0,
             "expert_activation": float(act.mean()) if act.size else 1.0,
+            "prefix_hits": m["prefix_hits"],
+            "cached_tokens": m["cached_tokens"],
+            "cow_copies": self.cache.cow_copies,
         }

@@ -4,7 +4,11 @@
 Admission reserves pages for ``prompt + max_new`` up front, so a running
 request never grows and never needs preempting; a request joins the
 running batch at the next megastep boundary once a slot and its pages are
-free, and its pages return to the pool the step it finishes.
+free, and its pages return to the pool the step it finishes. With the
+prefix cache on, admission first probes it and shares the match's pages
+copy-on-write, so both the page bill and the prefill shrink to the
+uncached suffix (the reference's ``admit_planned``, which FCFS with full
+reservation reduces to head-of-queue admission).
 """
 from __future__ import annotations
 
@@ -13,8 +17,9 @@ from collections import deque
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from .kvcache import PagedKVCache, PoolExhausted
+from .kvcache import PagedKVCache, PoolExhausted, PrefixEntry
 
 __all__ = ["Request", "Scheduler"]
 
@@ -32,6 +37,10 @@ class Request:
     slot: int = -1
     pos: int = 0  # next kv write position (= current logical length)
     arrival_s: float = 0.0  # wall-clock submit time (TTFT anchor)
+    # prompt tokens whose KV a prefix-cache hit already holds (prefill
+    # starts here), and the cached final-token logits of a full hit
+    cached_tokens: int = 0
+    cached_logits: Optional[torch.Tensor] = None
 
     @property
     def total_tokens(self) -> int:
@@ -74,12 +83,34 @@ class Scheduler:
             )
         self.waiting.append(req)
 
-    def try_admit(self) -> Optional[Request]:
-        """Admit the queue head if a slot and its full page reservation fit."""
-        if not self.waiting or not self.cache.can_admit(self.waiting[0].total_tokens):
+    def peek_prefix(self, req: Request) -> Optional[PrefixEntry]:
+        """Prefix-cache probe for a fresh request. A full-prompt hit without
+        cached logits is demoted to ``prompt[:-1]``: at least one token must
+        go through prefill to give first-token logits, and its KV write must
+        land on a private page."""
+        if req.pos != 0 or req.out:
             return None
-        req = self.waiting.popleft()
-        req.slot = self.cache.acquire_slot(req.total_tokens)
+        entry = self.cache.prefix_lookup(req.prompt)
+        if (entry is not None and entry.n_tokens == len(req.prompt)
+                and entry.last_logits is None):
+            entry = self.cache.prefix_lookup(req.prompt[:-1])
+        return entry
+
+    def try_admit(self) -> Optional[Request]:
+        """Admit the queue head if a slot and its full page reservation fit,
+        sharing a cached prefix's pages when the probe hits."""
+        if not self.waiting:
+            return None
+        req = self.waiting[0]
+        entry = self.peek_prefix(req)
+        if not self.cache.can_admit(req.total_tokens, prefix_entry=entry):
+            return None
+        self.waiting.popleft()
+        req.slot = self.cache.acquire_slot(req.total_tokens, prefix_entry=entry)
+        if entry is not None:
+            req.cached_tokens = entry.n_tokens
+            req.cached_logits = (entry.last_logits if entry.n_tokens == len(req.prompt)
+                                 else None)
         self.active[req.slot] = req
         return req
 

@@ -1,6 +1,8 @@
 """Test helpers shared by the ``test_torch_*`` files: flatten the JAX
 package's serving parameters into the numpy form ``repro_torch.interop``
-takes, and build the seeded reference models both sides serve."""
+takes, build the seeded reference models both sides serve, and keep each
+port test module on one torch thread (:func:`torch_one_thread`, imported
+by the modules that compute on the CPU)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -8,10 +10,25 @@ from typing import Dict, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from repro.core.compressed_moe import CompressedExperts
 from repro.core.otp import init_otp_router
 from repro.core.packing import PackedTensor
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """Run a port test module on one torch thread. A parallel test run
+    (pytest-xdist) puts several workers on one machine; torch's default
+    pool of one thread per core then oversubscribes the cores, and its
+    threads spin after every small op, slowing every worker's tests many
+    times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def flatten_reference(params) -> Tuple[Dict[str, np.ndarray], Dict]:
@@ -63,6 +80,35 @@ def compressed_reference(cfg, seed: int = 0):
     tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32))
     calib = pipeline.calibrate(params, tokens, cfg)
     params_c, _ = pipeline.compress_for_serving(params, calib, cfg)
+    return _with_otp(params_c, cfg)
+
+
+def planned_reference(cfg, bits, seed: int = 0):
+    """``cfg`` initialized from ``seed`` and compressed by the reference
+    ``compress_model`` with the fixed layer-uniform PMQ plan ``bits`` (one
+    width per expert; RTN + HQQ, no GPTQ, so no calibration pass), 4-bit
+    attention and shared experts, in the stacked serving layout with OTP
+    routers — the serving tree of :func:`compressed_reference` without its
+    calibration and LP, at a third of the cost."""
+    import types
+
+    from repro.core import pipeline, pmq
+    from repro.models import transformer as tf
+    from repro.models.registry import get_model
+
+    params = get_model(cfg).init(jax.random.PRNGKey(seed))
+    bits = np.asarray(bits)
+    plan = pmq.PMQPlan(bits=[bits] * cfg.num_layers, target_avg_bits=float(bits.mean()),
+                       objective=0.0, layer_budgets=np.zeros(cfg.num_layers))
+    no_calib = types.SimpleNamespace(
+        moe_inputs=[np.zeros((1, cfg.d_model), np.float32)] * cfg.num_layers)
+    blocks_c, top = pipeline.compress_model(params, no_calib, plan, cfg, use_gptq=False)
+    params_c = dict(top, blocks=tf.restack_blocks(blocks_c))
+    return _with_otp(params_c, cfg)
+
+
+def _with_otp(params_c, cfg):
+    """Stacked OTP routers, as ``tests/test_serving.py`` builds them."""
     otps = [init_otp_router(jax.random.PRNGKey(100 + l), cfg.d_model, cfg.top_k)
             for l in range(cfg.num_layers)]
     params_c["blocks"]["otp"] = jax.tree.map(lambda *xs: jnp.stack(xs), *otps)

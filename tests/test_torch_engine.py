@@ -6,7 +6,7 @@ with stacked OTP routers, and carried into the port byte for byte by
 ``repro_torch.interop``. The port's prefill/decode logits must agree within
 1e-4·max|logit| and its engine must emit the reference engine's greedy
 tokens exactly. Also: the port imports neither ``jax`` nor ``repro``, and
-refuses the settings this slice does not implement.
+refuses the settings its slices do not implement.
 """
 import dataclasses
 import os
@@ -33,7 +33,8 @@ from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.serving import EngineConfig, PagedServingEngine, Request  # noqa: E402
 from repro_torch.serving.kvcache import PagedKVCache as TCache  # noqa: E402
 
-from _torch_interop import compressed_reference, flatten_reference  # noqa: E402
+from _torch_interop import (  # noqa: E402,F401
+    compressed_reference, flatten_reference, torch_one_thread)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -190,10 +191,12 @@ def test_engine_refuses_later_slice_settings(served_model):
         PagedServingEngine(cfg, params_t, EngineConfig(decode_horizon=0), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         PagedServingEngine(dataclasses.replace(cfg, num_layers=3), params_t, device="cpu")
-    for later in ("temperature", "kv_bits", "prefix_cache", "preempt_mode",
-                  "resident_experts", "trace_level", "policy", "ffn_backend"):
+    for later in ("temperature", "preempt_mode", "resident_experts", "trace_level",
+                  "policy", "ffn_backend"):
         with pytest.raises(TypeError):
             EngineConfig(**{later: 1})
+    with pytest.raises(ValueError, match="kv_bits"):
+        PagedServingEngine(cfg, params_t, EngineConfig(kv_bits=4), device="cpu")
     eng = PagedServingEngine(cfg, params_t, EngineConfig(max_blocks_per_slot=2), device="cpu")
     with pytest.raises(ValueError, match="exceed"):
         eng.submit(Request(rid=0, prompt=np.zeros(30, np.int32), max_new=4))

@@ -87,11 +87,104 @@ def test_paged_attention_kernel(dev, dtype, g, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_dequant_gemm_ragged_k(dev, bits, dtype):
+    """K ending mid-group and K < group: the kernels bound their loop on the
+    last group, as the reference pads it."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator().manual_seed(10 + bits)
+    for k in (3 * 128 + 64, 64):
+        w = torch.randn(3, k, 96, generator=gen) * k**-0.5
+        data, s, z = (t.to(dev) if isinstance(t, torch.Tensor) else tuple(p.to(dev) for p in t)
+                      for t in quantize_parts(w, bits, 128, refine=False))
+        x = torch.randn(48, k, generator=gen).to(dev, dtype)
+        one = tuple(p[0] for p in data) if bits == 3 else data[0]
+        _close(quant_matmul(x[:5], one, s[0], z[0], bits=bits),
+               ref.quant_matmul_ref(x[:5], one, s[0], z[0], bits=bits), dtype)
+        be, na, _ = _ragged(gen, 3, 16, 8, dev)
+        _close(moe_gmm(x, data, s, z, be, na, bits=bits, bm=8),
+               ref.moe_gmm_ref(x, data, s, z, be, na, bits=bits, bm=8), dtype)
+        args = (x, data, data, s, z, s, z, be, na)
+        _close(moe_gmm_swiglu(*args, bits=bits, bm=8),
+               ref.moe_gmm_swiglu_ref(*args, bits=bits, bm=8), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_length_zero(dev, dtype):
+    """Every position masked: the kernel averages V over the whole block
+    table, as the reference does."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(3, 2, 2, 128, generator=gen).to(dev, dtype)
+    kp = torch.randn(12, 16, 2, 128, generator=gen).to(dev, dtype)
+    vp = torch.randn(12, 16, 2, 128, generator=gen).to(dev, dtype)
+    tables = torch.randperm(12, generator=gen)[:9].reshape(3, 3).to(dev, torch.int32)
+    lengths = torch.tensor([0, 20, 0], dtype=torch.int32, device=dev)
+    _close(paged_attention(q, kp, vp, tables, lengths),
+           ref.paged_attention_ref(q, kp, vp, tables, lengths), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,window", [(1, None), (2, 17), (4, None)])
+def test_paged_attention_quant_kernel(dev, dtype, g, window):
+    from repro_torch.core.quantizers import quantize_kv_rows
+    from repro_torch.kernels.paged_attention import paged_attention_quant
+
+    gen = torch.Generator().manual_seed(20 + g)
+    q = torch.randn(4, 2, g, 128, generator=gen).to(dev, dtype)
+    pools = []
+    for _ in range(2):
+        rows = torch.randn(12, 16, 2, 128, generator=gen) * 2
+        rows[0] = 0.0  # an unwritten page
+        pools.append(quantize_kv_rows(rows.to(dev)))
+    (kc, ks, kz), (vc, vs, vz) = pools
+    tables = torch.randperm(12, generator=gen)[:12].reshape(4, 3).to(dev, torch.int32)
+    lengths = torch.tensor([1, 20, 48, 0], dtype=torch.int32, device=dev)
+    quant = (ks, kz, vs, vz)
+    _close(paged_attention_quant(q, kc, vc, *quant, tables, lengths, window=window),
+           ref.paged_attention_ref(q, kc, vc, tables, lengths, window=window, quant=quant),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_binary_matmul_kernel(dev, dtype):
+    from repro_torch.core.packing import pack_bits
+    from repro_torch.kernels.binary_matmul import binary_matmul
+
+    gen = torch.Generator().manual_seed(3)
+    for m, k, n in ((16, 512, 160), (5, 300, 96)):
+        w = torch.randn(k, n, generator=gen)
+        b = pack_bits(torch.nn.functional.pad((w >= 0).to(torch.uint8), (0, 0, 0, (-k) % 8)),
+                      1, axis=0).to(dev)
+        alpha = w.abs().mean(dim=0, keepdim=True).to(dev)
+        x = torch.randn(m, k, generator=gen).to(dev, dtype)
+        _close(binary_matmul(x, b, alpha), ref.binary_matmul_ref(x, b, alpha), dtype)
+
+
+@pytest.mark.cuda
+def test_int8_decode_horizon_never_syncs(dev):
+    """The int8-KV megastep (row quantization, table writes, the int8
+    attention kernel) keeps the host out of the loop too."""
+    _sync_free_horizon(dev, kv_bits=8)
+
+
+@pytest.mark.cuda
 def test_decode_horizon_never_syncs(dev):
     """A decode megastep of the reduced model keeps the host out of the loop:
     under ``set_sync_debug_mode("error")`` anything inside the horizon that
     waits on the device (an ``.item()``, a ``bincount``, a blocking copy)
     raises."""
+    _sync_free_horizon(dev, kv_bits=None)
+
+
+def _sync_free_horizon(dev, kv_bits):
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -103,7 +196,7 @@ def test_decode_horizon_never_syncs(dev):
     cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
     params = build_synthetic(cfg, seed=0, device=dev)
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2, max_blocks_per_slot=4,
-                         device=dev)
+                         device=dev, kv_bits=kv_bits)
     cache.acquire_slot(40)
     cache.acquire_slot(30)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -111,7 +204,7 @@ def test_decode_horizon_never_syncs(dev):
             torch.tensor([[3], [5]], device=dev), torch.tensor([20, 7], **i32),
             torch.ones(2, dtype=torch.bool, device=dev), cfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
-              eos_ids=torch.full((2,), -1, **i32))
+              eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables)
     paged_decode_horizon(*args, **kw)  # builds the kernels, warms the libraries
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
