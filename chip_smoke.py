@@ -9,8 +9,15 @@ Phases (each failure exits non-zero):
 3. kernel parity: each kernel against its plain PyTorch version on the
    card at the main path's shapes (bits 1/2/3/4, dead row blocks, K ending
    mid-group and K < group, G = 1 and 2, windows, ragged lengths, length 0,
-   permuted block tables, all-zero int8 rows; f32 and bf16), then its time
-   beside the plain version, one library call and its bound;
+   permuted block tables, all-zero int8 rows; f32 and bf16); bitwise batch
+   invariance of the dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for
+   m in 1/4/8/16/24 equal the full call's; a live ``moe_gmm`` block's rows
+   do not move when ``num_active`` or the other blocks' experts change);
+   the bf16 body's shared memory against its host-side plan; then each
+   kernel's time (median, min and max of 50 L2-flushed launches, the SM
+   clock read before and after on a ``timing`` line) beside the plain
+   version, one library call and its bound — ``quant_matmul`` at the
+   decode and the prefill shape;
 4. tiny end-to-end parity: ``moonshot-v1-16b-a3b.reduced()`` (f32, PMQ +
    OTP, one seed) served on the card and on the CPU, with fp KV and with
    int8 KV plus the prefix cache — identical greedy tokens, per-step
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -59,7 +67,7 @@ from repro_torch.core.packing import pack_bits, unpack_bits  # noqa: E402
 from repro_torch.kernels.binary_matmul import binary_matmul  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant  # noqa: E402
-from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
 from repro_torch.launch import workload  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
@@ -107,8 +115,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
     return err
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+def time_ms(fn, iters: int = 50):
+    """Device time of ``fn`` over ``iters`` launches (CUDA events): the
+    median, min and max in ms.
 
     Before each timed launch the 50 MB L2 is flushed (weights then come
     from memory, as on the main path) and the stream is held by a ~1 ms
@@ -117,7 +126,7 @@ def time_ms(fn, iters: int = 20) -> float:
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(3):
         fn()
-    total = 0.0
+    ts = []
     for _ in range(iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
@@ -126,8 +135,29 @@ def time_ms(fn, iters: int = 20) -> float:
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts), min(ts), max(ts)
+
+
+def sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_kernel(name: str, fn) -> dict:
+    """:func:`time_ms` of a kernel with the SM clock read just before and
+    just after, on a ``timing`` line of its own."""
+    before = sm_clock()
+    med, lo, hi = time_ms(fn)
+    after = sm_clock()
+    log(f"timing {name}: median {med:.4f} ms, min {lo:.4f}, max {hi:.4f} over 50 launches; "
+        f"SM clock {before} before, {after} after")
+    return dict(ms=med, ms_min=lo, ms_max=hi, sm_clock=[before, after])
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.shape == b.shape and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
 
 
 def bound(nbytes: float, ops: float, dtype):
@@ -186,21 +216,102 @@ def parity_quant_matmul(gen, results):
                 want = ref.quant_matmul_ref(x, data, s[0], z[0], bits=bits)
                 errs.append(compare(f"quant_matmul ragged b{bits} K={k} {dtype}", got, want,
                                     dtype))
-    # main-path decode shape: wq at 4 slots, 4-bit, bf16
-    m, k, n = 4, 2048, 2048
-    (data, s, z) = rand_weights(gen, 1, k, n, 4)
-    data, s, z = data[0], s[0], z[0]
-    x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
-    w_deq = ref.dequant_ref(data, s, z, 4, k, dtype=torch.bfloat16)
-    results["quant_matmul"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: quant_matmul(x, data, s, z, bits=4)),
-        plain_ms=time_ms(lambda: ref.quant_matmul_ref(x, data, s, z, bits=4)),
-        library_ms=time_ms(lambda: torch.matmul(x, w_deq)),
-        shape=f"M={m} K={k} N={n} 4-bit bf16",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes(x, data, s, z) + m * n * 2, 2 * m * k * n, torch.bfloat16))),
-    )
+    # main-path shapes, 4-bit bf16: wq at decode (4 slots), the shared
+    # experts' gate/up at prefill (a 16-token chunk)
+    for key, (m, k, n) in (("decode", (4, 2048, 2048)), ("prefill", (16, 2048, 2816))):
+        (data, s, z) = rand_weights(gen, 1, k, n, 4)
+        data, s, z = data[0], s[0], z[0]
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        w_deq = ref.dequant_ref(data, s, z, 4, k, dtype=torch.bfloat16)
+        r = dict(
+            **time_kernel(f"quant_matmul {key}",
+                          lambda: quant_matmul(x, data, s, z, bits=4)),
+            plain_ms=time_ms(lambda: ref.quant_matmul_ref(x, data, s, z, bits=4))[0],
+            library_ms=time_ms(lambda: torch.matmul(x, w_deq))[0],
+            shape=f"M={m} K={k} N={n} 4-bit bf16",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes(x, data, s, z) + m * n * 2, 2 * m * k * n,
+                             torch.bfloat16))),
+        )
+        if key == "decode":
+            results["quant_matmul"] = dict(max_abs_err=max(errs), **r)
+        else:
+            results["quant_matmul"]["prefill"] = r
+            log(f"kernel quant_matmul prefill [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def invariance_quant_matmul(gen):
+    """A row's output bit for bit whatever M: rows of ``x[:m]`` against the
+    same rows of one call over all 24, every bit width, f32 and bf16, N a
+    multiple of the column tile and not."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for bits, (k, n) in ((4, (2048, 2048)), (4, (2048, 2816)), (1, (2048, 1400)),
+                             (2, (1408, 2048)), (3, (RAGGED_K, 1400))):
+            (data, s, z) = rand_weights(gen, 1, k, n, bits)
+            data = tuple(t[0] for t in data) if bits == 3 else data[0]
+            x = torch.randn((24, k), generator=gen, device=DEV).to(dtype)
+            full = quant_matmul(x, data, s[0], z[0], bits=bits)
+            for m in (1, 4, 8, 16, 24):
+                part = quant_matmul(x[:m].contiguous(), data, s[0], z[0], bits=bits)
+                if not bitwise_equal(part, full[:m]):
+                    raise AssertionError(f"quant_matmul b{bits} K={k} N={n} {dtype}: rows of "
+                                         f"M={m} differ from the same rows at M=24")
+    log("batch invariance: quant_matmul rows bit-identical for M in 1/4/8/16/24 "
+        "(bits 1-4, f32 and bf16)")
+
+
+def invariance_moe_gmm(gen, cfg):
+    """A live block's rows bit for bit whatever the other blocks hold: more
+    and fewer live blocks, other experts in the other blocks (2-bit bucket
+    at the decode shape, bm 8, and a 4-bit one at bm 16; f32 and bf16)."""
+    k, n = cfg.d_ff_expert, cfg.d_model
+    for dtype in (torch.bfloat16, torch.float32):
+        for bits, experts, cap in ((2, 59, 24), (4, 5, 96)):
+            bm = gmm_block_rows(cap)
+            nblocks = experts * cap // bm
+            w = rand_weights(gen, experts, k, n, bits)
+            x = torch.randn((experts * cap, k), generator=gen, device=DEV).to(dtype)
+            ids = torch.randint(0, experts, (nblocks,), generator=gen, device=DEV)
+            be = torch.sort(ids).values.to(torch.int32)
+            live = nblocks // 3
+
+            def run(be_, na_):
+                na_t = torch.tensor([na_], dtype=torch.int32, device=DEV)
+                return moe_gmm(x, *w, be_, na_t, bits=bits, bm=bm)
+
+            base = run(be, live)
+            other = be.clone()
+            other[0] = (other[0] + 1) % experts           # another expert in block 0
+            other[live:] = experts - 1 - other[live:]     # and in the dead blocks
+            checks = ((run(be, live + 4), live), (run(be, live - 2), live - 2),
+                      (run(other, live + 2), live))
+            for y, upto in checks:
+                if not bitwise_equal(y[bm:upto * bm], base[bm:upto * bm]):
+                    raise AssertionError(f"moe_gmm b{bits} bm{bm} {dtype}: a live block's "
+                                         f"rows moved with the other blocks")
+            if (run(be, 0) != 0).any():
+                raise AssertionError("moe_gmm: num_active 0 left non-zero rows")
+    log("batch invariance: moe_gmm live blocks bit-identical as num_active and the other "
+        "blocks' experts change (bm 8 and 16, f32 and bf16); num_active 0 all zero")
+
+
+def check_tile_plans(cfg):
+    """The kernel's own shared memory per block equals the host-side plan's
+    at every bf16 shape of the main path."""
+    lib = build.load_library()
+    d, f = cfg.d_model, cfg.d_ff_expert
+    fs = f * cfg.num_shared_experts
+    shapes = [(d, d, 4, 8), (d, fs, 4, 8), (fs, d, 4, 8)]
+    shapes += [(kk, nn, b, r) for b in (1, 2, 3) for r in (8, 16) for kk, nn in ((d, f), (f, d))]
+    for k, n, bits, rows in shapes:
+        want = tile_plan(k, n, bits, cfg.quant.group, torch.bfloat16, rows=rows)["smem_bytes"]
+        got = lib.repro_dequant_gemm_sm90_smem(k, bits, cfg.quant.group, rows)
+        if got != want:
+            raise AssertionError(f"tile plan K={k} N={n} b{bits} rows {rows}: shared memory "
+                                 f"{want} in the plan, {got} in the kernel")
+    log(f"tile plans: {len(shapes)} main-path shapes, kernel shared memory == host plan")
 
 
 def _gmm_case(gen, kind, bits, dtype, cap, experts, live_rows, k, n):
@@ -261,7 +372,7 @@ def parity_moe(gen, results, cfg):
             plain = lambda: ref.moe_gmm_ref(x, *ws[0], be, na, bits=2, bm=bm)
             w_live = ref.dequant_ref(*ws[0], 2, k, dtype=torch.bfloat16)[be[:nlive].long()]
             x_live = x[: nlive * bm].view(nlive, bm, k)
-            library = time_ms(lambda: torch.bmm(x_live, w_live))
+            library = time_ms(lambda: torch.bmm(x_live, w_live))[0]
         else:
             (wg, gs, gz), (wu, us, uz) = ws
             args = (wg, wu, gs, gz, us, uz, be, na)
@@ -269,7 +380,7 @@ def parity_moe(gen, results, cfg):
             plain = lambda: ref.moe_gmm_swiglu_ref(x, *args, bits=2, bm=bm)
             library = None
         results[kind] = dict(
-            max_abs_err=max(errs), ms=time_ms(call), plain_ms=time_ms(plain),
+            max_abs_err=max(errs), **time_kernel(kind, call), plain_ms=time_ms(plain)[0],
             library_ms=library,
             shape=f"2-bit bucket of {n2} experts, cap {decode_cap}, bm {bm}, "
                   f"{nlive} live blocks of {m // bm}, K={k} N={n} bf16",
@@ -317,9 +428,9 @@ def parity_paged_attention(gen, results):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results["paged_attention"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: paged_attention(q, kp, vp, tables, lens)),
-        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tables, lens)),
-        library_ms=time_ms(lambda: sdpa(qs, k_g, v_g, attn_mask=mask)),
+        **time_kernel("paged_attention", lambda: paged_attention(q, kp, vp, tables, lens)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tables, lens))[0],
+        library_ms=time_ms(lambda: sdpa(qs, k_g, v_g, attn_mask=mask))[0],
         shape=f"B={b} Hkv={hkv} G={g} dh={dh} BS={bs} len={lengths[0]} bf16",
         **dict(zip(("bound_ms", "bound_by"),
                    bound(kv_bytes + 2 * nbytes(q) + nbytes(tables, lens),
@@ -374,9 +485,11 @@ def parity_paged_attention_quant(gen, results):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results["paged_attention_quant"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: paged_attention_quant(q, kc, vc, *quant, tables, lens)),
-        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kc, vc, tables, lens, quant=quant)),
-        library_ms=time_ms(lambda: sdpa(q, k_g, v_g, attn_mask=mask)),
+        **time_kernel("paged_attention_quant",
+                      lambda: paged_attention_quant(q, kc, vc, *quant, tables, lens)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kc, vc, tables, lens,
+                                                         quant=quant))[0],
+        library_ms=time_ms(lambda: sdpa(q, k_g, v_g, attn_mask=mask))[0],
         shape=f"B={b} Hkv={hkv} G={g} dh={dh} BS={bs} len={lengths[0]} int8 pools, bf16 q",
         **dict(zip(("bound_ms", "bound_by"),
                    bound(kv_bytes + 2 * nbytes(q) + nbytes(tables, lens),
@@ -406,9 +519,9 @@ def parity_binary_matmul(gen, results, cfg):
     w_pm = ((unpack_bits(b_packed, 1, axis=0)[:k].float() * 2 - 1) * alpha).to(torch.bfloat16)
     results["binary_matmul"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: binary_matmul(x, b_packed, alpha)),
-        plain_ms=time_ms(lambda: ref.binary_matmul_ref(x, b_packed, alpha)),
-        library_ms=time_ms(lambda: torch.matmul(x, w_pm)),
+        **time_kernel("binary_matmul", lambda: binary_matmul(x, b_packed, alpha)),
+        plain_ms=time_ms(lambda: ref.binary_matmul_ref(x, b_packed, alpha))[0],
+        library_ms=time_ms(lambda: torch.matmul(x, w_pm))[0],
         shape=f"M={m} K={k} N={n} 1-bit bf16",
         **dict(zip(("bound_ms", "bound_by"),
                    bound(nbytes(x, b_packed, alpha) + m * n * 2, 2 * m * k * n,
@@ -632,8 +745,11 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(0)
     results = {}
     cfg = get_config("moonshot-v1-16b-a3b")
+    check_tile_plans(cfg)
     parity_quant_matmul(gen, results)
     parity_moe(gen, results, cfg)
+    invariance_quant_matmul(gen)
+    invariance_moe_gmm(gen, cfg)
     parity_paged_attention(gen, results)
     parity_paged_attention_quant(gen, results)
     build.reset_launches()
@@ -659,7 +775,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": counted[name][0], "path": counted[name][1],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill") if key in r}}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": kernels}))

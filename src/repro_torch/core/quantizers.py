@@ -79,6 +79,36 @@ def _xla_mean(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc * float(np.float32(1.0 / n))
 
 
+def _xla_lane_mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``mean(x, dim)`` of ``n ≤ 32`` elements (``n`` a multiple of 8) in the
+    order of the reference's fused HQQ step, whose reduction LLVM's loop
+    vectorizer emits over the reduced axis (read from XLA's LLVM IR for
+    ``quantizers.py:_hqq_iter``).
+
+    Element ``k`` goes to lane ``k % 8`` of vector ``k // 8``; the vectors
+    add lane-wise in order, then the 8 lanes reduce as a halving tree
+    (``l + l+4``, ``l + l+2``, ``l + l+1``). For 2 to 8 columns the
+    vectorizer keeps a scalar epilogue: the last 8 elements add in order
+    after the tree. Any other ``n`` adds in order (:func:`_xla_mean`)."""
+    n, cols = x.shape[dim], x.shape[-1]
+    if n > _XLA_REDUCE_WINDOW or n % 8:
+        return _xla_mean(x, dim)
+    x = x.movedim(dim, 0)
+    nvec = n // 8 - (1 if 2 <= cols <= 8 else 0)
+    if nvec == 0:
+        return _xla_mean(x, 0)
+    v = x[: 8 * nvec].reshape(nvec, 8, *x.shape[1:])
+    acc = v[0].clone()
+    for i in range(1, nvec):
+        acc += v[i]
+    while acc.shape[0] > 1:
+        acc = acc[: acc.shape[0] // 2] + acc[acc.shape[0] // 2:]
+    acc = acc[0]
+    for i in range(8 * nvec, n):
+        acc = acc + x[i]
+    return acc * float(np.float32(1.0 / n))
+
+
 def _affine(wmax: torch.Tensor, wmin: torch.Tensor, bits: int):
     """``scale, zero`` from the range, in its dtype, then cast to f32 — the
     reference's Python floats are weak-typed, so a bf16 range rounds to
@@ -109,7 +139,8 @@ def hqq_refine(w, scale, zero, bits: int, group: int = 128, iters: int = 20):
     """Half-quadratic refinement of ``zero`` (HQQ [50], |.|^0.7 shrinkage).
 
     ``beta`` follows the reference's f32 recurrence exactly (it is carried
-    as an f32 scalar there)."""
+    as an f32 scalar there); the zero mean adds in the reference's order
+    (:func:`_xla_lane_mean`), so zeros are byte-identical to its own."""
     qmax = 2.0**bits - 1.0
     wg = _group_reshape(w, group)
     beta, kappa, p = np.float32(10.0), np.float32(1.01), 0.7
@@ -122,7 +153,7 @@ def hqq_refine(w, scale, zero, bits: int, group: int = 128, iters: int = 20):
         shrunk = torch.sign(err) * torch.clamp_min(
             mag - (mag ** (p - 1.0) + 1e-8) / float(beta), 0.0
         )
-        zero = _xla_mean(q - (wg - shrunk) / s, dim=-2)
+        zero = _xla_lane_mean(q - (wg - shrunk) / s, dim=-2)
         beta = np.float32(beta * kappa)
     return scale, zero
 

@@ -1,4 +1,6 @@
-// Grouped dequantize-GEMM body shared by quant_matmul.cu and moe_gmm.cu.
+// Grouped dequantize-GEMM body on CUDA cores: the f32 activations of
+// quant_matmul.cu and moe_gmm.cu, and moe_gmm_swiglu in f32 and bf16 (bf16
+// quant_matmul and moe_gmm run dequant_gemm_sm90.cuh).
 //
 //   y[rows of block rb, cols] = x[rows, :] @ dq(W[e]),  e = block_expert[rb]
 //   dq(W)[k, n] = (q[k, n] - zero[k / group, n]) * scale[k / group, n]   (f32)
@@ -235,7 +237,8 @@ cudaError_t launch_dequant_gemm(const void* x, Operand a, Operand b, const int* 
     return cudaGetLastError();
 }
 
-// Runtime (bits, dtype, bm) -> template instance.
+// Runtime (bits, dtype, bm) -> template instance. bf16 without SwiGLU runs
+// the tensor-core body (dequant_gemm_sm90.cuh), so it has no instance here.
 template <bool SWIGLU>
 cudaError_t dispatch_dequant_gemm(const void* x, Operand a, Operand b, const int* block_expert,
                                   const int* num_active, void* y, int M, int K, int N,
@@ -250,9 +253,11 @@ cudaError_t dispatch_dequant_gemm(const void* x, Operand a, Operand b, const int
     if (dtype == REPRO_DT_F32) {
         REPRO_BITS(float, 8)
         REPRO_BITS(float, 16)
-    } else if (dtype == REPRO_DT_BF16) {
-        REPRO_BITS(__nv_bfloat16, 8)
-        REPRO_BITS(__nv_bfloat16, 16)
+    } else if constexpr (SWIGLU) {
+        if (dtype == REPRO_DT_BF16) {
+            REPRO_BITS(__nv_bfloat16, 8)
+            REPRO_BITS(__nv_bfloat16, 16)
+        }
     }
 #undef REPRO_BITS
 #undef REPRO_CASE

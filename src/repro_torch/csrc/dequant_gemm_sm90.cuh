@@ -1,0 +1,453 @@
+// Grouped dequantize-GEMM body for bf16 activations on Hopper, shared by
+// quant_matmul.cu and moe_gmm.cu:
+//
+//   y[rows of block rb, cols] = x[rows, :] @ dq(W[e]),  e = block_expert[rb]
+//   dq(W)[k, n] = round_bf16((q[k, n] - zero[k / group, n]) * scale[k / group, n])
+//
+// The packed layout is the reference's, read as it is stored: uint8 along K,
+// code k of a column in byte k / per at shift (k % per) * bits, 3-bit
+// weights as a (hi: 2-bit, lo: 1-bit) plane pair, f32 scale/zero
+// [E, K/group, N], the last group bounded at K.
+//
+// Work item: ROWS (8 or 16) rows x a 16-column tile, over all of K.
+//  - Staging: one 16-byte cp.async per packed row of the tile (the tile's
+//    16 columns of one packed row are 16 contiguous bytes), the scale/zero
+//    rows of every group and the item's x rows: a whole item's K range is
+//    in flight at once. Two stage buffers: while a block computes one item
+//    the next item's codes and group params are already on their way.
+//  - Dequantisation: a code takes 2^bits values per (group, column), so
+//    those values are computed once per item with the exact expression
+//    round_bf16(__fmul_rn(__fsub_rn(q, z), s)) into shared-memory tables:
+//    for 1 and 2 bits one bf16 pair per pair of codes (a nibble or two bits
+//    index a ready A-fragment register), for 3 and 4 bits one bf16 per code.
+//    Each weight is a lookup, bit-identical to a per-weight dequant.
+//  - Products: bf16 mma.sync.m16n8k16 with f32 accumulation in swap-AB
+//    form, y^T[16 cols, 8 rows] += dq(W)^T[16 cols, 16 k] . x^T[16 k, 8 rows]:
+//    the 16 columns are the MMA's M, the rows its N (ROWS = 16 takes two
+//    n8 tiles off the same A fragments). A fragments are built in
+//    registers from the staged codes (ldmatrix cannot read codes). Within
+//    each k16 step, MMA k slots (2t, 2t+1 | 2t+8, 2t+9) of lane t carry
+//    codes 4t..4t+3, and MMA rows (g | g+8) columns (2g | 2g+1), so a lane's
+//    codes for one step come in one 16-bit load and its x in one 8-byte one.
+//  - K: the k16 steps are cut into kWarps contiguous slices, one per warp
+//    of the block, and the warps' partial tiles are added in warp order in
+//    shared memory. No atomics; every reduction runs in an order fixed by
+//    (K, N, bits, group), never by M or the row block, so a row's output
+//    is bit-identical whatever M or row block it is computed in.
+//  - Grid: persistent. A fixed number of blocks (what fits on the SMs at
+//    once, at most one per work item) reads num_active[0] and block_expert
+//    on the device, takes an even contiguous share of the live (row block x
+//    column tile) items — consecutive items share a row block, whose x stays
+//    staged — and zero-fills the dead rows [num_active * ROWS, M) with
+//    16-byte stores in a grid-stride loop. No host sync.
+//
+// A second operand (the SwiGLU gate/up pair) adds a second staged weight
+// region and table, a second accumulator set fed by the same B fragments and
+// an epilogue before the store; the staging, tables and schedule stay.
+#pragma once
+
+#include "dequant_gemm.cuh"
+
+namespace repro {
+namespace {
+namespace sm90 {
+
+constexpr int kCols = 16;             // column tile: the MMA's M dimension
+constexpr int kWarps = 8;             // K slices of one work item
+constexpr int kThreads = kWarps * 32;
+
+// Per-(group, column) value tables: 1 and 2 bits hold a bf16x2 per code
+// pair (4^bits entries), 3 and 4 bits a bf16 per code; a column's entries
+// are padded (stride) so the lanes' lookups spread over the banks.
+template <int BITS> struct Table {
+    static constexpr bool kPairs = BITS <= 2;
+    static constexpr int kEntries = kPairs ? 1 << (2 * BITS) : 1 << BITS;
+    static constexpr int kStride = kPairs ? kEntries + 1 : kEntries + 2;
+    static constexpr int kEntryBytes = kPairs ? 4 : 2;
+};
+
+// Byte offsets of one block's dynamic shared memory; every region starts on
+// 16 bytes. Mirrored by kernels/quant_matmul.py: tile_plan.
+struct Layout {
+    int kx;     // K rounded up to the k16 step
+    int ng;     // quantization groups
+    int r0;     // staged rows of plane 0 (rows of kx codes)
+    int wrows;  // staged packed rows: plane 0, then plane 1 (3 bits)
+    int xs;     // x row stride in bf16, padded so the 8 rows' 8-byte loads hit distinct banks
+    size_t stage;                          // one stage buffer: packed rows, then scale, zero
+    size_t sz_off, tab_off, x_off, red_off, total;
+};
+
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+
+template <int BITS, int ROWS>
+__host__ __device__ inline Layout layout(int K, int group) {
+    Layout L;
+    L.kx = (K + 15) / 16 * 16;
+    L.ng = (K + group - 1) / group;
+    L.r0 = Planes<BITS>::rows0(L.kx);
+    L.wrows = L.r0 + Planes<BITS>::rows1(L.kx);
+    L.xs = L.kx + 2 * ((8 - (L.kx / 2) % 32 + 32) % 32);
+    L.sz_off = (size_t)L.wrows * kCols;
+    L.stage = L.sz_off + (size_t)L.ng * 2 * kCols * sizeof(float);
+    L.tab_off = 2 * L.stage;
+    L.x_off = L.tab_off + round16((size_t)L.ng * kCols * Table<BITS>::kStride *
+                                  Table<BITS>::kEntryBytes);
+    L.red_off = L.x_off + (size_t)ROWS * L.xs * sizeof(__nv_bfloat16);
+    L.total = L.red_off + (size_t)kWarps * ROWS * kCols * sizeof(float);
+    return L;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The dequantised weight as bf16 bits: the kernels' one dequant expression.
+__device__ __forceinline__ uint32_t dq_bits(int q, float z, float s) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(__fsub_rn((float)q, z), s)));
+}
+
+// The four A-fragment registers of lane t for one k16 step at code kb:
+// a[h] = column 2g + h, codes kb+4t, +1; a[2 + h] = the same column, codes
+// kb+4t+2, +3 (low half the lower code). ws: staged packed rows [*, 16];
+// tb: the step's group's table; c0 = 2g.
+template <int BITS>
+__device__ __forceinline__ void a_fragments(uint32_t (&a)[4], const uint8_t* ws, int r0, int kb,
+                                            int t, int c0, const void* tb) {
+    using T = Table<BITS>;
+    if constexpr (BITS == 1 || BITS == 2) {
+        const uint32_t* tp = static_cast<const uint32_t*>(tb);
+        // BITS 2: codes 4t..4t+3 fill byte kb/4 + t; BITS 1: half of byte kb/8 + t/2
+        const int row = BITS == 2 ? (kb >> 2) + t : (kb >> 3) + (t >> 1);
+        const int sh = BITS == 2 ? 0 : 4 * (t & 1);
+        const uint32_t two = *reinterpret_cast<const uint16_t*>(ws + row * kCols + c0);
+        constexpr int pb = 2 * BITS, pm = (1 << pb) - 1;  // bits of one code pair
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const uint32_t codes = two >> (8 * h + sh);
+            a[h] = tp[(c0 + h) * T::kStride + (codes & pm)];
+            a[2 + h] = tp[(c0 + h) * T::kStride + ((codes >> pb) & pm)];
+        }
+    } else {
+        const uint16_t* tv = static_cast<const uint16_t*>(tb);
+        int q[2][4];  // [h][code 4t + i]
+        if constexpr (BITS == 4) {
+#pragma unroll
+            for (int jb = 0; jb < 2; ++jb) {  // byte kb/2 + 2t + jb: codes 4t + 2jb, +1
+                const uint32_t two =
+                    *reinterpret_cast<const uint16_t*>(ws + ((kb >> 1) + 2 * t + jb) * kCols + c0);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    q[h][2 * jb] = (two >> (8 * h)) & 15;
+                    q[h][2 * jb + 1] = (two >> (8 * h + 4)) & 15;
+                }
+            }
+        } else {  // 3 bits: hi byte kb/4 + t, lo half byte r0 + kb/8 + t/2
+            const uint32_t hi2 = *reinterpret_cast<const uint16_t*>(ws + ((kb >> 2) + t) * kCols + c0);
+            const uint32_t lo2 = *reinterpret_cast<const uint16_t*>(
+                ws + (r0 + (kb >> 3) + (t >> 1)) * kCols + c0);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    q[h][i] = (((hi2 >> (8 * h + 2 * i)) & 3) << 1) |
+                              ((lo2 >> (8 * h + 4 * (t & 1) + i)) & 1);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const uint16_t* tl = tv + (c0 + h) * T::kStride;
+            a[h] = tl[q[h][0]] | ((uint32_t)tl[q[h][1]] << 16);
+            a[2 + h] = tl[q[h][2]] | ((uint32_t)tl[q[h][3]] << 16);
+        }
+    }
+}
+
+template <int BITS, int ROWS>
+__global__ void __launch_bounds__(kThreads, 2)
+dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
+                         const int* __restrict__ block_expert,
+                         const int* __restrict__ num_active, __nv_bfloat16* __restrict__ y,
+                         int M, int K, int N, int group) {
+    constexpr int NT = ROWS / 8;  // n8 tiles per item
+    using T = Table<BITS>;
+    extern __shared__ __align__(16) uint8_t smem[];
+    const Layout L = layout<BITS, ROWS>(K, group);
+    uint8_t* tab = smem + L.tab_off;                                        // [ng][16][stride]
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.x_off);  // [ROWS][xs]
+    float* red = reinterpret_cast<float*>(smem + L.red_off);               // [warps][ROWS][16]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int ntiles = (N + kCols - 1) / kCols;
+    const int nrb = (M + ROWS - 1) / ROWS;
+    const int live_rb = num_active != nullptr ? min(max(num_active[0], 0), nrb) : nrb;
+
+    if (num_active != nullptr) {  // dead rows are exactly zero
+        const size_t lo = (size_t)live_rb * ROWS * N, hi = (size_t)M * N;
+        const size_t stride = (size_t)gridDim.x * kThreads;
+        if ((N & 7) == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0) {
+            uint4* y4 = reinterpret_cast<uint4*>(y);
+            for (size_t i = lo / 8 + (size_t)blockIdx.x * kThreads + tid; i < hi / 8; i += stride)
+                y4[i] = make_uint4(0, 0, 0, 0);
+        } else {
+            for (size_t i = lo + (size_t)blockIdx.x * kThreads + tid; i < hi; i += stride)
+                y[i] = __float2bfloat16_rn(0.f);
+        }
+    }
+
+    const long items = (long)live_rb * ntiles;
+    const int i0 = (int)(items * blockIdx.x / gridDim.x);
+    const int i1 = (int)(items * (blockIdx.x + 1) / gridDim.x);
+    if (i0 >= i1) return;
+
+    // 16-byte copies need 16-byte aligned rows: N a multiple of 16 for the
+    // packed planes and scale/zero, K a multiple of 8 for x
+    const uintptr_t align = reinterpret_cast<uintptr_t>(a.p0) |
+                            reinterpret_cast<uintptr_t>(a.p1) |
+                            reinterpret_cast<uintptr_t>(a.scale) |
+                            reinterpret_cast<uintptr_t>(a.zero);
+    const bool vec_w = (N % kCols) == 0 && (align & 15) == 0;
+    const bool vec_x = (K % 8) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const int R0 = Planes<BITS>::rows0(K), R1 = Planes<BITS>::rows1(K);  // rows in memory
+
+    // the packed rows and group params of item `it` into stage buffer `buf`
+    auto stage_w = [&](int it, int buf) {
+        const int rb = it / ntiles, n0 = (it % ntiles) * kCols;
+        const int e = block_expert != nullptr ? block_expert[rb] : 0;
+        uint8_t* ws = smem + buf * L.stage;
+        float* sz = reinterpret_cast<float*>(ws + L.sz_off);  // scale [ng][16], zero [ng][16]
+        const uint8_t* g0 = a.p0 + (size_t)e * R0 * N + n0;
+        const uint8_t* g1 = BITS == 3 ? a.p1 + (size_t)e * R1 * N + n0 : nullptr;
+        for (int r = tid; r < L.wrows; r += kThreads) {
+            const uint8_t* src = nullptr;
+            if (r < L.r0) {
+                if (r < R0) src = g0 + (size_t)r * N;
+            } else if (r - L.r0 < R1) {
+                src = g1 + (size_t)(r - L.r0) * N;
+            }
+            uint8_t* dst = ws + r * kCols;
+            if (vec_w && src != nullptr) {
+                cp_async16(dst, src);
+            } else if (vec_w) {
+                *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+            } else {
+                for (int c = 0; c < kCols; ++c) dst[c] = (src && n0 + c < N) ? src[c] : 0;
+            }
+        }
+        const size_t gbase = (size_t)e * L.ng * N + n0;
+        for (int i = tid; i < L.ng * 8; i += kThreads) {  // [scale|zero][group][4 x 16 B]
+            const int arr = i / (L.ng * 4), g = (i / 4) % L.ng, ch = i % 4;
+            const float* src = (arr ? a.zero : a.scale) + gbase + (size_t)g * N + ch * 4;
+            float* dst = sz + (arr * L.ng + g) * kCols + ch * 4;
+            if (vec_w) {
+                cp_async16(dst, src);
+            } else {
+                for (int j = 0; j < 4; ++j) dst[j] = n0 + ch * 4 + j < N ? src[j] : 0.f;
+            }
+        }
+    };
+    // the ROWS rows of x of row block rb (zero past M and past K)
+    auto stage_x = [&](int rb) {
+        const int m0 = rb * ROWS, chunks = L.kx / 8;  // 16-byte chunks of one row
+        for (int i = tid; i < ROWS * chunks; i += kThreads) {
+            const int r = i / chunks, k = (i % chunks) * 8;
+            __nv_bfloat16* dst = xs + r * L.xs + k;
+            const bool row_ok = m0 + r < M;
+            const __nv_bfloat16* src = x + (size_t)(m0 + r) * K + k;
+            if (vec_x && row_ok && k < K) {
+                cp_async16(dst, src);
+            } else if (vec_x) {
+                *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+            } else {
+                for (int j = 0; j < 8; ++j)
+                    dst[j] = row_ok && k + j < K ? src[j] : __float2bfloat16_rn(0.f);
+            }
+        }
+    };
+
+    const int S = L.kx / 16, spw = (S + kWarps - 1) / kWarps, spg = group / 16;
+    const int s_lo = warp * spw, s_hi = min(S, s_lo + spw);
+    const int t = lane & 3, gq = lane >> 2, c0 = 2 * gq;  // MMA fragment coordinates
+    const size_t tab_group = (size_t)kCols * T::kStride * T::kEntryBytes;
+
+    int staged_rb = -1;
+    for (int it = i0; it < i1; ++it) {
+        const int buf = (it - i0) & 1;
+        const int rb = it / ntiles, n0 = (it % ntiles) * kCols, m0 = rb * ROWS;
+        if (it == i0) stage_w(it, buf);
+        if (rb != staged_rb) {  // the previous item's products are done (barrier below)
+            stage_x(rb);
+            staged_rb = rb;
+        }
+        cp_async_commit();
+        if (it + 1 < i1) {  // the next item's codes stream in behind this one's products
+            stage_w(it + 1, buf ^ 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        // ---- the item's value tables: one thread per (group, column) computes
+        // its 2^bits values once and writes the entries
+        {
+            const float* sc = reinterpret_cast<const float*>(smem + buf * L.stage + L.sz_off);
+            const float* ze = sc + L.ng * kCols;
+            constexpr int NQ = 1 << BITS;
+            for (int gc = tid; gc < L.ng * kCols; gc += kThreads) {
+                const float z = ze[gc], s = sc[gc];
+                uint32_t v[NQ];
+#pragma unroll
+                for (int q = 0; q < NQ; ++q) v[q] = dq_bits(q, z, s);
+                if constexpr (T::kPairs) {
+                    uint32_t* dst = reinterpret_cast<uint32_t*>(tab) + gc * T::kStride;
+#pragma unroll
+                    for (int p = 0; p < T::kEntries; ++p)
+                        dst[p] = v[p & (NQ - 1)] | (v[p >> BITS] << 16);
+                } else {
+                    uint16_t* dst = reinterpret_cast<uint16_t*>(tab) + gc * T::kStride;
+#pragma unroll
+                    for (int q = 0; q < NQ; ++q) dst[q] = (uint16_t)v[q];
+                }
+            }
+        }
+        __syncthreads();
+
+        // ---- this warp's K slice: A from the staged codes, B from x
+        const uint8_t* ws = smem + buf * L.stage;
+        float acc[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+        int g = s_lo / spg, left = spg - s_lo % spg;  // group of the step, steps left in it
+        const uint8_t* tb = tab + g * tab_group;
+        // launch/probe_dequant.py builds a copy without the products to split
+        // an item's time between them and the rest
+#ifndef REPRO_SM90_PROBE_NO_PRODUCTS
+#pragma unroll 2
+        for (int s = s_lo; s < s_hi; ++s) {
+            const int kb = s * 16;
+            uint32_t A[4];
+            a_fragments<BITS>(A, ws, L.r0, kb, t, c0, tb);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+                const uint2 b = *reinterpret_cast<const uint2*>(xs + (nt * 8 + gq) * L.xs + kb +
+                                                                4 * t);
+                mma_16816(acc[nt], A, b.x, b.y);
+            }
+            if (--left == 0) {
+                left = spg;
+                tb += tab_group;
+            }
+        }
+
+#endif
+        // ---- fixed-order reduction of the warps' partial tiles, then store
+        float* rw = red + warp * ROWS * kCols;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {  // MMA rows gq | gq + 8 are columns c0 | c0 + 1
+            const int r = nt * 8 + 2 * t;
+            *reinterpret_cast<float2*>(rw + r * kCols + c0) = make_float2(acc[nt][0], acc[nt][2]);
+            *reinterpret_cast<float2*>(rw + (r + 1) * kCols + c0) =
+                make_float2(acc[nt][1], acc[nt][3]);
+        }
+        __syncthreads();
+        for (int i = tid; i < ROWS * kCols; i += kThreads) {
+            float v = red[i];
+            for (int w = 1; w < kWarps; ++w) v += red[w * ROWS * kCols + i];
+            const int m = m0 + i / kCols, n = n0 + i % kCols;
+            if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16_rn(v);
+        }
+        // the next item's tables and partials are written only after its own
+        // wait barrier, which every thread reaches after this store loop
+    }
+}
+
+template <int BITS, int ROWS>
+cudaError_t launch(const void* x, Operand a, const int* block_expert, const int* num_active,
+                   void* y, int M, int K, int N, int group, cudaStream_t stream) {
+    const Layout L = layout<BITS, ROWS>(K, group);
+    auto kernel = dequant_gemm_sm90_kernel<BITS, ROWS>;
+    // Opt in to the card's whole shared memory once per instance; then the
+    // blocks resident per SM at each shared-memory size seen (a few K per
+    // model), so the CUDA runtime is queried once per size, not per launch.
+    static bool opted = false;
+    static size_t seen_smem[8];
+    static int seen_blocks[8], nseen = 0;
+    cudaError_t err;
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if (!opted) {
+        int optin = 0;
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err != cudaSuccess) return err;
+        if ((err = allow_smem(kernel, (size_t)optin)) != cudaSuccess) return err;
+        opted = true;
+    }
+    int blocks = 0;
+    for (int i = 0; i < nseen; ++i)
+        if (seen_smem[i] == L.total) blocks = seen_blocks[i];
+    if (blocks == 0) {
+        int sms = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, L.total);
+        if (err != cudaSuccess) return err;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        blocks = sms * per_sm;
+        seen_smem[nseen % 8] = L.total;
+        seen_blocks[nseen % 8] = blocks;
+        ++nseen;
+    }
+    const long items = (long)((M + ROWS - 1) / ROWS) * ((N + kCols - 1) / kCols);
+    const int grid = (int)(items < blocks ? items : blocks);
+    kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const __nv_bfloat16*>(x), a,
+                                                block_expert, num_active,
+                                                static_cast<__nv_bfloat16*>(y), M, K, N, group);
+    return cudaGetLastError();
+}
+
+// Runtime (bits, rows) -> template instance; bf16 activations only.
+inline cudaError_t dispatch(const void* x, Operand a, const int* block_expert,
+                            const int* num_active, void* y, int M, int K, int N, int bits,
+                            int group, int rows, cudaStream_t stream) {
+#define REPRO_SM90_CASE(B, R)                                                              \
+    if (bits == B && rows == R)                                                            \
+        return launch<B, R>(x, a, block_expert, num_active, y, M, K, N, group, stream);
+    REPRO_SM90_CASE(1, 8) REPRO_SM90_CASE(2, 8) REPRO_SM90_CASE(3, 8) REPRO_SM90_CASE(4, 8)
+    REPRO_SM90_CASE(1, 16) REPRO_SM90_CASE(2, 16) REPRO_SM90_CASE(3, 16) REPRO_SM90_CASE(4, 16)
+#undef REPRO_SM90_CASE
+    return cudaErrorInvalidValue;
+}
+
+// Shared-memory bytes of one block, for the host-side plan to check against.
+inline long smem_bytes(int K, int bits, int group, int rows) {
+#define REPRO_SM90_SMEM(B, R) \
+    if (bits == B && rows == R) return (long)layout<B, R>(K, group).total;
+    REPRO_SM90_SMEM(1, 8) REPRO_SM90_SMEM(2, 8) REPRO_SM90_SMEM(3, 8) REPRO_SM90_SMEM(4, 8)
+    REPRO_SM90_SMEM(1, 16) REPRO_SM90_SMEM(2, 16) REPRO_SM90_SMEM(3, 16) REPRO_SM90_SMEM(4, 16)
+#undef REPRO_SM90_SMEM
+    return -1;
+}
+
+}  // namespace sm90
+}  // namespace
+}  // namespace repro

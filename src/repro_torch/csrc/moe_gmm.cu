@@ -12,20 +12,35 @@
 // row blocks touch, plus their f32 scale/zero rows. Drop-free serving
 // capacity (capacity factor = number of experts) leaves almost every row
 // block dead: at decode with 4 slots, 64 experts x 24 rows of capacity hold
-// at most 24 routed rows.
+// at most 24 routed rows. At the main path's 2-bit decode shape (20 live
+// blocks of 177, K = 1408 -> N = 2048) that is ~18 MB, ~7 us at 3.35 TB/s.
 //
-// What the design does about it: one thread block per (row block, 32-column
-// tile) reads block_expert[i] and num_active[0] from device memory itself
-// (the host never syncs on them); a dead block writes zeros and reads no
-// weights, so only the experts with routed tokens are streamed. Live blocks
-// run the shared dequant-GEMM body (dequant_gemm.cuh): packed bytes staged
-// once per quantization group in shared memory, dequantized in registers,
-// f32 accumulation, sliced-K across the block's warps with a fixed-order
-// reduction. The SwiGLU variant feeds two accumulators from one staged x
-// tile and applies silu(g) * u before its single store. bm is 8 or 16 (the
-// row block of gmm_block_rows), bits 1/2/3/4, and any K (K = 1408 = 11
-// groups for the down projection; a ragged last group is bounded).
-#include "dequant_gemm.cuh"
+// moe_gmm, bf16 (dequant_gemm_sm90.cuh): a persistent grid of as many
+// blocks as fit on the SMs at once reads num_active[0] and block_expert on
+// the device (the host never syncs on them), splits the live (row block x
+// 16-column tile) items evenly, and zero-fills the dead rows with 16-byte
+// stores — dead row blocks cost no block launch and read no weights. Each
+// item stages its expert's whole K range of packed bytes, its scale/zero
+// rows and (once per row block) its bm rows of x with 16-byte cp.async
+// copies, dequantises through per-(group, column) value tables and runs
+// bf16 mma.sync m16n8k16 (swap-AB; bm 16 takes two n8 tiles), f32
+// accumulation, K cut over the warps in an order fixed by K.
+//
+// moe_gmm in f32 (the parity path) and moe_gmm_swiglu keep the older body
+// (dequant_gemm.cuh): one block per (row block, 32-column tile) reading
+// block_expert/num_active itself, packed bytes staged one group at a time,
+// f32 FMAs on CUDA cores, sliced-K across the warps with a fixed-order
+// reduction; the SwiGLU variant feeds two accumulators from one staged x
+// tile and applies silu(g) * u before its single store. Moving it onto the
+// sm90 body is the next kernel step.
+//
+// Measured at the 2-bit decode shape, bf16 (chip_smoke.py: median of 50
+// launches, L2 flushed before each; NVIDIA H100 80GB HBM3, 700.00 W):
+// moe_gmm 0.0376-0.0377 ms, against 0.1649-0.1653 ms for the CUDA-core body
+// in the same call and 0.0532-0.0538 ms for torch.bmm over the live blocks'
+// pre-dequantized experts (bound 0.00713 ms); moe_gmm_swiglu, still on the
+// CUDA-core body, 0.3125-0.3133 ms (bound 0.01198 ms).
+#include "dequant_gemm_sm90.cuh"
 
 extern "C" int repro_moe_gmm(const void* x, const void* w0, const void* w1, const void* scale,
                              const void* zero, const void* block_expert,
@@ -33,9 +48,13 @@ extern "C" int repro_moe_gmm(const void* x, const void* w0, const void* w1, cons
                              int group, int bm, int dtype, void* stream) {
     repro::Operand a{static_cast<const uint8_t*>(w0), static_cast<const uint8_t*>(w1),
                      static_cast<const float*>(scale), static_cast<const float*>(zero)};
-    return (int)repro::dispatch_dequant_gemm<false>(
-        x, a, a, static_cast<const int*>(block_expert), static_cast<const int*>(num_active), y,
-        M, K, N, bits, group, bm, dtype, static_cast<cudaStream_t>(stream));
+    const int* be = static_cast<const int*>(block_expert);
+    const int* na = static_cast<const int*>(num_active);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == REPRO_DT_BF16)
+        return (int)repro::sm90::dispatch(x, a, be, na, y, M, K, N, bits, group, bm, s);
+    return (int)repro::dispatch_dequant_gemm<false>(x, a, a, be, na, y, M, K, N, bits, group, bm,
+                                                     dtype, s);
 }
 
 extern "C" int repro_moe_gmm_swiglu(const void* x, const void* g0, const void* g1,

@@ -11,26 +11,45 @@
 // projection moves 2.1 MB of codes plus 0.26 MB of f32 scale/zero, about
 // 0.7 us at 3.35 TB/s, against 34 MFLOP.
 //
-// What the design does about it: the weights are read exactly once, as
-// packed bytes, and expanded only in shared memory and registers — the
-// dequantized matrix never exists in device memory. Each block owns a
-// 32-column tile for all rows of a BM row block, so every weight byte
-// feeds BM rows; its warps slice each quantization group along K (fixed
-// order reduction at the end) so that N / 32 blocks still put eight warps
-// per SM in flight. Plain FMA on CUDA cores for now: at M <= 16 the
-// tensor cores would idle on the byte stream anyway. wgmma, TMA and a
-// persistent schedule are later work.
-#include "dequant_gemm.cuh"
+// Design (bf16, dequant_gemm_sm90.cuh): work items of 8 rows x 16 columns
+// over all of K, so N = 2048 gives 128 items and N = 2816 gives 176 — the
+// grid fills the 132 SMs at decode. Each item puts its whole K range of
+// packed bytes, its scale/zero rows and its x rows in flight at once with
+// 16-byte cp.async copies, dequantises through per-(group, column) value
+// tables and multiplies on the tensor cores (mma.sync m16n8k16, swap-AB:
+// the 16 columns are the MMA's M, the rows its N). The row tile is fixed
+// at 8 whatever M is, and K is cut over the block's warps in an order fixed
+// by K alone, so a row's output never depends on M. f32 activations (the
+// card-vs-CPU parity path) keep IEEE f32 FMAs on CUDA cores in the older
+// body (dequant_gemm.cuh), never TF32.
+//
+// Measured (chip_smoke.py: median of 50 launches, L2 flushed before each;
+// NVIDIA H100 80GB HBM3, 700.00 W): M=4, K=N=2048, 4-bit: 0.0102 ms, against
+// 0.0664-0.0668 ms for the CUDA-core body it replaces in the same call and
+// 0.0111-0.0114 ms for torch.matmul on the pre-dequantized bf16 weight
+// (bound 0.00071 ms). M=16, K=2048, N=2816: 0.0173 ms (torch.matmul
+// 0.0121 ms). What holds it now: one item per block at decode, so the
+// staging round trip, the value tables and the products run one after the
+// other with nothing to overlap them; launch/probe_dequant.py splits the time.
+#include "dequant_gemm_sm90.cuh"
 
 extern "C" int repro_quant_matmul(const void* x, const void* w0, const void* w1,
                                   const void* scale, const void* zero, void* y, int M, int K,
                                   int N, int bits, int group, int dtype, void* stream) {
     repro::Operand a{static_cast<const uint8_t*>(w0), static_cast<const uint8_t*>(w1),
                      static_cast<const float*>(scale), static_cast<const float*>(zero)};
-    const int bm = M <= 8 ? 8 : 16;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == REPRO_DT_BF16)
+        return (int)repro::sm90::dispatch(x, a, nullptr, nullptr, y, M, K, N, bits, group, 8, s);
+    const int bm = M <= 8 ? 8 : 16;  // f32: row grouping only, the arithmetic is per row
     return (int)repro::dispatch_dequant_gemm<false>(x, a, a, nullptr, nullptr, y, M, K, N, bits,
-                                                     group, bm, dtype,
-                                                     static_cast<cudaStream_t>(stream));
+                                                     group, bm, dtype, s);
+}
+
+// Shared-memory bytes of one block of the bf16 body (rows 8 or 16), so the
+// host-side plan (kernels/quant_matmul.py: tile_plan) can be held to it.
+extern "C" long repro_dequant_gemm_sm90_smem(int K, int bits, int group, int rows) {
+    return repro::sm90::smem_bytes(K, bits, group, rows);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -78,6 +78,8 @@ _SIGNATURES = {
     # x, b_packed, alpha, y, M, K, N, dtype, stream
     "repro_binary_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }
+#: functions that return a C long: K, bits, group, rows
+_LONG_SIGNATURES = {"repro_dequant_gemm_sm90_smem": [_I] * 4}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -158,6 +160,10 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _LONG_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_long
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIB = lib

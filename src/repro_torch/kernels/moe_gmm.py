@@ -14,7 +14,7 @@ import torch
 
 from . import ref
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
-from .quant_matmul import require, check_activations, check_operand, ptr
+from .quant_matmul import check_activations, check_operand, check_plan, ptr, require, tile_plan
 
 __all__ = ["moe_gmm", "moe_gmm_swiglu"]
 
@@ -49,6 +49,7 @@ def moe_gmm(x_sorted: torch.Tensor, w_packed, scale, zero, block_expert: torch.T
     e, n = _experts_n(w_packed, bits)
     p0, p1 = check_operand("moe_gmm", w_packed, scale, zero, bits=bits, group=group, k=k,
                            n=n, lead=(e,), device=x_sorted.device)
+    check_plan("moe_gmm", tile_plan(k, n, bits, group, x_sorted.dtype, rows=bm))
     y = torch.empty((m, n), dtype=x_sorted.dtype, device=x_sorted.device)
     if m == 0:
         return y

@@ -4,18 +4,66 @@ the Hopper kernel in ``csrc/quant_matmul.cu`` (port of
 
 A CPU tensor takes the plain version (:func:`ref.quant_matmul_ref`); a
 CUDA tensor launches the kernel or raises. Also home of the operand checks
-the grouped kernels share.
+the grouped kernels share, and of :func:`tile_plan`, the static tiling of
+their bf16 body (``csrc/dequant_gemm_sm90.cuh``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import ref
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
 
-__all__ = ["quant_matmul"]
+__all__ = ["quant_matmul", "tile_plan"]
 
 _PER = {1: 8, 2: 4, 4: 2}
+
+#: the bf16 body's column tile (the MMA's M), warps per block (K slices)
+#: and the shared memory one block may opt in to on an H100
+COL_TILE, WARPS, SMEM_OPTIN = 16, 8, 232448
+
+
+@functools.lru_cache(maxsize=None)  # every launch asks; a model has a few shapes
+def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8) -> dict:
+    """The tiling that ``csrc/dequant_gemm_sm90.cuh`` runs for these static
+    shapes (``rows`` is the work item's row tile: 8 for ``quant_matmul``,
+    the row block ``bm`` for ``moe_gmm``). It takes no M: the number of
+    rows changes how many items run, never a row's arithmetic.
+
+    ``k_slices`` are the warps' ranges of k16 steps, added in warp order;
+    ``smem_bytes`` mirrors the kernel's ``Layout`` (the C function
+    ``repro_dequant_gemm_sm90_smem`` reports the kernel's own). f32
+    activations run the older CUDA-core body, which has no plan here."""
+    if dtype != torch.bfloat16:
+        return {"body": "dequant_gemm.cuh", "rows": rows}
+    kx = -(-k // 16) * 16
+    ng = -(-k // group)
+    plane_rows = (kx // 8 * 2 + kx // 8) if bits == 3 else kx // _PER[bits]
+    steps = kx // 16
+    spw = -(-steps // WARPS)
+    # value tables: a bf16 pair per code pair (1, 2 bits) or a bf16 per code,
+    # each column's entries padded by one pair / two values
+    pairs = bits <= 2
+    entries = 1 << (2 * bits if pairs else bits)
+    table = ng * COL_TILE * (entries + 1 if pairs else entries + 2) * (4 if pairs else 2)
+    x_stride = kx + 2 * ((8 - (kx // 2) % 32) % 32)  # bf16; rows 8 words apart mod 32 banks
+    stage = plane_rows * COL_TILE + ng * 2 * COL_TILE * 4  # codes + scale/zero, two buffers
+    smem = (2 * stage + -(-table // 16) * 16 + rows * x_stride * 2
+            + WARPS * rows * COL_TILE * 4)
+    return {
+        "body": "dequant_gemm_sm90.cuh", "rows": rows, "col_tile": COL_TILE, "warps": WARPS,
+        "n_tiles": -(-n // COL_TILE), "k_steps": steps,
+        "k_slices": [(w * spw, min(steps, (w + 1) * spw)) for w in range(WARPS)],
+        "tables": "code pairs" if pairs else "codes", "smem_bytes": smem,
+    }
+
+
+def check_plan(name: str, plan: dict) -> None:
+    require(plan.get("smem_bytes", 0) <= SMEM_OPTIN,
+            f"{name}: K too long for the bf16 body's whole-K staging "
+            f"({plan.get('smem_bytes')} bytes of shared memory > {SMEM_OPTIN})")
 
 
 def planes(w_packed, bits: int):
@@ -83,6 +131,7 @@ def quant_matmul(x: torch.Tensor, w_packed, scale, zero, *, bits: int,
     n = (w_packed[0] if bits == 3 else w_packed).shape[-1]
     p0, p1 = check_operand("quant_matmul", w_packed, scale, zero, bits=bits, group=group,
                            k=k, n=n, lead=(), device=x.device)
+    check_plan("quant_matmul", tile_plan(k, n, bits, group, x.dtype))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y

@@ -17,6 +17,7 @@ from ..core.packing import unpack_bits
 __all__ = [
     "binary_matmul_ref",
     "dequant_ref",
+    "dequant_table_ref",
     "moe_gmm_ref",
     "moe_gmm_swiglu_ref",
     "paged_attention_ref",
@@ -49,6 +50,16 @@ def dequant_ref(w_packed, scale, zero, bits: int, k: int, group: int = 128,
     cg = codes.reshape(*codes.shape[:-2], ng, group, n)
     w = (cg - zero.unsqueeze(-2)) * scale.unsqueeze(-2)
     return w.reshape(*codes.shape[:-2], ng * group, n)[..., :k, :].to(dtype)
+
+
+def dequant_table_ref(scale, zero, bits: int, dtype=torch.float32) -> torch.Tensor:
+    """The value each code takes per (group, column): ``[..., K/group, N,
+    2^bits]`` with ``table[..., g, n, q] = (q − zero[g, n]) · scale[g, n]``
+    in f32, then rounded to ``dtype`` — :func:`dequant_ref`'s expression, so
+    a lookup gives its weight byte for byte. The bf16 kernel body builds
+    these once per group and looks each weight up."""
+    q = torch.arange(1 << bits, dtype=torch.float32, device=scale.device)
+    return ((q - zero.unsqueeze(-1)) * scale.unsqueeze(-1)).to(dtype)
 
 
 def quant_matmul_ref(x, w_packed, scale, zero, *, bits: int, group: int = 128,

@@ -11,7 +11,8 @@ decode megastep without a profiler, then traces the one after it with
 megastep's wall time with and without the profiler, the device time of
 every CUDA kernel, memcpy and memset in the traced one (one stream, so
 their sum is the device's busy time), the device's idle share, the number
-of device operations per decode step, the port kernels' share, the ten
+of device operations per decode step, the port kernels' share (with each
+port kernel instance's, by name and template arguments), the ten
 costliest device operations, and the least time a decode step could take:
 the bytes it must move — every dense weight of every layer, the packed rows
 and group params of each expert it routed a token to (from the step's
@@ -32,7 +33,11 @@ from ..core.tree import weight_bytes
 from ..serving import PagedServingEngine
 from . import workload
 
-PORT_KERNELS = ("dequant_gemm_kernel", "paged_attention_kernel")
+#: the port's kernels by name: the bf16 dequant GEMM body of quant_matmul and
+#: moe_gmm (dequant_gemm_sm90_kernel<bits, rows>), the CUDA-core body of
+#: moe_gmm_swiglu and the f32 path (dequant_gemm_kernel<bits, T, bm, swiglu>),
+#: the attention kernels
+PORT_KERNELS = ("dequant_gemm_kernel", "dequant_gemm_sm90_kernel", "paged_attention_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
@@ -102,7 +107,9 @@ def main() -> None:
         "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
         "device_ops_per_step": len(device) / horizon,
         "port_kernel_ms": port_us / 1e3,
-        "top_device_ops_ms": [[n[:80], t / 1e3] for n, t in top],
+        "port_kernels_ms": {n[:100]: t / 1e3 for n, t in by_name.items()
+                            if any(k in n for k in PORT_KERNELS)},
+        "top_device_ops_ms": [[n[:100], t / 1e3] for n, t in top],
         "step_bytes_mean": float(np.mean(nbytes)),
         "step_bound_ms": float(np.mean(nbytes)) / HBM_BYTES_PER_S * 1e3,
     }))

@@ -70,6 +70,92 @@ def test_dequant_gemm_kernels(dev, bits, dtype):
                ref.moe_gmm_swiglu_ref(*args, bits=bits, bm=bm), dtype)
 
 
+def _bitwise(a, b):
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.shape == b.shape and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def _weights(gen, e, k, n, bits, dev):
+    w = torch.randn(e, k, n, generator=gen) * k**-0.5
+    return tuple(t.to(dev) if isinstance(t, torch.Tensor) else tuple(p.to(dev) for p in t)
+                 for t in quantize_parts(w, bits, 128, refine=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_quant_matmul_tiling_edges(dev, bits, dtype):
+    """N on and off the 16-column tile (96, 1408, 40, 1400), ragged K, M from
+    1 to 24: each call against the plain version, and each row bit for bit
+    equal to the same row of the M = 24 call."""
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator().manual_seed(30 + bits)
+    for k, n in ((256, 96), (1408, 1408), (3 * 128 + 64, 40), (200, 1400)):
+        data, s, z = _weights(gen, 1, k, n, bits, dev)
+        one = tuple(p[0] for p in data) if bits == 3 else data[0]
+        x = torch.randn(24, k, generator=gen).to(dev, dtype)
+        full = quant_matmul(x, one, s[0], z[0], bits=bits)
+        _close(full, ref.quant_matmul_ref(x, one, s[0], z[0], bits=bits), dtype)
+        for m in range(1, 25):
+            part = quant_matmul(x[:m].contiguous(), one, s[0], z[0], bits=bits)
+            assert _bitwise(part, full[:m]), (k, n, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_moe_gmm_num_active_edges(dev, bits, dtype):
+    """num_active 0, 1 and all blocks, bm 8 and 16, N on and off the column
+    tile: against the plain version, dead rows exactly zero, and the live
+    rows bit for bit those of the call with every block live."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+
+    gen = torch.Generator().manual_seed(40 + bits)
+    for k, n in ((1408, 96), (3 * 128 + 64, 1400)):
+        data, s, z = _weights(gen, 3, k, n, bits, dev)
+        for bm in (8, 16):
+            nblocks = 3 * 32 // bm
+            x = torch.randn(3 * 32, k, generator=gen).to(dev, dtype)
+            be = torch.sort(torch.randint(0, 3, (nblocks,), generator=gen)).values
+            be = be.to(dev, torch.int32)
+            all_live = None
+            for live in (nblocks, 0, 1):
+                na = torch.tensor([live], dtype=torch.int32, device=dev)
+                got = moe_gmm(x, data, s, z, be, na, bits=bits, bm=bm)
+                _close(got, ref.moe_gmm_ref(x, data, s, z, be, na, bits=bits, bm=bm), dtype)
+                assert not got[live * bm:].any()
+                if all_live is None:
+                    all_live = got
+                assert _bitwise(got[:live * bm], all_live[:live * bm])
+
+
+@pytest.mark.cuda
+def test_quant_matmul_rows_anywhere_in_the_tile(dev):
+    """A row's bf16 output does not depend on its position inside the MMA's
+    n8 tile either: rows 3..6 computed as rows 0..3 of their own call."""
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator().manual_seed(50)
+    data, s, z = _weights(gen, 1, 2048, 2048, 4, dev)
+    x = torch.randn(16, 2048, generator=gen).to(dev, torch.bfloat16)
+    full = quant_matmul(x, data[0], s[0], z[0], bits=4)
+    assert _bitwise(quant_matmul(x[3:7].contiguous(), data[0], s[0], z[0], bits=4), full[3:7])
+
+
+@pytest.mark.cuda
+def test_tile_plan_matches_kernel_smem(dev):
+    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.quant_matmul import tile_plan
+
+    lib = load_library()
+    for k in (64, 200, 1408, 2048, 2816):
+        for bits in (1, 2, 3, 4):
+            for rows in (8, 16):
+                want = tile_plan(k, 2048, bits, 128, torch.bfloat16, rows=rows)["smem_bytes"]
+                assert lib.repro_dequant_gemm_sm90_smem(k, bits, 128, rows) == want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,window", [(1, None), (2, 17), (4, None)])
