@@ -9,15 +9,20 @@ Phases (each failure exits non-zero):
 3. kernel parity: each kernel against its plain PyTorch version on the
    card at the main path's shapes (bits 1/2/3/4, dead row blocks, K ending
    mid-group and K < group, G = 1 and 2, windows, ragged lengths, length 0,
-   permuted block tables, all-zero int8 rows; f32 and bf16); bitwise batch
-   invariance of the dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for
-   m in 1/4/8/16/24 equal the full call's; a live ``moe_gmm`` block's rows
-   do not move when ``num_active`` or the other blocks' experts change);
-   the bf16 body's shared memory against its host-side plan; then each
-   kernel's time (median, min and max of 50 L2-flushed launches, the SM
-   clock read before and after on a ``timing`` line) beside the plain
-   version, one library call and its bound — ``quant_matmul`` at the
-   decode and the prefill shape;
+   permuted block tables, all-zero int8 rows; attention lengths at chunk
+   edges and at 4096 positions, head_dim 32/128/256, G up to 8, windows
+   starting mid-chunk; f32 and bf16); bitwise batch invariance of the
+   dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for m in 1/4/8/16/24
+   equal the full call's; a live ``moe_gmm`` block's rows do not move when
+   ``num_active`` or the other blocks' experts change) and of attention (a
+   sequence's output alone, in a batch, with a wider table and on other
+   physical pages); the bf16 GEMM body's and the attention kernels' shared
+   memory against their host-side plans; then each kernel's time (median,
+   min and max of 50 L2-flushed launches, the SM clock read before and
+   after on a ``timing`` line) beside the plain version, one library call
+   and its bound — ``quant_matmul`` at the decode and the prefill shape,
+   the attention kernels at the decode shape and at 4096 positions
+   (``long``);
 4. tiny end-to-end parity: ``moonshot-v1-16b-a3b.reduced()`` (f32, PMQ +
    OTP, one seed) served on the card and on the CPU, with fp KV and with
    int8 KV plus the prefix cache — identical greedy tokens, per-step
@@ -62,13 +67,18 @@ from repro_torch.core.quantizers import quantize_parts  # noqa: E402
 from repro_torch.core.synthetic import bucket_counts, build_synthetic  # noqa: E402
 from repro_torch.core.tree import to_device, weight_bytes  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
-from repro_torch.core.quantizers import dequantize_kv_rows, quantize_kv_rows  # noqa: E402
+from repro_torch.core.quantizers import quantize_kv_rows  # noqa: E402
 from repro_torch.core.packing import pack_bits, unpack_bits  # noqa: E402
 from repro_torch.kernels.binary_matmul import binary_matmul  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    POOL_CODES,
+    attention_plan,
+    paged_attention,
+    paged_attention_quant,
+)
 from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
-from repro_torch.launch import workload  # noqa: E402
+from repro_torch.launch import probe_attention, workload  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _paged_decode_core,
@@ -399,43 +409,8 @@ def _attn_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     got = paged_attention(q, kp, vp, tables, lens, window=window)
     want = ref.paged_attention_ref(q, kp, vp, tables, lens, window=window)
-    err = compare(f"paged_attention G{g} win{window} {dtype}", got, want, dtype)
-    return err, (q, kp, vp, tables, lens)
-
-
-def parity_paged_attention(gen, results):
-    errs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for g, hkv, window in [(1, 16, None), (2, 8, None), (2, 8, 20), (1, 16, 7)]:
-            errs.append(_attn_case(gen, dtype, 4, hkv, g, 128, 16, 40, 6,
-                                   [1, 17, 80, 96], window)[0])
-            # length 0: every position masked, the reference averages V over the table
-            errs.append(_attn_case(gen, dtype, 4, hkv, g, 128, 16, 40, 6,
-                                   [0, 17, 80, 0], window)[0])
-    # main-path decode shape: 4 slots mid-decode (prompt 64 + 16 new), bf16
-    b, hkv, g, dh, bs, mb = 4, 16, 1, 128, 16, 6
-    lengths = [80, 80, 80, 80]
-    err, (q, kp, vp, tables, lens) = _attn_case(gen, torch.bfloat16, b, hkv, g, dh, bs,
-                                                 24, mb, lengths, None)
-    errs.append(err)
-    pages = sum(-(-n // bs) for n in lengths)
-    kv_bytes = pages * bs * hkv * dh * 2 * 2
-    phys = (tables.long()[:, :, None] * bs + torch.arange(bs, device=DEV)).reshape(b, -1)
-    k_g = kp.reshape(-1, hkv, dh)[phys].permute(0, 2, 1, 3)
-    v_g = vp.reshape(-1, hkv, dh)[phys].permute(0, 2, 1, 3)
-    mask = (torch.arange(mb * bs, device=DEV)[None, :] < lens[:, None].long())[:, None, None]
-    qs = q.reshape(b, hkv, g, dh)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    results["paged_attention"] = dict(
-        max_abs_err=max(errs),
-        **time_kernel("paged_attention", lambda: paged_attention(q, kp, vp, tables, lens)),
-        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tables, lens))[0],
-        library_ms=time_ms(lambda: sdpa(qs, k_g, v_g, attn_mask=mask))[0],
-        shape=f"B={b} Hkv={hkv} G={g} dh={dh} BS={bs} len={lengths[0]} bf16",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(kv_bytes + 2 * nbytes(q) + nbytes(tables, lens),
-                         4 * b * hkv * g * sum(lengths) * dh, torch.bfloat16))),
-    )
+    return compare(f"paged_attention G{g} dh{dh} win{window} len{lengths} {dtype}", got, want,
+                   dtype)
 
 
 def _attn_quant_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
@@ -455,46 +430,110 @@ def _attn_quant_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     got = paged_attention_quant(q, kc, vc, *quant, tables, lens, window=window)
     want = ref.paged_attention_ref(q, kc, vc, tables, lens, window=window, quant=quant)
-    err = compare(f"paged_attention_quant G{g} win{window} len{lengths} {dtype}", got, want,
-                  dtype)
-    return err, (q, kc, vc, quant, tables, lens)
+    return compare(f"paged_attention_quant G{g} dh{dh} win{window} len{lengths} {dtype}", got,
+                   want, dtype)
 
 
-def parity_paged_attention_quant(gen, results):
+def parity_attention(gen, results, kind):
+    """``paged_attention`` (kind fp) or ``paged_attention_quant`` (int8)
+    against the plain version: G 1/2, windows, ragged lengths and length 0
+    at the decode geometry; lengths at the edges of the 256-position chunks
+    for head_dim 32/128/256 and G 1/2/8 with windows whose first valid
+    position falls mid-chunk; 4096 positions (16 chunks) with and without a
+    window; f32 and bf16. Then the kernel's time at the decode shape and at
+    4096 positions (``probe_attention``), beside its plain version, SDPA
+    over the gathered pages and its byte bound."""
+    case = _attn_case if kind == "fp" else _attn_quant_case
+    name = "paged_attention" if kind == "fp" else "paged_attention_quant"
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
         for g, hkv, window in [(1, 16, None), (2, 8, None), (2, 8, 20), (1, 16, 7)]:
             for lengths in ([1, 17, 80, 96], [0, 17, 80, 0]):
-                errs.append(_attn_quant_case(gen, dtype, 4, hkv, g, 128, 16, 40, 6, lengths,
-                                             window)[0])
-    # the slice's decode shape: 4 slots mid-decode (prompt 64 + 16 new), bf16 q
-    b, hkv, g, dh, bs, mb = 4, 16, 1, 128, 16, 6
-    lengths = [80, 80, 80, 80]
-    err, (q, kc, vc, quant, tables, lens) = _attn_quant_case(
-        gen, torch.bfloat16, b, hkv, g, dh, bs, 24, mb, lengths, None)
-    errs.append(err)
-    pages = sum(-(-n // bs) for n in lengths)
-    # per visited row and KV head: dh code bytes of K and of V, 4 f32 table entries
-    kv_bytes = pages * bs * hkv * (2 * dh + 16)
-    phys = (tables.long()[:, :, None] * bs + torch.arange(bs, device=DEV)).reshape(b, -1)
-    ks, kz, vs, vz = (t.reshape(-1, hkv)[phys] for t in quant)
-    k_g = dequantize_kv_rows(kc.reshape(-1, hkv, dh)[phys], ks, kz).to(torch.bfloat16)
-    v_g = dequantize_kv_rows(vc.reshape(-1, hkv, dh)[phys], vs, vz).to(torch.bfloat16)
-    k_g, v_g = k_g.permute(0, 2, 1, 3), v_g.permute(0, 2, 1, 3)
-    mask = (torch.arange(mb * bs, device=DEV)[None, :] < lens[:, None].long())[:, None, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    results["paged_attention_quant"] = dict(
-        max_abs_err=max(errs),
-        **time_kernel("paged_attention_quant",
-                      lambda: paged_attention_quant(q, kc, vc, *quant, tables, lens)),
-        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kc, vc, tables, lens,
-                                                         quant=quant))[0],
-        library_ms=time_ms(lambda: sdpa(q, k_g, v_g, attn_mask=mask))[0],
-        shape=f"B={b} Hkv={hkv} G={g} dh={dh} BS={bs} len={lengths[0]} int8 pools, bf16 q",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(kv_bytes + 2 * nbytes(q) + nbytes(tables, lens),
-                         4 * b * hkv * g * sum(lengths) * dh, torch.bfloat16))),
-    )
+                errs.append(case(gen, dtype, 4, hkv, g, 128, 16, 40, 6, lengths, window))
+        for dh in (32, 128, 256):
+            for g in (1, 2, 8):
+                for window in (None, 50, 100):
+                    errs.append(case(gen, dtype, 5, 2, g, dh, 16, 110, 20,
+                                     [0, 255, 256, 257, 320], window))
+        for window in (None, 1000):
+            errs.append(case(gen, dtype, 2, 2, 2, 128, 16, 520, 256, [4096, 2500], window))
+    mods = probe_attention.load(Path(__file__).resolve().parent)
+    r = {}
+    for shape, length in probe_attention.SHAPES.items():
+        r[shape] = probe_attention.measure(mods, name, length, gen)
+        t = r[shape]
+        log(f"timing {name} {shape}: median {t['ms']:.4f} ms, min {t['ms_min']:.4f}, max "
+            f"{t['ms_max']:.4f} over 50 launches; SM clock {t['sm_clock'][0]} before, "
+            f"{t['sm_clock'][1]} after")
+    results[name] = dict(max_abs_err=max(errs), **r["decode"], long=r["long"])
+    t = r["long"]
+    log(f"kernel {name} long [{t['shape']}]: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+
+
+def invariance_attention(gen):
+    """One sequence's output bit for bit alone, in a batch of 4 with other
+    lengths, with a wider block table (more chunks: one chunk at length 100
+    against the merge kernel) and on other physical pages; fp (bf16) and
+    int8 pools, with and without windows."""
+    hkv, g, dh, bs, nb = 2, 2, 128, 16, 200
+    for kind in ("fp", "int8"):
+        rows = [torch.randn((nb, bs, hkv, dh), generator=gen, device=DEV) for _ in range(2)]
+        if kind == "fp":
+            pools, quant = tuple(t.to(torch.bfloat16) for t in rows), ()
+        else:
+            (kc, ks, kz), (vc, vs, vz) = (quantize_kv_rows(t * 2) for t in rows)
+            pools, quant = (kc, vc), (ks, kz, vs, vz)
+        q = torch.randn((4, hkv, g, dh), generator=gen, device=DEV).to(torch.bfloat16)
+
+        def run(qq, tables, lengths, window):
+            t = torch.tensor(tables, dtype=torch.int32, device=DEV)
+            n = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+            if kind == "fp":
+                return paged_attention(qq, *pools, t, n, window=window)
+            return paged_attention_quant(qq, *pools, *quant, t, n, window=window)
+
+        for length, window in ((100, None), (300, None), (300, 150), (1000, 37)):
+            mb = -(-length // bs) + 1
+            own = torch.randperm(nb, generator=gen, device=DEV)[:mb]
+            alone = run(q[:1], [own.tolist()], [length], window)[0]
+            others = [torch.randperm(nb, generator=gen, device=DEV)[:mb].tolist()
+                      for _ in range(3)]
+            qb = torch.stack([q[1], q[0], q[2], q[3]])
+            tabs = [others[0], own.tolist(), others[1], others[2]]
+            got = {"in a batch of 4": run(qb, tabs, [5, length, 700, 0], window)[1],
+                   "with MB + 20": run(q[:1], [own.tolist() + list(range(20))], [length],
+                                       window)[0]}
+            dest = torch.randperm(nb, generator=gen, device=DEV)[:mb]
+            for pool in pools + quant:  # the same contents on other physical pages
+                pool[dest] = pool[own].clone()
+            got["on other pages"] = run(q[:1].clone(), [dest.tolist()], [length], window)[0]
+            for how, y in got.items():
+                if not bitwise_equal(y, alone):
+                    raise AssertionError(f"paged_attention ({kind}) length {length} window "
+                                         f"{window}: output {how} differs from alone")
+    log("batch invariance: paged_attention and paged_attention_quant outputs bit-identical "
+        "alone, in a batch of 4, with MB + 20 (merge kernel) and on other physical pages "
+        "(lengths 100/300/1000, windows)")
+
+
+def check_attention_plans():
+    """The kernel's own shared memory per block equals the host-side
+    attention plan's (pool types, head_dim 32-256, G 1/2/8, pages 8-32)."""
+    lib = build.load_library()
+    n = 0
+    for pool, code in POOL_CODES.items():
+        for dh in (32, 96, 128, 256):
+            for g in (1, 2, 8):
+                for bs in (8, 16, 32):
+                    want = attention_plan(4, bs, dh, g, pool)["smem_bytes"]
+                    got = lib.repro_paged_attention_smem(bs, dh, g, code)
+                    if got != want:
+                        raise AssertionError(f"attention plan {pool} dh {dh} G {g} BS {bs}: "
+                                             f"shared memory {want} in the plan, {got} in "
+                                             f"the kernel")
+                    n += 1
+    log(f"attention plans: {n} shapes, kernel shared memory == host plan")
 
 
 def _binary_case(gen, dtype, m, k, n):
@@ -750,8 +789,10 @@ def main() -> int:
     parity_moe(gen, results, cfg)
     invariance_quant_matmul(gen)
     invariance_moe_gmm(gen, cfg)
-    parity_paged_attention(gen, results)
-    parity_paged_attention_quant(gen, results)
+    check_attention_plans()
+    parity_attention(gen, results, "fp")
+    parity_attention(gen, results, "int8")
+    invariance_attention(gen)
     build.reset_launches()
     parity_binary_matmul(gen, results, cfg)
     binary_launches = build.LAUNCHES["binary_matmul"]
@@ -776,7 +817,8 @@ def main() -> int:
          "replaces": KERNELS[name][1], "launches": counted[name][0], "path": counted[name][1],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill") if key in r}}
+         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "long")
+            if key in r}}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": kernels}))

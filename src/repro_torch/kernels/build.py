@@ -69,17 +69,22 @@ _SIGNATURES = {
     # x, (g0, g1, gs, gz), (u0, u1, us, uz), block_expert, num_active, y,
     # M, K, N, bits, group, bm, dtype, stream
     "repro_moe_gmm_swiglu": [_P] * 12 + [_I] * 7 + [_P],
-    # q, k_pool, v_pool, tables, lengths, out, B, Hkv, G, dh, BS, MB,
-    # window, scale, dtype, stream
-    "repro_paged_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k_pool, v_pool, tables, lengths, out, partials, B, Hkv, G, dh, BS,
+    # MB, window, scale, chunks, stages, dtype, stream
+    "repro_paged_attention": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     # q, k_pool, v_pool, k_scale, k_zero, v_scale, v_zero, tables, lengths,
-    # out, B, Hkv, G, dh, BS, MB, window, scale, dtype, stream
-    "repro_paged_attention_quant": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # out, partials, B, Hkv, G, dh, BS, MB, window, scale, chunks, stages,
+    # dtype, stream
+    "repro_paged_attention_quant": [_P] * 11 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     # x, b_packed, alpha, y, M, K, N, dtype, stream
     "repro_binary_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }
-#: functions that return a C long: K, bits, group, rows
-_LONG_SIGNATURES = {"repro_dequant_gemm_sm90_smem": [_I] * 4}
+#: functions that return a C long (shared memory bytes of a block)
+_LONG_SIGNATURES = {
+    "repro_dequant_gemm_sm90_smem": [_I] * 4,
+    # BS, dh, G, pool code (kernels/paged_attention.py POOL_CODES)
+    "repro_paged_attention_smem": [_I] * 4,
+}
 
 _LIB: Optional[ctypes.CDLL] = None
 

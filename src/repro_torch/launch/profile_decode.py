@@ -36,8 +36,9 @@ from . import workload
 #: the port's kernels by name: the bf16 dequant GEMM body of quant_matmul and
 #: moe_gmm (dequant_gemm_sm90_kernel<bits, rows>), the CUDA-core body of
 #: moe_gmm_swiglu and the f32 path (dequant_gemm_kernel<bits, T, bm, swiglu>),
-#: the attention kernels
-PORT_KERNELS = ("dequant_gemm_kernel", "dequant_gemm_sm90_kernel", "paged_attention_kernel")
+#: the attention kernels and the merge of their page chunks
+PORT_KERNELS = ("dequant_gemm_kernel", "dequant_gemm_sm90_kernel", "paged_attention_kernel",
+                "paged_attention_merge_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 

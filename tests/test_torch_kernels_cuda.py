@@ -238,6 +238,115 @@ def test_paged_attention_quant_kernel(dev, dtype, g, window):
            dtype)
 
 
+def _attn(gen, dev, kind, dtype, g, dh, lengths, mb, bs=16, hkv=2):
+    """A decode-attention problem over permuted physical pages: the kernel's
+    wrapper and the plain version as two callables of ``window``."""
+    from repro_torch.core.quantizers import quantize_kv_rows
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
+
+    b = len(lengths)
+    nb = b * mb + 5
+    q = torch.randn(b, hkv, g, dh, generator=gen).to(dev, dtype)
+    pools = [torch.randn(nb, bs, hkv, dh, generator=gen).to(dev) for _ in range(2)]
+    tables = torch.randperm(nb, generator=gen)[: b * mb].reshape(b, mb).to(dev, torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if kind == "fp":
+        kp, vp = (t.to(dtype) for t in pools)
+        return (lambda w: paged_attention(q, kp, vp, tables, lens, window=w),
+                lambda w: ref.paged_attention_ref(q, kp, vp, tables, lens, window=w))
+    (kc, ks, kz), (vc, vs, vz) = (quantize_kv_rows(t * 2) for t in pools)
+    quant = (ks, kz, vs, vz)
+    return (lambda w: paged_attention_quant(q, kc, vc, *quant, tables, lens, window=w),
+            lambda w: ref.paged_attention_ref(q, kc, vc, tables, lens, window=w, quant=quant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_paged_attention_chunk_edges(dev, kind, dtype, dh, g):
+    """Lengths at the edges of the 256-position chunks (page 16), length 0,
+    the whole table, and windows whose first valid position falls mid-chunk
+    (at 50 the first chunk of the longest sequence is an empty partial)."""
+    gen = torch.Generator().manual_seed(dh + g)
+    call, plain = _attn(gen, dev, kind, dtype, g, dh, [0, 255, 256, 257, 320], mb=20)
+    for window in (None, 50, 100, 7):
+        _close(call(window), plain(window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_long_context(dev, kind, dtype):
+    """4096 positions (16 chunks merged by the second kernel) and a window
+    of 1000 starting mid-chunk."""
+    gen = torch.Generator().manual_seed(4096)
+    call, plain = _attn(gen, dev, kind, dtype, 2, 128, [4096, 2500], mb=256)
+    for window in (None, 1000):
+        _close(call(window), plain(window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+def test_paged_attention_batch_invariant(dev, kind):
+    """One sequence's output is bit-identical alone, in a batch of 4 with other
+    lengths, with a wider block table (more chunks) and on other physical
+    pages (one chunk at MB=8 against the merge kernel at MB=28, too)."""
+    from repro_torch.core.quantizers import quantize_kv_rows
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
+
+    gen = torch.Generator().manual_seed(77)
+    hkv, g, dh, bs, nb = 2, 2, 128, 16, 200
+    rows = [torch.randn(nb, bs, hkv, dh, generator=gen).to(dev) for _ in range(2)]
+    if kind == "fp":
+        pools = tuple(t.to(torch.bfloat16) for t in rows)
+        quant = ()
+    else:
+        (kc, ks, kz), (vc, vs, vz) = (quantize_kv_rows(t * 2) for t in rows)
+        pools, quant = (kc, vc), (ks, kz, vs, vz)
+    q = torch.randn(4, hkv, g, dh, generator=gen).to(dev, torch.bfloat16)
+
+    def run(qq, tables, lengths, window):
+        t = torch.tensor(tables, dtype=torch.int32, device=dev)
+        n = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        if kind == "fp":
+            return paged_attention(qq, *pools, t, n, window=window)
+        return paged_attention_quant(qq, *pools, *quant, t, n, window=window)
+
+    def moved(tables):  # the same contents on other physical pages
+        perm = torch.randperm(nb, generator=gen)
+        for pool in pools + quant:
+            pool[perm[: len(tables)].to(dev)] = pool[torch.tensor(tables, device=dev)].clone()
+        return perm[: len(tables)].tolist()
+
+    for length, window in ((100, None), (300, None), (300, 150), (1000, 37)):
+        mb = -(-length // bs) + 1
+        own = torch.randperm(nb, generator=gen)[:mb].tolist()
+        alone = run(q[:1], [own], [length], window)[0]
+        others = [torch.randperm(nb, generator=gen)[:mb].tolist() for _ in range(3)]
+        qb = torch.stack([q[1], q[0], q[2], q[3]])
+        batch = run(qb, [others[0], own, others[1], others[2]], [5, length, 700, 0], window)[1]
+        wide = run(q[:1], [own + list(range(20))], [length], window)[0]
+        elsewhere = run(q[:1].clone(), [moved(own)], [length], window)[0]
+        for got in (batch, wide, elsewhere):
+            assert _bitwise(got, alone)
+
+
+@pytest.mark.cuda
+def test_attention_plan_matches_kernel_smem(dev):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import POOL_CODES, attention_plan
+
+    lib = build.load_library()
+    for pool, code in POOL_CODES.items():
+        for dh in (32, 96, 128, 256):
+            for g in (1, 2, 8):
+                for bs in (8, 16, 32):
+                    want = attention_plan(4, bs, dh, g, pool)["smem_bytes"]
+                    assert lib.repro_paged_attention_smem(bs, dh, g, code) == want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_binary_matmul_kernel(dev, dtype):
