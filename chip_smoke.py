@@ -13,10 +13,12 @@ Phases (each failure exits non-zero):
    edges and at 4096 positions, head_dim 32/128/256, G up to 8, windows
    starting mid-chunk; f32 and bf16); bitwise batch invariance of the
    dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for m in 1/4/8/16/24
-   equal the full call's; a live ``moe_gmm`` block's rows do not move when
-   ``num_active`` or the other blocks' experts change) and of attention (a
-   sequence's output alone, in a batch, with a wider table and on other
-   physical pages); the bf16 GEMM body's and the attention kernels' shared
+   equal the full call's; a live ``moe_gmm`` or ``moe_gmm_swiglu`` block's
+   rows do not move when ``num_active`` or the other blocks' experts
+   change), of ``binary_matmul`` (rows of ``x[:m]`` for m in 1/5/16/24/64)
+   and of attention (a sequence's output alone, in a batch, with a wider
+   table and on other physical pages); the bf16 GEMM body's (one operand
+   and SwiGLU's two), ``binary_matmul``'s and the attention kernels' shared
    memory against their host-side plans; then each kernel's time (median,
    min and max of 50 L2-flushed launches, the SM clock read before and
    after on a ``timing`` line) beside the plain version, one library call
@@ -68,8 +70,8 @@ from repro_torch.core.synthetic import bucket_counts, build_synthetic  # noqa: E
 from repro_torch.core.tree import to_device, weight_bytes  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.core.quantizers import quantize_kv_rows  # noqa: E402
-from repro_torch.core.packing import pack_bits, unpack_bits  # noqa: E402
-from repro_torch.kernels.binary_matmul import binary_matmul  # noqa: E402
+from repro_torch.core.packing import pack_bits, pad_to_multiple, unpack_bits  # noqa: E402
+from repro_torch.kernels.binary_matmul import binary_matmul, binary_plan  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     POOL_CODES,
@@ -101,7 +103,7 @@ KERNELS = {
     "paged_attention_quant": ("src/repro_torch/csrc/paged_attention.cu",
                               "src/repro/kernels/paged_attention.py:158"),
     "binary_matmul": ("src/repro_torch/csrc/binary_matmul.cu",
-                      "src/repro/kernels/binary_matmul.py:48"),
+                      "src/repro/kernels/binary_matmul.py:49"),
 }
 DEV = torch.device("cuda")
 
@@ -275,53 +277,88 @@ def invariance_quant_matmul(gen):
 def invariance_moe_gmm(gen, cfg):
     """A live block's rows bit for bit whatever the other blocks hold: more
     and fewer live blocks, other experts in the other blocks (2-bit bucket
-    at the decode shape, bm 8, and a 4-bit one at bm 16; f32 and bf16)."""
-    k, n = cfg.d_ff_expert, cfg.d_model
+    at the decode shape, bm 8, and a 4-bit one at bm 16; ``moe_gmm`` and
+    ``moe_gmm_swiglu``; f32 and bf16)."""
+    d, f = cfg.d_model, cfg.d_ff_expert
+    for kind, (k, n) in (("moe_gmm", (f, d)), ("moe_gmm_swiglu", (d, f))):
+        for dtype in (torch.bfloat16, torch.float32):
+            for bits, experts, cap in ((2, 59, 24), (4, 5, 96)):
+                bm = gmm_block_rows(cap)
+                nblocks = experts * cap // bm
+                if kind == "moe_gmm":
+                    w = rand_weights(gen, experts, k, n, bits)
+                    call = lambda be_, na_t: moe_gmm(x, *w, be_, na_t, bits=bits, bm=bm)
+                else:
+                    (g, gs, gz), (u, us, uz) = (rand_weights(gen, experts, k, n, bits)
+                                                for _ in range(2))
+                    call = lambda be_, na_t: moe_gmm_swiglu(x, g, u, gs, gz, us, uz, be_, na_t,
+                                                            bits=bits, bm=bm)
+                x = torch.randn((experts * cap, k), generator=gen, device=DEV).to(dtype)
+                ids = torch.randint(0, experts, (nblocks,), generator=gen, device=DEV)
+                be = torch.sort(ids).values.to(torch.int32)
+                live = nblocks // 3
+
+                def run(be_, na_):
+                    return call(be_, torch.tensor([na_], dtype=torch.int32, device=DEV))
+
+                base = run(be, live)
+                other = be.clone()
+                other[0] = (other[0] + 1) % experts           # another expert in block 0
+                other[live:] = experts - 1 - other[live:]     # and in the dead blocks
+                checks = ((run(be, live + 4), live), (run(be, live - 2), live - 2),
+                          (run(other, live + 2), live))
+                for y, upto in checks:
+                    if not bitwise_equal(y[bm:upto * bm], base[bm:upto * bm]):
+                        raise AssertionError(f"{kind} b{bits} bm{bm} {dtype}: a live block's "
+                                             f"rows moved with the other blocks")
+                if (run(be, 0) != 0).any():
+                    raise AssertionError(f"{kind}: num_active 0 left non-zero rows")
+    log("batch invariance: moe_gmm and moe_gmm_swiglu live blocks bit-identical as "
+        "num_active and the other blocks' experts change (bm 8 and 16, f32 and bf16); "
+        "num_active 0 all zero")
+
+
+def invariance_binary_matmul(gen, cfg):
+    """A row's output bit for bit whatever M: rows of ``x[:m]`` against the
+    same rows of one call over all 64 (the expert gate/up shape, a ragged K
+    and N off the column tile; f32 and bf16)."""
     for dtype in (torch.bfloat16, torch.float32):
-        for bits, experts, cap in ((2, 59, 24), (4, 5, 96)):
-            bm = gmm_block_rows(cap)
-            nblocks = experts * cap // bm
-            w = rand_weights(gen, experts, k, n, bits)
-            x = torch.randn((experts * cap, k), generator=gen, device=DEV).to(dtype)
-            ids = torch.randint(0, experts, (nblocks,), generator=gen, device=DEV)
-            be = torch.sort(ids).values.to(torch.int32)
-            live = nblocks // 3
-
-            def run(be_, na_):
-                na_t = torch.tensor([na_], dtype=torch.int32, device=DEV)
-                return moe_gmm(x, *w, be_, na_t, bits=bits, bm=bm)
-
-            base = run(be, live)
-            other = be.clone()
-            other[0] = (other[0] + 1) % experts           # another expert in block 0
-            other[live:] = experts - 1 - other[live:]     # and in the dead blocks
-            checks = ((run(be, live + 4), live), (run(be, live - 2), live - 2),
-                      (run(other, live + 2), live))
-            for y, upto in checks:
-                if not bitwise_equal(y[bm:upto * bm], base[bm:upto * bm]):
-                    raise AssertionError(f"moe_gmm b{bits} bm{bm} {dtype}: a live block's "
-                                         f"rows moved with the other blocks")
-            if (run(be, 0) != 0).any():
-                raise AssertionError("moe_gmm: num_active 0 left non-zero rows")
-    log("batch invariance: moe_gmm live blocks bit-identical as num_active and the other "
-        "blocks' experts change (bm 8 and 16, f32 and bf16); num_active 0 all zero")
+        for k, n in ((cfg.d_model, cfg.d_ff_expert), (RAGGED_K + 3, 1400)):
+            _, (x, b_packed, alpha) = _binary_case(gen, dtype, 64, k, n)
+            full = binary_matmul(x, b_packed, alpha)
+            for m in (1, 5, 16, 24, 64):
+                if not bitwise_equal(binary_matmul(x[:m].contiguous(), b_packed, alpha),
+                                     full[:m]):
+                    raise AssertionError(f"binary_matmul K={k} N={n} {dtype}: rows of M={m} "
+                                         f"differ from the same rows at M=64")
+    log("batch invariance: binary_matmul rows bit-identical for M in 1/5/16/24/64 "
+        "(K = d_model and a ragged K, N on and off the column tile; f32 and bf16)")
 
 
 def check_tile_plans(cfg):
     """The kernel's own shared memory per block equals the host-side plan's
-    at every bf16 shape of the main path."""
+    at every bf16 shape of the main path (SwiGLU's gate/up with two
+    operands), and ``binary_matmul``'s at its shapes."""
     lib = build.load_library()
     d, f = cfg.d_model, cfg.d_ff_expert
     fs = f * cfg.num_shared_experts
-    shapes = [(d, d, 4, 8), (d, fs, 4, 8), (fs, d, 4, 8)]
-    shapes += [(kk, nn, b, r) for b in (1, 2, 3) for r in (8, 16) for kk, nn in ((d, f), (f, d))]
-    for k, n, bits, rows in shapes:
-        want = tile_plan(k, n, bits, cfg.quant.group, torch.bfloat16, rows=rows)["smem_bytes"]
-        got = lib.repro_dequant_gemm_sm90_smem(k, bits, cfg.quant.group, rows)
+    shapes = [(d, d, 4, 8, 1), (d, fs, 4, 8, 1), (fs, d, 4, 8, 1)]
+    shapes += [(kk, nn, b, r, nop) for b in (1, 2, 3) for r in (8, 16)
+               for kk, nn, nop in ((d, f, 2), (f, d, 1))]
+    for k, n, bits, rows, nop in shapes:
+        want = tile_plan(k, n, bits, cfg.quant.group, torch.bfloat16, rows=rows,
+                         operands=nop)["smem_bytes"]
+        got = lib.repro_dequant_gemm_sm90_smem(k, bits, cfg.quant.group, rows, nop)
         if got != want:
-            raise AssertionError(f"tile plan K={k} N={n} b{bits} rows {rows}: shared memory "
-                                 f"{want} in the plan, {got} in the kernel")
-    log(f"tile plans: {len(shapes)} main-path shapes, kernel shared memory == host plan")
+            raise AssertionError(f"tile plan K={k} N={n} b{bits} rows {rows} operands {nop}: "
+                                 f"shared memory {want} in the plan, {got} in the kernel")
+    for k in (d, RAGGED_K + 3, SHORT_K):
+        want, got = binary_plan(k, f)["smem_bytes"], lib.repro_binary_matmul_smem(k)
+        if got != want:
+            raise AssertionError(f"binary plan K={k}: shared memory {want} in the plan, {got} "
+                                 f"in the kernel")
+    log(f"tile plans: {len(shapes)} main-path shapes (SwiGLU with two operands) and 3 "
+        f"binary_matmul shapes, kernel shared memory == host plan")
 
 
 def _gmm_case(gen, kind, bits, dtype, cap, experts, live_rows, k, n):
@@ -388,12 +425,20 @@ def parity_moe(gen, results, cfg):
             args = (wg, wu, gs, gz, us, uz, be, na)
             call = lambda: moe_gmm_swiglu(x, *args, bits=2, bm=bm)
             plain = lambda: ref.moe_gmm_swiglu_ref(x, *args, bits=2, bm=bm)
-            library = None
+            # products only, no SwiGLU: the live blocks' x against the
+            # pre-dequantized [Wg | Wu] in one torch.bmm ([nlive, K, 2N])
+            w_gu = torch.cat([ref.dequant_ref(wg, gs, gz, 2, k, dtype=torch.bfloat16),
+                              ref.dequant_ref(wu, us, uz, 2, k, dtype=torch.bfloat16)], dim=-1)
+            w_live = w_gu[be[:nlive].long()]
+            x_live = x[: nlive * bm].view(nlive, bm, k)
+            library = time_ms(lambda: torch.bmm(x_live, w_live))[0]
         results[kind] = dict(
             max_abs_err=max(errs), **time_kernel(kind, call), plain_ms=time_ms(plain)[0],
             library_ms=library,
             shape=f"2-bit bucket of {n2} experts, cap {decode_cap}, bm {bm}, "
-                  f"{nlive} live blocks of {m // bm}, K={k} N={n} bf16",
+                  f"{nlive} live blocks of {m // bm}, K={k} N={n} bf16"
+                  + ("; library: torch.bmm of the gate and up products only, no SwiGLU"
+                     if kind == "moe_gmm_swiglu" else ""),
             **dict(zip(("bound_ms", "bound_by"),
                        bound(w_bytes + io_bytes, 2 * len(ws) * rows * k * n,
                              torch.bfloat16))),
@@ -538,7 +583,7 @@ def check_attention_plans():
 
 def _binary_case(gen, dtype, m, k, n):
     w = torch.randn((k, n), generator=gen, device=DEV)
-    b_packed = pack_bits((w >= 0).to(torch.uint8), 1, axis=0)
+    b_packed = pack_bits(pad_to_multiple((w >= 0).to(torch.uint8), 8, axis=0), 1, axis=0)
     alpha = w.abs().mean(dim=0, keepdim=True)
     x = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
     got = binary_matmul(x, b_packed, alpha)
@@ -547,11 +592,14 @@ def _binary_case(gen, dtype, m, k, n):
 
 
 def parity_binary_matmul(gen, results, cfg):
-    """Eq. 9 at an expert's gate/up shape (K = d_model, N = d_ff_expert) and
-    a ragged M; no serving caller, as in the reference."""
+    """Eq. 9 at an expert's gate/up shape (K = d_model, N = d_ff_expert),
+    ragged M, a ragged K (neither a multiple of 8 nor of 16) and N off the
+    16-column tile; no serving caller, as in the reference."""
     k, n = cfg.d_model, cfg.d_ff_expert
-    errs = [_binary_case(gen, dtype, m, k, n)[0]
-            for dtype in (torch.float32, torch.bfloat16) for m in (16, 5)]
+    errs = [_binary_case(gen, dtype, m, kk, nn)[0]
+            for dtype in (torch.float32, torch.bfloat16)
+            for m, kk, nn in ((16, k, n), (5, k, n), (1, k, n), (24, RAGGED_K + 3, 1400),
+                              (64, SHORT_K, 40))]
     m = 16
     err, (x, b_packed, alpha) = _binary_case(gen, torch.bfloat16, m, k, n)
     errs.append(err)
@@ -793,6 +841,7 @@ def main() -> int:
     parity_attention(gen, results, "fp")
     parity_attention(gen, results, "int8")
     invariance_attention(gen)
+    invariance_binary_matmul(gen, cfg)
     build.reset_launches()
     parity_binary_matmul(gen, results, cfg)
     binary_launches = build.LAUNCHES["binary_matmul"]

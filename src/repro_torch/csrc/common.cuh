@@ -20,14 +20,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
     return __float2bfloat16_rn(v);
 }
 
-// Round an f32 to the compute type of the reference: bf16 activations
-// multiply a weight rounded to bf16 (products stay exact in f32).
-template <typename T> __device__ __forceinline__ float round_compute(float v);
-template <> __device__ __forceinline__ float round_compute<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_compute<__nv_bfloat16>(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Kernels size their shared memory from runtime shapes; above 48 KB the
 // launch must opt in first or it is refused.
 template <typename K>

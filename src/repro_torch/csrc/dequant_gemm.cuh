@@ -1,6 +1,7 @@
 // Grouped dequantize-GEMM body on CUDA cores: the f32 activations of
-// quant_matmul.cu and moe_gmm.cu, and moe_gmm_swiglu in f32 and bf16 (bf16
-// quant_matmul and moe_gmm run dequant_gemm_sm90.cuh).
+// quant_matmul.cu and moe_gmm.cu (moe_gmm and moe_gmm_swiglu), the parity
+// path that keeps IEEE f32 products. Every bf16 call runs
+// dequant_gemm_sm90.cuh.
 //
 //   y[rows of block rb, cols] = x[rows, :] @ dq(W[e]),  e = block_expert[rb]
 //   dq(W)[k, n] = (q[k, n] - zero[k / group, n]) * scale[k / group, n]   (f32)
@@ -112,10 +113,10 @@ __host__ inline size_t dequant_gemm_smem(int group, int nwarps) {
     return b;
 }
 
-template <int BITS, typename T, int BM, bool SWIGLU>
-__global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand b,
+template <int BITS, int BM, bool SWIGLU>
+__global__ void dequant_gemm_kernel(const float* __restrict__ x, Operand a, Operand b,
                                     const int* __restrict__ block_expert,
-                                    const int* __restrict__ num_active, T* __restrict__ y,
+                                    const int* __restrict__ num_active, float* __restrict__ y,
                                     int M, int K, int N, int group) {
     constexpr int NOP = SWIGLU ? 2 : 1;
     extern __shared__ float4 smem_f4[];
@@ -126,7 +127,7 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
 
     if (num_active != nullptr && rb >= num_active[0]) {
         for (int m = wid; m < BM; m += nw)
-            if (m0 + m < M && col < N) y[(size_t)(m0 + m) * N + col] = from_f32<T>(0.f);
+            if (m0 + m < M && col < N) y[(size_t)(m0 + m) * N + col] = 0.f;
         return;
     }
     const int e = block_expert != nullptr ? block_expert[rb] : 0;
@@ -167,7 +168,7 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
         for (int idx = tid; idx < BM * group; idx += nthreads) {
             const int m = idx / group, kk = idx - m * group;
             xs[idx] = (m0 + m < M && kk < kg)
-                          ? to_f32(x[(size_t)(m0 + m) * K + g * group + kk]) : 0.f;
+                          ? x[(size_t)(m0 + m) * K + g * group + kk] : 0.f;
         }
 #pragma unroll
         for (int o = 0; o < NOP; ++o) {
@@ -186,7 +187,7 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
             const uint8_t* t = tiles + o * tbytes;
             for (int kk = k_lo; kk < min(k_lo + slice, kg); ++kk) {
                 const float q = (float)tile_code<BITS>(t, kk, lane, group);
-                const float w = round_compute<T>(__fmul_rn(__fsub_rn(q, z), s));
+                const float w = __fmul_rn(__fsub_rn(q, z), s);
 #pragma unroll
                 for (int m = 0; m < BM; ++m) acc[o][m] = fmaf(xs[m * group + kk], w, acc[o][m]);
             }
@@ -210,7 +211,7 @@ __global__ void dequant_gemm_kernel(const T* __restrict__ x, Operand a, Operand 
         }
         float out = r[0];
         if constexpr (SWIGLU) out = (r[0] / (1.f + expf(-r[0]))) * r[1];
-        y[(size_t)(m0 + m) * N + col] = from_f32<T>(out);
+        y[(size_t)(m0 + m) * N + col] = out;
     }
 }
 
@@ -221,45 +222,34 @@ inline int dequant_gemm_warps(int group) {
     return nw > 8 ? 8 : (nw < 1 ? 1 : nw);
 }
 
-template <int BITS, typename T, int BM, bool SWIGLU>
+template <int BITS, int BM, bool SWIGLU>
 cudaError_t launch_dequant_gemm(const void* x, Operand a, Operand b, const int* block_expert,
                                 const int* num_active, void* y, int M, int K, int N,
                                 int group, cudaStream_t stream) {
     const int nw = dequant_gemm_warps(group);
     const size_t smem = dequant_gemm_smem<BITS, BM, SWIGLU>(group, nw);
-    auto kernel = dequant_gemm_kernel<BITS, T, BM, SWIGLU>;
+    auto kernel = dequant_gemm_kernel<BITS, BM, SWIGLU>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((N + 31) / 32, (M + BM - 1) / BM);
     dim3 block(32, nw);
-    kernel<<<grid, block, smem, stream>>>(static_cast<const T*>(x), a, b, block_expert,
-                                          num_active, static_cast<T*>(y), M, K, N, group);
+    kernel<<<grid, block, smem, stream>>>(static_cast<const float*>(x), a, b, block_expert,
+                                          num_active, static_cast<float*>(y), M, K, N, group);
     return cudaGetLastError();
 }
 
-// Runtime (bits, dtype, bm) -> template instance. bf16 without SwiGLU runs
+// Runtime (bits, bm) -> template instance, f32 activations only: bf16 runs
 // the tensor-core body (dequant_gemm_sm90.cuh), so it has no instance here.
 template <bool SWIGLU>
 cudaError_t dispatch_dequant_gemm(const void* x, Operand a, Operand b, const int* block_expert,
                                   const int* num_active, void* y, int M, int K, int N,
-                                  int bits, int group, int bm, int dtype,
-                                  cudaStream_t stream) {
-#define REPRO_CASE(B, TT, BMV)                                                              \
-    if (bits == B && bm == BMV)                                                             \
-        return launch_dequant_gemm<B, TT, BMV, SWIGLU>(x, a, b, block_expert, num_active, y, \
-                                                       M, K, N, group, stream);
-#define REPRO_BITS(TT, BMV) \
-    REPRO_CASE(1, TT, BMV) REPRO_CASE(2, TT, BMV) REPRO_CASE(3, TT, BMV) REPRO_CASE(4, TT, BMV)
-    if (dtype == REPRO_DT_F32) {
-        REPRO_BITS(float, 8)
-        REPRO_BITS(float, 16)
-    } else if constexpr (SWIGLU) {
-        if (dtype == REPRO_DT_BF16) {
-            REPRO_BITS(__nv_bfloat16, 8)
-            REPRO_BITS(__nv_bfloat16, 16)
-        }
-    }
-#undef REPRO_BITS
+                                  int bits, int group, int bm, cudaStream_t stream) {
+#define REPRO_CASE(B, BMV)                                                                     \
+    if (bits == B && bm == BMV)                                                                \
+        return launch_dequant_gemm<B, BMV, SWIGLU>(x, a, b, block_expert, num_active, y, M, K, \
+                                                   N, group, stream);
+    REPRO_CASE(1, 8) REPRO_CASE(2, 8) REPRO_CASE(3, 8) REPRO_CASE(4, 8)
+    REPRO_CASE(1, 16) REPRO_CASE(2, 16) REPRO_CASE(3, 16) REPRO_CASE(4, 16)
 #undef REPRO_CASE
     return cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Grouped dequantize-GEMM body for bf16 activations on Hopper, shared by
-// quant_matmul.cu and moe_gmm.cu:
+// quant_matmul.cu and moe_gmm.cu, with one weight operand or two:
 //
-//   y[rows of block rb, cols] = x[rows, :] @ dq(W[e]),  e = block_expert[rb]
+//   NOP 1: y[rows of block rb, cols] = x[rows, :] @ dq(W[e]),  e = block_expert[rb]
+//   NOP 2: y[rows of block rb, cols] = silu(x @ dq(Wg[e])) * (x @ dq(Wu[e]))   (SwiGLU)
 //   dq(W)[k, n] = round_bf16((q[k, n] - zero[k / group, n]) * scale[k / group, n])
 //
 // The packed layout is the reference's, read as it is stored: uint8 along K,
@@ -11,39 +12,46 @@
 //
 // Work item: ROWS (8 or 16) rows x a 16-column tile, over all of K.
 //  - Staging: one 16-byte cp.async per packed row of the tile (the tile's
-//    16 columns of one packed row are 16 contiguous bytes), the scale/zero
-//    rows of every group and the item's x rows: a whole item's K range is
-//    in flight at once. Two stage buffers: while a block computes one item
-//    the next item's codes and group params are already on their way.
+//    16 columns of one packed row are 16 contiguous bytes) and operand, the
+//    scale/zero rows of every group and the item's x rows: a whole item's K
+//    range is in flight at once. Two stage buffers, each holding every
+//    operand: while a block computes one item the next item's codes and
+//    group params (gate and up for SwiGLU) are already on their way. x is
+//    staged once per row block.
 //  - Dequantisation: a code takes 2^bits values per (group, column), so
-//    those values are computed once per item with the exact expression
-//    round_bf16(__fmul_rn(__fsub_rn(q, z), s)) into shared-memory tables:
-//    for 1 and 2 bits one bf16 pair per pair of codes (a nibble or two bits
-//    index a ready A-fragment register), for 3 and 4 bits one bf16 per code.
-//    Each weight is a lookup, bit-identical to a per-weight dequant.
+//    those values are computed once per item and operand with the exact
+//    expression round_bf16(__fmul_rn(__fsub_rn(q, z), s)) into shared-memory
+//    tables: for 1 and 2 bits one bf16 pair per pair of codes (a nibble or
+//    two bits index a ready A-fragment register), for 3 and 4 bits one bf16
+//    per code. Each weight is a lookup, bit-identical to a per-weight dequant.
 //  - Products: bf16 mma.sync.m16n8k16 with f32 accumulation in swap-AB
 //    form, y^T[16 cols, 8 rows] += dq(W)^T[16 cols, 16 k] . x^T[16 k, 8 rows]:
 //    the 16 columns are the MMA's M, the rows its N (ROWS = 16 takes two
-//    n8 tiles off the same A fragments). A fragments are built in
-//    registers from the staged codes (ldmatrix cannot read codes). Within
-//    each k16 step, MMA k slots (2t, 2t+1 | 2t+8, 2t+9) of lane t carry
-//    codes 4t..4t+3, and MMA rows (g | g+8) columns (2g | 2g+1), so a lane's
-//    codes for one step come in one 16-bit load and its x in one 8-byte one.
+//    n8 tiles off the same A fragments; SwiGLU builds gate and up A
+//    fragments per k16 step and feeds both from the same x B fragments into
+//    2 x NT accumulator sets). A fragments are built in registers from the
+//    staged codes (ldmatrix cannot read codes). Within each k16 step, MMA k
+//    slots (2t, 2t+1 | 2t+8, 2t+9) of lane t carry codes 4t..4t+3, and MMA
+//    rows (g | g+8) columns (2g | 2g+1), so a lane's codes for one step come
+//    in one 16-bit load and its x in one 8-byte one.
 //  - K: the k16 steps are cut into kWarps contiguous slices, one per warp
 //    of the block, and the warps' partial tiles are added in warp order in
-//    shared memory. No atomics; every reduction runs in an order fixed by
-//    (K, N, bits, group), never by M or the row block, so a row's output
-//    is bit-identical whatever M or row block it is computed in.
+//    shared memory (SwiGLU: gate, then up, through the same buffer), then
+//    SwiGLU applies silu(g) * u in f32 before the single bf16 store: the
+//    gate and up products never reach device memory. No atomics; every
+//    reduction runs in an order fixed by (K, N, bits, group), never by M or
+//    the row block, so a row's output is bit-identical whatever M or row
+//    block it is computed in.
 //  - Grid: persistent. A fixed number of blocks (what fits on the SMs at
 //    once, at most one per work item) reads num_active[0] and block_expert
 //    on the device, takes an even contiguous share of the live (row block x
 //    column tile) items — consecutive items share a row block, whose x stays
 //    staged — and zero-fills the dead rows [num_active * ROWS, M) with
 //    16-byte stores in a grid-stride loop. No host sync.
-//
-// A second operand (the SwiGLU gate/up pair) adds a second staged weight
-// region and table, a second accumulator set fed by the same B fragments and
-// an epilogue before the store; the staging, tables and schedule stay.
+//  - Residency at K = 2048, group 128 (kernels/quant_matmul.py: tile_plan):
+//    SwiGLU's 2- and 3-bit rows-8 (decode) blocks take 110.25 and 102.25 KB
+//    of shared memory, so two fit on an SM; its 2- and 3-bit rows-16
+//    (prefill) blocks take 146.5 and 138.5 KB and run one per SM.
 #pragma once
 
 #include "dequant_gemm.cuh"
@@ -74,13 +82,16 @@ struct Layout {
     int r0;     // staged rows of plane 0 (rows of kx codes)
     int wrows;  // staged packed rows: plane 0, then plane 1 (3 bits)
     int xs;     // x row stride in bf16, padded so the 8 rows' 8-byte loads hit distinct banks
-    size_t stage;                          // one stage buffer: packed rows, then scale, zero
-    size_t sz_off, tab_off, x_off, red_off, total;
+    size_t sz_off;     // within one operand's stage: its scale, zero after the packed rows
+    size_t op_stage;   // one operand's stage: packed rows, then scale, zero
+    size_t stage;      // one stage buffer: every operand's stage
+    size_t tab_bytes;  // one operand's value tables
+    size_t tab_off, x_off, red_off, total;
 };
 
 __host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 
-template <int BITS, int ROWS>
+template <int BITS, int ROWS, int NOP>
 __host__ __device__ inline Layout layout(int K, int group) {
     Layout L;
     L.kx = (K + 15) / 16 * 16;
@@ -89,10 +100,11 @@ __host__ __device__ inline Layout layout(int K, int group) {
     L.wrows = L.r0 + Planes<BITS>::rows1(L.kx);
     L.xs = L.kx + 2 * ((8 - (L.kx / 2) % 32 + 32) % 32);
     L.sz_off = (size_t)L.wrows * kCols;
-    L.stage = L.sz_off + (size_t)L.ng * 2 * kCols * sizeof(float);
+    L.op_stage = L.sz_off + (size_t)L.ng * 2 * kCols * sizeof(float);
+    L.stage = NOP * L.op_stage;
     L.tab_off = 2 * L.stage;
-    L.x_off = L.tab_off + round16((size_t)L.ng * kCols * Table<BITS>::kStride *
-                                  Table<BITS>::kEntryBytes);
+    L.tab_bytes = round16((size_t)L.ng * kCols * Table<BITS>::kStride * Table<BITS>::kEntryBytes);
+    L.x_off = L.tab_off + NOP * L.tab_bytes;
     L.red_off = L.x_off + (size_t)ROWS * L.xs * sizeof(__nv_bfloat16);
     L.total = L.red_off + (size_t)kWarps * ROWS * kCols * sizeof(float);
     return L;
@@ -179,17 +191,18 @@ __device__ __forceinline__ void a_fragments(uint32_t (&a)[4], const uint8_t* ws,
     }
 }
 
-template <int BITS, int ROWS>
+template <int BITS, int ROWS, int NOP>
 __global__ void __launch_bounds__(kThreads, 2)
-dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
+dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand b,
                          const int* __restrict__ block_expert,
                          const int* __restrict__ num_active, __nv_bfloat16* __restrict__ y,
                          int M, int K, int N, int group) {
     constexpr int NT = ROWS / 8;  // n8 tiles per item
+    static_assert(ROWS * kCols <= kThreads, "one output element per thread");
     using T = Table<BITS>;
     extern __shared__ __align__(16) uint8_t smem[];
-    const Layout L = layout<BITS, ROWS>(K, group);
-    uint8_t* tab = smem + L.tab_off;                                        // [ng][16][stride]
+    const Layout L = layout<BITS, ROWS, NOP>(K, group);
+    uint8_t* tab = smem + L.tab_off;                                        // [NOP][ng][16][stride]
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.x_off);  // [ROWS][xs]
     float* red = reinterpret_cast<float*>(smem + L.red_off);               // [warps][ROWS][16]
 
@@ -216,49 +229,56 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
     const int i1 = (int)(items * (blockIdx.x + 1) / gridDim.x);
     if (i0 >= i1) return;
 
+    const Operand ops[2] = {a, b};
     // 16-byte copies need 16-byte aligned rows: N a multiple of 16 for the
     // packed planes and scale/zero, K a multiple of 8 for x
-    const uintptr_t align = reinterpret_cast<uintptr_t>(a.p0) |
-                            reinterpret_cast<uintptr_t>(a.p1) |
-                            reinterpret_cast<uintptr_t>(a.scale) |
-                            reinterpret_cast<uintptr_t>(a.zero);
+    uintptr_t align = 0;
+#pragma unroll
+    for (int o = 0; o < NOP; ++o)
+        align |= reinterpret_cast<uintptr_t>(ops[o].p0) | reinterpret_cast<uintptr_t>(ops[o].p1) |
+                 reinterpret_cast<uintptr_t>(ops[o].scale) |
+                 reinterpret_cast<uintptr_t>(ops[o].zero);
     const bool vec_w = (N % kCols) == 0 && (align & 15) == 0;
     const bool vec_x = (K % 8) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const int R0 = Planes<BITS>::rows0(K), R1 = Planes<BITS>::rows1(K);  // rows in memory
 
-    // the packed rows and group params of item `it` into stage buffer `buf`
+    // every operand's packed rows and group params of item `it` into stage buffer `buf`
     auto stage_w = [&](int it, int buf) {
         const int rb = it / ntiles, n0 = (it % ntiles) * kCols;
         const int e = block_expert != nullptr ? block_expert[rb] : 0;
-        uint8_t* ws = smem + buf * L.stage;
-        float* sz = reinterpret_cast<float*>(ws + L.sz_off);  // scale [ng][16], zero [ng][16]
-        const uint8_t* g0 = a.p0 + (size_t)e * R0 * N + n0;
-        const uint8_t* g1 = BITS == 3 ? a.p1 + (size_t)e * R1 * N + n0 : nullptr;
-        for (int r = tid; r < L.wrows; r += kThreads) {
-            const uint8_t* src = nullptr;
-            if (r < L.r0) {
-                if (r < R0) src = g0 + (size_t)r * N;
-            } else if (r - L.r0 < R1) {
-                src = g1 + (size_t)(r - L.r0) * N;
+#pragma unroll
+        for (int o = 0; o < NOP; ++o) {
+            uint8_t* ws = smem + buf * L.stage + o * L.op_stage;
+            float* sz = reinterpret_cast<float*>(ws + L.sz_off);  // scale [ng][16], zero [ng][16]
+            const uint8_t* g0 = ops[o].p0 + (size_t)e * R0 * N + n0;
+            const uint8_t* g1 = BITS == 3 ? ops[o].p1 + (size_t)e * R1 * N + n0 : nullptr;
+            for (int r = tid; r < L.wrows; r += kThreads) {
+                const uint8_t* src = nullptr;
+                if (r < L.r0) {
+                    if (r < R0) src = g0 + (size_t)r * N;
+                } else if (r - L.r0 < R1) {
+                    src = g1 + (size_t)(r - L.r0) * N;
+                }
+                uint8_t* dst = ws + r * kCols;
+                if (vec_w && src != nullptr) {
+                    cp_async16(dst, src);
+                } else if (vec_w) {
+                    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+                } else {
+                    for (int c = 0; c < kCols; ++c) dst[c] = (src && n0 + c < N) ? src[c] : 0;
+                }
             }
-            uint8_t* dst = ws + r * kCols;
-            if (vec_w && src != nullptr) {
-                cp_async16(dst, src);
-            } else if (vec_w) {
-                *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-            } else {
-                for (int c = 0; c < kCols; ++c) dst[c] = (src && n0 + c < N) ? src[c] : 0;
-            }
-        }
-        const size_t gbase = (size_t)e * L.ng * N + n0;
-        for (int i = tid; i < L.ng * 8; i += kThreads) {  // [scale|zero][group][4 x 16 B]
-            const int arr = i / (L.ng * 4), g = (i / 4) % L.ng, ch = i % 4;
-            const float* src = (arr ? a.zero : a.scale) + gbase + (size_t)g * N + ch * 4;
-            float* dst = sz + (arr * L.ng + g) * kCols + ch * 4;
-            if (vec_w) {
-                cp_async16(dst, src);
-            } else {
-                for (int j = 0; j < 4; ++j) dst[j] = n0 + ch * 4 + j < N ? src[j] : 0.f;
+            const size_t gbase = (size_t)e * L.ng * N + n0;
+            for (int i = tid; i < L.ng * 8; i += kThreads) {  // [scale|zero][group][4 x 16 B]
+                const int arr = i / (L.ng * 4), g = (i / 4) % L.ng, ch = i % 4;
+                const float* src = (arr ? ops[o].zero : ops[o].scale) + gbase + (size_t)g * N +
+                                   ch * 4;
+                float* dst = sz + (arr * L.ng + g) * kCols + ch * 4;
+                if (vec_w) {
+                    cp_async16(dst, src);
+                } else {
+                    for (int j = 0; j < 4; ++j) dst[j] = n0 + ch * 4 + j < N ? src[j] : 0.f;
+                }
             }
         }
     };
@@ -305,24 +325,27 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
         }
         __syncthreads();
 
-        // ---- the item's value tables: one thread per (group, column) computes
-        // its 2^bits values once and writes the entries
-        {
-            const float* sc = reinterpret_cast<const float*>(smem + buf * L.stage + L.sz_off);
+        // ---- the item's value tables: one thread per (group, column) of each
+        // operand computes its 2^bits values once and writes the entries
+        constexpr int NQ = 1 << BITS;
+#pragma unroll
+        for (int o = 0; o < NOP; ++o) {
+            const float* sc = reinterpret_cast<const float*>(smem + buf * L.stage +
+                                                             o * L.op_stage + L.sz_off);
             const float* ze = sc + L.ng * kCols;
-            constexpr int NQ = 1 << BITS;
+            uint8_t* to = tab + o * L.tab_bytes;
             for (int gc = tid; gc < L.ng * kCols; gc += kThreads) {
                 const float z = ze[gc], s = sc[gc];
                 uint32_t v[NQ];
 #pragma unroll
                 for (int q = 0; q < NQ; ++q) v[q] = dq_bits(q, z, s);
                 if constexpr (T::kPairs) {
-                    uint32_t* dst = reinterpret_cast<uint32_t*>(tab) + gc * T::kStride;
+                    uint32_t* dst = reinterpret_cast<uint32_t*>(to) + gc * T::kStride;
 #pragma unroll
                     for (int p = 0; p < T::kEntries; ++p)
                         dst[p] = v[p & (NQ - 1)] | (v[p >> BITS] << 16);
                 } else {
-                    uint16_t* dst = reinterpret_cast<uint16_t*>(tab) + gc * T::kStride;
+                    uint16_t* dst = reinterpret_cast<uint16_t*>(to) + gc * T::kStride;
 #pragma unroll
                     for (int q = 0; q < NQ; ++q) dst[q] = (uint16_t)v[q];
                 }
@@ -332,11 +355,13 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
 
         // ---- this warp's K slice: A from the staged codes, B from x
         const uint8_t* ws = smem + buf * L.stage;
-        float acc[NT][4];
+        float acc[NOP][NT][4];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+        for (int o = 0; o < NOP; ++o)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[o][nt][j] = 0.f;
         int g = s_lo / spg, left = spg - s_lo % spg;  // group of the step, steps left in it
         const uint8_t* tb = tab + g * tab_group;
         // launch/probe_dequant.py builds a copy without the products to split
@@ -345,13 +370,16 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
 #pragma unroll 2
         for (int s = s_lo; s < s_hi; ++s) {
             const int kb = s * 16;
-            uint32_t A[4];
-            a_fragments<BITS>(A, ws, L.r0, kb, t, c0, tb);
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                const uint2 b = *reinterpret_cast<const uint2*>(xs + (nt * 8 + gq) * L.xs + kb +
-                                                                4 * t);
-                mma_16816(acc[nt], A, b.x, b.y);
+            for (int o = 0; o < NOP; ++o) {  // SwiGLU: gate, then up, off the same x
+                uint32_t A[4];
+                a_fragments<BITS>(A, ws + o * L.op_stage, L.r0, kb, t, c0, tb + o * L.tab_bytes);
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                    const uint2 b = *reinterpret_cast<const uint2*>(xs + (nt * 8 + gq) * L.xs +
+                                                                    kb + 4 * t);
+                    mma_16816(acc[o][nt], A, b.x, b.y);
+                }
             }
             if (--left == 0) {
                 left = spg;
@@ -360,32 +388,45 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a,
         }
 
 #endif
-        // ---- fixed-order reduction of the warps' partial tiles, then store
+        // ---- fixed-order reduction of the warps' partial tiles (SwiGLU: gate,
+        // then up, through the one buffer), then the epilogue and the store
         float* rw = red + warp * ROWS * kCols;
+        float out[NOP];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {  // MMA rows gq | gq + 8 are columns c0 | c0 + 1
-            const int r = nt * 8 + 2 * t;
-            *reinterpret_cast<float2*>(rw + r * kCols + c0) = make_float2(acc[nt][0], acc[nt][2]);
-            *reinterpret_cast<float2*>(rw + (r + 1) * kCols + c0) =
-                make_float2(acc[nt][1], acc[nt][3]);
+        for (int o = 0; o < NOP; ++o) {
+            if (o > 0) __syncthreads();  // the previous operand's sums are read
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {  // MMA rows gq | gq + 8 are columns c0 | c0 + 1
+                const int r = nt * 8 + 2 * t;
+                *reinterpret_cast<float2*>(rw + r * kCols + c0) =
+                    make_float2(acc[o][nt][0], acc[o][nt][2]);
+                *reinterpret_cast<float2*>(rw + (r + 1) * kCols + c0) =
+                    make_float2(acc[o][nt][1], acc[o][nt][3]);
+            }
+            __syncthreads();
+            if (tid < ROWS * kCols) {
+                float v = red[tid];
+                for (int w = 1; w < kWarps; ++w) v += red[w * ROWS * kCols + tid];
+                out[o] = v;
+            }
         }
-        __syncthreads();
-        for (int i = tid; i < ROWS * kCols; i += kThreads) {
-            float v = red[i];
-            for (int w = 1; w < kWarps; ++w) v += red[w * ROWS * kCols + i];
-            const int m = m0 + i / kCols, n = n0 + i % kCols;
+        if (tid < ROWS * kCols) {
+            const int m = m0 + tid / kCols, n = n0 + tid % kCols;
+            float v = out[0];
+            if constexpr (NOP == 2) v = v / (1.f + expf(-v)) * out[1];
             if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16_rn(v);
         }
         // the next item's tables and partials are written only after its own
-        // wait barrier, which every thread reaches after this store loop
+        // wait barrier, which every thread reaches after this store
     }
 }
 
-template <int BITS, int ROWS>
-cudaError_t launch(const void* x, Operand a, const int* block_expert, const int* num_active,
-                   void* y, int M, int K, int N, int group, cudaStream_t stream) {
-    const Layout L = layout<BITS, ROWS>(K, group);
-    auto kernel = dequant_gemm_sm90_kernel<BITS, ROWS>;
+template <int BITS, int ROWS, int NOP>
+cudaError_t launch(const void* x, Operand a, Operand b, const int* block_expert,
+                   const int* num_active, void* y, int M, int K, int N, int group,
+                   cudaStream_t stream) {
+    const Layout L = layout<BITS, ROWS, NOP>(K, group);
+    auto kernel = dequant_gemm_sm90_kernel<BITS, ROWS, NOP>;
     // Opt in to the card's whole shared memory once per instance; then the
     // blocks resident per SM at each shared-memory size seen (a few K per
     // model), so the CUDA runtime is queried once per size, not per launch.
@@ -419,19 +460,21 @@ cudaError_t launch(const void* x, Operand a, const int* block_expert, const int*
     }
     const long items = (long)((M + ROWS - 1) / ROWS) * ((N + kCols - 1) / kCols);
     const int grid = (int)(items < blocks ? items : blocks);
-    kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const __nv_bfloat16*>(x), a,
+    kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const __nv_bfloat16*>(x), a, b,
                                                 block_expert, num_active,
                                                 static_cast<__nv_bfloat16*>(y), M, K, N, group);
     return cudaGetLastError();
 }
 
-// Runtime (bits, rows) -> template instance; bf16 activations only.
-inline cudaError_t dispatch(const void* x, Operand a, const int* block_expert,
-                            const int* num_active, void* y, int M, int K, int N, int bits,
-                            int group, int rows, cudaStream_t stream) {
-#define REPRO_SM90_CASE(B, R)                                                              \
-    if (bits == B && rows == R)                                                            \
-        return launch<B, R>(x, a, block_expert, num_active, y, M, K, N, group, stream);
+// Runtime (bits, rows) -> template instance; bf16 activations only. NOP 1
+// reads operand a alone; NOP 2 is SwiGLU with gate a and up b.
+template <int NOP>
+cudaError_t dispatch(const void* x, Operand a, Operand b, const int* block_expert,
+                     const int* num_active, void* y, int M, int K, int N, int bits, int group,
+                     int rows, cudaStream_t stream) {
+#define REPRO_SM90_CASE(B, R)                                                                 \
+    if (bits == B && rows == R)                                                               \
+        return launch<B, R, NOP>(x, a, b, block_expert, num_active, y, M, K, N, group, stream);
     REPRO_SM90_CASE(1, 8) REPRO_SM90_CASE(2, 8) REPRO_SM90_CASE(3, 8) REPRO_SM90_CASE(4, 8)
     REPRO_SM90_CASE(1, 16) REPRO_SM90_CASE(2, 16) REPRO_SM90_CASE(3, 16) REPRO_SM90_CASE(4, 16)
 #undef REPRO_SM90_CASE
@@ -439,9 +482,12 @@ inline cudaError_t dispatch(const void* x, Operand a, const int* block_expert,
 }
 
 // Shared-memory bytes of one block, for the host-side plan to check against.
-inline long smem_bytes(int K, int bits, int group, int rows) {
-#define REPRO_SM90_SMEM(B, R) \
-    if (bits == B && rows == R) return (long)layout<B, R>(K, group).total;
+inline long smem_bytes(int K, int bits, int group, int rows, int operands) {
+#define REPRO_SM90_SMEM(B, R)                                                      \
+    if (bits == B && rows == R)                                                    \
+        return (long)(operands == 2 ? layout<B, R, 2>(K, group) : layout<B, R, 1>(K, group)) \
+            .total;
+    if (operands != 1 && operands != 2) return -1;
     REPRO_SM90_SMEM(1, 8) REPRO_SM90_SMEM(2, 8) REPRO_SM90_SMEM(3, 8) REPRO_SM90_SMEM(4, 8)
     REPRO_SM90_SMEM(1, 16) REPRO_SM90_SMEM(2, 16) REPRO_SM90_SMEM(3, 16) REPRO_SM90_SMEM(4, 16)
 #undef REPRO_SM90_SMEM

@@ -40,16 +40,20 @@ extern "C" int repro_quant_matmul(const void* x, const void* w0, const void* w1,
                      static_cast<const float*>(scale), static_cast<const float*>(zero)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == REPRO_DT_BF16)
-        return (int)repro::sm90::dispatch(x, a, nullptr, nullptr, y, M, K, N, bits, group, 8, s);
+        return (int)repro::sm90::dispatch<1>(x, a, a, nullptr, nullptr, y, M, K, N, bits, group,
+                                             8, s);
+    if (dtype != REPRO_DT_F32) return (int)cudaErrorInvalidValue;
     const int bm = M <= 8 ? 8 : 16;  // f32: row grouping only, the arithmetic is per row
     return (int)repro::dispatch_dequant_gemm<false>(x, a, a, nullptr, nullptr, y, M, K, N, bits,
-                                                     group, bm, dtype, s);
+                                                     group, bm, s);
 }
 
-// Shared-memory bytes of one block of the bf16 body (rows 8 or 16), so the
-// host-side plan (kernels/quant_matmul.py: tile_plan) can be held to it.
-extern "C" long repro_dequant_gemm_sm90_smem(int K, int bits, int group, int rows) {
-    return repro::sm90::smem_bytes(K, bits, group, rows);
+// Shared-memory bytes of one block of the bf16 body (rows 8 or 16; one
+// operand, or two for SwiGLU), so the host-side plan
+// (kernels/quant_matmul.py: tile_plan) can be held to it.
+extern "C" long repro_dequant_gemm_sm90_smem(int K, int bits, int group, int rows,
+                                             int operands) {
+    return repro::sm90::smem_bytes(K, bits, group, rows, operands);
 }
 
 extern "C" const char* repro_error_string(int err) {

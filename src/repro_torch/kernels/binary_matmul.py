@@ -1,22 +1,49 @@
 """``binary_matmul``: ``y = (x @ (2·unpack(b_packed) − 1)) · alpha`` (paper
 Eq. 9) — the wrapper of the Hopper kernel in ``csrc/binary_matmul.cu``
-(port of ``repro/kernels/binary_matmul.py:48 binary_matmul_pallas``).
+(port of ``repro/kernels/binary_matmul.py:49 binary_matmul_pallas``).
 
 ``x [M, K]`` f32 or bf16; ``b_packed [ceil(K/8), N]`` uint8 (bit ``i`` of
 byte ``r`` is row ``8r + i``); ``alpha [1, N]`` f32. No model path calls
 it, in the port as in the reference (1-bit experts ride ``moe_gmm`` in the
 affine form scale = 2α, zero = 0.5). A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises.
+a CUDA tensor launches the kernel or raises. bf16 x runs a tensor-core
+kernel whose tiling is :func:`binary_plan`; f32 x keeps IEEE f32 products
+on CUDA cores.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import ref
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
-from .quant_matmul import ptr, require
+from .quant_matmul import COL_TILE, SMEM_OPTIN, WARPS, ptr, require
 
-__all__ = ["binary_matmul"]
+__all__ = ["binary_matmul", "binary_plan"]
+
+#: the bf16 kernel's row tile (the MMA's N)
+ROWS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def binary_plan(k: int, n: int) -> dict:
+    """The tiling of the bf16 kernel in ``csrc/binary_matmul.cu`` for these
+    static shapes (no M: a row's arithmetic never depends on how many rows
+    there are). One block per (8-row block, 16-column tile) stages the
+    tile's ``k_steps · 2`` packed rows and its x rows; ``k_slices`` are the
+    warps' ranges of k16 steps, added in warp order before alpha;
+    ``smem_bytes`` mirrors the kernel's ``Layout`` (the C function
+    ``repro_binary_matmul_smem`` reports the kernel's own)."""
+    kx = -(-k // 16) * 16
+    steps = kx // 16
+    spw = -(-steps // WARPS)
+    x_stride = kx + 2 * ((8 - (kx // 2) % 32) % 32)
+    smem = kx // 8 * COL_TILE + ROWS * x_stride * 2 + WARPS * ROWS * COL_TILE * 4
+    return {"rows": ROWS, "col_tile": COL_TILE, "warps": WARPS, "n_tiles": -(-n // COL_TILE),
+            "k_steps": steps,
+            "k_slices": [(w * spw, min(steps, (w + 1) * spw)) for w in range(WARPS)],
+            "smem_bytes": smem}
 
 
 def binary_matmul(x: torch.Tensor, b_packed: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -34,6 +61,10 @@ def binary_matmul(x: torch.Tensor, b_packed: torch.Tensor, alpha: torch.Tensor) 
     for t in (x, b_packed, alpha):
         require(t.device == x.device and t.is_contiguous(),
                 f"{name}: operands must be contiguous on one device")
+    if x.dtype == torch.bfloat16:
+        smem = binary_plan(k, n)["smem_bytes"]
+        require(smem <= SMEM_OPTIN, f"{name}: K too long for the bf16 kernel's whole-K staging "
+                                    f"({smem} bytes of shared memory > {SMEM_OPTIN})")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y

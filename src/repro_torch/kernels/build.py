@@ -81,9 +81,12 @@ _SIGNATURES = {
 }
 #: functions that return a C long (shared memory bytes of a block)
 _LONG_SIGNATURES = {
-    "repro_dequant_gemm_sm90_smem": [_I] * 4,
+    # K, bits, group, rows, operands
+    "repro_dequant_gemm_sm90_smem": [_I] * 5,
     # BS, dh, G, pool code (kernels/paged_attention.py POOL_CODES)
     "repro_paged_attention_smem": [_I] * 4,
+    # K
+    "repro_binary_matmul_smem": [_I],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

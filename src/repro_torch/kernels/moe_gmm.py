@@ -82,6 +82,8 @@ def moe_gmm_swiglu(x_sorted: torch.Tensor, wg_packed, wu_packed, g_scale, g_zero
     kw = dict(bits=bits, group=group, k=k, n=n, lead=(e,), device=x_sorted.device)
     g0, g1 = check_operand("moe_gmm_swiglu", wg_packed, g_scale, g_zero, **kw)
     u0, u1 = check_operand("moe_gmm_swiglu", wu_packed, u_scale, u_zero, **kw)
+    check_plan("moe_gmm_swiglu", tile_plan(k, n, bits, group, x_sorted.dtype, rows=bm,
+                                           operands=2))
     y = torch.empty((m, n), dtype=x_sorted.dtype, device=x_sorted.device)
     if m == 0:
         return y

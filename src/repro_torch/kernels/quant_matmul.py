@@ -20,24 +20,32 @@ __all__ = ["quant_matmul", "tile_plan"]
 
 _PER = {1: 8, 2: 4, 4: 2}
 
-#: the bf16 body's column tile (the MMA's M), warps per block (K slices)
-#: and the shared memory one block may opt in to on an H100
+#: the bf16 body's column tile (the MMA's M), warps per block (K slices),
+#: the shared memory one block may opt in to on an H100, and an SM's whole
+#: shared memory with what the runtime reserves per resident block
 COL_TILE, WARPS, SMEM_OPTIN = 16, 8, 232448
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 
 
 @functools.lru_cache(maxsize=None)  # every launch asks; a model has a few shapes
-def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8) -> dict:
+def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8,
+              operands: int = 1) -> dict:
     """The tiling that ``csrc/dequant_gemm_sm90.cuh`` runs for these static
     shapes (``rows`` is the work item's row tile: 8 for ``quant_matmul``,
-    the row block ``bm`` for ``moe_gmm``). It takes no M: the number of
-    rows changes how many items run, never a row's arithmetic.
+    the row block ``bm`` for ``moe_gmm``; ``operands`` is 2 for
+    ``moe_gmm_swiglu``'s gate and up). It takes no M: the number of rows
+    changes how many items run, never a row's arithmetic.
 
     ``k_slices`` are the warps' ranges of k16 steps, added in warp order;
     ``smem_bytes`` mirrors the kernel's ``Layout`` (the C function
-    ``repro_dequant_gemm_sm90_smem`` reports the kernel's own). f32
-    activations run the older CUDA-core body, which has no plan here."""
+    ``repro_dequant_gemm_sm90_smem`` reports the kernel's own) and
+    ``smem_blocks_per_sm`` is how many such blocks an SM's shared memory
+    holds (registers may allow fewer).
+    f32 activations run the older CUDA-core body, which has no plan here."""
+    if operands not in (1, 2):
+        raise ValueError(f"the bf16 body takes 1 or 2 weight operands, got {operands}")
     if dtype != torch.bfloat16:
-        return {"body": "dequant_gemm.cuh", "rows": rows}
+        return {"body": "dequant_gemm.cuh", "rows": rows, "operands": operands}
     kx = -(-k // 16) * 16
     ng = -(-k // group)
     plane_rows = (kx // 8 * 2 + kx // 8) if bits == 3 else kx // _PER[bits]
@@ -49,14 +57,16 @@ def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8) -> di
     entries = 1 << (2 * bits if pairs else bits)
     table = ng * COL_TILE * (entries + 1 if pairs else entries + 2) * (4 if pairs else 2)
     x_stride = kx + 2 * ((8 - (kx // 2) % 32) % 32)  # bf16; rows 8 words apart mod 32 banks
-    stage = plane_rows * COL_TILE + ng * 2 * COL_TILE * 4  # codes + scale/zero, two buffers
-    smem = (2 * stage + -(-table // 16) * 16 + rows * x_stride * 2
-            + WARPS * rows * COL_TILE * 4)
+    stage = plane_rows * COL_TILE + ng * 2 * COL_TILE * 4  # codes + scale/zero of one operand
+    smem = (2 * operands * stage + operands * (-(-table // 16) * 16) + rows * x_stride * 2
+            + WARPS * rows * COL_TILE * 4)  # two stage buffers, tables, x, one reduction buffer
     return {
-        "body": "dequant_gemm_sm90.cuh", "rows": rows, "col_tile": COL_TILE, "warps": WARPS,
+        "body": "dequant_gemm_sm90.cuh", "rows": rows, "operands": operands,
+        "col_tile": COL_TILE, "warps": WARPS,
         "n_tiles": -(-n // COL_TILE), "k_steps": steps,
         "k_slices": [(w * spw, min(steps, (w + 1) * spw)) for w in range(WARPS)],
         "tables": "code pairs" if pairs else "codes", "smem_bytes": smem,
+        "smem_blocks_per_sm": SMEM_PER_SM // (smem + SMEM_RESERVED),
     }
 
 

@@ -5,14 +5,16 @@
 Builds ``csrc/dequant_gemm_sm90.cuh`` twice with ``nvcc`` into
 ``build/probe/``: as it ships, and with ``-DREPRO_SM90_PROBE_NO_PRODUCTS``,
 which leaves out the k16 loop of A-fragment lookups and tensor-core
-products (staging, value tables, the warps' reduction, stores and the
-dead-row zeros stay). Times both at the main path's shapes — ``quant_matmul``
-at decode (M=4, K=N=2048) and prefill (M=16, K=2048, N=2816), 4-bit, and
-``moe_gmm`` on the 2-bit bucket at decode (59 experts, capacity 24, bm 8,
-20 live row blocks, K=1408 → N=2048) — as the median of 50 launches with
-the L2 flushed before each and without, plus an empty ``zero_`` of one
-element as the floor of the timing method. Prints one JSON line. A probe of
-where the time goes, not a kernel of the port: nothing imports it.
+products (staging, value tables, the warps' reduction, the SwiGLU epilogue,
+stores and the dead-row zeros stay). Times both at the main path's shapes —
+``quant_matmul`` at decode (M=4, K=N=2048) and prefill (M=16, K=2048,
+N=2816), 4-bit, and the 2-bit bucket at decode (59 experts, capacity 24,
+bm 8, 20 live row blocks) through ``moe_gmm`` (K=1408 → N=2048) and
+``moe_gmm_swiglu`` (two operands, K=2048 → N=1408) — as the median of 50
+launches with the L2 flushed before each and without, plus an empty
+``zero_`` of one element as the floor of the timing method. Prints one JSON
+line. A probe of where the time goes, not a kernel of the port: nothing
+imports it.
 """
 from __future__ import annotations
 
@@ -30,13 +32,19 @@ from ..kernels import build
 PROBE_DIR = build.BUILD_DIR.parent / "probe"
 _SHIM = """#include "dequant_gemm_sm90.cuh"
 extern "C" int probe_gemm(const void* x, const void* w0, const void* w1, const void* scale,
-                          const void* zero, const void* be, const void* na, void* y, int M,
+                          const void* zero, const void* u0, const void* u1, const void* u_scale,
+                          const void* u_zero, const void* be, const void* na, void* y, int M,
                           int K, int N, int bits, int group, int rows, void* stream) {
     repro::Operand a{static_cast<const uint8_t*>(w0), static_cast<const uint8_t*>(w1),
                      static_cast<const float*>(scale), static_cast<const float*>(zero)};
-    return (int)repro::sm90::dispatch(x, a, static_cast<const int*>(be),
-                                      static_cast<const int*>(na), y, M, K, N, bits, group,
-                                      rows, static_cast<cudaStream_t>(stream));
+    repro::Operand b{static_cast<const uint8_t*>(u0), static_cast<const uint8_t*>(u1),
+                     static_cast<const float*>(u_scale), static_cast<const float*>(u_zero)};
+    const int* bp = static_cast<const int*>(be);
+    const int* np = static_cast<const int*>(na);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (u0 != nullptr)  // a second operand: SwiGLU
+        return (int)repro::sm90::dispatch<2>(x, a, b, bp, np, y, M, K, N, bits, group, rows, s);
+    return (int)repro::sm90::dispatch<1>(x, a, a, bp, np, y, M, K, N, bits, group, rows, s);
 }
 """
 VARIANTS = {"full": [], "no_products": ["-DREPRO_SM90_PROBE_NO_PRODUCTS"]}
@@ -58,7 +66,7 @@ def _libraries() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the {name} probe:\n{err}")
         lib = ctypes.CDLL(str(PROBE_DIR / f"probe_{name}.so"))
-        lib.probe_gemm.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.probe_gemm.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.probe_gemm.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -97,19 +105,24 @@ def _cases(gen):
         data, s, z = weights(1, k, n, 4)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-        cases[name] = (x, data[0], None, s[0], z[0], None, None, y, m, k, n, 4, 8)
-    experts, cap, bm, k, n = 59, 24, 8, 1408, 2048
+        cases[name] = (x, (data[0], None, s[0], z[0]), None, None, None, y, m, k, n, 4, 8)
+    experts, cap, bm = 59, 24, 8
     live = [1] * 16 + [2] * 4
     ids = [e for e, r in enumerate(live) for _ in range(-(-r // bm))]
     nlive = len(ids)
     ids += [experts - 1] * (experts * cap // bm - nlive)
     be = torch.tensor(ids, dtype=torch.int32, device=dev)
     na = torch.tensor([nlive], dtype=torch.int32, device=dev)
-    data, s, z = weights(experts, k, n, 2)
-    x = torch.randn((experts * cap, k), generator=gen, device=dev).to(torch.bfloat16)
-    y = torch.empty((experts * cap, n), dtype=torch.bfloat16, device=dev)
-    cases["moe_gmm 2-bit bucket decode, 20 live blocks of 177, K=1408 N=2048"] = (
-        x, data, None, s, z, be, na, y, experts * cap, k, n, 2, bm)
+    for name, (k, n), nop in (("moe_gmm", (1408, 2048), 1), ("moe_gmm_swiglu", (2048, 1408), 2)):
+        ops = []
+        for _ in range(nop):
+            data, s, z = weights(experts, k, n, 2)
+            ops.append((data, None, s, z))
+        x = torch.randn((experts * cap, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.empty((experts * cap, n), dtype=torch.bfloat16, device=dev)
+        key = f"{name} 2-bit bucket decode, 20 live blocks of 177, K={k} N={n}"
+        cases[key] = (x, ops[0], ops[1] if nop == 2 else None, be, na, y, experts * cap, k, n,
+                      2, bm)
     return cases
 
 
@@ -124,9 +137,9 @@ def main() -> None:
         row = {}
         for variant, lib in libs.items():
             def call(lib=lib):
-                x, w0, w1, sc, ze, be, na, y, m, k, n, bits, rows = c
-                rc = lib.probe_gemm(ptr(x), ptr(w0), ptr(w1), ptr(sc), ptr(ze), ptr(be),
-                                    ptr(na), ptr(y), m, k, n, bits, 128, rows, stream)
+                x, a, b, be, na, y, m, k, n, bits, rows = c
+                rc = lib.probe_gemm(ptr(x), *map(ptr, a), *map(ptr, b or (None,) * 4),
+                                    ptr(be), ptr(na), ptr(y), m, k, n, bits, 128, rows, stream)
                 if rc != 0:
                     raise RuntimeError(f"probe launch failed: CUDA error {rc}")
             row[f"{variant}_ms_flushed"] = _time_ms(call, flush=True)

@@ -11,9 +11,10 @@ decode megastep without a profiler, then traces the one after it with
 megastep's wall time with and without the profiler, the device time of
 every CUDA kernel, memcpy and memset in the traced one (one stream, so
 their sum is the device's busy time), the device's idle share, the number
-of device operations per decode step, the port kernels' share (with each
-port kernel instance's, by name and template arguments), the ten
-costliest device operations, and the least time a decode step could take:
+of device operations per decode step (in all and by name), the port
+kernels' share (with each port kernel instance's, by name and template
+arguments), the ten costliest device operations, and the least time a
+decode step could take:
 the bytes it must move — every dense weight of every layer, the packed rows
 and group params of each expert it routed a token to (from the step's
 dispatch counts), the KV rows it attends over and the unembedding — over
@@ -33,10 +34,11 @@ from ..core.tree import weight_bytes
 from ..serving import PagedServingEngine
 from . import workload
 
-#: the port's kernels by name: the bf16 dequant GEMM body of quant_matmul and
-#: moe_gmm (dequant_gemm_sm90_kernel<bits, rows>), the CUDA-core body of
-#: moe_gmm_swiglu and the f32 path (dequant_gemm_kernel<bits, T, bm, swiglu>),
-#: the attention kernels and the merge of their page chunks
+#: the port's kernels by name: the bf16 dequant GEMM body of quant_matmul,
+#: moe_gmm and moe_gmm_swiglu (dequant_gemm_sm90_kernel<bits, rows, operands>,
+#: 2 operands for SwiGLU), the CUDA-core body of the f32 path
+#: (dequant_gemm_kernel<bits, bm, swiglu>), the attention kernels and the
+#: merge of their page chunks
 PORT_KERNELS = ("dequant_gemm_kernel", "dequant_gemm_sm90_kernel", "paged_attention_kernel",
                 "paged_attention_merge_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -92,9 +94,10 @@ def main() -> None:
     horizon = workload.ENGINE.decode_horizon
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in device)
-    by_name = {}
+    by_name, count = {}, {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+        count[e.name] = count.get(e.name, 0) + 1
     port_us = sum(t for n, t in by_name.items() if any(k in n for k in PORT_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     nbytes = step_bytes(eng, positions)
@@ -107,6 +110,8 @@ def main() -> None:
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
         "device_ops_per_step": len(device) / horizon,
+        "device_ops_per_step_by_name": [[n[:100], c / horizon] for n, c in
+                                        sorted(count.items(), key=lambda kv: -kv[1])],
         "port_kernel_ms": port_us / 1e3,
         "port_kernels_ms": {n[:100]: t / 1e3 for n, t in by_name.items()
                             if any(k in n for k in PORT_KERNELS)},

@@ -42,12 +42,33 @@ def route_topk(router_p, x2: torch.Tensor, k: int):
     return probs, idx, gates
 
 
-def _rank_within_expert(eids: torch.Tensor, e: int) -> torch.Tensor:
+def _rank_within_expert(eids: torch.Tensor, e: int, max_onehot: int = 2**26) -> torch.Tensor:
     """Stable rank of each slot within its expert (cumsum, no sort). Slots
-    with ``eids == e`` (the drop bucket) match no column and rank 0."""
-    onehot = (eids[:, None] == torch.arange(e, device=eids.device)[None, :]).long()
-    rank = torch.cumsum(onehot, dim=0) - onehot
-    return (rank * onehot).sum(dim=1)
+    with ``eids == e`` (the drop bucket) match no column and rank 0.
+
+    Above ``max_onehot`` one-hot elements the slots are ranked in chunks of
+    ``max(1, max_onehot // e // 8 * 8)`` rows (padded with the drop id),
+    carrying the per-expert counts from chunk to chunk, so each int32
+    ``[chunk, E]`` one-hot stays near 256 MiB — the reference's scan. The
+    one-shot path, the one serving takes, keeps int64 one-hots: int32 ones
+    launch one more device op per call."""
+    n = eids.shape[0]
+    experts = torch.arange(e, device=eids.device)[None, :]
+    if n * e <= max_onehot:
+        onehot = (eids[:, None] == experts).long()
+        rank = torch.cumsum(onehot, dim=0) - onehot
+        return (rank * onehot).sum(dim=1)
+    chunk = max(1, max_onehot // e // 8 * 8)
+    pad = -n % chunk
+    ep = torch.cat([eids, eids.new_full((pad,), e)])
+    counts = torch.zeros(e, dtype=torch.int32, device=eids.device)
+    ranks = []
+    for ch in ep.split(chunk):
+        oh = (ch[:, None] == experts).to(torch.int32)
+        r = counts[None, :] + torch.cumsum(oh, dim=0, dtype=torch.int32) - oh
+        ranks.append((r * oh).sum(dim=1, dtype=torch.int32))
+        counts = counts + oh.sum(dim=0, dtype=torch.int32)
+    return torch.cat(ranks)[:n].long()
 
 
 def capacity_dispatch(x2, idx, gates, num_experts: int, capacity: int,

@@ -152,8 +152,10 @@ def test_tile_plan_matches_kernel_smem(dev):
     for k in (64, 200, 1408, 2048, 2816):
         for bits in (1, 2, 3, 4):
             for rows in (8, 16):
-                want = tile_plan(k, 2048, bits, 128, torch.bfloat16, rows=rows)["smem_bytes"]
-                assert lib.repro_dequant_gemm_sm90_smem(k, bits, 128, rows) == want
+                for nop in (1, 2):  # one operand, or SwiGLU's gate and up
+                    want = tile_plan(k, 2048, bits, 128, torch.bfloat16, rows=rows,
+                                     operands=nop)["smem_bytes"]
+                    assert lib.repro_dequant_gemm_sm90_smem(k, bits, 128, rows, nop) == want
 
 
 @pytest.mark.cuda
@@ -361,6 +363,79 @@ def test_binary_matmul_kernel(dev, dtype):
         alpha = w.abs().mean(dim=0, keepdim=True).to(dev)
         x = torch.randn(m, k, generator=gen).to(dev, dtype)
         _close(binary_matmul(x, b, alpha), ref.binary_matmul_ref(x, b, alpha), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [8, 16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_moe_gmm_swiglu_tensor_core_body(dev, bits, bm):
+    """bf16 SwiGLU on the tensor-core body: K a whole number of groups,
+    ending mid-group, off the k16 step and below one group, N on and off the
+    column tile, against the plain version; dead rows exactly zero; a live
+    block's rows bit for bit the same as num_active and the other blocks'
+    experts change; num_active 0 all zero."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_swiglu
+
+    gen = torch.Generator().manual_seed(60 + 2 * bits + bm)
+    experts, cap = 4, 32
+    nblocks = experts * cap // bm
+    for k, n in ((256, 96), (3 * 128 + 64, 1400), (200, 40), (64, 96)):
+        g, gs, gz = _weights(gen, experts, k, n, bits, dev)
+        u, us, uz = _weights(gen, experts, k, n, bits, dev)
+        x = torch.randn(experts * cap, k, generator=gen).to(dev, torch.bfloat16)
+        be = torch.sort(torch.randint(0, experts, (nblocks,), generator=gen)).values
+        be = be.to(dev, torch.int32)
+
+        def run(be_, live):
+            na = torch.tensor([live], dtype=torch.int32, device=dev)
+            args = (x, g, u, gs, gz, us, uz, be_, na)
+            got = moe_gmm_swiglu(*args, bits=bits, bm=bm)
+            _close(got, ref.moe_gmm_swiglu_ref(*args, bits=bits, bm=bm), torch.bfloat16)
+            assert not got[live * bm:].any()
+            return got
+
+        live = nblocks // 2
+        base = run(be, live)
+        other = be.clone()
+        other[0] = (other[0] + 1) % experts
+        other[live:] = experts - 1 - other[live:]
+        for y, upto in ((run(be, nblocks), live), (run(be, live - 1), live - 1),
+                        (run(other, live), live)):
+            assert _bitwise(y[bm:upto * bm], base[bm:upto * bm]), (k, n)
+        assert not run(be, 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_binary_matmul_rows_and_edges(dev, dtype):
+    """M in 1/5/16/24/64, K off the byte and off the k16 step, N off the
+    16-column tile: against the plain version, and each row bit for bit the
+    same row of the M = 64 call."""
+    from repro_torch.core.packing import pack_bits, pad_to_multiple
+    from repro_torch.kernels.binary_matmul import binary_matmul
+
+    gen = torch.Generator().manual_seed(70)
+    for k, n in ((2048, 1408), (451, 1400), (200, 40), (8, 16)):
+        w = torch.randn(k, n, generator=gen)
+        b = pack_bits(pad_to_multiple((w >= 0).to(torch.uint8), 8, axis=0), 1, axis=0).to(dev)
+        alpha = w.abs().mean(dim=0, keepdim=True).to(dev)
+        x = torch.randn(64, k, generator=gen).to(dev, dtype)
+        full = binary_matmul(x, b, alpha)
+        _close(full, ref.binary_matmul_ref(x, b, alpha), dtype)
+        for m in (1, 5, 16, 24, 64):
+            part = binary_matmul(x[:m].contiguous(), b, alpha)
+            _close(part, ref.binary_matmul_ref(x[:m], b, alpha), dtype)
+            assert _bitwise(part, full[:m]), (k, n, m)
+
+
+@pytest.mark.cuda
+def test_binary_plan_matches_kernel_smem(dev):
+    from repro_torch.kernels.binary_matmul import binary_plan
+    from repro_torch.kernels.build import load_library
+
+    lib = load_library()
+    for k in (8, 200, 451, 1408, 2048, 2816):
+        assert lib.repro_binary_matmul_smem(k) == binary_plan(k, 1408)["smem_bytes"]
 
 
 @pytest.mark.cuda

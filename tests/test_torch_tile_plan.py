@@ -45,12 +45,53 @@ GROUP, SHAPES = _main_path_shapes()
 
 def test_tile_plan_takes_no_m():
     """The plan's inputs are static shapes only: no M, no row count of the
-    call, so bf16 rows come out bit-identical for any M."""
+    call, so bf16 rows come out bit-identical for any M; ``operands`` (2 for
+    SwiGLU's gate and up) defaults to one."""
     params = list(inspect.signature(tile_plan).parameters)
-    assert params == ["k", "n", "bits", "group", "dtype", "rows"]
+    assert params == ["k", "n", "bits", "group", "dtype", "rows", "operands"]
     a = tile_plan(2048, 2048, 4, 128, torch.bfloat16)
-    assert a == tile_plan(2048, 2048, 4, 128, torch.bfloat16, rows=8)
-    assert a["rows"] == 8 and a["col_tile"] == 16
+    assert a == tile_plan(2048, 2048, 4, 128, torch.bfloat16, rows=8, operands=1)
+    assert a["rows"] == 8 and a["col_tile"] == 16 and a["operands"] == 1
+    with pytest.raises(ValueError):
+        tile_plan(2048, 2048, 4, 128, torch.bfloat16, operands=3)
+
+
+def _swiglu_shapes():
+    """(bits, rows) of every expert bucket's gate/up GEMM on the main path
+    (K = d_model → N = d_ff_expert): bits 1-3 at the decode (bm 8) and
+    prefill (bm 16) row blocks."""
+    return [(bits, rows) for bits in (1, 2, 3) for rows in (8, 16)]
+
+
+@pytest.mark.parametrize("bits,rows", _swiglu_shapes())
+def test_two_operand_plan_covers_swiglu(bits, rows):
+    """SwiGLU's plan: the same K split and column tiles as one operand, twice
+    the stage buffers and value tables, one reduction buffer; it fits the
+    opt-in shared memory, and the 2- and 3-bit decode shapes fit two blocks
+    on an SM."""
+    cfg = get_config("moonshot-v1-16b-a3b")
+    k, n = cfg.d_model, cfg.d_ff_expert
+    one = tile_plan(k, n, bits, GROUP, torch.bfloat16, rows=rows)
+    two = tile_plan(k, n, bits, GROUP, torch.bfloat16, rows=rows, operands=2)
+    assert two["body"] == "dequant_gemm_sm90.cuh" and two["operands"] == 2
+    assert two["smem_bytes"] <= SMEM_OPTIN
+    for key in ("k_slices", "k_steps", "n_tiles", "tables", "col_tile", "warps"):
+        assert two[key] == one[key]
+    ends = [b for _, b in two["k_slices"]]
+    assert two["k_slices"][0][0] == 0 and ends[-1] == two["k_steps"]
+    for (a0, b0), (a1, _) in zip(two["k_slices"], two["k_slices"][1:]):
+        assert a0 <= b0 and (a1 == b0 or a1 >= two["k_steps"])
+    # the second operand adds one stage region per buffer and one table, no x
+    kx, ng = two["k_steps"] * 16, -(-k // GROUP)
+    plane_rows = kx // 8 * 3 if bits == 3 else kx // (8 // bits)
+    pairs = bits <= 2
+    table = ng * 16 * ((1 << 2 * bits) + 1 if pairs else (1 << bits) + 2) * (4 if pairs else 2)
+    stage = plane_rows * 16 + ng * 2 * 16 * 4
+    assert two["smem_bytes"] - one["smem_bytes"] == 2 * stage + -(-table // 16) * 16
+    if rows == 8 and bits in (2, 3):
+        assert two["smem_blocks_per_sm"] >= 2
+    assert tile_plan(k, n, bits, GROUP, torch.float32, rows=rows,
+                     operands=2)["body"] == "dequant_gemm.cuh"
 
 
 @pytest.mark.parametrize("k,n,bits,rows", SHAPES)
