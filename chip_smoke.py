@@ -10,9 +10,9 @@ Phases (each failure exits non-zero):
    card at the main path's shapes (bits 1/2/3/4, dead row blocks, K ending
    mid-group and K < group, G = 1 and 2, windows, ragged lengths, length 0,
    permuted block tables, all-zero int8 rows; attention lengths at chunk
-   edges and at 4096 positions, head_dim 32/128/256, G up to 8, windows
-   starting mid-chunk; f32 and bf16); bitwise batch invariance of the
-   dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for m in 1/4/8/16/24
+   edges and at 4096 positions, head_dim 32/128/256, G up to 8 (5 for
+   qwen3-14b), windows starting mid-chunk; f32 and bf16); bitwise batch
+   invariance of the dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for m in 1/4/8/16/24
    equal the full call's; a live ``moe_gmm`` or ``moe_gmm_swiglu`` block's
    rows do not move when ``num_active`` or the other blocks' experts
    change), of ``binary_matmul`` (rows of ``x[:m]`` for m in 1/5/16/24/64)
@@ -23,14 +23,21 @@ Phases (each failure exits non-zero):
    min and max of 50 L2-flushed launches, the SM clock read before and
    after on a ``timing`` line) beside the plain version, one library call
    and its bound — ``quant_matmul`` at the decode and the prefill shape,
-   the attention kernels at the decode shape and at 4096 positions
-   (``long``);
-4. tiny end-to-end parity: ``moonshot-v1-16b-a3b.reduced()`` (f32, PMQ +
-   OTP, one seed) served on the card and on the CPU, with fp KV and with
-   int8 KV plus the prefix cache — identical greedy tokens, per-step
-   logits within 1e-3·max|logit|; then one fp and one int8 decode megastep
-   on the card under ``set_sync_debug_mode("error")``, which fails if
-   anything inside the horizon waits on the host;
+   the attention kernels at the decode shape, at 4096 positions (``long``)
+   and at G = 5 (``decode_g5``); then the bf16 dequant GEMMs where K outgrows one item's
+   shared memory and is walked in chunks — ``quant_matmul``, ``moe_gmm``
+   and ``moe_gmm_swiglu`` at K = 7168 (kimi-k2's d_model; bits 1-4, bm 8
+   and 16) and ``quant_matmul`` at K = 17408 (qwen3-14b's d_ff, 4 bits):
+   parity, batch invariance and one timing each (``k7168``, ``k17408``);
+4. tiny end-to-end parity: reduced configs (f32, one seed) served on the
+   card and on the CPU — ``moonshot-v1-16b-a3b`` PMQ + OTP with fp KV and
+   with int8 KV plus the prefix cache, ``qwen3-14b`` (dense) and
+   ``moonshot-v1-16b-a3b`` without compression with fp KV — identical
+   greedy tokens, per-step logits within 1e-3·max|logit|, and for the
+   dense and uncompressed models the dense-cache oracle's tokens; then a
+   decode megastep of each on the card under
+   ``set_sync_debug_mode("error")``, which fails if anything inside the
+   horizon waits on the host;
 5. full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
@@ -41,6 +48,12 @@ Phases (each failure exits non-zero):
    must launch, the fp attention kernel must not; tokens byte-identical to
    an int8 engine without the prefix cache and to a second prefix engine;
    prefill chunks and copy-on-write copies as the reference's rules give);
+   then, the compressed model freed, ``qwen3-14b`` (dense, 40 layers) and
+   ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
+   built on the card, served on the fp geometry (``paged_attention`` must
+   launch and no other kernel; a second engine must emit the same tokens)
+   and freed; a last line sets the uncompressed model's expert bytes
+   against the compressed one's, on the device and per decode step;
 6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
    ``binary_matmul`` has no serving caller (as in the reference), so its
    launches are those of phase 3.
@@ -51,6 +64,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -66,7 +80,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.compressed_moe import gmm_block_rows  # noqa: E402
 from repro_torch.core.quantizers import quantize_parts  # noqa: E402
-from repro_torch.core.synthetic import bucket_counts, build_synthetic  # noqa: E402
+from repro_torch.core.synthetic import (  # noqa: E402
+    bucket_counts,
+    build_synthetic,
+    build_uncompressed,
+)
 from repro_torch.core.tree import to_device, weight_bytes  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.core.quantizers import quantize_kv_rows  # noqa: E402
@@ -80,7 +98,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_quant,
 )
 from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
-from repro_torch.launch import probe_attention, workload  # noqa: E402
+from repro_torch.launch import probe_attention, profile_decode, workload  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _paged_decode_core,
@@ -88,6 +106,7 @@ from repro_torch.models.transformer import (  # noqa: E402
     paged_prefill_chunk,
 )
 from repro_torch.serving import EngineConfig, PagedKVCache, PagedServingEngine, Request  # noqa: E402
+from repro_torch.serving.engine import dense_greedy_reference  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 TC / f32 CUDA cores
@@ -230,28 +249,11 @@ def parity_quant_matmul(gen, results):
                                     dtype))
     # main-path shapes, 4-bit bf16: wq at decode (4 slots), the shared
     # experts' gate/up at prefill (a 16-token chunk)
-    for key, (m, k, n) in (("decode", (4, 2048, 2048)), ("prefill", (16, 2048, 2816))):
-        (data, s, z) = rand_weights(gen, 1, k, n, 4)
-        data, s, z = data[0], s[0], z[0]
-        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
-        w_deq = ref.dequant_ref(data, s, z, 4, k, dtype=torch.bfloat16)
-        r = dict(
-            **time_kernel(f"quant_matmul {key}",
-                          lambda: quant_matmul(x, data, s, z, bits=4)),
-            plain_ms=time_ms(lambda: ref.quant_matmul_ref(x, data, s, z, bits=4))[0],
-            library_ms=time_ms(lambda: torch.matmul(x, w_deq))[0],
-            shape=f"M={m} K={k} N={n} 4-bit bf16",
-            **dict(zip(("bound_ms", "bound_by"),
-                       bound(nbytes(x, data, s, z) + m * n * 2, 2 * m * k * n,
-                             torch.bfloat16))),
-        )
-        if key == "decode":
-            results["quant_matmul"] = dict(max_abs_err=max(errs), **r)
-        else:
-            results["quant_matmul"]["prefill"] = r
-            log(f"kernel quant_matmul prefill [{r['shape']}]: {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    r = _time_quant_matmul("quant_matmul decode", 4, 2048, 2048, 4, gen)
+    results["quant_matmul"] = dict(max_abs_err=max(errs), **r)
+    r = _time_quant_matmul("quant_matmul prefill", 16, 2048, 2816, 4, gen)
+    results["quant_matmul"]["prefill"] = r
+    log_extra("quant_matmul", "prefill", r)
 
 
 def invariance_quant_matmul(gen):
@@ -260,7 +262,8 @@ def invariance_quant_matmul(gen):
     multiple of the column tile and not."""
     for dtype in (torch.bfloat16, torch.float32):
         for bits, (k, n) in ((4, (2048, 2048)), (4, (2048, 2816)), (1, (2048, 1400)),
-                             (2, (1408, 2048)), (3, (RAGGED_K, 1400))):
+                             (2, (1408, 2048)), (3, (RAGGED_K, 1400)), (4, (7168, 2048)),
+                             (2, (7168 + 64, 1400)), (4, (17408, 512))):
             (data, s, z) = rand_weights(gen, 1, k, n, bits)
             data = tuple(t[0] for t in data) if bits == 3 else data[0]
             x = torch.randn((24, k), generator=gen, device=DEV).to(dtype)
@@ -271,7 +274,7 @@ def invariance_quant_matmul(gen):
                     raise AssertionError(f"quant_matmul b{bits} K={k} N={n} {dtype}: rows of "
                                          f"M={m} differ from the same rows at M=24")
     log("batch invariance: quant_matmul rows bit-identical for M in 1/4/8/16/24 "
-        "(bits 1-4, f32 and bf16)")
+        "(bits 1-4, f32 and bf16; K = 7168, 7232 and 17408 in chunks)")
 
 
 def invariance_moe_gmm(gen, cfg):
@@ -280,7 +283,8 @@ def invariance_moe_gmm(gen, cfg):
     at the decode shape, bm 8, and a 4-bit one at bm 16; ``moe_gmm`` and
     ``moe_gmm_swiglu``; f32 and bf16)."""
     d, f = cfg.d_model, cfg.d_ff_expert
-    for kind, (k, n) in (("moe_gmm", (f, d)), ("moe_gmm_swiglu", (d, f))):
+    for kind, (k, n) in (("moe_gmm", (f, d)), ("moe_gmm_swiglu", (d, f)),
+                         ("moe_gmm", (7168, f)), ("moe_gmm_swiglu", (7168, f))):
         for dtype in (torch.bfloat16, torch.float32):
             for bits, experts, cap in ((2, 59, 24), (4, 5, 96)):
                 bm = gmm_block_rows(cap)
@@ -314,8 +318,8 @@ def invariance_moe_gmm(gen, cfg):
                 if (run(be, 0) != 0).any():
                     raise AssertionError(f"{kind}: num_active 0 left non-zero rows")
     log("batch invariance: moe_gmm and moe_gmm_swiglu live blocks bit-identical as "
-        "num_active and the other blocks' experts change (bm 8 and 16, f32 and bf16); "
-        "num_active 0 all zero")
+        "num_active and the other blocks' experts change (bm 8 and 16, f32 and bf16; K = "
+        "d_model, d_ff_expert and 7168 in chunks); num_active 0 all zero")
 
 
 def invariance_binary_matmul(gen, cfg):
@@ -345,6 +349,9 @@ def check_tile_plans(cfg):
     shapes = [(d, d, 4, 8, 1), (d, fs, 4, 8, 1), (fs, d, 4, 8, 1)]
     shapes += [(kk, nn, b, r, nop) for b in (1, 2, 3) for r in (8, 16)
                for kk, nn, nop in ((d, f, 2), (f, d, 1))]
+    # K chunked: kimi-k2's d_model, command-r's, qwen3-14b's d_ff
+    shapes += [(kk, 2048, b, r, nop) for kk in (7168, 8192, 17408) for b in (1, 2, 3, 4)
+               for r in (8, 16) for nop in (1, 2)]
     for k, n, bits, rows, nop in shapes:
         want = tile_plan(k, n, bits, cfg.quant.group, torch.bfloat16, rows=rows,
                          operands=nop)["smem_bytes"]
@@ -357,8 +364,9 @@ def check_tile_plans(cfg):
         if got != want:
             raise AssertionError(f"binary plan K={k}: shared memory {want} in the plan, {got} "
                                  f"in the kernel")
-    log(f"tile plans: {len(shapes)} main-path shapes (SwiGLU with two operands) and 3 "
-        f"binary_matmul shapes, kernel shared memory == host plan")
+    log(f"tile plans: {len(shapes)} shapes (the main path's, SwiGLU with two operands, and "
+        f"K = 7168/8192/17408 in chunks) and 3 binary_matmul shapes, kernel shared memory == "
+        f"host plan")
 
 
 def _gmm_case(gen, kind, bits, dtype, cap, experts, live_rows, k, n):
@@ -377,7 +385,7 @@ def _gmm_case(gen, kind, bits, dtype, cap, experts, live_rows, k, n):
         got = moe_gmm_swiglu(x, *args, bits=bits, bm=bm)
         want = ref.moe_gmm_swiglu_ref(x, *args, bits=bits, bm=bm)
         ws = [wg, wu]
-    err = compare(f"{kind} b{bits} bm{bm} {dtype}", got, want, dtype)
+    err = compare(f"{kind} b{bits} bm{bm} K={k} {dtype}", got, want, dtype)
     if not (got[nlive * bm:] == 0).all():
         raise AssertionError(f"{kind}: dead row blocks are not zero")
     return err, dict(x=x, ws=ws, be=be, na=na, bm=bm, nlive=nlive, m=m)
@@ -406,43 +414,116 @@ def parity_moe(gen, results, cfg):
         live = [1] * 16 + [2] * 4 + [0] * (n2 - 20)
         err, c = _gmm_case(gen, kind, 2, torch.bfloat16, decode_cap, n2, live, k, n)
         errs.append(err)
-        x, ws, be, na, bm, nlive, m = (c[key] for key in ("x", "ws", "be", "na", "bm",
-                                                           "nlive", "m"))
-        # the bytes and products this routing needs: the packed rows and group
-        # params of the experts it touches, its routed rows of x, all of y
-        used = sorted(set(be[:nlive].tolist()))
-        w_bytes = sum(nbytes(t) // n2 * len(used) for w in ws for t in w)
-        rows = sum(live)
-        io_bytes = rows * k * 2 + m * n * 2
-        if kind == "moe_gmm":
-            call = lambda: moe_gmm(x, *ws[0], be, na, bits=2, bm=bm)
-            plain = lambda: ref.moe_gmm_ref(x, *ws[0], be, na, bits=2, bm=bm)
-            w_live = ref.dequant_ref(*ws[0], 2, k, dtype=torch.bfloat16)[be[:nlive].long()]
-            x_live = x[: nlive * bm].view(nlive, bm, k)
-            library = time_ms(lambda: torch.bmm(x_live, w_live))[0]
-        else:
-            (wg, gs, gz), (wu, us, uz) = ws
-            args = (wg, wu, gs, gz, us, uz, be, na)
-            call = lambda: moe_gmm_swiglu(x, *args, bits=2, bm=bm)
-            plain = lambda: ref.moe_gmm_swiglu_ref(x, *args, bits=2, bm=bm)
-            # products only, no SwiGLU: the live blocks' x against the
-            # pre-dequantized [Wg | Wu] in one torch.bmm ([nlive, K, 2N])
-            w_gu = torch.cat([ref.dequant_ref(wg, gs, gz, 2, k, dtype=torch.bfloat16),
-                              ref.dequant_ref(wu, us, uz, 2, k, dtype=torch.bfloat16)], dim=-1)
-            w_live = w_gu[be[:nlive].long()]
-            x_live = x[: nlive * bm].view(nlive, bm, k)
-            library = time_ms(lambda: torch.bmm(x_live, w_live))[0]
-        results[kind] = dict(
-            max_abs_err=max(errs), **time_kernel(kind, call), plain_ms=time_ms(plain)[0],
-            library_ms=library,
-            shape=f"2-bit bucket of {n2} experts, cap {decode_cap}, bm {bm}, "
-                  f"{nlive} live blocks of {m // bm}, K={k} N={n} bf16"
-                  + ("; library: torch.bmm of the gate and up products only, no SwiGLU"
-                     if kind == "moe_gmm_swiglu" else ""),
-            **dict(zip(("bound_ms", "bound_by"),
-                       bound(w_bytes + io_bytes, 2 * len(ws) * rows * k * n,
-                             torch.bfloat16))),
-        )
+        results[kind] = dict(max_abs_err=max(errs), **_time_gmm(kind, kind, c, 2, k, n, live))
+
+
+def _time_gmm(label, kind, c, bits, k, n, live):
+    """Time one grouped case of :func:`_gmm_case` (``c``: its context) beside
+    its plain version, one ``torch.bmm`` of the live blocks and its bound:
+    the packed rows and group params of the experts the routing touches,
+    its routed rows of x and all of y."""
+    x, ws, be, na, bm, nlive, m = (c[key] for key in ("x", "ws", "be", "na", "bm",
+                                                       "nlive", "m"))
+    experts = (ws[0][0][0] if bits == 3 else ws[0][0]).shape[0]
+    used = sorted(set(be[:nlive].tolist()))
+    w_bytes = sum(nbytes(t) // experts * len(used) for w in ws for t in w)
+    rows = sum(live)
+    io_bytes = rows * k * 2 + m * n * 2
+    x_live = x[: nlive * bm].view(nlive, bm, k)
+    if kind == "moe_gmm":
+        call = lambda: moe_gmm(x, *ws[0], be, na, bits=bits, bm=bm)
+        plain = lambda: ref.moe_gmm_ref(x, *ws[0], be, na, bits=bits, bm=bm)
+        w_live = ref.dequant_ref(*ws[0], bits, k, dtype=torch.bfloat16)[be[:nlive].long()]
+    else:
+        (wg, gs, gz), (wu, us, uz) = ws
+        args = (wg, wu, gs, gz, us, uz, be, na)
+        call = lambda: moe_gmm_swiglu(x, *args, bits=bits, bm=bm)
+        plain = lambda: ref.moe_gmm_swiglu_ref(x, *args, bits=bits, bm=bm)
+        # products only, no SwiGLU: the live blocks' x against the
+        # pre-dequantized [Wg | Wu] in one torch.bmm ([nlive, K, 2N])
+        w_gu = torch.cat([ref.dequant_ref(wg, gs, gz, bits, k, dtype=torch.bfloat16),
+                          ref.dequant_ref(wu, us, uz, bits, k, dtype=torch.bfloat16)], dim=-1)
+        w_live = w_gu[be[:nlive].long()]
+    library = time_ms(lambda: torch.bmm(x_live, w_live))[0]
+    return dict(
+        **time_kernel(label, call), plain_ms=time_ms(plain)[0], library_ms=library,
+        shape=f"{bits}-bit bucket of {experts} experts, bm {bm}, {nlive} live blocks of "
+              f"{m // bm}, K={k} N={n} bf16"
+              + ("; library: torch.bmm of the gate and up products only, no SwiGLU"
+                 if kind == "moe_gmm_swiglu" else ""),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(w_bytes + io_bytes, 2 * len(ws) * rows * k * n, torch.bfloat16))),
+    )
+
+
+def _time_quant_matmul(label, m, k, n, bits, gen):
+    """Time ``quant_matmul`` at one shape beside its plain version,
+    ``torch.matmul`` on the pre-dequantized weight and its bound."""
+    (data, s, z) = rand_weights(gen, 1, k, n, bits)
+    data = tuple(t[0] for t in data) if bits == 3 else data[0]
+    s, z = s[0], z[0]
+    x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    w_deq = ref.dequant_ref(data, s, z, bits, k, dtype=torch.bfloat16)
+    return dict(
+        **time_kernel(label, lambda: quant_matmul(x, data, s, z, bits=bits)),
+        plain_ms=time_ms(lambda: ref.quant_matmul_ref(x, data, s, z, bits=bits))[0],
+        library_ms=time_ms(lambda: torch.matmul(x, w_deq))[0],
+        shape=f"M={m} K={k} N={n} {bits}-bit bf16",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes(x, data, s, z) + m * n * 2, 2 * m * k * n, torch.bfloat16))),
+    )
+
+
+def log_extra(name: str, key: str, r: dict) -> None:
+    log(f"kernel {name} {key} [{r['shape']}]: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def parity_split_k(gen, results, cfg):
+    """The bf16 dequant GEMMs where an item's K range outgrows shared memory
+    and the body walks K in chunks: kimi-k2's d_model (K = 7168; bits 1-4;
+    ``quant_matmul``, ``moe_gmm`` and ``moe_gmm_swiglu`` at bm 8 and 16)
+    and qwen3-14b's d_ff (K = 17408; 4-bit ``quant_matmul``), each against
+    its plain version; then one timing per kernel at K = 7168 (``k7168``)
+    and one of ``quant_matmul`` at K = 17408 (``k17408``)."""
+    k, n = 7168, 2048
+    decode_cap = dispatch_capacity(dataclasses.replace(
+        cfg, moe_capacity_factor=float(cfg.num_experts)), 4)        # 24 -> bm 8
+    prefill_cap = dispatch_capacity(dataclasses.replace(
+        cfg, moe_capacity_factor=float(cfg.num_experts)), 16)       # 96 -> bm 16
+    errs = []
+    for bits in (1, 2, 3, 4):
+        for m, kk, nn in ((4, k, n), (16, 17408, 512)):
+            if kk == 17408 and bits != 4:
+                continue
+            (data, sc, z) = rand_weights(gen, 1, kk, nn, bits)
+            data = tuple(t[0] for t in data) if bits == 3 else data[0]
+            x = torch.randn((m, kk), generator=gen, device=DEV).to(torch.bfloat16)
+            errs.append(compare(f"quant_matmul b{bits} K={kk}",
+                                quant_matmul(x, data, sc[0], z[0], bits=bits),
+                                ref.quant_matmul_ref(x, data, sc[0], z[0], bits=bits),
+                                torch.bfloat16))
+        for kind in ("moe_gmm_swiglu", "moe_gmm"):
+            for cap in (decode_cap, prefill_cap):
+                errs.append(_gmm_case(gen, kind, bits, torch.bfloat16, cap, 3, [1, 2, 0], k,
+                                      n)[0])
+    for name in ("quant_matmul", "moe_gmm_swiglu", "moe_gmm"):
+        results[name]["split_k_max_abs_err"] = max(errs)
+    r = _time_quant_matmul("quant_matmul K=7168", 4, k, 8192, 4, gen)
+    results["quant_matmul"]["k7168"] = r
+    log_extra("quant_matmul", "k7168", r)
+    r = _time_quant_matmul("quant_matmul K=17408", 4, 17408, 5120, 4, gen)
+    results["quant_matmul"]["k17408"] = r
+    log_extra("quant_matmul", "k17408", r)
+    live = [1] * 12 + [2] * 4
+    for kind in ("moe_gmm_swiglu", "moe_gmm"):
+        _, c = _gmm_case(gen, kind, 2, torch.bfloat16, decode_cap, 16, live, k, n)
+        r = _time_gmm(f"{kind} K={k}", kind, c, 2, k, n, live)
+        results[kind]["k7168"] = r
+        log_extra(kind, "k7168", r)
+    log(f"split K: quant_matmul, moe_gmm and moe_gmm_swiglu at K = 7168 (bits 1-4, bm 8 and "
+        f"16) and quant_matmul at K = 17408 (4 bits) match their plain versions, max|err| "
+        f"{max(errs):.3e}")
 
 
 def _attn_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
@@ -481,22 +562,24 @@ def _attn_quant_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
 
 def parity_attention(gen, results, kind):
     """``paged_attention`` (kind fp) or ``paged_attention_quant`` (int8)
-    against the plain version: G 1/2, windows, ragged lengths and length 0
-    at the decode geometry; lengths at the edges of the 256-position chunks
-    for head_dim 32/128/256 and G 1/2/8 with windows whose first valid
-    position falls mid-chunk; 4096 positions (16 chunks) with and without a
-    window; f32 and bf16. Then the kernel's time at the decode shape and at
-    4096 positions (``probe_attention``), beside its plain version, SDPA
-    over the gathered pages and its byte bound."""
+    against the plain version: G 1/2/4/5, windows, ragged lengths and length
+    0 at the decode geometry; lengths at the edges of the 256-position
+    chunks for head_dim 32/128/256 and G 1/2/5/8 with windows whose first
+    valid position falls mid-chunk; 4096 positions (16 chunks) with and
+    without a window; f32 and bf16. Then the kernel's time at the decode
+    shape, at 4096 positions and at qwen3-14b's G = 5 (``probe_attention``),
+    beside its plain version, SDPA over the gathered pages and its byte
+    bound."""
     case = _attn_case if kind == "fp" else _attn_quant_case
     name = "paged_attention" if kind == "fp" else "paged_attention_quant"
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
-        for g, hkv, window in [(1, 16, None), (2, 8, None), (2, 8, 20), (1, 16, 7)]:
+        for g, hkv, window in [(1, 16, None), (2, 8, None), (2, 8, 20), (1, 16, 7),
+                               (5, 8, None), (5, 8, 20), (4, 8, None)]:
             for lengths in ([1, 17, 80, 96], [0, 17, 80, 0]):
                 errs.append(case(gen, dtype, 4, hkv, g, 128, 16, 40, 6, lengths, window))
         for dh in (32, 128, 256):
-            for g in (1, 2, 8):
+            for g in (1, 2, 5, 8):
                 for window in (None, 50, 100):
                     errs.append(case(gen, dtype, 5, 2, g, dh, 16, 110, 20,
                                      [0, 255, 256, 257, 320], window))
@@ -504,16 +587,17 @@ def parity_attention(gen, results, kind):
             errs.append(case(gen, dtype, 2, 2, 2, 128, 16, 520, 256, [4096, 2500], window))
     mods = probe_attention.load(Path(__file__).resolve().parent)
     r = {}
-    for shape, length in probe_attention.SHAPES.items():
-        r[shape] = probe_attention.measure(mods, name, length, gen)
+    for shape in probe_attention.SHAPES:
+        r[shape] = probe_attention.measure(mods, name, shape, gen)
         t = r[shape]
         log(f"timing {name} {shape}: median {t['ms']:.4f} ms, min {t['ms_min']:.4f}, max "
             f"{t['ms_max']:.4f} over 50 launches; SM clock {t['sm_clock'][0]} before, "
             f"{t['sm_clock'][1]} after")
-    results[name] = dict(max_abs_err=max(errs), **r["decode"], long=r["long"])
-    t = r["long"]
-    log(f"kernel {name} long [{t['shape']}]: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    results[name] = dict(max_abs_err=max(errs), **r["decode"],
+                         **{shape: r[shape] for shape in r if shape != "decode"})
+    for shape in r:
+        if shape != "decode":
+            log_extra(name, shape, r[shape])
 
 
 def invariance_attention(gen):
@@ -621,7 +705,8 @@ def greedy_logits(cfg, params, prompt, max_new, device, kv_bits=None):
     """Greedy decode of one request through the paged model functions,
     returning the tokens and the logits that chose each of them."""
     ecfg = EngineConfig()
-    mcfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+    mcfg = (dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+            if cfg.is_moe else cfg)
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=1,
                          max_blocks_per_slot=8, device=device, kv_bits=kv_bits)
     qs = cache.quant_tables
@@ -651,7 +736,8 @@ def sync_free_megastep(cfg, params, kv_bits=None):
     """One decode megastep on the card under ``set_sync_debug_mode("error")``:
     anything inside the horizon that waits on the device (an ``.item()``, a
     ``bincount``, a blocking copy) raises."""
-    mcfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+    mcfg = (dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+            if cfg.is_moe else cfg)
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2,
                          max_blocks_per_slot=4, device=DEV, kv_bits=kv_bits)
     cache.acquire_slot(40)
@@ -670,16 +756,28 @@ def sync_free_megastep(cfg, params, kv_bits=None):
         torch.cuda.set_sync_debug_mode("default")
     if emits.sum(dim=0).tolist() != [4, 2]:
         raise AssertionError(f"sync-free megastep emitted {emits.sum(dim=0).tolist()}")
-    log(f"{'int8' if kv_bits else 'fp'} decode megastep under sync debug mode 'error': "
-        f"no host sync inside the horizon")
+    log(f"{cfg.name} {'int8' if kv_bits else 'fp'} decode megastep under sync debug mode "
+        f"'error': no host sync inside the horizon")
 
 
-def tiny_parity(kv_bits=None):
-    """The reduced model on the card against the CPU: fp KV, or int8 KV with
+#: the reduced models of phase 4: the compressed MoE (PMQ + OTP), the dense
+#: model and the MoE without compression, each from seed 0, f32
+TINY = {
+    "compressed": ("moonshot-v1-16b-a3b", build_synthetic),
+    "dense": (workload.DENSE_ARCH, build_uncompressed),
+    "uncompressed MoE": ("moonshot-v1-16b-a3b", build_uncompressed),
+}
+
+
+def tiny_parity(model="compressed", kv_bits=None):
+    """A reduced model on the card against the CPU: fp KV, or int8 KV with
     the prefix cache over prompts that share a 32-token prefix (one of them
-    repeated: a full hit ending mid-page)."""
-    cfg = get_config("moonshot-v1-16b-a3b").reduced()
-    params_cpu = build_synthetic(cfg, seed=0, device="cpu")
+    repeated: a full hit ending mid-page). The dense and uncompressed-MoE
+    models' engines must also give the tokens of the dense-cache oracle
+    (paged == dense) on the card."""
+    arch, make = TINY[model]
+    cfg = get_config(arch).reduced()
+    params_cpu = make(cfg, seed=0, device="cpu")
     params_gpu = to_device(params_cpu, DEV)
     rng = np.random.default_rng(1)
     if kv_bits is None:
@@ -704,20 +802,29 @@ def tiny_parity(kv_bits=None):
             rel = (a - b).abs().max().item() / b.abs().max().item()
             worst = max(worst, rel)
             if rel > 1e-3:
-                raise AssertionError(f"request {i} step {s}: logits differ by {rel:.2e}·max")
+                raise AssertionError(f"{model} request {i} step {s}: logits differ by "
+                                     f"{rel:.2e}·max")
             if tg[s] != tc[s]:
                 top2 = torch.topk(b, 2).values
                 gap = (top2[0] - top2[1]).item() / b.abs().max().item()
                 if gap >= 1e-4:
-                    raise AssertionError(f"request {i} step {s}: tokens {tg[s]} != {tc[s]} "
-                                         f"with a top-2 gap of {gap:.2e}·max")
+                    raise AssertionError(f"{model} request {i} step {s}: tokens {tg[s]} != "
+                                         f"{tc[s]} with a top-2 gap of {gap:.2e}·max")
                 log(f"  request {i} diverges at step {s} on a genuine tie (gap {gap:.1e})")
                 break
         if outs["card"][i] != outs["cpu"][i] and tg == tc:
-            raise AssertionError(f"request {i}: engine tokens differ between card and cpu")
+            raise AssertionError(f"{model} request {i}: engine tokens differ between card "
+                                 f"and cpu")
+        if model != "compressed":
+            mcfg = eng.model_cfg
+            dense, _ = dense_greedy_reference(mcfg, params_gpu, p, 12, device=DEV)
+            if dense != outs["card"][i]:
+                raise AssertionError(f"{model} request {i}: the paged engine's tokens differ "
+                                     f"from the dense-cache oracle's on the card")
     kind = "fp KV" if kv_bits is None else "int8 KV + prefix cache"
-    log(f"tiny parity ({kind}): {len(prompts)} requests, engine tokens card == cpu: "
-        f"{outs['card'] == outs['cpu']}, worst per-step logit diff {worst:.2e}·max")
+    log(f"tiny parity ({model}, {kind}): {len(prompts)} requests, engine tokens card == cpu: "
+        f"{outs['card'] == outs['cpu']}, worst per-step logit diff {worst:.2e}·max"
+        + ("; paged == dense-cache oracle on the card" if model != "compressed" else ""))
     sync_free_megastep(cfg, params_gpu, kv_bits)
 
 
@@ -725,6 +832,7 @@ def tiny_parity(kv_bits=None):
 #: kernels each serving path must launch (binary_matmul has no serving caller)
 FP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
 INT8_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention_quant")
+DENSE_PATH = UNCOMPRESSED_MOE_PATH = ("paged_attention",)  # every linear is a bf16 matmul
 
 
 def _serve(cfg, params, ecfg, reqs):
@@ -755,7 +863,9 @@ def _drive(name, cfg, params, ecfg, reqs, needed):
     return eng, out, launches, peak
 
 
-def full_width():
+def compressed_paths():
+    """The PMQ + OTP model's fp and int8 KV + shared-prefix paths: their
+    launches, and the fp path's expert bytes per decode step and in all."""
     t0 = time.perf_counter()
     cfg, params = workload.build(DEV)
     torch.cuda.synchronize()
@@ -778,6 +888,8 @@ def full_width():
         f"OTP expert activation {s['expert_activation']:.4f}; launches {fp_launches}; "
         f"second engine (full depth) tokens identical")
     log("full width serving summary (fp KV): " + json.dumps(s))
+    experts = (float(np.mean(profile_decode.expert_step_bytes(eng))),
+               sum(weight_bytes(p["moe_ce"]) for p in params["layers"]))
 
     # the int8 KV + shared-prefix path
     reqs = workload.shared_prefix_requests
@@ -811,7 +923,66 @@ def full_width():
         f"tokens in {s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; launches "
         f"{q_launches}; tokens identical without the cache and in a second engine")
     log("full width serving summary (int8 KV + prefix cache): " + json.dumps(s))
-    return fp_launches, q_launches
+    return fp_launches, q_launches, experts
+
+
+def plain_path(name, make, ecfg, needed):
+    """A dense or uncompressed-MoE model built on the card at full width
+    (``make``), served twice with ``ecfg`` on the fp workload's requests:
+    its launches, and its expert bytes per decode step and in all."""
+    t0 = time.perf_counter()
+    cfg, params = make(DEV)
+    torch.cuda.synchronize()
+    weights = weight_bytes(params)
+    log(f"full width: {cfg.name} ({cfg.family}) d_model={cfg.d_model} layers={cfg.num_layers} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff_expert or cfg.d_ff} "
+        f"experts={cfg.num_experts} vocab={cfg.vocab_size} {cfg.dtype}; built in "
+        f"{time.perf_counter() - t0:.1f} s; weights on device {weights / 1e9:.3f} GB")
+    eng, out, launches, peak = _drive(name, cfg, params, ecfg, workload.requests(cfg), needed)
+    _, out2 = _serve(cfg, params, ecfg, workload.requests(cfg))
+    if out2 != out:
+        raise AssertionError(f"{name}: a second engine served different tokens")
+    s = eng.summary()
+    experts = (float(np.mean(profile_decode.expert_step_bytes(eng))),
+               sum(weight_bytes(p["moe"]["experts"]) for p in params["layers"] if "moe" in p))
+    log(f"full width serving ({name}, {cfg.name}): {len(out)} requests x {workload.MAX_NEW} "
+        f"tokens; weights on device {weights / 1e9:.3f} GB; peak device memory "
+        f"{peak / 1e9:.3f} GB; TTFT mean {s['ttft_mean_s']:.3f} s max {s['ttft_max_s']:.3f} s; "
+        f"decode {s['decode_tokens']} tokens in {s['decode_s']:.3f} s = "
+        f"{s['decode_tokens_per_s']:.1f} tokens/s; launches {launches}; second engine "
+        f"(full depth) tokens identical")
+    log(f"full width serving summary ({name}): " + json.dumps(s))
+    return launches, experts
+
+
+def free_model() -> None:
+    """Release the last path's model (its references died with the path's
+    function) and the allocator's cached blocks before the next is built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated after freeing the model: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+
+def full_width():
+    """Phase 5: the compressed model's two paths, then — the compressed
+    model freed — the dense and the uncompressed-MoE models', each freed
+    before the next is built. Returns each path's launches."""
+    fp_launches, q_launches, (fp_step, fp_all) = compressed_paths()
+    free_model()
+    dense_launches, _ = plain_path("dense path", workload.build_dense, workload.DENSE,
+                                   DENSE_PATH)
+    free_model()
+    moe_launches, (moe_step, moe_all) = plain_path(
+        "uncompressed MoE path", workload.build_uncompressed_moe, workload.UNCOMPRESSED_MOE,
+        UNCOMPRESSED_MOE_PATH)
+    free_model()
+    log(f"expert bytes of {workload.ARCH} on the device: uncompressed {moe_all / 1e9:.3f} GB, "
+        f"PMQ {fp_all / 1e9:.3f} GB ({moe_all / fp_all:.2f}x); read per decode step: "
+        f"uncompressed {moe_step / 1e9:.3f} GB (every expert of every layer), PMQ + OTP fp "
+        f"path {fp_step / 1e9:.3f} GB (the routed experts' packed rows; {moe_step / fp_step:.2f}x)")
+    return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
+            "dense serving": dense_launches, "uncompressed MoE serving": moe_launches}
 
 
 def main() -> int:
@@ -835,6 +1006,7 @@ def main() -> int:
     check_tile_plans(cfg)
     parity_quant_matmul(gen, results)
     parity_moe(gen, results, cfg)
+    parity_split_k(gen, results, cfg)
     invariance_quant_matmul(gen)
     invariance_moe_gmm(gen, cfg)
     check_attention_plans()
@@ -851,23 +1023,25 @@ def main() -> int:
             f"library {lib} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
             f"max|err| {r['max_abs_err']:.3e}")
 
-    tiny_parity()
+    for model in TINY:
+        tiny_parity(model)
     tiny_parity(kv_bits=8)
-    fp_launches, q_launches = full_width()
+    paths = full_width()
 
     # launches of each kernel on the path that runs it; binary_matmul has no
     # serving caller (none in the reference either), so its count is phase 3's
-    counted = {name: (fp_launches[name], "fp serving") for name in FP_PATH}
-    counted["paged_attention_quant"] = (q_launches["paged_attention_quant"],
+    counted = {name: (paths["fp serving"][name], "fp serving") for name in FP_PATH}
+    counted["paged_attention_quant"] = (paths["int8 KV + prefix serving"]["paged_attention_quant"],
                                         "int8 KV + prefix serving")
     counted["binary_matmul"] = (binary_launches, "phase 3 (no serving caller)")
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": counted[name][0], "path": counted[name][1],
+         "launches_by_path": {path: n[name] for path, n in paths.items() if n[name]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "long")
-            if key in r}}
+         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "long", "decode_g5",
+                                     "k7168", "k17408", "split_k_max_abs_err") if key in r}}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": kernels}))

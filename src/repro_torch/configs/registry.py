@@ -6,8 +6,9 @@ from __future__ import annotations
 
 from .base import ModelConfig
 from .moonshot_v1_16b_a3b import CONFIG as _moonshot
+from .qwen3_14b import CONFIG as _qwen3
 
-CONFIGS = {c.name: c for c in [_moonshot]}
+CONFIGS = {c.name: c for c in [_moonshot, _qwen3]}
 
 ARCH_IDS = tuple(sorted(CONFIGS))
 

@@ -1,7 +1,14 @@
-"""A PMQ + OTP compressed MoE decoder built on the device from a seed.
+"""Decoders built on the device from a seed: a PMQ + OTP compressed MoE
+(:func:`build_synthetic`), and a dense or uncompressed MoE one
+(:func:`build_uncompressed`).
 
 No weights can be downloaded, so serving at a model's full width starts
-from random weights. This composes the reference pieces and adds no new
+from random weights. ``build_uncompressed`` draws ``init_lm``'s normal
+weights (``repro/models/transformer.py:63``) in the config's dtype one
+tensor at a time, each generated in f32 and rounded at once, so no f32 or
+host copy of the whole tree is ever made (the uncompressed
+``moonshot-v1-16b-a3b`` is 28.9 B parameters, 57.8 GB in bf16).
+``build_synthetic`` composes the reference pieces and adds no new
 behaviour:
 
 * ``init_lm``-style normal weights (``repro/models/transformer.py:63``)
@@ -27,7 +34,7 @@ import torch
 from .compressed_moe import build_compressed_experts
 from .quantizers import quantize_to_packed
 
-__all__ = ["TARGET_AVG_BITS", "bucket_counts", "build_synthetic"]
+__all__ = ["TARGET_AVG_BITS", "bucket_counts", "build_synthetic", "build_uncompressed"]
 
 #: average expert bits of the plan (``compress_for_serving``'s default)
 TARGET_AVG_BITS = 2.05
@@ -109,3 +116,54 @@ def build_synthetic(cfg, *, seed: int = 0, device="cuda") -> Dict:
         params["layers"].append(layer)
     return params
 
+
+
+def build_uncompressed(cfg, *, seed: int = 0, device="cuda") -> Dict:
+    """Params of a dense (``mlp``) or uncompressed MoE (``moe``: router,
+    ``[E, ·, ·]`` expert stacks, shared experts) decoder with all
+    ``cfg.num_layers`` layers, in the layout of
+    :mod:`repro_torch.models.transformer`, built on ``device``: the shapes
+    and scales of ``init_lm`` (``1/√fan_in`` linears, an f32 router, 0.02
+    embeddings, zero norms)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"build_uncompressed makes dense and MoE decoders, got {cfg.family!r}")
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, dh = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+
+    def linear(k_in, n_out):
+        return {"w": _normal(gen, (k_in, n_out), k_in**-0.5, dt, device)}
+
+    def mlp(f):
+        return {"w_gate": linear(d, f), "w_up": linear(d, f), "w_down": linear(f, d)}
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dt, device=device)
+
+    params = {"embed": _normal(gen, (cfg.vocab_size, d), 0.02, dt, device),
+              "final_norm": zeros(d), "layers": []}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _normal(gen, (cfg.vocab_size, d), 0.02, dt, device)
+    for _ in range(cfg.num_layers):
+        attn = {"wq": linear(d, hq * dh), "wk": linear(d, hkv * dh), "wv": linear(d, hkv * dh),
+                "wo": linear(hq * dh, d)}
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = zeros(dh), zeros(dh)
+        layer = {"ln1": zeros(d), "attn": attn, "ln2": zeros(d)}
+        if cfg.is_moe:
+            e, f = cfg.num_experts, cfg.d_ff_expert
+            layer["moe"] = {
+                "router": {"w": _normal(gen, (d, e), d**-0.5, torch.float32, device)},
+                "experts": {
+                    "w_gate": _normal(gen, (e, d, f), d**-0.5, dt, device),
+                    "w_up": _normal(gen, (e, d, f), d**-0.5, dt, device),
+                    "w_down": _normal(gen, (e, f, d), f**-0.5, dt, device),
+                },
+            }
+            if cfg.num_shared_experts:
+                layer["moe"]["shared"] = mlp(f * cfg.num_shared_experts)
+        else:
+            layer["mlp"] = mlp(cfg.d_ff)
+        params["layers"].append(layer)
+    return params

@@ -18,6 +18,16 @@
 //    operand: while a block computes one item the next item's codes and
 //    group params (gate and up for SwiGLU) are already on their way. x is
 //    staged once per row block.
+//  - K chunks: where the whole K range of an item does not fit in shared
+//    memory (kernels/quant_matmul.py: tile_plan), K is cut into the fewest
+//    chunks of whole quantization groups that do, fixed by (K, bits, group,
+//    ROWS, NOP) alone. An item then walks its chunks in order through the
+//    same two-buffer ring: each stage buffer holds one (item, chunk)'s codes,
+//    group params and x slice, and the next (item, chunk) streams in behind
+//    the current one's products. Each warp adds its k16 slice of every
+//    chunk into the same accumulators, so the warps' partial tiles are
+//    still reduced once per item, in warp order. One chunk is the layout
+//    above, byte for byte.
 //  - Dequantisation: a code takes 2^bits values per (group, column), so
 //    those values are computed once per item and operand with the exact
 //    expression round_bf16(__fmul_rn(__fsub_rn(q, z), s)) into shared-memory
@@ -51,7 +61,8 @@
 //  - Residency at K = 2048, group 128 (kernels/quant_matmul.py: tile_plan):
 //    SwiGLU's 2- and 3-bit rows-8 (decode) blocks take 110.25 and 102.25 KB
 //    of shared memory, so two fit on an SM; its 2- and 3-bit rows-16
-//    (prefill) blocks take 146.5 and 138.5 KB and run one per SM.
+//    (prefill) blocks take 146.5 and 138.5 KB and run one per SM. At K =
+//    7168 every instance but 1-bit rows-8 quant_matmul takes 2-4 chunks.
 #pragma once
 
 #include "dequant_gemm.cuh"
@@ -74,40 +85,66 @@ template <int BITS> struct Table {
     static constexpr int kEntryBytes = kPairs ? 4 : 2;
 };
 
+// What one block may opt in to on an H100; the plan keeps every layout
+// within it (kernels/quant_matmul.py: SMEM_OPTIN).
+constexpr size_t kSmemOptin = 232448;
+
 // Byte offsets of one block's dynamic shared memory; every region starts on
 // 16 bytes. Mirrored by kernels/quant_matmul.py: tile_plan.
 struct Layout {
-    int kx;     // K rounded up to the k16 step
-    int ng;     // quantization groups
-    int r0;     // staged rows of plane 0 (rows of kx codes)
-    int wrows;  // staged packed rows: plane 0, then plane 1 (3 bits)
-    int xs;     // x row stride in bf16, padded so the 8 rows' 8-byte loads hit distinct banks
+    int kx;      // codes of one K chunk, rounded up to the k16 step
+    int ng;      // quantization groups of one chunk
+    int chunks;  // K chunks, walked in order (1: all of K)
+    int r0;      // staged rows of plane 0 (rows of kx codes)
+    int wrows;   // staged packed rows: plane 0, then plane 1 (3 bits)
+    int xs;      // x row stride in bf16, padded so the 8 rows' 8-byte loads hit distinct banks
     size_t sz_off;     // within one operand's stage: its scale, zero after the packed rows
     size_t op_stage;   // one operand's stage: packed rows, then scale, zero
-    size_t stage;      // one stage buffer: every operand's stage
+    size_t x_stage;    // several chunks: the x slice's offset within a stage buffer
+    size_t stage;      // one stage buffer: every operand's stage (and the x slice)
     size_t tab_bytes;  // one operand's value tables
     size_t tab_off, x_off, red_off, total;
 };
 
 __host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 
+// The layout with chunks of gpc groups (gpc >= the group count: one chunk).
+// One chunk stages x once per row block beside the tables; several carry
+// each chunk's x slice in the stage buffers, with its codes.
 template <int BITS, int ROWS, int NOP>
-__host__ __device__ inline Layout layout(int K, int group) {
+__host__ __device__ inline Layout layout(int K, int group, int gpc) {
     Layout L;
-    L.kx = (K + 15) / 16 * 16;
-    L.ng = (K + group - 1) / group;
+    const int ng_all = (K + group - 1) / group;
+    L.chunks = (ng_all + gpc - 1) / gpc;
+    L.kx = L.chunks == 1 ? (K + 15) / 16 * 16 : gpc * group;
+    L.ng = L.chunks == 1 ? ng_all : gpc;
     L.r0 = Planes<BITS>::rows0(L.kx);
     L.wrows = L.r0 + Planes<BITS>::rows1(L.kx);
     L.xs = L.kx + 2 * ((8 - (L.kx / 2) % 32 + 32) % 32);
+    const size_t x_bytes = (size_t)ROWS * L.xs * sizeof(__nv_bfloat16);
     L.sz_off = (size_t)L.wrows * kCols;
     L.op_stage = L.sz_off + (size_t)L.ng * 2 * kCols * sizeof(float);
-    L.stage = NOP * L.op_stage;
+    L.x_stage = NOP * L.op_stage;
+    L.stage = L.x_stage + (L.chunks > 1 ? x_bytes : 0);
     L.tab_off = 2 * L.stage;
     L.tab_bytes = round16((size_t)L.ng * kCols * Table<BITS>::kStride * Table<BITS>::kEntryBytes);
     L.x_off = L.tab_off + NOP * L.tab_bytes;
-    L.red_off = L.x_off + (size_t)ROWS * L.xs * sizeof(__nv_bfloat16);
+    L.red_off = L.x_off + (L.chunks > 1 ? 0 : x_bytes);
     L.total = L.red_off + (size_t)kWarps * ROWS * kCols * sizeof(float);
     return L;
+}
+
+// Groups per K chunk: all of them where that layout fits, else those of the
+// fewest even chunks that fit (1 when none does: the launch is refused).
+template <int BITS, int ROWS, int NOP>
+inline int chunk_groups(int K, int group) {
+    const int ng = (K + group - 1) / group;
+    if (layout<BITS, ROWS, NOP>(K, group, ng).total <= kSmemOptin) return ng;
+    for (int n = 2; n <= ng; ++n) {
+        const int gpc = (ng + n - 1) / n;
+        if (layout<BITS, ROWS, NOP>(K, group, gpc).total <= kSmemOptin) return gpc;
+    }
+    return 1;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -191,17 +228,19 @@ __device__ __forceinline__ void a_fragments(uint32_t (&a)[4], const uint8_t* ws,
     }
 }
 
-template <int BITS, int ROWS, int NOP>
+// CHUNKED: the plan cuts K (L.chunks > 1); a one-chunk plan runs the
+// instance without the chunk loop, whose instructions are the whole-K body's.
+template <int BITS, int ROWS, int NOP, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads, 2)
 dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand b,
                          const int* __restrict__ block_expert,
                          const int* __restrict__ num_active, __nv_bfloat16* __restrict__ y,
-                         int M, int K, int N, int group) {
+                         int M, int K, int N, int group, int gpc) {
     constexpr int NT = ROWS / 8;  // n8 tiles per item
     static_assert(ROWS * kCols <= kThreads, "one output element per thread");
     using T = Table<BITS>;
     extern __shared__ __align__(16) uint8_t smem[];
-    const Layout L = layout<BITS, ROWS, NOP>(K, group);
+    const Layout L = layout<BITS, ROWS, NOP>(K, group, gpc);
     uint8_t* tab = smem + L.tab_off;                                        // [NOP][ng][16][stride]
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.x_off);  // [ROWS][xs]
     float* red = reinterpret_cast<float*>(smem + L.red_off);               // [warps][ROWS][16]
@@ -241,53 +280,19 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
     const bool vec_w = (N % kCols) == 0 && (align & 15) == 0;
     const bool vec_x = (K % 8) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const int R0 = Planes<BITS>::rows0(K), R1 = Planes<BITS>::rows1(K);  // rows in memory
-
-    // every operand's packed rows and group params of item `it` into stage buffer `buf`
-    auto stage_w = [&](int it, int buf) {
-        const int rb = it / ntiles, n0 = (it % ntiles) * kCols;
-        const int e = block_expert != nullptr ? block_expert[rb] : 0;
-#pragma unroll
-        for (int o = 0; o < NOP; ++o) {
-            uint8_t* ws = smem + buf * L.stage + o * L.op_stage;
-            float* sz = reinterpret_cast<float*>(ws + L.sz_off);  // scale [ng][16], zero [ng][16]
-            const uint8_t* g0 = ops[o].p0 + (size_t)e * R0 * N + n0;
-            const uint8_t* g1 = BITS == 3 ? ops[o].p1 + (size_t)e * R1 * N + n0 : nullptr;
-            for (int r = tid; r < L.wrows; r += kThreads) {
-                const uint8_t* src = nullptr;
-                if (r < L.r0) {
-                    if (r < R0) src = g0 + (size_t)r * N;
-                } else if (r - L.r0 < R1) {
-                    src = g1 + (size_t)(r - L.r0) * N;
-                }
-                uint8_t* dst = ws + r * kCols;
-                if (vec_w && src != nullptr) {
-                    cp_async16(dst, src);
-                } else if (vec_w) {
-                    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-                } else {
-                    for (int c = 0; c < kCols; ++c) dst[c] = (src && n0 + c < N) ? src[c] : 0;
-                }
-            }
-            const size_t gbase = (size_t)e * L.ng * N + n0;
-            for (int i = tid; i < L.ng * 8; i += kThreads) {  // [scale|zero][group][4 x 16 B]
-                const int arr = i / (L.ng * 4), g = (i / 4) % L.ng, ch = i % 4;
-                const float* src = (arr ? ops[o].zero : ops[o].scale) + gbase + (size_t)g * N +
-                                   ch * 4;
-                float* dst = sz + (arr * L.ng + g) * kCols + ch * 4;
-                if (vec_w) {
-                    cp_async16(dst, src);
-                } else {
-                    for (int j = 0; j < 4; ++j) dst[j] = n0 + ch * 4 + j < N ? src[j] : 0.f;
-                }
-            }
-        }
+    const int C = CHUNKED ? L.chunks : 1, NG = (K + group - 1) / group;
+    // several chunks: the x slice of the (item, chunk) in stage buffer buf
+    auto x_slice = [&](int buf) {
+        return reinterpret_cast<__nv_bfloat16*>(smem + buf * L.stage + L.x_stage);
     };
-    // the ROWS rows of x of row block rb (zero past M and past K)
-    auto stage_x = [&](int rb) {
-        const int m0 = rb * ROWS, chunks = L.kx / 8;  // 16-byte chunks of one row
+
+    // the ROWS rows of x of row block rb, K chunk c, into xd (zero past M
+    // and past K)
+    auto stage_x = [&](int rb, int c, __nv_bfloat16* xd) {
+        const int m0 = rb * ROWS, k0 = c * L.kx, chunks = L.kx / 8;  // 16-byte pieces of a row
         for (int i = tid; i < ROWS * chunks; i += kThreads) {
-            const int r = i / chunks, k = (i % chunks) * 8;
-            __nv_bfloat16* dst = xs + r * L.xs + k;
+            const int r = i / chunks, kk = (i % chunks) * 8, k = k0 + kk;
+            __nv_bfloat16* dst = xd + r * L.xs + kk;
             const bool row_ok = m0 + r < M;
             const __nv_bfloat16* src = x + (size_t)(m0 + r) * K + k;
             if (vec_x && row_ok && k < K) {
@@ -300,24 +305,74 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
             }
         }
     };
+    // every operand's packed rows and group params of K chunk c of item
+    // `it` (several chunks: and its x slice) into stage buffer `buf`
+    auto stage_w = [&](int it, int c, int buf) {
+        const int rb = it / ntiles, n0 = (it % ntiles) * kCols;
+        const int e = block_expert != nullptr ? block_expert[rb] : 0;
+        const int k0 = c * L.kx, gc0 = c * L.ng, ngc = CHUNKED ? min(L.ng, NG - gc0) : L.ng;
+        const int q0 = Planes<BITS>::rows0(k0), q1 = Planes<BITS>::rows1(k0);  // chunk's first rows
+#pragma unroll
+        for (int o = 0; o < NOP; ++o) {
+            uint8_t* ws = smem + buf * L.stage + o * L.op_stage;
+            float* sz = reinterpret_cast<float*>(ws + L.sz_off);  // scale [ng][16], zero [ng][16]
+            const uint8_t* g0 = ops[o].p0 + ((size_t)e * R0 + q0) * N + n0;
+            const uint8_t* g1 = BITS == 3 ? ops[o].p1 + ((size_t)e * R1 + q1) * N + n0 : nullptr;
+            for (int r = tid; r < L.wrows; r += kThreads) {
+                const uint8_t* src = nullptr;
+                if (r < L.r0) {
+                    if (q0 + r < R0) src = g0 + (size_t)r * N;
+                } else if (q1 + r - L.r0 < R1) {
+                    src = g1 + (size_t)(r - L.r0) * N;
+                }
+                uint8_t* dst = ws + r * kCols;
+                if (vec_w && src != nullptr) {
+                    cp_async16(dst, src);
+                } else if (vec_w) {
+                    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+                } else {
+                    for (int j = 0; j < kCols; ++j) dst[j] = (src && n0 + j < N) ? src[j] : 0;
+                }
+            }
+            const size_t gbase = ((size_t)e * NG + gc0) * N + n0;
+            for (int i = tid; i < ngc * 8; i += kThreads) {  // [scale|zero][group][4 x 16 B]
+                const int arr = i / (ngc * 4), g = (i / 4) % ngc, ch = i % 4;
+                const float* src = (arr ? ops[o].zero : ops[o].scale) + gbase + (size_t)g * N +
+                                   ch * 4;
+                float* dst = sz + (arr * L.ng + g) * kCols + ch * 4;
+                if (vec_w) {
+                    cp_async16(dst, src);
+                } else {
+                    for (int j = 0; j < 4; ++j) dst[j] = n0 + ch * 4 + j < N ? src[j] : 0.f;
+                }
+            }
+        }
+        if constexpr (CHUNKED) stage_x(rb, c, x_slice(buf));
+    };
 
-    const int S = L.kx / 16, spw = (S + kWarps - 1) / kWarps, spg = group / 16;
-    const int s_lo = warp * spw, s_hi = min(S, s_lo + spw);
+    const int spg = group / 16;
     const int t = lane & 3, gq = lane >> 2, c0 = 2 * gq;  // MMA fragment coordinates
     const size_t tab_group = (size_t)kCols * T::kStride * T::kEntryBytes;
 
+    // units: (item, chunk) pairs, chunks innermost
+    const int units = (i1 - i0) * C;
+    float acc[NOP][NT][4];
     int staged_rb = -1;
-    for (int it = i0; it < i1; ++it) {
-        const int buf = (it - i0) & 1;
+    for (int u = 0; u < units; ++u) {
+        const int it = i0 + u / C, c = u % C;
+        const int buf = u & 1;
         const int rb = it / ntiles, n0 = (it % ntiles) * kCols, m0 = rb * ROWS;
-        if (it == i0) stage_w(it, buf);
-        if (rb != staged_rb) {  // the previous item's products are done (barrier below)
-            stage_x(rb);
+        // a later chunk: every warp is done with the previous chunk's
+        // products (its stage buffer, which the next unit overwrites)
+        if (CHUNKED && c > 0) __syncthreads();
+        if (u == 0) stage_w(it, c, buf);
+        if (!CHUNKED && rb != staged_rb) {  // the last item's products are done (barrier below)
+            stage_x(rb, 0, xs);
             staged_rb = rb;
         }
         cp_async_commit();
-        if (it + 1 < i1) {  // the next item's codes stream in behind this one's products
-            stage_w(it + 1, buf ^ 1);
+        if (u + 1 < units) {  // the next unit's codes stream in behind this one's products
+            stage_w(i0 + (u + 1) / C, (u + 1) % C, buf ^ 1);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -325,16 +380,17 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
         }
         __syncthreads();
 
-        // ---- the item's value tables: one thread per (group, column) of each
-        // operand computes its 2^bits values once and writes the entries
+        // ---- the chunk's value tables: one thread per (group, column) of
+        // each operand computes its 2^bits values once and writes the entries
         constexpr int NQ = 1 << BITS;
+        const int ngc = CHUNKED ? min(L.ng, NG - c * L.ng) : L.ng;
 #pragma unroll
         for (int o = 0; o < NOP; ++o) {
             const float* sc = reinterpret_cast<const float*>(smem + buf * L.stage +
                                                              o * L.op_stage + L.sz_off);
             const float* ze = sc + L.ng * kCols;
             uint8_t* to = tab + o * L.tab_bytes;
-            for (int gc = tid; gc < L.ng * kCols; gc += kThreads) {
+            for (int gc = tid; gc < ngc * kCols; gc += kThreads) {
                 const float z = ze[gc], s = sc[gc];
                 uint32_t v[NQ];
 #pragma unroll
@@ -353,15 +409,21 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
         }
         __syncthreads();
 
-        // ---- this warp's K slice: A from the staged codes, B from x
+        // ---- this warp's slice of the chunk's k16 steps: A from the staged
+        // codes, B from x
         const uint8_t* ws = smem + buf * L.stage;
-        float acc[NOP][NT][4];
+        const __nv_bfloat16* xb = CHUNKED ? x_slice(buf) : xs;
+        if (c == 0) {
 #pragma unroll
-        for (int o = 0; o < NOP; ++o)
+            for (int o = 0; o < NOP; ++o)
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
+                for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[o][nt][j] = 0.f;
+                    for (int j = 0; j < 4; ++j) acc[o][nt][j] = 0.f;
+        }
+        const int S = CHUNKED ? (min(L.kx, K - c * L.kx) + 15) / 16 : L.kx / 16;
+        const int spw = (S + kWarps - 1) / kWarps;
+        const int s_lo = warp * spw, s_hi = min(S, s_lo + spw);
         int g = s_lo / spg, left = spg - s_lo % spg;  // group of the step, steps left in it
         const uint8_t* tb = tab + g * tab_group;
         // launch/probe_dequant.py builds a copy without the products to split
@@ -376,7 +438,7 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
                 a_fragments<BITS>(A, ws + o * L.op_stage, L.r0, kb, t, c0, tb + o * L.tab_bytes);
 #pragma unroll
                 for (int nt = 0; nt < NT; ++nt) {
-                    const uint2 b = *reinterpret_cast<const uint2*>(xs + (nt * 8 + gq) * L.xs +
+                    const uint2 b = *reinterpret_cast<const uint2*>(xb + (nt * 8 + gq) * L.xs +
                                                                     kb + 4 * t);
                     mma_16816(acc[o][nt], A, b.x, b.y);
                 }
@@ -388,6 +450,7 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
         }
 
 #endif
+        if (CHUNKED && c + 1 < C) continue;  // the item's later chunks add into acc
         // ---- fixed-order reduction of the warps' partial tiles (SwiGLU: gate,
         // then up, through the one buffer), then the epilogue and the store
         float* rw = red + warp * ROWS * kCols;
@@ -421,12 +484,11 @@ dequant_gemm_sm90_kernel(const __nv_bfloat16* __restrict__ x, Operand a, Operand
     }
 }
 
-template <int BITS, int ROWS, int NOP>
-cudaError_t launch(const void* x, Operand a, Operand b, const int* block_expert,
-                   const int* num_active, void* y, int M, int K, int N, int group,
-                   cudaStream_t stream) {
-    const Layout L = layout<BITS, ROWS, NOP>(K, group);
-    auto kernel = dequant_gemm_sm90_kernel<BITS, ROWS, NOP>;
+template <int BITS, int ROWS, int NOP, bool CHUNKED>
+cudaError_t run(const Layout& L, const void* x, Operand a, Operand b, const int* block_expert,
+                const int* num_active, void* y, int M, int K, int N, int group, int gpc,
+                cudaStream_t stream) {
+    auto kernel = dequant_gemm_sm90_kernel<BITS, ROWS, NOP, CHUNKED>;
     // Opt in to the card's whole shared memory once per instance; then the
     // blocks resident per SM at each shared-memory size seen (a few K per
     // model), so the CUDA runtime is queried once per size, not per launch.
@@ -462,8 +524,23 @@ cudaError_t launch(const void* x, Operand a, Operand b, const int* block_expert,
     const int grid = (int)(items < blocks ? items : blocks);
     kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const __nv_bfloat16*>(x), a, b,
                                                 block_expert, num_active,
-                                                static_cast<__nv_bfloat16*>(y), M, K, N, group);
+                                                static_cast<__nv_bfloat16*>(y), M, K, N, group,
+                                                gpc);
     return cudaGetLastError();
+}
+
+template <int BITS, int ROWS, int NOP>
+cudaError_t launch(const void* x, Operand a, Operand b, const int* block_expert,
+                   const int* num_active, void* y, int M, int K, int N, int group,
+                   cudaStream_t stream) {
+    const int gpc = chunk_groups<BITS, ROWS, NOP>(K, group);
+    const Layout L = layout<BITS, ROWS, NOP>(K, group, gpc);
+    if (L.total > kSmemOptin) return cudaErrorInvalidValue;  // one group overflows the ring
+    if (L.chunks > 1)
+        return run<BITS, ROWS, NOP, true>(L, x, a, b, block_expert, num_active, y, M, K, N,
+                                          group, gpc, stream);
+    return run<BITS, ROWS, NOP, false>(L, x, a, b, block_expert, num_active, y, M, K, N, group,
+                                       gpc, stream);
 }
 
 // Runtime (bits, rows) -> template instance; bf16 activations only. NOP 1
@@ -483,9 +560,11 @@ cudaError_t dispatch(const void* x, Operand a, Operand b, const int* block_exper
 
 // Shared-memory bytes of one block, for the host-side plan to check against.
 inline long smem_bytes(int K, int bits, int group, int rows, int operands) {
-#define REPRO_SM90_SMEM(B, R)                                                      \
-    if (bits == B && rows == R)                                                    \
-        return (long)(operands == 2 ? layout<B, R, 2>(K, group) : layout<B, R, 1>(K, group)) \
+#define REPRO_SM90_SMEM(B, R)                                                              \
+    if (bits == B && rows == R)                                                            \
+        return (long)(operands == 2                                                        \
+                          ? layout<B, R, 2>(K, group, chunk_groups<B, R, 2>(K, group))     \
+                          : layout<B, R, 1>(K, group, chunk_groups<B, R, 1>(K, group)))    \
             .total;
     if (operands != 1 && operands != 2) return -1;
     REPRO_SM90_SMEM(1, 8) REPRO_SM90_SMEM(2, 8) REPRO_SM90_SMEM(3, 8) REPRO_SM90_SMEM(4, 8)

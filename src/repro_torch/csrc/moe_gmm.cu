@@ -22,8 +22,10 @@
 // rows with 16-byte stores — dead row blocks cost no block launch and read
 // no weights. Each item stages its expert's whole K range of packed bytes
 // and scale/zero rows (gate and up for SwiGLU) and, once per row block, its
-// bm rows of x with 16-byte cp.async copies, dequantises through
-// per-(group, column) value tables and runs bf16 mma.sync m16n8k16
+// bm rows of x with 16-byte cp.async copies (where that outgrows shared
+// memory, the fewest even K chunks of whole groups, each with its x
+// slice), dequantises through per-(group, column) value tables and runs
+// bf16 mma.sync m16n8k16
 // (swap-AB; bm 16 takes two n8 tiles; SwiGLU feeds its gate and up A
 // fragments from the same x B fragments), f32 accumulation, K cut over the
 // warps in an order fixed by K. SwiGLU adds the warps' gate, then up

@@ -19,9 +19,11 @@
 // tables and multiplies on the tensor cores (mma.sync m16n8k16, swap-AB:
 // the 16 columns are the MMA's M, the rows its N). The row tile is fixed
 // at 8 whatever M is, and K is cut over the block's warps in an order fixed
-// by K alone, so a row's output never depends on M. f32 activations (the
-// card-vs-CPU parity path) keep IEEE f32 FMAs on CUDA cores in the older
-// body (dequant_gemm.cuh), never TF32.
+// by K alone, so a row's output never depends on M. Where an item's whole K
+// range outgrows shared memory (4-bit K = 7168 and up), it walks K in the
+// fewest even chunks of whole groups that fit (dequant_gemm_sm90.cuh). f32
+// activations (the card-vs-CPU parity path) keep IEEE f32 FMAs on CUDA cores
+// in the older body (dequant_gemm.cuh), never TF32.
 //
 // Measured (chip_smoke.py: median of 50 launches, L2 flushed before each;
 // NVIDIA H100 80GB HBM3, 700.00 W): M=4, K=N=2048, 4-bit: 0.0102 ms, against

@@ -3,16 +3,20 @@
 Input is plain numpy — the port never imports ``jax``; the flattening of
 the reference tree into numpy lives with the tests:
 
-* ``flat``: ``{path: np.ndarray}`` over the reference's stacked serving
-  tree (``compress_for_serving`` layout), with ``/``-joined paths:
+* ``flat``: ``{path: np.ndarray}`` over the reference's stacked tree — the
+  compressed serving layout (``compress_for_serving``) or the uncompressed
+  ``init_lm`` one (``blocks/mlp/w_*/w``; ``blocks/moe/router/w``,
+  ``blocks/moe/experts/{w_gate,w_up,w_down}`` ``[L, E, ·, ·]``,
+  ``blocks/moe/shared/...``) — with ``/``-joined paths:
   ``embed``, ``final_norm``, ``unembed``, ``blocks/<...>`` leaves stacked
   over layers on axis 0. A ``PackedTensor`` at ``P`` contributes ``P/data``
   (or ``P/hi`` and ``P/lo``), ``P/scale`` and ``P/zero``; the
   ``CompressedExperts`` at ``blocks/moe_ce`` contributes
   ``blocks/moe_ce/slot_of_expert`` and ``blocks/moe_ce/b<i>/<name>/<key>``.
 * ``meta``: the static metadata — ``{"num_layers": L, "packed": {P:
-  {"bits", "shape", "group"}}, "moe_ce": {"buckets": [[bits, start,
-  count], ...], "num_slots", "group", "d_model", "d_ff"}}``.
+  {"bits", "shape", "group"}}, "moe_ce"?: {"buckets": [[bits, start,
+  count], ...], "num_slots", "group", "d_model", "d_ff"}}`` (``moe_ce``
+  only for a compressed MoE).
 
 bf16 arrays may arrive as numpy's ``bfloat16`` extension dtype; their bits
 are reinterpreted, never converted.
@@ -60,8 +64,7 @@ def params_from_reference(flat: Dict[str, np.ndarray], meta: Dict, *, device="cu
     """Build the port's per-layer params (see :mod:`repro_torch.models.transformer`)."""
     top = {p: _tensor(a, device) for p, a in flat.items() if not p.startswith(_BLOCKS)}
     params = dict(top, layers=[])
-    ce_meta = meta["moe_ce"]
-    buckets = tuple(BucketMeta(*map(int, b)) for b in ce_meta["buckets"])
+    ce_meta = meta.get("moe_ce")
     for l in range(meta["num_layers"]):
         layer_flat = {
             p[len(_BLOCKS):]: _tensor(a[l], device)
@@ -78,11 +81,12 @@ def params_from_reference(flat: Dict[str, np.ndarray], meta: Dict, *, device="cu
         ce = {p[len("moe_ce/"):]: layer_flat.pop(p)
               for p in [p for p in layer_flat if p.startswith("moe_ce/")]}
         layer = _nest(layer_flat)
-        slot_of_expert = ce.pop("slot_of_expert").long()
-        layer["moe_ce"] = CompressedExperts(
-            meta=buckets, slot_of_expert=slot_of_expert, arrays=_nest(ce),
-            num_slots=int(ce_meta["num_slots"]), group=int(ce_meta["group"]),
-            d_model=int(ce_meta["d_model"]), d_ff=int(ce_meta["d_ff"]),
-        )
+        if ce_meta is not None:
+            layer["moe_ce"] = CompressedExperts(
+                meta=tuple(BucketMeta(*map(int, b)) for b in ce_meta["buckets"]),
+                slot_of_expert=ce.pop("slot_of_expert").long(), arrays=_nest(ce),
+                num_slots=int(ce_meta["num_slots"]), group=int(ce_meta["group"]),
+                d_model=int(ce_meta["d_model"]), d_ff=int(ce_meta["d_ff"]),
+            )
         params["layers"].append(layer)
     return params

@@ -27,6 +27,27 @@ COL_TILE, WARPS, SMEM_OPTIN = 16, 8, 232448
 SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 
 
+def _smem(kx: int, ng: int, bits: int, rows: int, operands: int, chunked: bool) -> int:
+    """Shared-memory bytes of one block staging ``kx`` codes of ``ng``
+    groups per item: the kernel's ``Layout``. One chunk stages x once per row
+    block beside the tables; several carry each chunk's x slice in the two
+    stage buffers, with its codes."""
+    plane_rows = (kx // 8 * 2 + kx // 8) if bits == 3 else kx // _PER[bits]
+    # value tables: a bf16 pair per code pair (1, 2 bits) or a bf16 per code,
+    # each column's entries padded by one pair / two values
+    pairs = bits <= 2
+    entries = 1 << (2 * bits if pairs else bits)
+    table = ng * COL_TILE * (entries + 1 if pairs else entries + 2) * (4 if pairs else 2)
+    x_stride = kx + 2 * ((8 - (kx // 2) % 32) % 32)  # bf16; rows 8 words apart mod 32 banks
+    x_bytes = rows * x_stride * 2
+    stage = operands * (plane_rows * COL_TILE + ng * 2 * COL_TILE * 4)  # codes + scale/zero
+    if chunked:
+        stage += x_bytes
+    # two stage buffers, tables, x (one chunk), one reduction buffer
+    return (2 * stage + operands * (-(-table // 16) * 16) + (0 if chunked else x_bytes)
+            + WARPS * rows * COL_TILE * 4)
+
+
 @functools.lru_cache(maxsize=None)  # every launch asks; a model has a few shapes
 def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8,
               operands: int = 1) -> dict:
@@ -36,11 +57,15 @@ def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8,
     ``moe_gmm_swiglu``'s gate and up). It takes no M: the number of rows
     changes how many items run, never a row's arithmetic.
 
-    ``k_slices`` are the warps' ranges of k16 steps, added in warp order;
-    ``smem_bytes`` mirrors the kernel's ``Layout`` (the C function
-    ``repro_dequant_gemm_sm90_smem`` reports the kernel's own) and
-    ``smem_blocks_per_sm`` is how many such blocks an SM's shared memory
-    holds (registers may allow fewer).
+    ``k_chunks`` are the ranges of k16 steps an item stages one after the
+    other: all of K where that fits ``SMEM_OPTIN``, else the fewest even
+    chunks of whole quantization groups that do. ``k_slices`` are the
+    warps' ranges within each chunk, chunk by chunk (``WARPS`` per chunk);
+    warp ``w`` adds slice ``w`` of every chunk into one accumulator and the
+    warps are added in warp order. ``smem_bytes`` mirrors the kernel's
+    ``Layout`` (the C function ``repro_dequant_gemm_sm90_smem`` reports the
+    kernel's own) and ``smem_blocks_per_sm`` is how many such blocks an
+    SM's shared memory holds (registers may allow fewer).
     f32 activations run the older CUDA-core body, which has no plan here."""
     if operands not in (1, 2):
         raise ValueError(f"the bf16 body takes 1 or 2 weight operands, got {operands}")
@@ -48,32 +73,34 @@ def tile_plan(k: int, n: int, bits: int, group: int, dtype, rows: int = 8,
         return {"body": "dequant_gemm.cuh", "rows": rows, "operands": operands}
     kx = -(-k // 16) * 16
     ng = -(-k // group)
-    plane_rows = (kx // 8 * 2 + kx // 8) if bits == 3 else kx // _PER[bits]
     steps = kx // 16
-    spw = -(-steps // WARPS)
-    # value tables: a bf16 pair per code pair (1, 2 bits) or a bf16 per code,
-    # each column's entries padded by one pair / two values
-    pairs = bits <= 2
-    entries = 1 << (2 * bits if pairs else bits)
-    table = ng * COL_TILE * (entries + 1 if pairs else entries + 2) * (4 if pairs else 2)
-    x_stride = kx + 2 * ((8 - (kx // 2) % 32) % 32)  # bf16; rows 8 words apart mod 32 banks
-    stage = plane_rows * COL_TILE + ng * 2 * COL_TILE * 4  # codes + scale/zero of one operand
-    smem = (2 * operands * stage + operands * (-(-table // 16) * 16) + rows * x_stride * 2
-            + WARPS * rows * COL_TILE * 4)  # two stage buffers, tables, x, one reduction buffer
+    gpc, smem = ng, _smem(kx, ng, bits, rows, operands, chunked=False)
+    if smem > SMEM_OPTIN and ng > 1:  # the fewest even chunks that fit
+        for parts in range(2, ng + 1):
+            gpc = -(-ng // parts)
+            smem = _smem(gpc * group, gpc, bits, rows, operands, chunked=True)
+            if smem <= SMEM_OPTIN:
+                break
+    chunk_steps = gpc * group // 16
+    chunks = [(lo, min(steps, lo + chunk_steps)) for lo in range(0, steps, chunk_steps)]
+    slices = []
+    for lo, hi in chunks:
+        spw = -(-(hi - lo) // WARPS)
+        slices += [(lo + w * spw, min(hi, lo + (w + 1) * spw)) for w in range(WARPS)]
     return {
         "body": "dequant_gemm_sm90.cuh", "rows": rows, "operands": operands,
         "col_tile": COL_TILE, "warps": WARPS,
-        "n_tiles": -(-n // COL_TILE), "k_steps": steps,
-        "k_slices": [(w * spw, min(steps, (w + 1) * spw)) for w in range(WARPS)],
-        "tables": "code pairs" if pairs else "codes", "smem_bytes": smem,
+        "n_tiles": -(-n // COL_TILE), "k_steps": steps, "k_chunks": chunks,
+        "k_slices": slices,
+        "tables": "code pairs" if bits <= 2 else "codes", "smem_bytes": smem,
         "smem_blocks_per_sm": SMEM_PER_SM // (smem + SMEM_RESERVED),
     }
 
 
 def check_plan(name: str, plan: dict) -> None:
     require(plan.get("smem_bytes", 0) <= SMEM_OPTIN,
-            f"{name}: K too long for the bf16 body's whole-K staging "
-            f"({plan.get('smem_bytes')} bytes of shared memory > {SMEM_OPTIN})")
+            f"{name}: one quantization group's staging overflows the bf16 body's shared "
+            f"memory ({plan.get('smem_bytes')} bytes > {SMEM_OPTIN})")
 
 
 def planes(w_packed, bits: int):

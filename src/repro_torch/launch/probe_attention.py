@@ -8,12 +8,13 @@ lies in), so the same script times an older tree's kernels beside this
 one's in one call: their wrappers take the same arguments. Run it as a file,
 not with ``-m``, or the package of the current directory is imported first.
 
-Shapes: B=4 sequences, 16 KV heads, G=1, head_dim 128, 16-token pages, bf16
-q; every sequence at length 80 (``decode``: 6-page tables, the full-width
-serving shape mid-decode) or 4096 (``long``: 256-page tables), permuted
-physical pages. For ``paged_attention`` (bf16 pools) and
-``paged_attention_quant`` (uint8 pools + f32 row tables) at each shape it
-measures the kernel, its plain version and
+Shapes: B=4 sequences, head_dim 128, 16-token pages, bf16 q, permuted
+physical pages; 16 KV heads at G=1 (``moonshot-v1-16b-a3b``) with every
+sequence at length 80 (``decode``: 6-page tables, the full-width serving
+shape mid-decode) or 4096 (``long``: 256-page tables), and 8 KV heads at
+G=5 (``qwen3-14b``) at length 80 (``decode_g5``). For ``paged_attention``
+(bf16 pools) and ``paged_attention_quant`` (uint8 pools + f32 row tables) at
+each shape it measures the kernel, its plain version and
 ``scaled_dot_product_attention`` over the gathered (for int8: dequantized
 bf16) pages, each the median, min and max of 50 launches with the L2 flushed
 before each, the SM clock read before and after the kernel's timing; and the
@@ -34,8 +35,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_BF16_OPS_PER_S = 989e12
-SHAPES = {"decode": 80, "long": 4096}
-B, HKV, G, DH, BS = 4, 16, 1, 128, 16
+#: name -> (length, KV heads, G)
+SHAPES = {"decode": (80, 16, 1), "long": (4096, 16, 1), "decode_g5": (80, 8, 5)}
+B, DH, BS = 4, 128, 16
 
 
 def time_ms(fn, iters: int = 50):
@@ -78,44 +80,49 @@ def load(root: Path) -> SimpleNamespace:
                            dequantize_kv_rows=quant.dequantize_kv_rows)
 
 
-def attention_case(mods, kind: str, length: int, gen) -> dict:
-    """Inputs at ``length`` and three callables on them — ``kernel``,
+def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1) -> dict:
+    """Inputs at ``length`` (``hkv`` KV heads of ``g`` queries each) and
+    three callables on them — ``kernel``,
     ``plain`` and ``library`` (SDPA over the gathered pages) — with the
     bytes the kernel must move and the products it does. The inputs are
     made on ``gen``'s device."""
     dev = gen.device
-    mb = -(-length // BS) + (1 if length == SHAPES["decode"] else 0)  # decode: 6 pages
+    mb = -(-length // BS) + (1 if length == SHAPES["decode"][0] else 0)  # decode: 6 pages
     nb = B * mb
-    q = torch.randn((B, HKV, G, DH), generator=gen, device=dev).to(torch.bfloat16)
-    rows = [torch.randn((nb, BS, HKV, DH), generator=gen, device=dev) for _ in range(2)]
+    q = torch.randn((B, hkv, g, DH), generator=gen, device=dev).to(torch.bfloat16)
+    rows = [torch.randn((nb, BS, hkv, DH), generator=gen, device=dev) for _ in range(2)]
     tables = torch.randperm(nb, generator=gen, device=dev).reshape(B, mb).to(torch.int32)
     lens = torch.full((B,), length, dtype=torch.int32, device=dev)
     phys = (tables.long()[:, :, None] * BS + torch.arange(BS, device=dev)).reshape(B, -1)
     pages = B * -(-length // BS)
     if kind == "paged_attention":
         kp, vp = (r.to(torch.bfloat16) for r in rows)
-        k_g, v_g = (p.reshape(-1, HKV, DH)[phys] for p in (kp, vp))
+        k_g, v_g = (p.reshape(-1, hkv, DH)[phys] for p in (kp, vp))
         kernel = lambda: mods.paged_attention(q, kp, vp, tables, lens)  # noqa: E731
         plain = lambda: mods.ref(q, kp, vp, tables, lens)  # noqa: E731
-        kv_bytes = pages * BS * HKV * DH * 2 * 2
+        kv_bytes = pages * BS * hkv * DH * 2 * 2
     else:
         (kc, ks, kz), (vc, vs, vz) = (mods.quantize_kv_rows(r * 2) for r in rows)
         quant = (ks, kz, vs, vz)
-        gs = [t.reshape(-1, HKV)[phys] for t in quant]
-        k_g = mods.dequantize_kv_rows(kc.reshape(-1, HKV, DH)[phys], gs[0], gs[1])
-        v_g = mods.dequantize_kv_rows(vc.reshape(-1, HKV, DH)[phys], gs[2], gs[3])
+        gs = [t.reshape(-1, hkv)[phys] for t in quant]
+        k_g = mods.dequantize_kv_rows(kc.reshape(-1, hkv, DH)[phys], gs[0], gs[1])
+        v_g = mods.dequantize_kv_rows(vc.reshape(-1, hkv, DH)[phys], gs[2], gs[3])
         k_g, v_g = k_g.to(torch.bfloat16), v_g.to(torch.bfloat16)
         kernel = lambda: mods.paged_attention_quant(q, kc, vc, *quant, tables, lens)  # noqa: E731
         plain = lambda: mods.ref(q, kc, vc, tables, lens, quant=quant)  # noqa: E731
         # per visited row and KV head: dh code bytes of K and of V, 4 f32 table entries
-        kv_bytes = pages * BS * HKV * (2 * DH + 16)
+        kv_bytes = pages * BS * hkv * (2 * DH + 16)
     k_g, v_g = k_g.permute(0, 2, 1, 3), v_g.permute(0, 2, 1, 3)
     mask = (torch.arange(mb * BS, device=dev)[None, :] < lens[:, None].long())[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library = lambda: sdpa(q, k_g, v_g, attn_mask=mask)  # noqa: E731
+    if g > 1:  # SDPA's grouped-query form: the query heads of a KV head side by side
+        library = lambda: sdpa(q.reshape(B, hkv * g, 1, DH), k_g, v_g,  # noqa: E731
+                               attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: sdpa(q, k_g, v_g, attn_mask=mask)  # noqa: E731
     io_bytes = kv_bytes + 2 * q.numel() * q.element_size() + (tables.numel() + B) * 4
     return dict(kernel=kernel, plain=plain, library=library, bytes=io_bytes,
-                ops=4 * B * HKV * G * length * DH)
+                ops=4 * B * hkv * g * length * DH)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -123,8 +130,9 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def measure(mods, kind: str, length: int, gen) -> dict:
-    c = attention_case(mods, kind, length, gen)
+def measure(mods, kind: str, shape: str, gen) -> dict:
+    length, hkv, g = SHAPES[shape]
+    c = attention_case(mods, kind, length, gen, hkv, g)
     before = sm_clock()
     med, lo, hi = time_ms(c["kernel"])
     after = sm_clock()
@@ -132,7 +140,7 @@ def measure(mods, kind: str, length: int, gen) -> dict:
     return dict(ms=med, ms_min=lo, ms_max=hi, sm_clock=[before, after],
                 plain_ms=time_ms(c["plain"])[0], library_ms=time_ms(c["library"])[0],
                 bound_ms=b_ms, bound_by=b_by,
-                shape=f"B={B} Hkv={HKV} G={G} dh={DH} BS={BS} len={length} bf16 q")
+                shape=f"B={B} Hkv={hkv} G={g} dh={DH} BS={BS} len={length} bf16 q")
 
 
 def main() -> None:
@@ -146,8 +154,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(args.root)}
     for kind in ("paged_attention", "paged_attention_quant"):
-        for name, length in SHAPES.items():
-            out[f"{kind} {name}"] = measure(mods, kind, length, gen)
+        for name in SHAPES:
+            out[f"{kind} {name}"] = measure(mods, kind, name, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     out["device"] = smi

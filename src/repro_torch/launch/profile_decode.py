@@ -44,16 +44,16 @@ PORT_KERNELS = ("dequant_gemm_kernel", "dequant_gemm_sm90_kernel", "paged_attent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
-def step_bytes(eng, positions) -> list:
-    """Bytes each decode step of the engine's last megastep had to move
-    (see the module docstring); ``positions`` are the active slots' KV
-    lengths before the megastep."""
-    cfg, params = eng.model_cfg, eng.params
-    layers = params["layers"]
-    dense = sum(weight_bytes({k: v for k, v in p.items() if k != "moe_ce"}) for p in layers)
-    unembed = weight_bytes(params.get("unembed", params["embed"]))
-    kv_row = 2 * cfg.num_kv_heads * cfg.head_dim * eng.cache.k.element_size()
-    bs = eng.ecfg.block_size
+def expert_step_bytes(eng) -> list:
+    """Expert bytes each decode step of the engine's last megastep read:
+    the packed rows and group params of each expert slot its routing
+    dispatched to (PMQ), or every expert of every layer (an uncompressed
+    MoE's batched expert FFN reads them all); 0 for a dense model."""
+    layers = eng.params["layers"]
+    steps = [s for s, emit in enumerate(eng.last_emits) if emit.any()]
+    if "moe_ce" not in layers[0]:
+        every = sum(weight_bytes(p["moe"]["experts"]) for p in layers if "moe" in p)
+        return [float(every)] * len(steps)
     per_slot = []  # expert bytes of each permuted slot, per layer
     for p in layers:
         ce = p["moe_ce"]
@@ -61,12 +61,25 @@ def step_bytes(eng, positions) -> list:
         for i, m in enumerate(ce.meta):
             sizes += [weight_bytes(ce.arrays[f"b{i}"]) / m.count] * m.count
         per_slot.append(np.asarray(sizes))
+    return [sum(float(per_slot[l][eng.last_slot_counts[s, l] > 0].sum())
+                for l in range(len(layers))) for s in steps]
+
+
+def step_bytes(eng, positions) -> list:
+    """Bytes each decode step of the engine's last megastep had to move
+    (see the module docstring); ``positions`` are the active slots' KV
+    lengths before the megastep."""
+    cfg, params = eng.model_cfg, eng.params
+    layers = params["layers"]
+    dense = weight_bytes(layers) - sum(  # every weight but the experts
+        weight_bytes(p.get("moe_ce")) + weight_bytes(p.get("moe", {}).get("experts"))
+        for p in layers)
+    unembed = weight_bytes(params.get("unembed", params["embed"]))
+    kv_row = 2 * cfg.num_kv_heads * cfg.head_dim * eng.cache.k.element_size()
+    bs = eng.ecfg.block_size
+    emitting = [emit for emit in eng.last_emits if emit.any()]
     out = []
-    for s, emit in enumerate(eng.last_emits):
-        if not emit.any():
-            continue
-        experts = sum(float(per_slot[l][eng.last_slot_counts[s, l] > 0].sum())
-                      for l in range(len(layers)))
+    for s, (emit, experts) in enumerate(zip(emitting, expert_step_bytes(eng))):
         pages = sum(-(-(positions[slot] + s + 1) // bs) for slot in np.flatnonzero(emit))
         out.append(dense + experts + unembed + len(layers) * pages * bs * kv_row)
     return out

@@ -1,14 +1,14 @@
-"""Serve PMQ + OTP compressed requests through the port's paged engine.
+"""Serve requests through the port's paged engine.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --pmq [--kv-bits 8] [--prefix-cache] \
-        [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch ID] [--pmq] [--kv-bits 8] \
+        [--prefix-cache] [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
 ``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the model is
-built from seed 0 by :mod:`repro_torch.core.synthetic` (PMQ bit buckets at
-an average of 2.05 bits, 4-bit attention and shared experts, OTP routers).
-``--pmq`` is required: uncompressed MoE serving is a later slice of the
-port. Runs on the GPU unless ``--device cpu``.
+built from seed 0 by :mod:`repro_torch.core.synthetic`: with ``--pmq`` (MoE
+only) PMQ bit buckets at an average of 2.05 bits, 4-bit attention and
+shared experts and OTP routers, without it the uncompressed weights of a
+dense or MoE model. Runs on the GPU unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import json
 import numpy as np
 
 from ..configs import ARCH_IDS, get_config
-from ..core.synthetic import build_synthetic
+from ..core.synthetic import build_synthetic, build_uncompressed
 from ..serving import EngineConfig, PagedServingEngine, Request
 
 PROMPT_TOKENS = 24
@@ -33,7 +33,7 @@ def main() -> None:
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--pmq", action="store_true",
-                   help="serve PMQ-compressed experts (required in this slice)")
+                   help="serve PMQ-compressed experts with OTP (MoE models)")
     p.add_argument("--decode-horizon", type=int, default=8, metavar="H",
                    help="decode steps per fused megastep")
     p.add_argument("--prefix-cache", action="store_true",
@@ -43,10 +43,11 @@ def main() -> None:
                    help="store the KV pool as B-bit codes with per-row f32 scales")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args()
-    if not args.pmq:
-        raise SystemExit("the port serves PMQ-compressed models only: pass --pmq")
     cfg = get_config(args.arch).reduced()
-    params = build_synthetic(cfg, seed=0, device=args.device)
+    if args.pmq and not cfg.is_moe:
+        raise SystemExit(f"--pmq compresses MoE experts; {args.arch} is {cfg.family}")
+    make = build_synthetic if args.pmq else build_uncompressed
+    params = make(cfg, seed=0, device=args.device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT_TOKENS).astype(np.int32)
                for _ in range(args.requests)]

@@ -15,6 +15,18 @@ PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
   full hit ending mid-page, whose tail page is copied (codes and tables).
   By the reference's admission rules this prefills 6 chunks instead of 16
   (r0 4, r1 1, r2 1, r3 none) with one copy-on-write page copy.
+
+Two more models serve ``ENGINE``'s geometry and :func:`requests` (bf16, fp
+KV, random weights from seed 0, :func:`build_uncompressed`):
+
+* ``DENSE`` (:func:`build_dense`): ``qwen3-14b`` at full width, all 40
+  layers — d_model 5120, 40 query and 8 KV heads of 128 (G = 5), d_ff
+  17408, vocab 151936, ``qk_norm``; ~29.5 GB.
+* ``UNCOMPRESSED_MOE`` (:func:`build_uncompressed_moe`):
+  ``moonshot-v1-16b-a3b`` at full width and all 48 layers without PMQ or
+  OTP — the model MC# compresses; ~57.8 GB. Expert capacity is drop-free,
+  and the expert FFN reads all 64 experts of a layer every step, as the
+  reference's batched einsum does.
 """
 from __future__ import annotations
 
@@ -24,17 +36,22 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..configs import get_config
-from ..core.synthetic import build_synthetic
+from ..core.synthetic import build_synthetic, build_uncompressed
 from ..serving import EngineConfig, Request
 
 __all__ = [
     "ARCH",
+    "DENSE",
+    "DENSE_ARCH",
     "ENGINE",
     "MAX_NEW",
     "SHARED_PREFIX",
     "SHARED_PREFIX_CHUNKS",
     "SHARED_PREFIX_COW_COPIES",
+    "UNCOMPRESSED_MOE",
     "build",
+    "build_dense",
+    "build_uncompressed_moe",
     "requests",
     "shared_prefix_requests",
 ]
@@ -47,12 +64,27 @@ SHARED_PREFIX = dataclasses.replace(ENGINE, kv_bits=8, prefix_cache=True)
 SYSTEM_PROMPT_LEN = 48
 #: prefill chunks and COW page copies of SHARED_PREFIX under the reference's rules
 SHARED_PREFIX_CHUNKS, SHARED_PREFIX_COW_COPIES = 6, 1
+DENSE_ARCH = "qwen3-14b"
+#: the dense and uncompressed-MoE paths serve the fp workload's geometry
+DENSE = UNCOMPRESSED_MOE = ENGINE
 
 
 def build(device="cuda") -> Tuple[object, Dict]:
     """``(cfg, params)`` of the full-width model, built on ``device``."""
     cfg = get_config(ARCH)
     return cfg, build_synthetic(cfg, seed=0, device=device)
+
+
+def build_dense(device="cuda") -> Tuple[object, Dict]:
+    """``(cfg, params)`` of the full-width dense model, built on ``device``."""
+    cfg = get_config(DENSE_ARCH)
+    return cfg, build_uncompressed(cfg, seed=0, device=device)
+
+
+def build_uncompressed_moe(device="cuda") -> Tuple[object, Dict]:
+    """``(cfg, params)`` of the full-width MoE model without compression."""
+    cfg = get_config(ARCH)
+    return cfg, build_uncompressed(cfg, seed=0, device=device)
 
 
 def requests(cfg) -> List[Request]:

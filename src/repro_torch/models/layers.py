@@ -17,6 +17,7 @@ from ..kernels import ops
 __all__ = [
     "apply_rope",
     "attention",
+    "decode_attention",
     "embed_tokens",
     "linear",
     "mlp",
@@ -135,18 +136,23 @@ def _pad_rows(x: torch.Tensor, pad: int, dim: int, value=0) -> torch.Tensor:
 
 
 def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              kv_override: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-              causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Cross-attention of ``x``'s queries onto ``kv_override = (k, v,
-    kv_pos)`` (``kv_pos < 0`` marks padding) — the paged-prefill path of
-    the reference ``attention`` (``layers.py:245``), with the same q-chunk ×
-    kv-chunk online-softmax sweep. Returns ``out [B, S, D]`` after ``wo``.
-    """
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True, window: Optional[int] = None):
+    """Full-sequence attention (``layers.py:245``): the q-chunk × kv-chunk
+    online-softmax sweep. ``kv_override = (k, v, kv_pos)`` (``kv_pos < 0``
+    marks padding) makes it cross-attention onto given rows, as paged
+    prefill does; without it ``x`` gives q, k and v at ``positions``.
+    Returns ``(out [B, S, D] after wo, (k, v))`` — k/v for cache builds."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
-    q = _q_only(p, x, cfg, positions)
-    k, v, kv_pos = kv_override
+    if kv_override is not None:
+        q = _q_only(p, x, cfg, positions)
+        k, v, kv_pos = kv_override
+    else:
+        q, k, v = _qkv(p, x, cfg, positions)
+        kv_pos = positions if positions.dim() == 1 else positions[0]
+    kv_s = k.shape[1]
     qc = min(cfg.attn_q_chunk, s)
     kvc = min(cfg.attn_kv_chunk, k.shape[1])
     q_pos = positions if positions.dim() == 1 else positions[0]
@@ -165,7 +171,34 @@ def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         for i in range(0, sq, qc)
     ]
     out = torch.cat(outs, dim=1).reshape(b, sq, hq * dh)[:, :s]
-    return linear(p["wo"], out)
+    return linear(p["wo"], out), (k[:, :kv_s], v[:, :kv_s])
+
+
+def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, window: Optional[int] = None):
+    """Single-step self-attention (``layers.py:312``): ``x [B, 1, D]``
+    against the dense cache ``[B, S, Hkv, dh]``. The new k/v are written
+    at ``pos`` (in place) before attending over positions ``≤ pos`` (and
+    ``> pos − window``). Returns ``(out [B, 1, D], (k_cache, v_cache))``."""
+    b = x.shape[0]
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = hq // hkv
+    s = k_cache.shape[1]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+    q32 = q.reshape(b, hkv, g, dh).float() * dh**-0.5
+    scores = torch.einsum("bhgd,bshd->bhgs", q32, k_cache.float())
+    kv_pos = torch.arange(s, device=x.device)
+    valid = kv_pos <= pos
+    if window is not None:
+        valid &= kv_pos > pos - window
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w, v_cache.float())
+    out = out.reshape(b, 1, hq * dh).to(x.dtype)
+    return linear(p["wo"], out), (k_cache, v_cache)
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:

@@ -8,17 +8,22 @@ torch has no ``mode="drop"`` scatter.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
-from .layers import linear
+from .layers import linear, mlp
 
 __all__ = [
+    "MoEOut",
     "capacity_dispatch",
     "combine",
     "count_ids",
     "dispatch_capacity",
+    "expert_ffn",
+    "load_balance_loss",
+    "moe_layer",
     "route_topk",
     "slot_fill_counts",
 ]
@@ -119,3 +124,47 @@ def combine(yp: torch.Tensor, dest, valid, gflat, t: int, k: int) -> torch.Tenso
     ypad = torch.cat([yp, yp.new_zeros(1, d)], dim=0)
     rows = ypad[torch.where(valid, dest, yp.shape[0])]
     return (rows.reshape(t, k, d) * gflat.reshape(t, k, 1).to(yp.dtype)).sum(dim=1)
+
+
+def expert_ffn(experts_p, xp: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Batched SwiGLU over the expert dim: ``xp [E·cap, D] → [E·cap, D]``.
+    Every expert's weights are read whatever its rows hold, as the
+    reference's einsum does."""
+    e = num_experts
+    x3 = xp.reshape(e, xp.shape[0] // e, -1)
+    wg, wu, wd = (experts_p[n].to(x3.dtype) for n in ("w_gate", "w_up", "w_down"))
+    h = F.silu(torch.bmm(x3, wg)) * torch.bmm(x3, wu)
+    return torch.bmm(h, wd).reshape(xp.shape[0], -1)
+
+
+def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: ``E · Σ_e f_e · p̄_e``."""
+    t, k = idx.shape
+    f = count_ids(idx.reshape(-1), num_experts).float() / (t * k)
+    return num_experts * torch.sum(f * probs.mean(dim=0))
+
+
+class MoEOut(NamedTuple):
+    y: torch.Tensor
+    aux_loss: torch.Tensor
+    router_probs: torch.Tensor  # [T, E]
+    topk_idx: torch.Tensor  # [T, k]
+    topk_gates: torch.Tensor  # [T, k]
+
+
+def moe_layer(p, x: torch.Tensor, cfg) -> MoEOut:
+    """The uncompressed MoE block on one device (``moe.py:212``), ``x [B, S,
+    D]``. Its shard_map expert-parallel region is not ported, nor its OTP
+    and expert-compute hooks: the compressed path has its own layer
+    (``core/compressed_moe.py``)."""
+    b, s, d = x.shape
+    t = b * s
+    x2 = x.reshape(t, d)
+    e, k = cfg.num_experts, cfg.top_k
+    probs, idx, gates = route_topk(p["router"], x2, k)
+    cap = dispatch_capacity(cfg, t)
+    xp, dest, valid, gflat = capacity_dispatch(x2, idx, gates, e, cap)
+    y = combine(expert_ffn(p["experts"], xp, e), dest, valid, gflat, t, k)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x2)
+    return MoEOut(y.reshape(b, s, d), load_balance_loss(probs, idx, e), probs, idx, gates)

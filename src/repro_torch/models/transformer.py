@@ -1,5 +1,6 @@
-"""Paged decode and chunked prefill of the PMQ + OTP MoE decoder (port of the
-paged half of ``repro/models/transformer.py``).
+"""The decoder-only LM of the dense and MoE families (port of
+``repro/models/transformer.py``): the dense-cache prefill and decode step,
+and the paged decode and chunked prefill the serving engine runs.
 
 ``jax.lax.scan`` over stacked layers becomes a Python loop over
 ``params["layers"]`` (one dict per layer); the jitted programs with donated
@@ -13,10 +14,14 @@ int8 pools (``kv_bits=8``) are uint8 codes with four per-row f32 tables
 with the same scratch row; ``qs = ()`` means fp pools.
 
 Params: ``{"embed": [V, D], "final_norm": [D], "unembed"?: [V, D],
-"layers": [{"ln1", "attn": {"wq"|"wk"|"wv"|"wo": {"w"}}, "ln2", "moe":
-{"router": {"w"}, "shared": {...}}, "moe_ce": CompressedExperts, "otp"?:
-{"fc1", "fc2"}}, ...]}`` — attention and shared-expert ``w`` may be
-:class:`PackedTensor` leaves.
+"layers": [{"ln1", "attn": {"wq"|"wk"|"wv"|"wo": {"w"}, "q_norm"?,
+"k_norm"?}, "ln2", <ffn>}, ...]}`` where ``<ffn>`` is one of
+``"mlp": {"w_gate"|"w_up"|"w_down": {"w"}}`` (dense family), ``"moe":
+{"router": {"w"}, "experts": {"w_gate", "w_up", "w_down"} [E, ·, ·],
+"shared"?: {...}}`` (uncompressed MoE) or ``"moe": {"router", "shared"?},
+"moe_ce": CompressedExperts, "otp"?: {"fc1", "fc2"}`` (PMQ + OTP) —
+attention, MLP and shared-expert ``w`` may be :class:`PackedTensor` leaves.
+The dense cache is ``{"k": [L, B, S, Hkv, dh], "v": ..., "pos"}``.
 """
 from __future__ import annotations
 
@@ -27,12 +32,16 @@ from ..core.compressed_moe import compressed_moe_layer
 from ..core.quantizers import dequantize_kv_rows, quantize_kv_rows
 from ..kernels import ops
 from . import layers as L
+from .moe import moe_layer
 
 __all__ = [
     "KV_QUANT_BITS",
+    "decode_step",
+    "forward_hidden",
     "layer_windows_static",
     "paged_decode_horizon",
     "paged_prefill_chunk",
+    "prefill",
 ]
 
 
@@ -74,23 +83,97 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), _out_embedding(params).float().t())
 
 
-def _ffn_delta(p, h, cfg, *, use_otp: bool, count_weight=None):
-    """FFN half of a block: ``(Δx, expert_activation [B, S], slot_counts)``.
+def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None):
+    """FFN half of a block: ``(Δx, expert_activation [B, S], slot_counts)``,
+    for the dense ``mlp``, the PMQ-compressed MoE or the uncompressed
+    :func:`moe_layer`; shared by the dense-cache and paged paths.
 
     ``expert_activation`` is the per-token executed fraction of the top-k
     slots — the mean of the OTP mask when OTP runs, else 1.
+    ``slot_counts`` is the compressed layer's per-slot dispatch count, and
+    empty (``[0]``) on the other two branches.
     """
-    if "moe_ce" not in p:
-        raise ValueError("the port serves PMQ-compressed MoE layers ('moe_ce') only")
-    otp = p.get("otp") if use_otp else None
-    y, info = compressed_moe_layer(p["moe"], p["moe_ce"], h, cfg, otp_params=otp,
-                                   count_weight=count_weight)
-    act = torch.ones(h.shape[:2], device=h.device)
-    if info["mask"] is not None:
-        act = info["mask"].mean(dim=-1).reshape(h.shape[:2])
-    return y, act, info["slot_counts"]
+    ones = torch.ones(h.shape[:2], device=h.device)
+    no_counts = torch.zeros(0, dtype=torch.long, device=h.device)
+    if not cfg.is_moe:
+        return L.mlp(p["mlp"], h), ones, no_counts
+    if "moe_ce" in p:
+        otp = p.get("otp") if use_otp else None
+        y, info = compressed_moe_layer(p["moe"], p["moe_ce"], h, cfg, otp_params=otp,
+                                       count_weight=count_weight)
+        act = ones
+        if info["mask"] is not None:
+            act = info["mask"].mean(dim=-1).reshape(h.shape[:2])
+        return y, act, info["slot_counts"]
+    return moe_layer(p["moe"], h, cfg).y, ones, no_counts
 
 
+# ------------------------------------------------------- dense-cache path
+def _block(p, x, cfg, *, positions, window: int):
+    """One transformer block over a whole sequence: ``(x, (k, v))``. The
+    reference's training aux loss is not returned: the port has no
+    trainer yet."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, kv = L.attention(p["attn"], h, cfg, positions=positions, causal=True,
+                               window=window)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    delta, _, _ = _ffn_delta(p, h, cfg)
+    return x + delta, kv
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg, *, collect_cache: bool = False):
+    """Run all blocks over ``tokens [B, S]``: ``(hidden [B, S, D],
+    cache | None)`` with the cache ``{"k", "v"}`` ``[L, B, S, Hkv, dh]``."""
+    x = L.embed_tokens(params["embed"], tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    windows = layer_windows_static(cfg, s)
+    ks, vs = [], []
+    for p_l, win in zip(params["layers"], windows):
+        x, (k, v) = _block(p_l, x, cfg, positions=positions, window=int(win))
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, ({"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None)
+
+
+def prefill(params, batch, cfg):
+    """Build the dense KV cache of ``batch["tokens"] [B, S]``: ``(cache,
+    logits [B, 1, V])`` of the last token, ``cache["pos"] = S``."""
+    tokens = batch["tokens"]
+    hidden, cache = forward_hidden(params, tokens, cfg, collect_cache=True)
+    cache["pos"] = tokens.shape[1]
+    return cache, _logits(params, hidden[:, -1:])
+
+
+def _decode_block(p, x, cfg, *, k_cache, v_cache, pos: int, window: int):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, (k_cache, v_cache) = L.decode_attention(
+        p["attn"], h, cfg, k_cache=k_cache, v_cache=v_cache, pos=pos, window=window)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    delta, _, _ = _ffn_delta(p, h, cfg)
+    return x + delta, (k_cache, v_cache)
+
+
+def decode_step(params, cache, token: torch.Tensor, pos: int, cfg):
+    """One decode step over the dense cache: ``token [B, 1]`` at position
+    ``pos`` (a host int). Each layer's new K/V row is written into
+    ``cache["k"]``/``cache["v"]`` in place, as the reference's donated
+    carry is. Returns ``(cache, logits [B, 1, V])``."""
+    x = L.embed_tokens(params["embed"], token)
+    kf, vf = cache["k"], cache["v"]
+    windows = layer_windows_static(cfg, kf.shape[2])
+    for l, p_l in enumerate(params["layers"]):
+        x, _ = _decode_block(p_l, x, cfg, k_cache=kf[l], v_cache=vf[l], pos=pos,
+                             window=int(windows[l]))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return {"k": kf, "v": vf, "pos": pos + 1}, _logits(params, x)
+
+
+# ------------------------------------------------------------ paged path
 def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb: int,
                        bs: int, *, use_otp: bool, qs=()):
     """One decode step over the flattened pools ``kf``/``vf`` ``[L, NB·BS+1,
@@ -212,10 +295,11 @@ def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len
             v_log = dequantize_kv_rows(vf[l][phys], vs, vz)
         else:
             k_log, v_log = kf[l][phys], vf[l][phys]
-        x = x + L.attention(
+        attn_out, _ = L.attention(
             p_l["attn"], h, cfg, positions=pos2d, causal=True, window=int(windows[l]),
             kv_override=(k_log[None], v_log[None], kv_pos),
         )
+        x = x + attn_out
         h2 = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
         delta, _, cnt = _ffn_delta(p_l, h2, cfg, use_otp=use_otp, count_weight=count_weight)
         x = x + delta

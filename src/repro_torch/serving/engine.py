@@ -11,9 +11,12 @@
   matrix once per megastep.
 
 Between megasteps the FCFS scheduler admits queued requests into free
-slots, reserving ``prompt + max_new`` pages (``reserve_full``). Expert
-capacity is raised to the drop-free bound (capacity factor = number of
-experts), so a request's tokens never depend on who it shares a step with.
+slots, reserving ``prompt + max_new`` pages (``reserve_full``). It serves
+the ``dense`` family and the ``moe`` family, PMQ-compressed or not. In an
+MoE model expert capacity is raised to the drop-free bound (capacity factor
+= number of experts), so a request's tokens never depend on who it shares a
+step with. :func:`dense_greedy_reference` decodes through the dense cache
+instead: the oracle the paged engine's greedy tokens are held to.
 
 ``kv_bits=8`` stores the pools as uint8 per-row affine codes (read through
 ``paged_attention_quant``); ``prefix_cache=True`` shares cached prompt
@@ -36,11 +39,13 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..models.registry import get_model
 from ..models.transformer import paged_decode_horizon, paged_prefill_chunk
 from .kvcache import PagedKVCache, PoolExhausted
 from .scheduler import Request, Scheduler
 
-__all__ = ["EngineConfig", "PagedServingEngine", "quantized_greedy_reference"]
+__all__ = ["EngineConfig", "PagedServingEngine", "dense_greedy_reference",
+           "quantized_greedy_reference"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +68,29 @@ class EngineConfig:
     kv_bits: Optional[int] = None
 
 
+def dense_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *, device="cuda"):
+    """Greedy decode through the dense cache — the oracle the paged engine
+    is held to (paged == dense). Returns ``(tokens, per_step_logits)``,
+    ``per_step_logits[i]`` the last-token logits ``[V]`` (f32, on the
+    host) that chose ``tokens[i]``. Run it with the engine's ``model_cfg``
+    so both sides use drop-free expert capacity."""
+    bundle = get_model(cfg)
+    tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=device)
+    cache, logits = bundle.prefill(params, {"tokens": tokens})
+    # the prefill cache covers exactly the prompt; extend it for decode
+    pad = cache["k"].new_zeros((*cache["k"].shape[:2], max_new, *cache["k"].shape[3:]))
+    cache = dict(cache, k=torch.cat([cache["k"], pad], dim=2),
+                 v=torch.cat([cache["v"], pad], dim=2))
+    toks, steps = [], []
+    for step in range(max_new):
+        steps.append(logits[0, -1].cpu().numpy())
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks.append(int(cur[0, 0]))
+        if step < max_new - 1:
+            cache, logits = bundle.decode_step(params, cache, cur, len(prompt) + step)
+    return toks, steps
+
+
 def quantized_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *,
                                kv_bits: int = 8, block_size: int = 16, use_otp: bool = True,
                                device="cuda") -> List[int]:
@@ -81,14 +109,19 @@ def quantized_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *,
 
 
 class PagedServingEngine:
-    """Serve :class:`Request`s against the port's PMQ + OTP MoE params on
-    ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    """Serve :class:`Request`s against a dense or MoE model's params (see
+    :mod:`repro_torch.models.transformer`) on ``device`` (``cuda`` unless
+    the caller passes ``"cpu"``)."""
 
     def __init__(self, cfg, params: Dict, engine_cfg: Optional[EngineConfig] = None, *,
                  device="cuda"):
         self.ecfg = engine_cfg or EngineConfig()
-        if cfg.family != "moe":
-            raise ValueError(f"the port serves MoE decoders, got family {cfg.family!r}")
+        if cfg.family == "vlm":
+            raise ValueError("vlm serving needs the patch-embedding path (image patches "
+                             "ahead of the prompt), which the port does not have yet")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"paged serving supports the dense and moe families, got "
+                             f"{cfg.family!r}")
         if not self.ecfg.reserve_full:
             raise ValueError("reserve_full=False needs page growth and preemption, "
                              "which this slice does not implement")
@@ -99,7 +132,7 @@ class PagedServingEngine:
                              f"config says {cfg.num_layers}")
         self.device = torch.device(device)
         self.model_cfg = cfg
-        if self.ecfg.drop_free_capacity:
+        if cfg.is_moe and self.ecfg.drop_free_capacity:
             self.model_cfg = dataclasses.replace(
                 cfg, moe_capacity_factor=float(max(cfg.moe_capacity_factor, cfg.num_experts))
             )

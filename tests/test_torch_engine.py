@@ -126,6 +126,44 @@ def test_prefill_and_decode_logits(served_model):
     assert act == pytest.approx(float(jinfo["expert_activation"]), abs=1e-7)
 
 
+def test_expert_activation_ignores_inactive_slots(served_model):
+    """The decode step's activation metric counts active slots only (the
+    port's mirror of ``tests/test_serving.py``'s regression test). The
+    reference's OTP routers keep a constant share of experts for every token
+    of this model, so the layers here get routers whose choice follows the
+    token (the first top-k entries of ``fc2`` an identity): with slot 1
+    active its token moves the metric across 10 tokens; with slot 1
+    inactive the metric does not move."""
+    _, _, params_t = served_model
+    cfg = tget_config("moonshot-v1-16b-a3b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    k = cfg.top_k
+
+    def router():
+        fc2 = torch.zeros(2 * k, k)
+        fc2[:k] = torch.eye(k)
+        return {"fc1": torch.randn(cfg.d_model, k, generator=gen), "fc2": fc2}
+
+    params = dict(params_t, layers=[dict(layer, otp=router()) for layer in params_t["layers"]])
+    cache = TCache(cfg, num_blocks=8, block_size=4, max_slots=2, max_blocks_per_slot=2,
+                   device="cpu")
+    cache.acquire_slot(2)
+    cache.acquire_slot(2)
+    positions = torch.zeros(2, dtype=torch.int32)
+
+    def act_of(garbage, active):
+        active = torch.tensor(active)
+        _, per_slot, _ = ttf._paged_decode_core(
+            params, cache.k, cache.v, cache.tables_device(), torch.tensor([[7], [garbage]]),
+            positions, active, cfg, 8, 4, use_otp=True)
+        return float(ttf._masked_activation(per_slot, active))
+
+    unmasked = {act_of(g, [True, True]) for g in range(10)}
+    masked = {act_of(g, [True, False]) for g in range(10)}
+    assert len(unmasked) > 1  # slot 1's token moves the metric when it counts
+    assert len(masked) == 1  # and not when slot 1 is inactive
+
+
 def _prompts(cfg, seed=5):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
@@ -173,6 +211,8 @@ def test_import_leaves_jax_and_repro_out():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "for m in ('models.registry', 'models.moe', 'configs.qwen3_14b', 'launch.fp_tokens'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))

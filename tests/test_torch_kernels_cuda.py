@@ -149,7 +149,7 @@ def test_tile_plan_matches_kernel_smem(dev):
     from repro_torch.kernels.quant_matmul import tile_plan
 
     lib = load_library()
-    for k in (64, 200, 1408, 2048, 2816):
+    for k in (64, 200, 1408, 2048, 2816, 5120, 7168, 7232, 8192, 17408):
         for bits in (1, 2, 3, 4):
             for rows in (8, 16):
                 for nop in (1, 2):  # one operand, or SwiGLU's gate and up
@@ -159,8 +159,74 @@ def test_tile_plan_matches_kernel_smem(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_dequant_gemm_split_k(dev, bits):
+    """K longer than one item's shared memory holds (kimi-k2's d_model 7168,
+    and 7232, whose last chunk ends mid-group): the bf16 body walks K in
+    chunks. Each kernel against its plain version at bm 8 and 16; rows bit
+    for bit whatever M (quant_matmul) and whatever the other blocks hold
+    (moe_gmm, moe_gmm_swiglu)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu
+    from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(60 + bits)
+    for k in (7168, 7232):
+        data, s, z = _weights(gen, 3, k, 96, bits, dev)
+        x = torch.randn(48, k, generator=gen).to(dev, dtype)
+        one = tuple(p[0] for p in data) if bits == 3 else data[0]
+        full = quant_matmul(x[:24], one, s[0], z[0], bits=bits)
+        _close(full, ref.quant_matmul_ref(x[:24], one, s[0], z[0], bits=bits), dtype)
+        for m in (1, 5, 8, 16):
+            assert _bitwise(quant_matmul(x[:m].contiguous(), one, s[0], z[0], bits=bits),
+                            full[:m]), (k, m)
+        for bm in (8, 16):
+            assert len(tile_plan(k, 96, bits, 128, dtype, rows=bm, operands=2)["k_chunks"]) > 1
+            nblocks = 48 // bm
+            be = torch.sort(torch.randint(0, 3, (nblocks,), generator=gen)).values
+            be = be.to(dev, torch.int32)
+            for kind in ("moe_gmm", "moe_gmm_swiglu"):
+                if kind == "moe_gmm":
+                    call = lambda b_, na: moe_gmm(x, data, s, z, b_, na, bits=bits, bm=bm)
+                    plain = lambda b_, na: ref.moe_gmm_ref(x, data, s, z, b_, na, bits=bits,
+                                                           bm=bm)
+                else:
+                    args = (data, data, s, z, s, z)
+                    call = lambda b_, na: moe_gmm_swiglu(x, *args, b_, na, bits=bits, bm=bm)
+                    plain = lambda b_, na: ref.moe_gmm_swiglu_ref(x, *args, b_, na, bits=bits,
+                                                                  bm=bm)
+                na = torch.tensor([nblocks], dtype=torch.int32, device=dev)
+                base = call(be, na)
+                _close(base, plain(be, na), dtype)
+                other = be.clone()
+                other[2:] = 2 - other[2:]  # other experts in the later blocks, and dead ones
+                fewer = torch.tensor([2], dtype=torch.int32, device=dev)
+                got = call(other, fewer)
+                assert _bitwise(got[:2 * bm], base[:2 * bm]), (k, bm, kind)
+                assert not got[2 * bm:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bits", [(8192, 1), (8192, 4), (17408, 3), (17408, 4)])
+def test_quant_matmul_split_k_model_widths(dev, k, bits):
+    """command-r's d_model (8192) and qwen3-14b's d_ff (17408, a 4-bit down
+    projection) through quant_matmul at bf16: against the plain version,
+    rows bit for bit whatever M."""
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator().manual_seed(k + bits)
+    data, s, z = _weights(gen, 1, k, 256, bits, dev)
+    one = tuple(p[0] for p in data) if bits == 3 else data[0]
+    x = torch.randn(16, k, generator=gen).to(dev, torch.bfloat16)
+    full = quant_matmul(x, one, s[0], z[0], bits=bits)
+    _close(full, ref.quant_matmul_ref(x, one, s[0], z[0], bits=bits), torch.bfloat16)
+    for m in (1, 4, 9):
+        assert _bitwise(quant_matmul(x[:m].contiguous(), one, s[0], z[0], bits=bits), full[:m])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,window", [(1, None), (2, 17), (4, None)])
+@pytest.mark.parametrize("g,window", [(1, None), (2, 17), (4, None), (5, None), (5, 17)])
 def test_paged_attention_kernel(dev, dtype, g, window):
     from repro_torch.kernels.paged_attention import paged_attention
 
@@ -219,7 +285,7 @@ def test_paged_attention_length_zero(dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,window", [(1, None), (2, 17), (4, None)])
+@pytest.mark.parametrize("g,window", [(1, None), (2, 17), (4, None), (5, None), (5, 17)])
 def test_paged_attention_quant_kernel(dev, dtype, g, window):
     from repro_torch.core.quantizers import quantize_kv_rows
     from repro_torch.kernels.paged_attention import paged_attention_quant
@@ -266,7 +332,7 @@ def _attn(gen, dev, kind, dtype, g, dh, lengths, mb, bs=16, hkv=2):
 @pytest.mark.parametrize("kind", ["fp", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [32, 128, 256])
-@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 5, 8])
 def test_paged_attention_chunk_edges(dev, kind, dtype, dh, g):
     """Lengths at the edges of the 256-position chunks (page 16), length 0,
     the whole table, and windows whose first valid position falls mid-chunk

@@ -4,9 +4,13 @@ version of its per-group value tables, on the CPU.
 ``kernels/quant_matmul.py: tile_plan`` is what ``csrc/dequant_gemm_sm90.cuh``
 runs: it must take no M (a row's arithmetic never depends on how many rows
 there are), cover K and N exactly, and fit the card's shared memory at every
-shape of the main path. ``ref.dequant_table_ref`` is the table the kernel
-builds once per (group, column); each weight the kernel looks up must equal
-``ref.dequant_ref``'s value byte for byte.
+shape of the main path. Where an item's whole K range does not fit, K is
+cut into the fewest chunks of whole groups that do (kimi-k2's d_model 7168,
+command-r's 8192, qwen3-14b's d_ff 17408); where it fits, the plan is the
+whole-K plan the kernel ran before it could chunk, field for field.
+``ref.dequant_table_ref`` is the table the kernel builds once per (group,
+column); each weight the kernel looks up must equal ``ref.dequant_ref``'s
+value byte for byte.
 """
 import inspect
 
@@ -19,7 +23,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.packing import unpack_bits  # noqa: E402
 from repro_torch.core.quantizers import quantize_parts  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.quant_matmul import SMEM_OPTIN, tile_plan  # noqa: E402
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    SMEM_OPTIN, _smem, check_plan, tile_plan)
 
 from _torch_interop import torch_one_thread  # noqa: E402,F401
 
@@ -142,3 +147,92 @@ def test_dequant_table_matches_dequant_ref(bits, dtype):
     got = table[e, g, col, codes]
     assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                        want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def _whole_k_plan(k, n, bits, group, rows=8, operands=1):
+    """The plan of the body that staged all of K per item, whatever its size
+    (the kernel before it could chunk K): the bytes it needed."""
+    kx = -(-k // 16) * 16
+    ng = -(-k // group)
+    plane_rows = (kx // 8 * 2 + kx // 8) if bits == 3 else kx // (8 // bits)
+    steps = kx // 16
+    spw = -(-steps // 8)
+    pairs = bits <= 2
+    entries = 1 << (2 * bits if pairs else bits)
+    table = ng * 16 * (entries + 1 if pairs else entries + 2) * (4 if pairs else 2)
+    x_stride = kx + 2 * ((8 - (kx // 2) % 32) % 32)
+    stage = plane_rows * 16 + ng * 2 * 16 * 4
+    smem = (2 * operands * stage + operands * (-(-table // 16) * 16) + rows * x_stride * 2
+            + 8 * rows * 16 * 4)
+    return {
+        "body": "dequant_gemm_sm90.cuh", "rows": rows, "operands": operands,
+        "col_tile": 16, "warps": 8, "n_tiles": -(-n // 16), "k_steps": steps,
+        "k_slices": [(w * spw, min(steps, (w + 1) * spw)) for w in range(8)],
+        "tables": "code pairs" if pairs else "codes", "smem_bytes": smem,
+        "smem_blocks_per_sm": 233472 // (smem + 1024),
+    }
+
+
+def test_whole_k_staging_overflowed_at_model_widths():
+    """The fault: staging all of K per item needs more than the 227 KB a block
+    may use at kimi-k2's d_model (4-bit quant_matmul: 273 KB; 4-bit SwiGLU at
+    bm 16: 547 KB) and at qwen3-14b's d_ff, so the wrappers refused those
+    shapes. The chunked plans are accepted; a plan past the limit still
+    raises, naming the kernel."""
+    bf16 = torch.bfloat16
+    for k, rows, nop in ((7168, 8, 1), (7168, 16, 2), (17408, 8, 1)):
+        assert _whole_k_plan(k, 2048, 4, 128, rows, nop)["smem_bytes"] > SMEM_OPTIN
+        check_plan("quant_matmul", tile_plan(k, 2048, 4, 128, bf16, rows=rows, operands=nop))
+    assert _whole_k_plan(7168, 2048, 4, 128)["smem_bytes"] == 280320  # 273.75 KiB
+    with pytest.raises(ValueError, match="moe_gmm_swiglu"):
+        check_plan("moe_gmm_swiglu", {"smem_bytes": SMEM_OPTIN + 16})
+
+
+def _split_k_cases():
+    """(K, bits, rows, operands): quant_matmul (rows 8, one operand), moe_gmm
+    (bm 8 and 16) and moe_gmm_swiglu (bm 8 and 16, two operands) at bits
+    1-4, for K = 7168, 8192 and 17408."""
+    kinds = [(8, 1), (8, 2), (16, 1), (16, 2)]
+    return [(k, bits, rows, nop) for k in (7168, 8192, 17408) for bits in (1, 2, 3, 4)
+            for rows, nop in kinds]
+
+
+@pytest.mark.parametrize("k,bits,rows,nop", _split_k_cases())
+def test_split_k_plan(k, bits, rows, nop):
+    """The fewest chunks that fit SMEM_OPTIN, each of whole quantization
+    groups (so whole k16 steps) and even but for the last; the chunks cover
+    K's steps in order and each chunk's warp slices partition it in order."""
+    p = tile_plan(k, 2048, bits, GROUP, torch.bfloat16, rows=rows, operands=nop)
+    assert p["smem_bytes"] <= SMEM_OPTIN
+    chunks = p["k_chunks"]
+    assert chunks[0][0] == 0 and chunks[-1][1] == p["k_steps"] == -(-k // 16)
+    for (a0, b0), (a1, _) in zip(chunks, chunks[1:]):
+        assert b0 == a1
+    width = chunks[0][1] - chunks[0][0]
+    assert (16 * width) % GROUP == 0
+    for lo, hi in chunks:
+        assert (16 * lo) % GROUP == 0 and 0 < hi - lo <= width
+    assert len(p["k_slices"]) == len(chunks) * p["warps"]
+    for c, (lo, hi) in enumerate(chunks):
+        sl = p["k_slices"][c * p["warps"]:(c + 1) * p["warps"]]
+        assert sl[0][0] == lo and max(b for _, b in sl) == hi
+        for (a0, b0), (a1, _) in zip(sl, sl[1:]):
+            assert a0 <= b0 and (a1 == b0 or a1 >= hi)
+    # one chunk fewer (even chunks of whole groups) would not fit
+    if len(chunks) > 1:
+        assert _whole_k_plan(k, 2048, bits, GROUP, rows, nop)["smem_bytes"] > SMEM_OPTIN
+    if len(chunks) > 2:
+        gpc = -(-(-(-k // GROUP)) // (len(chunks) - 1))
+        assert _smem(gpc * GROUP, gpc, bits, rows, nop, chunked=True) > SMEM_OPTIN
+
+
+@pytest.mark.parametrize("k,n,bits,rows", SHAPES)
+@pytest.mark.parametrize("nop", [1, 2])
+def test_main_path_plans_unchanged(k, n, bits, rows, nop):
+    """Every bf16 shape of the main path (K 2048, 1408 and 2816) keeps the
+    whole-K plan field for field, in one chunk: the same instruction order,
+    so the same bits."""
+    p = dict(tile_plan(k, n, bits, GROUP, torch.bfloat16, rows=rows, operands=nop))
+    want = _whole_k_plan(k, n, bits, GROUP, rows, nop)
+    assert p.pop("k_chunks") == [(0, want["k_steps"])]
+    assert p == want
