@@ -48,6 +48,16 @@ Phases (each failure exits non-zero):
    must launch, the fp attention kernel must not; tokens byte-identical to
    an int8 engine without the prefix cache and to a second prefix engine;
    prefill chunks and copy-on-write copies as the reference's rules give);
+   then the tenant mix (``TENANT_MIX``: batch, chat and interactive tenants
+   on a 14-page pool through the control plane, ``fair`` policy, a TTFT
+   budget, a ``pool`` and a ``logits`` fault, ``spans`` tracing) served four
+   times — (a) as set, (b) a fresh engine replaying the fault plan, (c)
+   ``fcfs`` and (d) ``priority`` without faults: (a) and (b) identical in
+   tokens, typed errors, ``counters()`` and deterministic trace; the trace
+   valid; the poisoned request empty with ``PoisonedRequest``; (a)'s schedule
+   counters the reference engine's (``workload.TENANT_MIX_COUNTERS``); every
+   rid completed in two runs with the same tokens in both; the fp path's
+   kernels launched and no other;
    then, the compressed model freed, ``qwen3-14b`` (dense, 40 layers) and
    ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
    built on the card, served on the fp geometry (``paged_attention`` must
@@ -105,7 +115,15 @@ from repro_torch.models.transformer import (  # noqa: E402
     paged_decode_horizon,
     paged_prefill_chunk,
 )
-from repro_torch.serving import EngineConfig, PagedKVCache, PagedServingEngine, Request  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    EngineConfig,
+    PagedKVCache,
+    PagedServingEngine,
+    PoisonedRequest,
+    Request,
+    validate_chrome_trace,
+    validate_events,
+)
 from repro_torch.serving.engine import dense_greedy_reference  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -864,8 +882,9 @@ def _drive(name, cfg, params, ecfg, reqs, needed):
 
 
 def compressed_paths():
-    """The PMQ + OTP model's fp and int8 KV + shared-prefix paths: their
-    launches, and the fp path's expert bytes per decode step and in all."""
+    """The PMQ + OTP model's fp, int8 KV + shared-prefix and tenant-mix
+    paths: their launches, and the fp path's expert bytes per decode step and
+    in all."""
     t0 = time.perf_counter()
     cfg, params = workload.build(DEV)
     torch.cuda.synchronize()
@@ -923,7 +942,88 @@ def compressed_paths():
         f"tokens in {s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; launches "
         f"{q_launches}; tokens identical without the cache and in a second engine")
     log("full width serving summary (int8 KV + prefix cache): " + json.dumps(s))
-    return fp_launches, q_launches, experts
+    mix_launches = tenant_mix_path(cfg, params)
+    return fp_launches, q_launches, mix_launches, experts
+
+
+def _tenant_mix_run(cfg, params, ecfg, faults):
+    t0 = time.perf_counter()
+    eng = PagedServingEngine(cfg, params, ecfg, faults, device=DEV)
+    out = workload.serve_tenant_mix(eng, workload.tenant_mix_requests(cfg))
+    torch.cuda.synchronize()
+    return eng, out, time.perf_counter() - t0
+
+
+def tenant_mix_path(cfg, params):
+    """The tenant mix through the control plane, four times (see the module
+    docstring): its launches; fails on any check."""
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    plan = workload.tenant_mix_faults()
+    a, out_a, wall_a = _tenant_mix_run(cfg, params, workload.TENANT_MIX, plan)
+    b, out_b, wall_b = _tenant_mix_run(cfg, params, workload.TENANT_MIX, plan.replay())
+    c, out_c, wall_c = _tenant_mix_run(
+        cfg, params, dataclasses.replace(workload.TENANT_MIX, policy="fcfs"), None)
+    d, out_d, wall_d = _tenant_mix_run(
+        cfg, params, dataclasses.replace(workload.TENANT_MIX, policy="priority"), None)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    errors = {eng: {rid: type(e).__name__ for rid, e in eng.errors.items()}
+              for eng in (a, b, c, d)}
+    if (out_b, errors[b], b.metrics.counters(), b.tracer.deterministic_jsonl()) != (
+            out_a, errors[a], a.metrics.counters(), a.tracer.deterministic_jsonl()):
+        raise AssertionError("tenant mix: the fault-plan replay differs from the first run")
+    events = validate_events(a.tracer.events)
+    validate_chrome_trace(a.tracer.chrome_trace())
+    poisoned = workload.TENANT_MIX_POISONED
+    if out_a[poisoned] or not isinstance(a.errors.get(poisoned), PoisonedRequest):
+        raise AssertionError(f"tenant mix: request {poisoned} was not poisoned cleanly")
+    counters = a.metrics.counters()
+    schedule = {k: counters[k] for k in workload.TENANT_MIX_COUNTERS}
+    if schedule != workload.TENANT_MIX_COUNTERS:
+        bad = [k for k in schedule if schedule[k] != workload.TENANT_MIX_COUNTERS[k]]
+        raise AssertionError(f"tenant mix: schedule counters {bad} differ from the "
+                             f"reference's: {json.dumps({k: schedule[k] for k in bad})}")
+    if not counters["sheds"]:
+        raise AssertionError("tenant mix: nothing was shed")
+    max_new = {req.rid: req.max_new for _, req in workload.tenant_mix_requests(cfg)}
+    runs = ((a, out_a), (c, out_c), (d, out_d))
+    for eng, out in runs:
+        for rid, toks in out.items():
+            if toks and (len(toks) != max_new[rid]
+                         or not all(0 <= t < cfg.vocab_size for t in toks)):
+                raise AssertionError(f"tenant mix request {rid}: bad output {toks}")
+    compared = 0
+    for i, (e1, o1) in enumerate(runs):
+        for e2, o2 in runs[i + 1:]:
+            for rid, toks in o1.items():
+                if toks and o2[rid] and rid not in e1.errors and rid not in e2.errors:
+                    compared += 1
+                    if o2[rid] != toks:
+                        raise AssertionError(f"tenant mix request {rid}: tokens depend on "
+                                             f"the policy")
+    missing = [k for k in FP_PATH if launches[k] == 0]
+    stray = [k for k, v in launches.items() if v and k not in FP_PATH]
+    if missing or stray:
+        raise AssertionError(f"tenant mix: kernels never launched {missing}, "
+                             f"off the path {stray}")
+    s = a.summary()
+    tokens = {t: sum(len(out_a[r.rid]) for _, r in workload.tenant_mix_requests(cfg)
+                     if r.tenant == t) for t, *_ in workload.TENANTS}
+    ttft = {t: float(np.mean(xs)) for t, xs in sorted(a.metrics.ttft_by_tenant.items())}
+    log(f"full width serving (tenant mix): policy fair, {workload.TENANT_MIX.num_blocks} "
+        f"pages; tokens per tenant {tokens}; sheds "
+        f"{[(x['rid'], x['tenant']) for x in counters['sheds']]}; poisoned {poisoned}; TTFT "
+        f"mean per tenant (s) { {t: round(v, 3) for t, v in ttft.items()} }; decode "
+        f"{s['decode_tokens']} tokens in {s['decode_s']:.3f} s = "
+        f"{s['decode_tokens_per_s']:.1f} tokens/s; peak device memory {peak / 1e9:.3f} GB; "
+        f"trace events {events}; wall (a) {wall_a:.1f} s (b) {wall_b:.1f} s (c) "
+        f"{wall_c:.1f} s (d) {wall_d:.1f} s; replay identical (tokens, errors, counters, "
+        f"trace); schedule counters = reference's; {compared} cross-policy token "
+        f"comparisons equal; launches {launches}")
+    log("full width serving summary (tenant mix, fair + faults): " + json.dumps(s))
+    log("full width serving summary (tenant mix, fcfs): " + json.dumps(c.summary()))
+    return launches
 
 
 def plain_path(name, make, ecfg, needed):
@@ -965,10 +1065,10 @@ def free_model() -> None:
 
 
 def full_width():
-    """Phase 5: the compressed model's two paths, then — the compressed
+    """Phase 5: the compressed model's three paths, then — the compressed
     model freed — the dense and the uncompressed-MoE models', each freed
     before the next is built. Returns each path's launches."""
-    fp_launches, q_launches, (fp_step, fp_all) = compressed_paths()
+    fp_launches, q_launches, mix_launches, (fp_step, fp_all) = compressed_paths()
     free_model()
     dense_launches, _ = plain_path("dense path", workload.build_dense, workload.DENSE,
                                    DENSE_PATH)
@@ -982,7 +1082,8 @@ def full_width():
         f"uncompressed {moe_step / 1e9:.3f} GB (every expert of every layer), PMQ + OTP fp "
         f"path {fp_step / 1e9:.3f} GB (the routed experts' packed rows; {moe_step / fp_step:.2f}x)")
     return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
-            "dense serving": dense_launches, "uncompressed MoE serving": moe_launches}
+            "tenant mix serving": mix_launches, "dense serving": dense_launches,
+            "uncompressed MoE serving": moe_launches}
 
 
 def main() -> int:

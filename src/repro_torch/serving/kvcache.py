@@ -10,7 +10,10 @@ With ``kv_bits=8`` the pools hold uint8 codes and four f32 tables
 ``k_scale, k_zero, v_scale, v_zero`` ``[L, NB·BS + 1, Hkv]`` hold each
 row's affine dequant pair. Allocation order, refcounts, prefix entries,
 block tables and slot order match the reference's byte for byte, so the
-same admissions give the same tables.
+same admissions give the same tables. The engine installs its span tracer
+(:meth:`PagedKVCache.set_tracer`): prefix evictions and copy-on-write page
+copies reach the trace and, through the ``cow_copy`` lifecycle event, the
+metrics.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .trace import NULL_TRACER
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PoolExhausted", "PrefixCache", "PrefixEntry"]
 
@@ -127,6 +132,7 @@ class PrefixCache:
     def __init__(self, allocator: BlockAllocator, block_size: int):
         self.allocator = allocator
         self.block_size = block_size
+        self.tracer = NULL_TRACER
         self._entries: "OrderedDict[bytes, PrefixEntry]" = OrderedDict()
         # page → number of entries holding it (≤ its allocator refcount)
         self.holds: Dict[int, int] = {}
@@ -217,6 +223,9 @@ class PrefixCache:
                 break
             self._release(victim)
             evicted += 1
+            self.tracer.instant("prefix_evict", track="pool", cat="kv",
+                                tokens=victim.n_tokens, pages=len(victim.pages),
+                                free=self.allocator.num_free)
         return evicted
 
     def clear(self) -> None:
@@ -274,6 +283,12 @@ class PagedKVCache:
         self.free_slots: List[int] = list(range(max_slots - 1, -1, -1))
         self.cow_copies = 0
         self._tables_device = None
+        self.tracer = NULL_TRACER
+
+    def set_tracer(self, tracer) -> None:
+        self.tracer = tracer
+        if self.prefix is not None:
+            self.prefix.tracer = tracer
 
     @property
     def quant_tables(self) -> tuple:
@@ -291,6 +306,11 @@ class PagedKVCache:
     def max_slot_tokens(self) -> int:
         return self.max_blocks_per_slot * self.block_size
 
+    def slot_deficit(self, slot: int, total_tokens: int) -> int:
+        """Pages a live slot still needs to cover ``total_tokens`` kv
+        entries (≤ 0 for every slot under full reservation)."""
+        return max(0, self.blocks_needed(total_tokens) - len(self.slot_blocks[slot]))
+
     def shared_prefix_pages(self, entry: Optional[PrefixEntry]) -> int:
         """Directly shared pages of a prefix match: its whole pages. A
         partial tail page is copied for the sharer, so it costs a fresh
@@ -304,27 +324,33 @@ class PagedKVCache:
             n += self.prefix.reclaimable(protect)
         return n
 
-    def can_admit(self, total_tokens: int, prefix_entry: Optional[PrefixEntry] = None) -> bool:
-        """A prefix match shrinks the bill to the fresh pages; evictable
-        cache pages count as available, the match's own pages excepted."""
+    def can_admit(self, total_tokens: int, headroom: int = 0,
+                  prefix_entry: Optional[PrefixEntry] = None) -> bool:
+        """``headroom`` pages are spoken for (pending growth of the actives).
+        A prefix match shrinks the bill to the fresh pages; evictable cache
+        pages count as available, the match's own pages excepted."""
         n = self.blocks_needed(total_tokens)
         fresh = n - self.shared_prefix_pages(prefix_entry)
         protect = frozenset(prefix_entry.pages) if prefix_entry is not None else frozenset()
-        return (bool(self.free_slots) and fresh <= self.available_pages(protect)
+        return (bool(self.free_slots) and fresh <= self.available_pages(protect) - headroom
                 and n <= self.max_blocks_per_slot)
 
-    def _copy_page(self, src: int, dst: int) -> None:
+    def _copy_page(self, src: int, dst: int, rid: int = -1) -> None:
         """Copy-on-write page duplication on the device: the K/V rows and,
         on int8 pools, their scale/zero rows move together, so the copy
         dequantizes bit-identically to the original."""
+        t0 = self.tracer.now_us()
         bs = self.block_size
         rows_src, rows_dst = slice(src * bs, (src + 1) * bs), slice(dst * bs, (dst + 1) * bs)
         for t in (self.k, self.v, *self.quant_tables):
             t[:, rows_dst] = t[:, rows_src]
         self.cow_copies += 1
+        self.tracer.lifecycle("cow_copy", track="pool", rid=rid, src_page=src, dst_page=dst)
+        self.tracer.complete("cow_copy_span", track="pool", cat="kv", start_us=t0,
+                             args={"src": src, "dst": dst})
 
-    def acquire_slot(self, total_tokens: int,
-                     prefix_entry: Optional[PrefixEntry] = None) -> int:
+    def acquire_slot(self, total_tokens: int, prefix_entry: Optional[PrefixEntry] = None,
+                     rid: int = -1) -> int:
         """Reserve a slot + enough pages for ``total_tokens`` kv entries.
 
         With a ``prefix_entry`` the match's whole pages are shared (incref)
@@ -355,7 +381,7 @@ class PagedKVCache:
             self.allocator.incref(shared)
             blocks = shared + fresh
             if tail:
-                self._copy_page(prefix_entry.pages[full], fresh[0])
+                self._copy_page(prefix_entry.pages[full], fresh[0], rid=rid)
         slot = self.free_slots.pop()
         self.slot_blocks[slot] = blocks
         self.block_tables[slot] = 0

@@ -30,7 +30,8 @@ from repro.serving.kvcache import PagedKVCache as JCache  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
-from repro_torch.serving import EngineConfig, PagedServingEngine, Request  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    EngineConfig, InvalidRequest, PagedServingEngine, Request)
 from repro_torch.serving.kvcache import PagedKVCache as TCache  # noqa: E402
 
 from _torch_interop import (  # noqa: E402,F401
@@ -231,17 +232,22 @@ def test_engine_refuses_later_slice_settings(served_model):
         PagedServingEngine(cfg, params_t, EngineConfig(decode_horizon=0), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         PagedServingEngine(dataclasses.replace(cfg, num_layers=3), params_t, device="cpu")
-    for later in ("temperature", "preempt_mode", "resident_experts", "trace_level",
-                  "policy", "ffn_backend"):
+    for later in ("temperature", "preempt_mode", "resident_experts", "ffn_backend"):
         with pytest.raises(TypeError):
             EngineConfig(**{later: 1})
+    with pytest.raises(ValueError, match="policy"):
+        PagedServingEngine(cfg, params_t, EngineConfig(policy="lottery"), device="cpu")
+    with pytest.raises(ValueError, match="trace level"):
+        PagedServingEngine(cfg, params_t, EngineConfig(trace_level="verbose"), device="cpu")
     with pytest.raises(ValueError, match="kv_bits"):
         PagedServingEngine(cfg, params_t, EngineConfig(kv_bits=4), device="cpu")
     eng = PagedServingEngine(cfg, params_t, EngineConfig(max_blocks_per_slot=2), device="cpu")
     with pytest.raises(ValueError, match="exceed"):
         eng.submit(Request(rid=0, prompt=np.zeros(30, np.int32), max_new=4))
-    with pytest.raises(ValueError, match="empty"):
+    with pytest.raises(InvalidRequest, match="empty prompt"):
         eng.submit(Request(rid=1, prompt=np.zeros(0, np.int32), max_new=4))
+    with pytest.raises(InvalidRequest, match="max_new must be"):
+        eng.submit(Request(rid=2, prompt=np.zeros(3, np.int32), max_new=0))
     with pytest.raises(ValueError, match="unsupported device"):
         from repro_torch.kernels.quant_matmul import quant_matmul
         quant_matmul(torch.zeros(2, 128, device="meta"), None, None, None, bits=4)

@@ -10,6 +10,8 @@ Tolerances: ``max|kernel − plain| ≤ tol · max|plain|`` with tol 1e-4 for f3
 (only the summation order differs) and 2e-2 for bf16 (both round the
 weights to bf16 and accumulate in f32; outputs round to bf16).
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -549,3 +551,91 @@ def _sync_free_horizon(dev, kv_bits):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert emits.sum(dim=0).tolist() == [4, 2]
+
+
+# ------------------------------------------------------- control plane
+@functools.lru_cache(maxsize=None)
+def _reduced_pmq():
+    """The reduced PMQ + OTP model's config and CPU params (built once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.synthetic import build_synthetic
+    from repro_torch.launch import workload
+
+    cfg = get_config(workload.ARCH).reduced()
+    return cfg, build_synthetic(cfg, seed=0, device="cpu")
+
+
+def _control_plane_run(eng, drive):
+    drive(eng)
+    return (eng.results, {rid: type(e).__name__ for rid, e in sorted(eng.errors.items())},
+            eng.metrics.counters(), eng.tracer.deterministic_jsonl())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fair", "fcfs", "priority"])
+def test_tenant_mix_card_matches_cpu(dev, policy):
+    """The tenant mix through the control plane on the reduced model (f32):
+    the card gives the CPU's tokens, typed errors, counters and
+    deterministic trace bit for bit; under ``fair`` with the workload's
+    fault plan the schedule counters are ``TENANT_MIX_COUNTERS``."""
+    import dataclasses
+
+    from repro_torch.core.tree import to_device
+    from repro_torch.launch import workload
+    from repro_torch.serving import PagedServingEngine
+
+    cfg, params = _reduced_pmq()
+    ecfg = dataclasses.replace(workload.TENANT_MIX, policy=policy)
+    runs = []
+    for device, p in (("cpu", params), (dev, to_device(params, dev))):
+        faults = workload.tenant_mix_faults() if policy == "fair" else None
+        eng = PagedServingEngine(cfg, p, ecfg, faults, device=device)
+        runs.append(_control_plane_run(
+            eng, lambda e: workload.serve_tenant_mix(e, workload.tenant_mix_requests(cfg))))
+    assert runs[1] == runs[0]
+    if policy == "fair":
+        counters = runs[1][2]
+        assert {k: counters[k] for k in workload.TENANT_MIX_COUNTERS} == \
+            workload.TENANT_MIX_COUNTERS
+
+
+@pytest.mark.cuda
+def test_cancel_and_deadline_card_matches_cpu(dev):
+    """Cancellation between prefill chunks with the prefix cache on, and a
+    queued request's deadline, on the card as on the CPU: the same tokens,
+    typed errors, counters and trace, and a pool drained clean."""
+    import numpy as np
+
+    from repro_torch.core.tree import to_device
+    from repro_torch.serving import EngineConfig, PagedServingEngine, Request
+
+    cfg, params = _reduced_pmq()
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, size=32)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, size=n)]).astype(np.int32)
+               for n in (10, 5, 7, 3)]
+    ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=12, max_blocks_per_slot=4,
+                        prefill_chunk=16, decode_horizon=4, prefix_cache=True,
+                        trace_level="spans")
+
+    def drive(eng):
+        complete = eng.tracer.complete
+
+        def hooked(name, **kw):  # cancel request 1 after its first chunk
+            complete(name, **kw)
+            if name == "prefill_chunk" and (kw.get("args") or {}).get("rid") == 1:
+                eng.cancel(1)
+
+        eng.tracer.complete = hooked
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=8,
+                               deadline_steps=3 if i == 3 else None))
+        while eng.scheduler.has_work():
+            eng.step()
+            eng.cache.check_consistency()
+        assert eng.cache.slot_blocks == {}
+
+    runs = [_control_plane_run(PagedServingEngine(cfg, p, ecfg, device=d), drive)
+            for d, p in (("cpu", params), (dev, to_device(params, dev)))]
+    assert runs[1] == runs[0]
+    assert runs[1][1] == {1: "RequestCancelled", 3: "DeadlineExceeded"}
