@@ -37,7 +37,11 @@ Phases (each failure exits non-zero):
    dense and uncompressed models the dense-cache oracle's tokens; then a
    decode megastep of each on the card under
    ``set_sync_debug_mode("error")``, which fails if anything inside the
-   horizon waits on the host;
+   horizon waits on the host (after a page grow); then each reduced model
+   with page growth on a 4-page pool, where one of three requests is
+   preempted, served on the card and on the CPU in swap and in recompute
+   mode with fp KV and in swap mode with int8 KV: tokens card == CPU ==
+   the same model's unpressured run, ``counters()`` card == CPU;
 5. full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
@@ -57,7 +61,19 @@ Phases (each failure exits non-zero):
    valid; the poisoned request empty with ``PoisonedRequest``; (a)'s schedule
    counters the reference engine's (``workload.TENANT_MIX_COUNTERS``); every
    rid completed in two runs with the same tokens in both; the fp path's
-   kernels launched and no other;
+   kernels launched and no other; then the preemption path (``PREEMPT``: the
+   fp workload on an 11-page pool with page growth) served twice — (a) in
+   swap mode: one preemption (rid 1, its 5 pages swapped out and back in,
+   31,457,280 bytes each way), 3 page grows, the schedule counters the
+   reference engine's (``workload.PREEMPT_COUNTERS``), every rid's tokens
+   byte-identical to the fp path's; (b) with ``PREEMPT_FAULTS`` corrupting
+   rid 1's payload at swap-in, at trace level ``full``: one swap fallback,
+   no swap-in bytes, 21 prefill chunks, a valid trace with the reference's
+   event count on this schedule, rids 0, 2 and 3 byte-identical to the fp
+   path's, and rid 1's agreement after its re-prefill printed, not gated
+   (the re-prefill rewrites its KV through the prefill's attention, the
+   original rows came from the decode kernel); the fp path's kernels
+   launched and no other;
    then, the compressed model freed, ``qwen3-14b`` (dense, 40 layers) and
    ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
    built on the card, served on the fp geometry (``paged_attention`` must
@@ -759,10 +775,11 @@ def sync_free_megastep(cfg, params, kv_bits=None):
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2,
                          max_blocks_per_slot=4, device=DEV, kv_bits=kv_bits)
     cache.acquire_slot(40)
-    cache.acquire_slot(30)
+    cache.acquire_slot(16)
+    cache.grow(1, 1)  # slot 1's second write lands on the grown page
     i32 = dict(dtype=torch.int32, device=DEV)
     args = (params, cache.k, cache.v, cache.tables_device(),
-            torch.tensor([[3], [5]], device=DEV), torch.tensor([20, 7], **i32),
+            torch.tensor([[3], [5]], device=DEV), torch.tensor([20, 15], **i32),
             torch.ones(2, dtype=torch.bool, device=DEV), mcfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
               eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables)
@@ -774,8 +791,8 @@ def sync_free_megastep(cfg, params, kv_bits=None):
         torch.cuda.set_sync_debug_mode("default")
     if emits.sum(dim=0).tolist() != [4, 2]:
         raise AssertionError(f"sync-free megastep emitted {emits.sum(dim=0).tolist()}")
-    log(f"{cfg.name} {'int8' if kv_bits else 'fp'} decode megastep under sync debug mode "
-        f"'error': no host sync inside the horizon")
+    log(f"{cfg.name} {'int8' if kv_bits else 'fp'} decode megastep (after a page grow) under "
+        f"sync debug mode 'error': no host sync inside the horizon")
 
 
 #: the reduced models of phase 4: the compressed MoE (PMQ + OTP), the dense
@@ -806,7 +823,7 @@ def tiny_parity(model="compressed", kv_bits=None):
                    .astype(np.int32) for n in (10, 5)]
         prompts.append(prompts[1].copy())
     ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
-                        prefill_chunk=16, decode_horizon=4, kv_bits=kv_bits,
+                        prefill_chunk=16, decode_horizon=4, reserve_full=True, kv_bits=kv_bits,
                         prefix_cache=kv_bits is not None)
     outs = {}
     for name, dev, params in (("card", DEV, params_gpu), ("cpu", "cpu", params_cpu)):
@@ -846,6 +863,58 @@ def tiny_parity(model="compressed", kv_bits=None):
     sync_free_megastep(cfg, params_gpu, kv_bits)
 
 
+#: (preempt_mode, kv_bits) of phase 4's runs under pool pressure
+PRESSURE_RUNS = (("swap", None), ("recompute", None), ("swap", 8))
+
+
+def tiny_preemption(model):
+    """A reduced model (f32) with page growth on a 4-page pool, where one of
+    three requests is preempted: once per ``preempt_mode`` with fp KV and
+    once in swap mode with int8 KV, each on the card and on the CPU. The
+    card's tokens must equal the CPU's and the same model's unpressured run
+    (full reservation on 16 pages) on the card, and ``counters()`` must be
+    equal card vs CPU."""
+    arch, make = TINY[model]
+    cfg = get_config(arch).reduced()
+    params_cpu = make(cfg, seed=0, device="cpu")
+    params_gpu = to_device(params_cpu, DEV)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
+    base = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+                        prefill_chunk=16, decode_horizon=4, reserve_full=True)
+
+    def serve(ecfg, dev, params):
+        eng = PagedServingEngine(cfg, params, ecfg, device=dev)
+        out = eng.serve(Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
+        return out, eng.metrics.counters()
+
+    alone = {kv: serve(dataclasses.replace(base, kv_bits=kv), DEV, params_gpu)[0]
+             for kv in (None, 8)}
+    done = []
+    for mode, kv in PRESSURE_RUNS:
+        ecfg = dataclasses.replace(base, num_blocks=4, reserve_full=False, preempt_mode=mode,
+                                   kv_bits=kv)
+        label = f"{model}, {mode}, {'int8' if kv else 'fp'} KV"
+        (card, c_card), (cpu, c_cpu) = serve(ecfg, DEV, params_gpu), serve(ecfg, "cpu", params_cpu)
+        if card != cpu:
+            raise AssertionError(f"tiny preemption ({label}): tokens differ card vs cpu")
+        if card != alone[kv]:
+            raise AssertionError(f"tiny preemption ({label}): tokens differ from the "
+                                 f"unpressured run")
+        if c_card != c_cpu:
+            bad = [k for k in c_card if c_card[k] != c_cpu[k]]
+            raise AssertionError(f"tiny preemption ({label}): counters {bad} differ card vs cpu")
+        if not c_card["preemptions"] or (mode == "swap") != (c_card["swap_in_bytes"] > 0) or \
+                c_card["swap_in_bytes"] != c_card["swap_out_bytes"]:
+            raise AssertionError(f"tiny preemption ({label}): {len(c_card['preemptions'])} "
+                                 f"preemptions, swap bytes out {c_card['swap_out_bytes']} in "
+                                 f"{c_card['swap_in_bytes']}")
+        done.append(f"{mode}/{'int8' if kv else 'fp'} {len(c_card['preemptions'])} preemption(s) "
+                    f"{c_card['swap_in_bytes']} swap bytes {c_card['prefill_dispatches']} chunks")
+    log(f"tiny preemption ({model}, 4 pages, growth): {'; '.join(done)}; each: tokens card == "
+        f"cpu == unpressured run, counters card == cpu")
+
+
 # ------------------------------------------------ phase 5: full width
 #: kernels each serving path must launch (binary_matmul has no serving caller)
 FP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
@@ -882,9 +951,9 @@ def _drive(name, cfg, params, ecfg, reqs, needed):
 
 
 def compressed_paths():
-    """The PMQ + OTP model's fp, int8 KV + shared-prefix and tenant-mix
-    paths: their launches, and the fp path's expert bytes per decode step and
-    in all."""
+    """The PMQ + OTP model's fp, int8 KV + shared-prefix, tenant-mix and
+    preemption paths: their launches, and the fp path's expert bytes per
+    decode step and in all."""
     t0 = time.perf_counter()
     cfg, params = workload.build(DEV)
     torch.cuda.synchronize()
@@ -894,13 +963,13 @@ def compressed_paths():
         f"weights on device {weight_bytes(params) / 1e9:.3f} GB")
 
     # the fp path
-    eng, out, fp_launches, peak = _drive("fp path", cfg, params, workload.ENGINE,
-                                         workload.requests(cfg), FP_PATH)
+    eng, fp_out, fp_launches, peak = _drive("fp path", cfg, params, workload.ENGINE,
+                                            workload.requests(cfg), FP_PATH)
     _, out2 = _serve(cfg, params, workload.ENGINE, workload.requests(cfg))
-    if out2 != out:
+    if out2 != fp_out:
         raise AssertionError("fp path: a second engine served different tokens")
     s = eng.summary()
-    log(f"full width serving (fp KV): {len(out)} requests x {workload.MAX_NEW} tokens; "
+    log(f"full width serving (fp KV): {len(fp_out)} requests x {workload.MAX_NEW} tokens; "
         f"peak device memory {peak / 1e9:.3f} GB; TTFT mean {s['ttft_mean_s']:.3f} s "
         f"max {s['ttft_max_s']:.3f} s; decode {s['decode_tokens']} tokens in "
         f"{s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; "
@@ -943,7 +1012,8 @@ def compressed_paths():
         f"{q_launches}; tokens identical without the cache and in a second engine")
     log("full width serving summary (int8 KV + prefix cache): " + json.dumps(s))
     mix_launches = tenant_mix_path(cfg, params)
-    return fp_launches, q_launches, mix_launches, experts
+    preempt_launches = preemption_path(cfg, params, fp_out)
+    return fp_launches, q_launches, mix_launches, preempt_launches, experts
 
 
 def _tenant_mix_run(cfg, params, ecfg, faults):
@@ -1026,6 +1096,88 @@ def tenant_mix_path(cfg, params):
     return launches
 
 
+def _preempt_run(cfg, params, ecfg, faults):
+    t0 = time.perf_counter()
+    eng = PagedServingEngine(cfg, params, ecfg, faults, device=DEV)
+    out = eng.serve(workload.requests(cfg))
+    torch.cuda.synchronize()
+    return eng, out, time.perf_counter() - t0
+
+
+def preemption_path(cfg, params, fp_out):
+    """The fp workload on ``PREEMPT``'s 11-page pool with page growth, twice
+    (see the module docstring): its launches; fails on any check. Tokens
+    are held to ``fp_out``, the fp path's from this call."""
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    a, out_a, wall_a = _preempt_run(cfg, params,
+                                    dataclasses.replace(workload.PREEMPT, trace_level="spans"),
+                                    None)
+    b, out_b, wall_b = _preempt_run(cfg, params,
+                                    dataclasses.replace(workload.PREEMPT, trace_level="full"),
+                                    workload.PREEMPT_FAULTS.replay())
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    victim = workload.PREEMPT_VICTIM
+    swap_bytes = (workload.PREEMPT_VICTIM_PAGES * 2 * cfg.num_layers * workload.PREEMPT.block_size
+                  * cfg.num_kv_heads * cfg.head_dim * a.cache.k.element_size())
+    ca, cb = a.metrics.counters(), b.metrics.counters()
+    schedule = workload.preempt_schedule(ca)
+    if schedule != workload.PREEMPT_COUNTERS:
+        bad = [k for k in schedule if schedule[k] != workload.PREEMPT_COUNTERS[k]]
+        raise AssertionError(f"preemption (a): schedule counters {bad} differ from the "
+                             f"reference's: {json.dumps({k: schedule[k] for k in bad})}")
+    grows = sum(e["name"] == "page_grow" for e in a.tracer.events)
+    if ([p["rid"] for p in ca["preemptions"]] != [victim] or grows != 3
+            or not ca["swap_out_bytes"] == ca["swap_in_bytes"] == swap_bytes):
+        raise AssertionError(f"preemption (a): preemptions {ca['preemptions']}, {grows} page "
+                             f"grows, swap bytes out {ca['swap_out_bytes']} in "
+                             f"{ca['swap_in_bytes']} (expected {swap_bytes})")
+    if out_a != fp_out:
+        raise AssertionError(f"preemption (a): rids {[r for r in fp_out if out_a[r] != fp_out[r]]}"
+                             f" differ from the fp path's tokens")
+    if (cb["swap_fallbacks"], cb["swap_in_bytes"], cb["prefill_dispatches"]) != (1, 0, 21):
+        raise AssertionError(f"preemption (b): {cb['swap_fallbacks']} swap fallbacks, "
+                             f"{cb['swap_in_bytes']} swap-in bytes, "
+                             f"{cb['prefill_dispatches']} prefill chunks; expected 1, 0, 21")
+    events = validate_events(b.tracer.events)
+    validate_chrome_trace(b.tracer.chrome_trace())
+    want_events = workload.PREEMPT_FAULT_EVENTS + len(cb["capacity_utilization"])
+    if events != want_events:
+        raise AssertionError(f"preemption (b): {events} trace events, the reference's schedule "
+                             f"gives {want_events}")
+    others = [r for r in fp_out if r != victim and out_b[r] != fp_out[r]]
+    if others:
+        raise AssertionError(f"preemption (b): rids {others} differ from the fp path's tokens")
+    same = [x == y for x, y in zip(out_b[victim], fp_out[victim])]
+    first = same.index(False) if not all(same) else None
+    missing = [k for k in FP_PATH if launches[k] == 0]
+    stray = [k for k, v in launches.items() if v and k not in FP_PATH]
+    if missing or stray:
+        raise AssertionError(f"preemption: kernels never launched {missing}, off the path "
+                             f"{stray}")
+    for name, eng, wall in (("(a) swap", a, wall_a), ("(b) swap-in corrupt -> re-prefill", b,
+                                                      wall_b)):
+        s = eng.summary()
+        log(f"full width serving (preemption {name}): wall {wall:.1f} s; preemptions "
+            f"{s['preemptions']}; swap bytes out {s['swap_out_bytes']} in {s['swap_in_bytes']}; "
+            f"swap fallbacks {s['swap_fallbacks']}; prefill chunks {s['prefill_chunks']}; "
+            f"megasteps {eng.metrics.megasteps}; decode {s['decode_tokens']} tokens in "
+            f"{s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s")
+    spans = {e["name"]: e["dur_us"] / 1e3 for e in a.tracer.events
+             if e["name"] in ("kv_swap_out", "kv_swap_in")}
+    log(f"full width serving (preemption): {workload.PREEMPT.num_blocks} pages; (a) "
+        f"kv_swap_out {spans['kv_swap_out']:.1f} ms, kv_swap_in {spans['kv_swap_in']:.1f} ms "
+        f"(host wall, device copies included); schedule "
+        f"counters = reference's, {grows} page grows, rid {victim} swapped out and in "
+        f"({swap_bytes} bytes), every rid's tokens = fp path's; (b) trace events {events}, rids "
+        f"{[r for r in fp_out if r != victim]} = fp path's; rid {victim} after its re-prefill: "
+        f"{sum(same)}/{len(same)} tokens = fp path's, first differing position {first} "
+        f"(reported, not gated); peak device memory {peak / 1e9:.3f} GB; launches {launches}")
+    log("full width serving summary (preemption, swap): " + json.dumps(a.summary()))
+    return launches
+
+
 def plain_path(name, make, ecfg, needed):
     """A dense or uncompressed-MoE model built on the card at full width
     (``make``), served twice with ``ecfg`` on the fp workload's requests:
@@ -1065,10 +1217,11 @@ def free_model() -> None:
 
 
 def full_width():
-    """Phase 5: the compressed model's three paths, then — the compressed
+    """Phase 5: the compressed model's four paths, then — the compressed
     model freed — the dense and the uncompressed-MoE models', each freed
     before the next is built. Returns each path's launches."""
-    fp_launches, q_launches, mix_launches, (fp_step, fp_all) = compressed_paths()
+    fp_launches, q_launches, mix_launches, preempt_launches, (fp_step, fp_all) = \
+        compressed_paths()
     free_model()
     dense_launches, _ = plain_path("dense path", workload.build_dense, workload.DENSE,
                                    DENSE_PATH)
@@ -1082,7 +1235,8 @@ def full_width():
         f"uncompressed {moe_step / 1e9:.3f} GB (every expert of every layer), PMQ + OTP fp "
         f"path {fp_step / 1e9:.3f} GB (the routed experts' packed rows; {moe_step / fp_step:.2f}x)")
     return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
-            "tenant mix serving": mix_launches, "dense serving": dense_launches,
+            "tenant mix serving": mix_launches, "preemption serving": preempt_launches,
+            "dense serving": dense_launches,
             "uncompressed MoE serving": moe_launches}
 
 
@@ -1127,6 +1281,8 @@ def main() -> int:
     for model in TINY:
         tiny_parity(model)
     tiny_parity(kv_bits=8)
+    for model in TINY:
+        tiny_preemption(model)
     paths = full_width()
 
     # launches of each kernel on the path that runs it; binary_matmul has no

@@ -1,7 +1,8 @@
 """Serve requests through the port's paged engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch ID] [--pmq] [--kv-bits 8] \
-        [--prefix-cache] [--policy fair --tenant-weights batch=1,interactive=4] \
+        [--prefix-cache] [--pool-blocks N] [--preempt-mode swap|recompute] [--no-preempt] \
+        [--policy fair --tenant-weights batch=1,interactive=4] \
         [--ttft-budget-ms MS] [--trace-level spans --trace-out F] [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
@@ -10,6 +11,13 @@ built from seed 0 by :mod:`repro_torch.core.synthetic`: with ``--pmq`` (MoE
 only) PMQ bit buckets at an average of 2.05 bits, 4-bit attention and
 shared experts and OTP routers, without it the uncompressed weights of a
 dense or MoE model. Runs on the GPU unless ``--device cpu``.
+
+Admission reserves pages for the context and the next megastep and the
+engine grows slots on demand, as the reference does; ``--pool-blocks``
+undersizes the pool (default: worst-case demand) so that growth preempts
+requests, which ``--preempt-mode`` restores from the host swap store or by
+re-prefilling their context. ``--no-preempt`` reserves ``prompt + max_new``
+pages at admission instead (no growth, no preemption).
 
 ``--policy`` picks the admission order (``fcfs``, ``priority`` or ``fair``
 over ``--tenant-weights``; requests are assigned round-robin to the named
@@ -67,6 +75,14 @@ def main() -> None:
                         "prefill (outputs stay bit-identical)")
     p.add_argument("--kv-bits", type=int, choices=[8], default=None, metavar="B",
                    help="store the KV pool as B-bit codes with per-row f32 scales")
+    p.add_argument("--pool-blocks", type=int, default=None,
+                   help="KV pool size in pages; undersize it to exercise growth + preemption "
+                        "(default: worst-case demand)")
+    p.add_argument("--preempt-mode", choices=["swap", "recompute"], default="swap",
+                   help="restore preempted requests from the host swap store or by "
+                        "re-prefilling their context")
+    p.add_argument("--no-preempt", action="store_true",
+                   help="reserve prompt+max_new pages at admission (no growth, no preemption)")
     p.add_argument("--policy", choices=["fcfs", "priority", "fair"], default="fcfs",
                    help="admission order: arrival order, strict priority classes, or "
                         "weighted-deficit token fairness across tenants (outputs are "
@@ -103,8 +119,9 @@ def main() -> None:
     engine = PagedServingEngine(
         cfg, params,
         EngineConfig(max_slots=args.slots, block_size=args.block_size,
-                     num_blocks=args.slots * blocks_per_req,
-                     max_blocks_per_slot=blocks_per_req, decode_horizon=args.decode_horizon,
+                     num_blocks=args.pool_blocks or args.slots * blocks_per_req,
+                     max_blocks_per_slot=blocks_per_req, preempt_mode=args.preempt_mode,
+                     reserve_full=args.no_preempt, decode_horizon=args.decode_horizon,
                      prefix_cache=args.prefix_cache, kv_bits=args.kv_bits,
                      policy=args.policy, tenant_weights=tenant_weights,
                      ttft_budget_s=(args.ttft_budget_ms / 1000.0
@@ -123,8 +140,11 @@ def main() -> None:
     if args.prefix_cache:
         print(f"prefix cache: {m['prefix_hits']} hits, {m['cached_tokens']} prompt tokens "
               f"reused, {m['cow_copies']} COW copies")
-    print(f"KV pool: {engine.cache.pool_bytes} bytes "
-          f"({'int8 codes + f32 row tables' if args.kv_bits else 'fp'})")
+    print(f"KV pool: {engine.cache.allocator.num_blocks} pages, {engine.cache.pool_bytes} bytes "
+          f"({'int8 codes + f32 row tables' if args.kv_bits else 'fp'}); "
+          f"{'full reservation' if args.no_preempt else 'growth, preempt mode ' + args.preempt_mode}"
+          f": {m['preemptions']} preemptions, swap bytes out {m['swap_out_bytes']} in "
+          f"{m['swap_in_bytes']}, {m['swap_fallbacks']} swap fallbacks")
     print(f"scheduling: policy {args.policy}; {m['sheds']} sheds, {m['plans']} plans "
           f"{m['plan_actions']}; tenant tokens {m['tenant_tokens']}")
     report = engine.routing_report()

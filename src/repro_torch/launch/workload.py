@@ -38,6 +38,23 @@ PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
   counters on these settings (``tests/test_torch_serving_control.py``
   computes them with ``repro.serving.PagedServingEngine``).
 
+* ``PREEMPT``: the fp workload (:func:`requests`) on a pool cut to 11 pages
+  with page growth (``reserve_full=False``) and ``preempt_mode="swap"`` —
+  the setting of a pool sized below worst-case demand. Admission reserves
+  the 64-token context plus the first megastep's 8 writes (5 pages), so two
+  requests run at a time; at logical step 16 rid 1's growth finds the pool
+  empty and it preempts itself (5 pages to the host; 31,457,280 bytes at
+  full width), rid 2 takes its slot, and rid 1 is swapped back in beside
+  rid 3 at step 47. ``PREEMPT_FAULTS`` corrupts rid 1's payload at swap-in,
+  so the CRC trips and rid 1 is re-prefilled from its 80-token context (5
+  more prefill chunks). ``PREEMPT_COUNTERS`` are the reference engine's
+  schedule counters on these settings, computed as ``TENANT_MIX_COUNTERS``
+  were; byte counts are left out (:func:`preempt_schedule`), since they
+  depend on the widths. ``PREEMPT_FAULT_EVENTS`` is the reference's event
+  count at trace level ``full`` under ``PREEMPT_FAULTS`` on a model without
+  PMQ routing telemetry; a PMQ model adds one ``routing`` counter per entry
+  of ``capacity_utilization``.
+
 Two more models serve ``ENGINE``'s geometry and :func:`requests` (bf16, fp
 KV, random weights from seed 0, :func:`build_uncompressed`):
 
@@ -67,6 +84,10 @@ __all__ = [
     "DENSE_ARCH",
     "ENGINE",
     "MAX_NEW",
+    "PREEMPT",
+    "PREEMPT_COUNTERS",
+    "PREEMPT_FAULT_EVENTS",
+    "PREEMPT_FAULTS",
     "SHARED_PREFIX",
     "SHARED_PREFIX_CHUNKS",
     "SHARED_PREFIX_COW_COPIES",
@@ -76,6 +97,7 @@ __all__ = [
     "build",
     "build_dense",
     "build_uncompressed_moe",
+    "preempt_schedule",
     "requests",
     "serve_tenant_mix",
     "shared_prefix_requests",
@@ -106,14 +128,15 @@ TENANT_MIX = dataclasses.replace(ENGINE, num_blocks=14, policy="fair",
 TENANT_MIX_POISONED = 3
 
 
-def _admit(rid, slot, step, active_before, queue_depth, tenant, priority, wait_steps):
+def _admit(rid, slot, step, active_before, queue_depth, tenant, priority, wait_steps,
+           resumed=False):
     return {"rid": rid, "slot": slot, "step": step, "active_before": active_before,
-            "queue_depth": queue_depth, "resumed": False, "tenant": tenant,
+            "queue_depth": queue_depth, "resumed": resumed, "tenant": tenant,
             "priority": priority, "wait_steps": wait_steps}
 
 
-def _util(free_pages: int) -> float:
-    return 1.0 - free_pages / TENANT_MIX.num_blocks
+def _util(free_pages: int, pool: int = TENANT_MIX.num_blocks) -> float:
+    return 1.0 - free_pages / pool
 
 
 #: ``ServingMetrics.counters()`` of the schedule the reference engine gives on
@@ -140,6 +163,52 @@ TENANT_MIX_COUNTERS = {
     "faults_by_site": {"logits": 1, "pool": 2},
     "poisoned": 1,
 }
+
+
+PREEMPT = dataclasses.replace(ENGINE, num_blocks=11, reserve_full=False, preempt_mode="swap")
+#: a plan counts its firings: each run takes a fresh copy, ``PREEMPT_FAULTS.replay()``
+PREEMPT_FAULTS = FaultPlan([FaultSpec(site="swap_in", mode="corrupt", key=1)])
+#: the request PREEMPT preempts, and its pages at the preemption
+PREEMPT_VICTIM, PREEMPT_VICTIM_PAGES = 1, 5
+PREEMPT_FAULT_EVENTS = 131
+
+
+def _held(pages: int, steps: int) -> List[float]:
+    return [_util(11 - pages, PREEMPT.num_blocks)] * steps
+
+
+#: the schedule keys of ``ServingMetrics.counters()`` the reference engine
+#: gives on PREEMPT (any weights and widths; see the module docstring)
+PREEMPT_COUNTERS = {
+    "admissions": [_admit(0, 0, 0, 0, 4, "default", 0, 0), _admit(1, 1, 0, 1, 3, "default", 0, 0),
+                   _admit(2, 1, 16, 1, 3, "default", 0, 16),
+                   _admit(3, 0, 47, 1, 1, "default", 0, 47)],
+    "readmissions": [_admit(1, 1, 47, 0, 2, "default", 0, 47, resumed=True)],
+    "preemptions": [{"rid": 1, "slot": 1, "step": 16, "mode": "swap", "tenant": "default",
+                     "for_rid": 1, "for_tenant": "default"}],
+    "plans": 5,
+    "plan_actions": {"admits": 5, "grows": 3, "preempts": 1},
+    "slot_releases": [{"rid": 0, "slot": 0, "step": 30}, {"rid": 2, "slot": 1, "step": 46},
+                      {"rid": 1, "slot": 1, "step": 61}, {"rid": 3, "slot": 0, "step": 77}],
+    "active_per_step": [2] * 31 + [1] * 16 + [2] * 15 + [1] * 16,
+    "queue_depth": [2] * 47 + [0] * 31,
+    "page_utilization": (_held(10, 16) + _held(11, 16) + _held(6, 15) + _held(11, 16)
+                         + _held(6, 15)),
+    "megastep_logical_steps": [8, 8, 8, 8, 8, 7, 8, 8, 8, 7],
+    "megasteps": 10,
+    "prefill_dispatches": 16,
+    "swap_fallbacks": 0,
+    "tenant_tokens": {"default": 128},
+}
+
+
+def preempt_schedule(counters: Dict) -> Dict:
+    """``counters``' entries under the keys of :data:`PREEMPT_COUNTERS`, the
+    preemption records without their byte counts."""
+    out = {k: counters[k] for k in PREEMPT_COUNTERS}
+    out["preemptions"] = [{k: v for k, v in p.items() if k != "swap_bytes"}
+                          for p in counters["preemptions"]]
+    return out
 
 
 def build(device="cuda") -> Tuple[object, Dict]:

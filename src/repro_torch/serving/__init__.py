@@ -1,5 +1,6 @@
 """Paged continuous-batching serving for the port: the resource controller
-with tenant policies and SLO shed, reserve-full admission, chunked prefill,
+with tenant policies and SLO shed, admission with on-demand page growth,
+victim preemption and the host KV swap store, chunked prefill,
 H-step greedy megasteps, fp or int8 KV pools, the copy-on-write
 shared-prefix cache, ``ServingMetrics``, the span tracer and the fault
 plane."""
@@ -19,7 +20,14 @@ from .faults import (
     WatchdogTimeout,
     checksum_tree,
 )
-from .kvcache import BlockAllocator, PagedKVCache, PoolExhausted, PrefixCache, PrefixEntry
+from .kvcache import (
+    BlockAllocator,
+    PagedKVCache,
+    PoolExhausted,
+    PrefixCache,
+    PrefixEntry,
+    SwappedKV,
+)
 from .metrics import ServingMetrics
 from .scheduler import VALID_POLICIES, Request, Scheduler
 from .trace import (
@@ -36,6 +44,6 @@ __all__ = [
     "MetricsConsumer", "Observation", "PagedKVCache", "PagedServingEngine", "PlanAction",
     "PoisonedRequest", "PoolExhausted", "PrefixCache", "PrefixEntry", "Request",
     "RequestCancelled", "ResourceController", "Scheduler", "ServingFault", "ServingMetrics",
-    "SpanTracer", "SwapFault", "TargetState", "VALID_POLICIES", "WatchdogTimeout",
+    "SpanTracer", "SwapFault", "SwappedKV", "TargetState", "VALID_POLICIES", "WatchdogTimeout",
     "checksum_tree", "quantized_greedy_reference", "validate_chrome_trace", "validate_events",
 ]

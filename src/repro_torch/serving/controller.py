@@ -23,9 +23,10 @@ stepping; execution still re-validates each one against the live pool
 (:meth:`Scheduler.admit_planned`).
 
 Which waiter admits first and who is victimized is the scheduler's policy
-(``admission_order`` / ``victim_key``). Under full reservation no active
-slot ever lacks pages, so phase 1 plans no ``grow`` or ``preempt``; phase 3
-plans nothing without an offload manager. The plan itself is visible as one
+(``admission_order`` / ``victim_key``). Phase 1 grows every active slot
+horizon-ahead and plans policy-ordered preemptions where the pool cannot
+cover a grow (under full reservation no slot ever lacks pages, so it plans
+neither); phase 3 plans nothing without an offload manager. The plan itself is visible as one
 ``plan`` lifecycle event per non-empty boundary.
 """
 from __future__ import annotations

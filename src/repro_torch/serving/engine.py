@@ -38,10 +38,16 @@ prefixes copy-on-write, so a hit prefills only the uncached suffix and a
 full hit dispatches no prefill at all. Greedy outputs are bit-identical with
 the cache on or off.
 
-Pages for ``prompt + max_new`` are reserved at admission
-(``reserve_full=True``). Growth and preemption (``reserve_full=False``),
-swap, expert offload and temperature sampling are later slices: their
-settings do not exist here, and ``reserve_full=False`` is refused.
+**Growth and preemption.** Admission reserves pages for the context plus
+the next megastep's writes (``reserve_full=False``, the default) and the
+controller grows every active slot horizon-ahead at each boundary. When the
+pool runs short it preempts a policy-ordered victim: ``preempt_mode="swap"``
+moves the victim's pages to the host (:class:`~.kvcache.SwappedKV`, CRC
+checked) and writes them back at re-admission, ``"recompute"`` drops them
+and re-prefills ``prompt + out[:-1]``; a failed or corrupt swap falls back
+to the re-prefill. ``reserve_full=True`` reserves ``prompt + max_new`` up
+front, so neither happens. Expert offload and temperature sampling are
+later slices: their settings do not exist here.
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ from .faults import (
     PoisonedRequest,
     RequestCancelled,
     ServingFault,
+    SwapFault,
     WatchdogTimeout,
 )
 from .kvcache import PagedKVCache, PoolExhausted
@@ -86,9 +93,13 @@ class EngineConfig:
     # raise expert capacity to the drop-free bound inside every step
     drop_free_capacity: bool = True
     decode_horizon: int = 8
-    # pages for prompt + max_new are reserved at admission; False (growth +
-    # preemption) is a later slice and refused
-    reserve_full: bool = True
+    # how a preempted request is restored: "swap" moves its KV pages to the
+    # host and back at re-admission (bit-exact), "recompute" drops them and
+    # re-prefills prompt + generated-so-far
+    preempt_mode: str = "swap"
+    # True reserves prompt + max_new pages at admission, so growth and
+    # preemption never happen; False grows pages on demand
+    reserve_full: bool = False
     # shared-prefix KV reuse over refcounted copy-on-write pages
     prefix_cache: bool = False
     # 8 stores the pools as uint8 per-row affine codes; None keeps fp pools
@@ -167,9 +178,9 @@ class PagedServingEngine:
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"paged serving supports the dense and moe families, got "
                              f"{cfg.family!r}")
-        if not ecfg.reserve_full:
-            raise ValueError("reserve_full=False needs page growth and preemption, "
-                             "which this slice does not implement")
+        if ecfg.preempt_mode not in ("swap", "recompute"):
+            raise ValueError(f"preempt_mode must be 'swap' or 'recompute', "
+                             f"got {ecfg.preempt_mode!r}")
         if ecfg.decode_horizon < 1:
             raise ValueError(f"decode_horizon must be ≥ 1, got {ecfg.decode_horizon}")
         if ecfg.policy not in VALID_POLICIES:
@@ -202,8 +213,10 @@ class PagedServingEngine:
             device=self.device, kv_bits=ecfg.kv_bits, prefix_cache=ecfg.prefix_cache,
         )
         self.cache.set_tracer(self.tracer)
+        self.cache.faults = faults
         self.scheduler = Scheduler(
-            self.cache, horizon=ecfg.decode_horizon, tracer=self.tracer, policy=ecfg.policy,
+            self.cache, reserve_full=ecfg.reserve_full, horizon=ecfg.decode_horizon,
+            tracer=self.tracer, policy=ecfg.policy,
             tenant_weights=dict(ecfg.tenant_weights) if ecfg.tenant_weights is not None else None,
         )
         self.controller = ResourceController(
@@ -409,14 +422,18 @@ class PagedServingEngine:
         for action in plan:
             if action.kind == "admit":
                 self._execute_admit(action)
+            elif action.kind == "preempt":
+                self._execute_preempt(action)
+            elif action.kind == "grow":
+                self._execute_grow(action)
             elif action.kind == "evict_prefix":
                 if self.cache.prefix is not None:
                     self.cache.prefix.evict_for(action.pages, frozenset(action.protect))
             elif action.kind == "shed":
                 self._execute_shed(action)
-            else:  # grow / preempt / upload_experts cannot be planned here
-                raise RuntimeError(f"plan action {action.kind!r} needs growth, preemption or "
-                                   f"expert offload, which the port does not have yet")
+            else:  # upload_experts cannot be planned without an offload manager
+                raise RuntimeError(f"plan action {action.kind!r} needs expert offload, which "
+                                   f"the port does not have yet")
 
     # --------------------------------------------------------- admission
     def _execute_admit(self, action: PlanAction) -> None:
@@ -437,7 +454,7 @@ class PagedServingEngine:
             wait_steps=wait_steps,
         )
         self.tracer.flow("t", req.rid, track=track)
-        if self.cache.prefix is not None:
+        if self.cache.prefix is not None and req.preempt_count == 0:
             if req.cached_tokens > 0:
                 self.tracer.lifecycle("prefix_hit", track=track, rid=req.rid,
                                       tokens_saved=req.cached_tokens,
@@ -445,11 +462,27 @@ class PagedServingEngine:
             else:
                 self.tracer.lifecycle("prefix_miss", track=track, rid=req.rid)
         try:
-            t0 = time.time()
-            self._prefill_request(req)
-            now = time.time()
-            self.metrics.record_ttft(now - req.arrival_s, now - t0, tenant=req.tenant)
-            self.results[req.rid] = req.out
+            if req.swapped is not None:  # swap-restore a preempted slot
+                try:
+                    nbytes = self.cache.swap_in(req.slot, req.swapped, rid=req.rid)
+                except SwapFault:
+                    # a failed or corrupt payload: drop it and re-prefill
+                    self.tracer.lifecycle("swap_fallback", track=track, rid=req.rid,
+                                          site="swap_in")
+                    req.swapped = None
+                    self._prefill_request(req, resume=True)
+                else:
+                    self.tracer.lifecycle("swap_in", track=track, rid=req.rid, slot=req.slot,
+                                          nbytes=nbytes)
+                    req.swapped = None
+            elif req.pos > 0:  # recompute-restore: re-prefill the context
+                self._prefill_request(req, resume=True)
+            else:
+                t0 = time.time()
+                self._prefill_request(req)
+                now = time.time()
+                self.metrics.record_ttft(now - req.arrival_s, now - t0, tenant=req.tenant)
+                self.results[req.rid] = req.out
         except (RequestCancelled, PoisonedRequest) as exc:
             self._terminate(req, exc,
                             "cancel" if isinstance(exc, RequestCancelled) else "poisoned")
@@ -472,10 +505,14 @@ class PagedServingEngine:
                               wait_steps=action.waited_steps)
         self.tracer.flow("f", req.rid, track="queue")
 
-    def _prefill_request(self, req: Request) -> None:
+    def _prefill_request(self, req: Request, resume: bool = False) -> None:
         """Stream the prompt through chunked prefill into the slot's pages,
         from ``req.cached_tokens`` on (a prefix hit's pages already hold the
         rest); a full hit takes its cached logits and dispatches no chunk.
+        ``resume=True`` rebuilds a preempted slot: the context is ``prompt +
+        out[:-1]`` (everything written to KV before the eviction), every
+        chunk is streamed and the final chunk's logits are discarded (they
+        re-predict the known ``out[-1]``).
 
         The prefill syncs with the host once: the first token, the logits'
         finiteness flag and the chunks' dispatch counts come back in one
@@ -485,12 +522,17 @@ class PagedServingEngine:
         device copy) end the request with :class:`PoisonedRequest` before
         anything reaches the prefix cache. Then the prompt registers its own
         prefixes in the cache."""
+        if resume:
+            seq = np.concatenate([req.prompt, np.asarray(req.out[:-1], np.int32)])
+            assert len(seq) == req.pos, (len(seq), req.pos)
+        else:
+            seq = req.prompt
         c = self.ecfg.prefill_chunk
-        p_len = len(req.prompt)
+        p_len = len(seq)
         track = f"slot{req.slot}"
-        off0 = min(req.cached_tokens, p_len)
+        off0 = 0 if resume else min(req.cached_tokens, p_len)
         pending: List[torch.Tensor] = []  # chunks' counts awaiting the fetch
-        if req.cached_logits is not None and off0 >= p_len:
+        if not resume and req.cached_logits is not None and off0 >= p_len:
             last = req.cached_logits
         else:
             table_row = torch.as_tensor(self.cache.block_tables[req.slot:req.slot + 1],
@@ -502,7 +544,7 @@ class PagedServingEngine:
                                            rid=req.rid)
                 n = min(c, p_len - off)
                 chunk = np.zeros((1, c), np.int64)
-                chunk[0, :n] = req.prompt[off:off + n]
+                chunk[0, :n] = seq[off:off + n]
                 t0 = self.tracer.now_us()
                 logits, counts = paged_prefill_chunk(
                     self.params, self.cache.k, self.cache.v, table_row,
@@ -515,11 +557,14 @@ class PagedServingEngine:
                 self.metrics.record_prefill_runs(1)
                 self.tracer.complete(
                     "prefill_chunk", track=track, cat="prefill", start_us=t0,
-                    args={"rid": req.rid, "offset": off, "tokens": n, "resume": False,
+                    args={"rid": req.rid, "offset": off, "tokens": n, "resume": resume,
                           "runs": 1})
                 pending.append(counts)
                 if self.tracer.full:
                     self._record_counts(pending, c)
+            if resume:
+                self._record_counts(pending, c)
+                return
             last = logits[0, -1]
         if self.faults is not None:
             spec = self.faults.fire("logits", req.rid)
@@ -568,6 +613,51 @@ class PagedServingEngine:
             gauges = self.routing.update(counts)
             if gauges:
                 self.tracer.counter("routing", track="engine", **gauges)
+
+    # ---------------------------------------------------- growth/preempt
+    def _note_preempt(self, vreq: Request, vslot: int, *, for_rid: int,
+                      for_tenant: str) -> None:
+        """Lifecycle bookkeeping for one executed preemption."""
+        vtrack = f"slot{vslot}"
+        self.tracer.lifecycle(
+            "preempt", track=vtrack, rid=vreq.rid, slot=vslot, step=self._step_idx,
+            mode=self.ecfg.preempt_mode,
+            swap_bytes=vreq.swapped.nbytes if vreq.swapped else 0,
+            tenant=vreq.tenant, for_rid=for_rid, for_tenant=for_tenant,
+        )
+        self.tracer.flow("t", vreq.rid, track=vtrack)
+
+    def _execute_preempt(self, action: PlanAction) -> None:
+        vreq = self.scheduler.active.get(action.slot)
+        if vreq is None or vreq.rid != action.rid:
+            return  # plan victims are live actives
+        vreq = self.scheduler.preempt(action.slot, swap=self.ecfg.preempt_mode == "swap")
+        self._note_preempt(vreq, action.slot, for_rid=action.for_rid,
+                           for_tenant=action.for_tenant)
+
+    def _execute_grow(self, action: PlanAction) -> None:
+        """Grow one active slot horizon-ahead: pages for every KV write of
+        the coming megastep. The controller's ledger mirrors the pools, so
+        the pages are there (planned preemptions and evictions ran first);
+        the loop below is a safety net for ledger/pool divergence only, and
+        falls back to policy-ordered preemption."""
+        slot = action.slot
+        req = self.scheduler.active.get(slot)
+        if req is None or req.rid != action.rid:
+            return  # the grower itself was victimized earlier in the plan
+        need = self.cache.slot_deficit(
+            slot, req.pos + req.next_decode_writes(self.ecfg.decode_horizon))
+        if need <= 0:
+            return
+        swap = self.ecfg.preempt_mode == "swap"
+        # evictable prefix pages count: cache.grow evicts them before any
+        # preemption is needed
+        while self.cache.available_pages() < need and slot in self.scheduler.active:
+            vslot = self.scheduler.pick_victim()
+            vreq = self.scheduler.preempt(vslot, swap=swap)
+            self._note_preempt(vreq, vslot, for_rid=req.rid, for_tenant=req.tenant)
+        if slot in self.scheduler.active:
+            self.cache.grow(slot, need)
 
     # ------------------------------------------------------------ decode
     def _decode_megastep(self) -> None:

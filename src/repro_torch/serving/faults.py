@@ -22,9 +22,10 @@ Fault sites:
     Key: request id. The engine's finite guard ends exactly that request
     with :class:`PoisonedRequest` and a clean release.
 
-The port's engine fires ``pool`` and ``logits``; ``upload``, ``swap_out``
-and ``swap_in`` belong to the offload and swap modules, which fire them
-themselves.
+The port's engine and controller fire ``pool`` and ``logits``;
+:class:`~repro_torch.serving.kvcache.PagedKVCache` fires ``swap_out`` and
+``swap_in`` itself; ``upload`` belongs to expert offload, which the port
+does not have yet.
 
 A plan is replayable: it is keyed on the logical step (the engine calls
 :meth:`FaultPlan.at_step` at every megastep boundary, never a wall clock)

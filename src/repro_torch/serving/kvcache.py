@@ -1,6 +1,7 @@
 """Block-table paged KV cache for the port's engine (port of
-``repro/serving/kvcache.py`` without growth and swap): fp or int8 pools, a
-refcounted page allocator and the copy-on-write shared-prefix cache.
+``repro/serving/kvcache.py``): fp or int8 pools, a refcounted page
+allocator, the copy-on-write shared-prefix cache, on-demand page growth and
+the host swap store of preempted slots.
 
 One preallocated pool per K and V, ``[L, NB·BS + 1, Hkv, dh]`` — the last
 row of each layer is the scratch destination for dropped writes (see
@@ -14,6 +15,16 @@ same admissions give the same tables. The engine installs its span tracer
 (:meth:`PagedKVCache.set_tracer`): prefix evictions and copy-on-write page
 copies reach the trace and, through the ``cow_copy`` lifecycle event, the
 metrics.
+
+Slots grow **on demand** (``reserve_full=False``, the engine's default):
+admission reserves pages for the context plus the next megastep's writes
+and :meth:`PagedKVCache.grow` appends pages at megastep boundaries. Under
+pressure a victim slot's pages move to host memory (:meth:`swap_out` →
+:class:`SwappedKV` → :meth:`swap_in`): the device pages free at once and the
+bit-exact KV is written back, in place, into the pages of the slot the
+request is re-admitted to. The payload is laid out as the reference's,
+``[L, n_pages, BS, Hkv, dh]``, so its bytes, size and CRC are the
+reference's.
 """
 from __future__ import annotations
 
@@ -24,9 +35,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .faults import SwapFault, checksum_tree
 from .trace import NULL_TRACER
 
-__all__ = ["BlockAllocator", "PagedKVCache", "PoolExhausted", "PrefixCache", "PrefixEntry"]
+__all__ = ["BlockAllocator", "PagedKVCache", "PoolExhausted", "PrefixCache", "PrefixEntry",
+           "SwappedKV"]
 
 QUANT_TABLES = ("k_scale", "k_zero", "v_scale", "v_zero")
 
@@ -100,6 +113,44 @@ class BlockAllocator:
             if self._refcount[b] == 0:
                 del self._refcount[b]
                 self._free.append(b)
+
+
+@dataclasses.dataclass
+class SwappedKV:
+    """Host-memory backing store of one preempted slot's KV pages.
+
+    Whole pages are saved (the partial tail page included), so
+    :meth:`PagedKVCache.swap_in` restores the cache bit for bit; int8 pools
+    also save each row's scale/zero pair (``quant``), so codes and their
+    dequant parameters travel together. ``checksum`` is the CRC of the
+    pristine payload at swap-out; swap-in verifies it."""
+
+    k: torch.Tensor  # [L, n_pages, BS, Hkv, dh] on the host
+    v: torch.Tensor
+    n_tokens: int  # valid kv entries covered by the saved pages
+    quant: Optional[Dict[str, torch.Tensor]] = None  # [L, n_pages, BS, Hkv] × 4
+    checksum: Optional[int] = None
+
+    def payload_checksum(self) -> int:
+        tree = {"k": self.k, "v": self.v}
+        if self.quant is not None:
+            tree["quant"] = self.quant
+        return checksum_tree(tree)
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        ts = (self.k, self.v, *(self.quant.values() if self.quant is not None else ()))
+        return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _flip_first_byte(t: torch.Tensor) -> None:
+    """In-transit damage: invert the payload's leading byte in place."""
+    raw = t.view(-1).view(torch.uint8)
+    raw[0] ^= 0xFF
 
 
 @dataclasses.dataclass
@@ -255,7 +306,9 @@ class PrefixCache:
 class PagedKVCache:
     """Pool tensors + per-slot block tables for ``max_slots`` sequences.
     The pools (and int8 tables) are updated in place by the model
-    functions; everything else is host state."""
+    functions and by :meth:`swap_in`; everything else is host state.
+    ``faults`` is an optional :class:`~.faults.FaultPlan` that
+    :meth:`swap_out` and :meth:`swap_in` consult."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int, max_slots: int,
                  max_blocks_per_slot: int, device, dtype=None, kv_bits: Optional[int] = None,
@@ -284,6 +337,7 @@ class PagedKVCache:
         self.cow_copies = 0
         self._tables_device = None
         self.tracer = NULL_TRACER
+        self.faults = None
 
     def set_tracer(self, tracer) -> None:
         self.tracer = tracer
@@ -308,7 +362,8 @@ class PagedKVCache:
 
     def slot_deficit(self, slot: int, total_tokens: int) -> int:
         """Pages a live slot still needs to cover ``total_tokens`` kv
-        entries (≤ 0 for every slot under full reservation)."""
+        entries: the engine grows by this before each megastep, so every
+        write of the fused decode program lands on an allocated page."""
         return max(0, self.blocks_needed(total_tokens) - len(self.slot_blocks[slot]))
 
     def shared_prefix_pages(self, entry: Optional[PrefixEntry]) -> int:
@@ -411,6 +466,110 @@ class PagedKVCache:
     def clear_prefix_cache(self) -> None:
         if self.prefix is not None:
             self.prefix.clear()
+
+    # ----------------------------------------------------------- growth
+    def grow(self, slot: int, n: int) -> List[int]:
+        """Append ``n`` pages to a live slot. LRU prefix entries are evicted
+        first when the free list is short; raises :class:`PoolExhausted`,
+        the slot untouched, when the pool is still short (the engine
+        preempts a victim) or the slot would exceed ``max_blocks_per_slot``."""
+        have = len(self.slot_blocks[slot])
+        if have + n > self.max_blocks_per_slot:
+            raise PoolExhausted(
+                f"slot {slot}: growing {have}+{n} blocks exceeds "
+                f"max_blocks_per_slot={self.max_blocks_per_slot}"
+            )
+        if self.prefix is not None:
+            self.prefix.evict_for(n)
+        blocks = self.allocator.alloc(n)  # raises with state untouched
+        if not blocks:
+            return blocks
+        self.slot_blocks[slot].extend(blocks)
+        self.block_tables[slot, have:have + len(blocks)] = blocks
+        self._tables_device = None
+        self.tracer.instant("page_grow", track="pool", cat="kv", slot=slot, pages=len(blocks),
+                            slot_pages=len(self.slot_blocks[slot]),
+                            free=self.allocator.num_free)
+        return blocks
+
+    # ------------------------------------------------------------- swap
+    def _page_rows(self, blocks: List[int]) -> List[slice]:
+        bs = self.block_size
+        return [slice(b * bs, (b + 1) * bs) for b in blocks]
+
+    def _fire(self, site: str, slot: int, rid: int):
+        """The fault plan's spec for ``site`` (or None); a ``fail`` spec
+        raises :class:`SwapFault` here, before any state moves."""
+        spec = self.faults.fire(site, rid) if self.faults is not None else None
+        if spec is not None:
+            self.tracer.lifecycle("fault", track="pool", site=site, mode=spec.mode,
+                                  rid=int(rid), slot=int(slot))
+            if spec.mode == "fail":
+                raise SwapFault(f"injected {site.replace('_', '-')} I/O failure (slot {slot})",
+                                rid=int(rid) if rid >= 0 else None)
+        return spec
+
+    def swap_out(self, slot: int, n_tokens: int, rid: int = -1) -> SwappedKV:
+        """Move a victim slot's whole pages to host memory and free the slot
+        and its pages. The payload carries the CRC of its pristine bytes; a
+        ``swap_out`` ``fail`` fault raises :class:`SwapFault` before any
+        state moves, ``corrupt`` damages the host payload after the CRC is
+        taken (swap-in's verification then trips). The device→host copy
+        waits on the device: the engine calls this at a megastep boundary."""
+        spec = self._fire("swap_out", slot, rid)
+        rows = self._page_rows(self.slot_blocks[slot])
+        t0 = self.tracer.now_us()
+
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            return torch.stack([t[:, r] for r in rows], dim=1).cpu()
+
+        swapped = SwappedKV(
+            k=gather(self.k), v=gather(self.v), n_tokens=n_tokens,
+            quant=({n: gather(t) for n, t in self.quant.items()}
+                   if self.quant is not None else None),
+        )
+        swapped.checksum = swapped.payload_checksum()
+        if spec is not None and spec.mode == "corrupt":
+            _flip_first_byte(swapped.k)
+        self.release_slot(slot)
+        self.tracer.complete("kv_swap_out", track="pool", cat="kv", start_us=t0,
+                             args={"slot": slot, "pages": swapped.n_pages,
+                                   "bytes": swapped.nbytes})
+        return swapped
+
+    def swap_in(self, slot: int, swapped: SwappedKV, rid: int = -1) -> int:
+        """Write swapped pages back into the first ``n_pages`` pages of a
+        freshly acquired slot, in place (the engine holds the pool tensors),
+        one page slice at a time: no atomics, legal under deterministic
+        algorithms. The CRC is verified before any device state moves; a
+        mismatch (real corruption or a ``swap_in`` fault) raises
+        :class:`SwapFault` with the slot untouched. Returns the bytes
+        uploaded."""
+        blocks = self.slot_blocks[slot][:swapped.n_pages]
+        if len(blocks) < swapped.n_pages:
+            raise ValueError(f"slot {slot} holds {len(self.slot_blocks[slot])} pages, "
+                             f"swap-in needs {swapped.n_pages}")
+        if self.quant is not None and swapped.quant is None:
+            raise ValueError("quantized pool restored from fp swap")
+        spec = self._fire("swap_in", slot, rid)
+        if spec is not None:  # corrupt: damage the host payload right before the verify
+            swapped.k = swapped.k.clone()
+            _flip_first_byte(swapped.k)
+        if swapped.checksum is not None and swapped.payload_checksum() != swapped.checksum:
+            raise SwapFault(f"swap payload failed checksum for slot {slot}",
+                            rid=int(rid) if rid >= 0 else None)
+        t0 = self.tracer.now_us()
+        pairs = [(self.k, swapped.k), (self.v, swapped.v)]
+        if self.quant is not None:
+            pairs += [(self.quant[n], swapped.quant[n]) for n in QUANT_TABLES]
+        for t, payload in pairs:
+            payload = payload.to(t.device)
+            for i, r in enumerate(self._page_rows(blocks)):
+                t[:, r] = payload[:, i]
+        self.tracer.complete("kv_swap_in", track="pool", cat="kv", start_us=t0,
+                             args={"slot": slot, "pages": swapped.n_pages,
+                                   "bytes": swapped.nbytes})
+        return swapped.nbytes
 
     @property
     def utilization(self) -> float:

@@ -1,15 +1,16 @@
 """Serving observability (port of ``repro/serving/metrics.py``): TTFT,
 per-token latency, queue depth, expert activation, page and capacity
-utilization, admissions, sheds, controller plans, per-tenant tokens, the
-fault plane's counts and the decode megasteps.
+utilization, admissions, sheds, controller plans, per-tenant tokens,
+preemptions and swap traffic, the fault plane's counts and the decode
+megasteps.
 
 :meth:`ServingMetrics.counters` is the wall-clock-free slice: identical
 request traces on identical engines give identical counters, and the port's
 engine gives the reference engine's counters on the same trace, floats
 included (every float in it is computed on the host from integers, as the
 reference computes it). Seconds live in :meth:`ServingMetrics.summary`
-only. The expert-offload, swap and tier counters stay at zero until the
-port's engine has those paths; ``counters()`` keeps their keys.
+only. The expert-offload and tier counters stay at zero until the port's
+engine has those paths; ``counters()`` keeps their keys.
 
 With a fused decode horizon the engine syncs once per megastep, so
 :meth:`ServingMetrics.record_megastep` logs each megastep's wall time and

@@ -1,20 +1,30 @@
-"""Requests, tenant policies and admission over paged-KV slots (port of
-``repro/serving/scheduler.py`` in its ``reserve_full`` mode).
+"""Requests, tenant policies, admission and preemption over paged-KV slots
+(port of ``repro/serving/scheduler.py``).
 
-Admission reserves pages for ``prompt + max_new`` up front, so a running
-request never grows and never needs preempting; a request joins the running
-batch at the next megastep boundary once a slot and its pages are free, and
-its pages return to the pool the step it finishes. With the prefix cache
-on, admission first probes it and shares the match's pages copy-on-write,
-so both the page bill and the prefill shrink to the uncached suffix.
+A request joins the running batch at the next megastep boundary once a
+slot and its pages are free, and its pages return to the pool the step it
+finishes. Admission reserves pages for the context plus the next
+megastep's writes (``reserve_full=False``, the default); decode pages are
+granted on demand by :meth:`~.kvcache.PagedKVCache.grow`, so the pool can
+be sized below the worst-case ``Σ (prompt + max_new)``. When growth finds
+the pool empty the engine **preempts** a victim: its KV is swapped to the
+host (or dropped for re-prefill) and it re-queues **at the head**, so it is
+the first to reclaim freed pages. ``reserve_full=True`` reserves
+``prompt + max_new`` up front, so growth and preemption never happen. With
+the prefix cache on, a fresh admission first probes it and shares the
+match's pages copy-on-write, so both the page bill and the prefill shrink
+to the uncached suffix.
 
 **Tenant-aware policy.** Every request carries a ``tenant`` label and an
 integer ``priority`` class (higher = more urgent). The
 :class:`~repro_torch.serving.controller.ResourceController` admits in the
-order :meth:`Scheduler.admission_order` gives:
+order :meth:`Scheduler.admission_order` gives and victimizes by
+:meth:`Scheduler.victim_key`:
 
-* ``fcfs`` — queue order; tenant and priority are recorded but ignored.
-* ``priority`` — higher classes first, FCFS within a class.
+* ``fcfs`` — queue order, youngest-admitted victim; tenant and priority are
+  recorded but ignored.
+* ``priority`` — higher classes first, FCFS within a class; the lowest
+  class is victimized first, youngest within it.
 * ``fair`` — ``priority`` refined by a weighted deficit round-robin over
   decode-token grants: each megastep boundary every backlogged tenant earns
   ``weight × horizon`` tokens of credit, emitted tokens debit it, and among
@@ -26,6 +36,7 @@ not depend on them.
 **SLO shed.** With a TTFT budget configured, a fresh request that cannot be
 admitted at a boundary and has waited past the budget is shed (removed
 from the queue with an empty output) instead of queueing unboundedly.
+Preempted requests are never shed.
 """
 from __future__ import annotations
 
@@ -36,8 +47,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from .faults import InvalidRequest
-from .kvcache import PagedKVCache, PoolExhausted, PrefixEntry
+from .faults import InvalidRequest, SwapFault
+from .kvcache import PagedKVCache, PoolExhausted, PrefixEntry, SwappedKV
 from .trace import NULL_TRACER
 
 __all__ = ["Request", "Scheduler", "VALID_POLICIES"]
@@ -69,6 +80,7 @@ class Request:
     admit_seq: int = -1  # monotone admission counter (victim ordering)
     shed_step: int = -1  # step the request was SLO-shed at (-1: not shed)
     preempt_count: int = 0
+    swapped: Optional[SwappedKV] = None  # host KV while preempted (swap mode)
     arrival_s: float = 0.0  # wall-clock submit time (TTFT anchor)
     # prompt tokens whose KV a prefix-cache hit already holds (prefill
     # starts here), and the cached final-token logits of a full hit
@@ -82,8 +94,8 @@ class Request:
 
     @property
     def context_tokens(self) -> int:
-        """KV entries needed at admission: the prompt for a fresh request,
-        the generated-so-far context for one that already ran."""
+        """KV entries needed at (re-)admission: the prompt for a fresh
+        request, the generated-so-far context for a preempted one."""
         return self.pos if self.pos > 0 else len(self.prompt)
 
     @property
@@ -103,8 +115,9 @@ class Request:
 class Scheduler:
     """Host-side bookkeeping the engine drives between megasteps."""
 
-    def __init__(self, cache: PagedKVCache, *, horizon: int = 1, tracer=None,
-                 policy: str = "fcfs", tenant_weights: Optional[Dict[str, float]] = None):
+    def __init__(self, cache: PagedKVCache, *, reserve_full: bool = False, horizon: int = 1,
+                 tracer=None, policy: str = "fcfs",
+                 tenant_weights: Optional[Dict[str, float]] = None):
         if horizon < 1:
             raise ValueError(f"horizon must be ≥ 1, got {horizon}")
         if policy not in VALID_POLICIES:
@@ -114,6 +127,7 @@ class Scheduler:
                 if w <= 0:
                     raise ValueError(f"tenant weight for {t!r} must be > 0, got {w}")
         self.cache = cache
+        self.reserve_full = reserve_full
         self.horizon = horizon
         self.tracer = NULL_TRACER if tracer is None else tracer
         self.policy = policy
@@ -150,6 +164,8 @@ class Scheduler:
                 f"maximum {self.cache.max_slot_tokens()} (max_blocks_per_slot × block_size)"
             )
         if self.cache.blocks_needed(req.total_tokens) > self.cache.allocator.num_blocks:
+            # growth and preemption guarantee completion only for pools that
+            # admit the largest single request; refuse the rest up front
             raise PoolExhausted(
                 f"request {req.rid} needs {self.cache.blocks_needed(req.total_tokens)} "
                 f"blocks but the whole pool has {self.cache.allocator.num_blocks}"
@@ -163,8 +179,12 @@ class Scheduler:
         self.tracer.flow("s", req.rid, track="queue")
 
     def growth_reserve(self) -> int:
-        """Pages the actives need for their next megastep's KV writes;
-        admission leaves them untouched (0 under full reservation)."""
+        """Pages the actives need for their next megastep's KV writes (0
+        under full reservation). Admission leaves them untouched, so a new
+        request never starves a running one into preempting it right back
+        out."""
+        if self.reserve_full:
+            return 0
         return sum(self.cache.slot_deficit(slot, req.pos + req.next_decode_writes(self.horizon))
                    for slot, req in self.active.items())
 
@@ -210,8 +230,8 @@ class Scheduler:
     # ------------------------------------------------------- admission
     @staticmethod
     def _is_fresh(req: Request) -> bool:
-        """Never admitted: no KV context and no output."""
-        return req.pos == 0 and not req.out
+        """Never admitted: no KV context, no swap image, no output."""
+        return req.pos == 0 and req.swapped is None and not req.out
 
     def peek_prefix(self, req: Request) -> Optional[PrefixEntry]:
         """Prefix-cache probe for a fresh request. A full-prompt hit without
@@ -226,17 +246,20 @@ class Scheduler:
             entry = self.cache.prefix_lookup(req.prompt[:-1])
         return entry
 
-    @staticmethod
-    def admit_tokens(req: Request) -> int:
-        """KV entries an admission reserves pages for: ``prompt + max_new``
-        (full reservation)."""
-        return req.total_tokens
+    def admit_tokens(self, req: Request) -> int:
+        """KV entries an admission reserves pages for: the context plus the
+        first decode megastep's writes (``prompt + max_new`` under
+        ``reserve_full``)."""
+        return (req.total_tokens if self.reserve_full
+                else req.context_tokens + req.next_decode_writes(self.horizon))
 
     def admit_planned(self, req: Request, step_idx: int) -> Optional[Request]:
         """Admit a specific waiting request (controller plan execution),
-        re-validated against the live pool; ``None`` if it no longer fits
-        (the plan step is dropped and the request stays queued). A fresh
-        request shares a cached prefix's pages when the probe hits."""
+        re-validated against the live pool, leaving :meth:`growth_reserve`
+        untouched; ``None`` if it no longer fits (the plan step is dropped
+        and the request stays queued). A fresh request shares a cached
+        prefix's pages when the probe hits; a resumed one rebuilds private
+        pages, so swap-in never writes a shared page."""
         entry = self.peek_prefix(req)
         tokens = self.admit_tokens(req)
         if not self.cache.can_admit(tokens, headroom=self.growth_reserve(), prefix_entry=entry):
@@ -278,6 +301,38 @@ class Scheduler:
             return (0, req.admit_seq)
         return (-req.priority, req.admit_seq)
 
+    def pick_victim(self) -> int:
+        """The policy-ordered victim's slot (see :meth:`victim_key`)."""
+        slot, _ = max(self.active.items(), key=lambda kv: self.victim_key(kv[1]))
+        return slot
+
+    def preempt(self, slot: int, *, swap: bool) -> Request:
+        """Evict one active request and re-queue it at the head. ``swap``
+        moves its pages to the host store (restored bit for bit at
+        re-admission); otherwise they are dropped and the engine re-prefills
+        ``prompt + out[:-1]`` on resume. A :class:`SwapFault` at swap-out
+        degrades to recompute (a ``swap_fallback`` event). Either way the
+        slot and its pages are free on return."""
+        req = self.active.pop(slot)
+        if swap:
+            try:
+                req.swapped = self.cache.swap_out(slot, req.pos, rid=req.rid)
+            except SwapFault:
+                self.tracer.lifecycle("swap_fallback", track="queue", rid=req.rid,
+                                      site="swap_out")
+                swap = False
+        if not swap:
+            req.swapped = None
+            self.cache.release_slot(slot)
+        req.slot = -1
+        req.preempt_count += 1
+        # a resumed request rebuilds private pages: drop the prefix
+        # admission state so its re-prefill streams the whole context
+        req.cached_tokens = 0
+        req.cached_logits = None
+        self.waiting.appendleft(req)
+        return req
+
     def finish(self, slot: int) -> Request:
         """Release a finished request's slot + pages."""
         req = self.active.pop(slot)
@@ -287,8 +342,8 @@ class Scheduler:
     def cancel_release(self, req: Request) -> None:
         """Release everything a cancelled or failed request holds, wherever
         it is: an active slot's pages (shared prefix pages drop one hold), a
-        queue entry and any prefix-admission state. Safe on a request that
-        holds nothing."""
+        queue entry, a swap image and any prefix-admission state. Safe on a
+        request that holds nothing."""
         if req.slot >= 0 and self.active.get(req.slot) is req:
             self.active.pop(req.slot)
             self.cache.release_slot(req.slot)
@@ -297,6 +352,7 @@ class Scheduler:
             self.waiting.remove(req)
         except ValueError:
             pass
+        req.swapped = None
         req.cached_tokens = 0
         req.cached_logits = None
 

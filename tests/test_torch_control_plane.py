@@ -356,10 +356,12 @@ def _prompts():
     }
 
 
-def _world(pkg, policy, penalty):
+def _world(pkg, policy, penalty, reserve_full=True):
     """The same pool, scheduler and controller state built in one package:
     A and G served and finished (their prefixes cached), B running, and
-    D, E, F waiting, E since step 0 (overdue at step 6 with a budget of 4)."""
+    D, E, F waiting, E since step 0 (overdue at step 6 with a budget of 4).
+    With page growth (``reserve_full=False``) B asks for 8 new tokens and
+    has emitted 3, so its next megastep's writes need a third page."""
     if pkg == "ref":
         cache = JCache.create(JModelConfig(**CFG), num_blocks=9, block_size=BS, max_slots=3,
                               max_blocks_per_slot=6, prefix_cache=True)
@@ -370,8 +372,8 @@ def _world(pkg, policy, penalty):
                        max_blocks_per_slot=6, device="cpu", prefix_cache=True)
         sched_cls, req_cls, ctl, faults, logits = (
             TScheduler, TRequest, tcontroller, tfaults, torch.arange(3, dtype=torch.float32))
-    kw = {"reserve_full": True} if pkg == "ref" else {}
-    sched = sched_cls(cache, horizon=2, policy=policy, tenant_weights=WEIGHTS, **kw)
+    sched = sched_cls(cache, reserve_full=reserve_full, horizon=2, policy=policy,
+                      tenant_weights=WEIGHTS)
     plan = faults.FaultPlan([faults.FaultSpec(site="pool", arg=penalty)] if penalty else [])
     controller = ctl.ResourceController(sched, ttft_budget_steps=4, faults=plan)
     reqs = {name: req_cls(rid=i, prompt=p, max_new=m, tenant=t, priority=pr)
@@ -382,6 +384,9 @@ def _world(pkg, policy, penalty):
         cache.register_prefix(req.prompt, req.slot, last_logits=logits)
     sched.finish(reqs["A"].slot)
     sched.finish(reqs["G"].slot)
+    if not reserve_full:
+        b = reqs["B"]
+        b.max_new, b.out, b.pos = 8, [5, 6, 7], len(b.prompt) + 2
     sched.submit(reqs["E"], 0)
     for name in ("D", "F"):
         sched.submit(reqs[name], 5)
@@ -415,3 +420,17 @@ def test_reconcile_matches_reference(policy, penalty):
     else:  # F, then D on A's protected pages while G's entry is evicted
         assert kinds == ["admit", "evict_prefix", "admit", "shed"]
         assert got[2][1][5] == (0, 1)
+
+
+@pytest.mark.parametrize("penalty", [0, 3])
+@pytest.mark.parametrize("policy", ["fcfs", "priority", "fair"])
+def test_reconcile_with_growth_matches_reference(policy, penalty):
+    """The same world with page growth: admissions reserve the context and
+    the next megastep's writes, and phase 1 grows B horizon-ahead before
+    anything is admitted; the port plans exactly what the reference plans."""
+    want = _snapshot(_world("ref", policy, penalty, reserve_full=False), 6)
+    got = _snapshot(_world("port", policy, penalty, reserve_full=False), 6)
+    assert got == want
+    kinds = [a[0] for a in got[2]]
+    assert kinds[0] == "grow" and got[2][0][4] == 1  # one page for B
+    assert kinds.count("grow") == 1

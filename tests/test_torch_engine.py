@@ -226,13 +226,15 @@ def test_import_leaves_jax_and_repro_out():
 def test_engine_refuses_later_slice_settings(served_model):
     _, _, params_t = served_model
     cfg = tget_config("moonshot-v1-16b-a3b").reduced()
-    with pytest.raises(ValueError, match="reserve_full"):
-        PagedServingEngine(cfg, params_t, EngineConfig(reserve_full=False), device="cpu")
+    # growth + swap preemption is the default, as in the reference
+    assert (EngineConfig().reserve_full, EngineConfig().preempt_mode) == (False, "swap")
+    with pytest.raises(ValueError, match="preempt_mode"):
+        PagedServingEngine(cfg, params_t, EngineConfig(preempt_mode="drop"), device="cpu")
     with pytest.raises(ValueError, match="decode_horizon"):
         PagedServingEngine(cfg, params_t, EngineConfig(decode_horizon=0), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         PagedServingEngine(dataclasses.replace(cfg, num_layers=3), params_t, device="cpu")
-    for later in ("temperature", "preempt_mode", "resident_experts", "ffn_backend"):
+    for later in ("temperature", "resident_experts", "ffn_backend"):
         with pytest.raises(TypeError):
             EngineConfig(**{later: 1})
     with pytest.raises(ValueError, match="policy"):

@@ -515,10 +515,10 @@ def test_int8_decode_horizon_never_syncs(dev):
 
 @pytest.mark.cuda
 def test_decode_horizon_never_syncs(dev):
-    """A decode megastep of the reduced model keeps the host out of the loop:
-    under ``set_sync_debug_mode("error")`` anything inside the horizon that
-    waits on the device (an ``.item()``, a ``bincount``, a blocking copy)
-    raises."""
+    """A decode megastep of the reduced model keeps the host out of the loop,
+    with one slot writing into a page it grew at the boundary: under
+    ``set_sync_debug_mode("error")`` anything inside the horizon that waits
+    on the device (an ``.item()``, a ``bincount``, a blocking copy) raises."""
     _sync_free_horizon(dev, kv_bits=None)
 
 
@@ -536,10 +536,11 @@ def _sync_free_horizon(dev, kv_bits):
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2, max_blocks_per_slot=4,
                          device=dev, kv_bits=kv_bits)
     cache.acquire_slot(40)
-    cache.acquire_slot(30)
+    cache.acquire_slot(16)
+    cache.grow(1, 1)  # slot 1's second write lands on the grown page
     i32 = dict(dtype=torch.int32, device=dev)
     args = (params, cache.k, cache.v, cache.tables_device(),
-            torch.tensor([[3], [5]], device=dev), torch.tensor([20, 7], **i32),
+            torch.tensor([[3], [5]], device=dev), torch.tensor([20, 15], **i32),
             torch.ones(2, dtype=torch.bool, device=dev), cfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
               eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables)
@@ -616,7 +617,7 @@ def test_cancel_and_deadline_card_matches_cpu(dev):
                for n in (10, 5, 7, 3)]
     ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=12, max_blocks_per_slot=4,
                         prefill_chunk=16, decode_horizon=4, prefix_cache=True,
-                        trace_level="spans")
+                        reserve_full=True, trace_level="spans")
 
     def drive(eng):
         complete = eng.tracer.complete
@@ -639,3 +640,169 @@ def test_cancel_and_deadline_card_matches_cpu(dev):
             for d, p in (("cpu", params), (dev, to_device(params, dev)))]
     assert runs[1] == runs[0]
     assert runs[1][1] == {1: "RequestCancelled", 3: "DeadlineExceeded"}
+
+
+# ------------------------------------------------------ growth and swap
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_swap_round_trip_is_bitwise(dev, kind):
+    """A 5-page slot of a bf16 or int8 pool at moonshot-v1-16b-a3b's widths
+    (16 KV heads of 128) goes to the host and back into other physical
+    pages: every row (codes and scale/zero rows too) returns bit for bit,
+    and ``paged_attention[_quant]`` over the restored table equals the call
+    over the original table bitwise in every layer. The write-back runs
+    under ``torch.use_deterministic_algorithms(True)``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizers import quantize_kv_rows
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kvcache import PagedKVCache
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), num_layers=2)
+    nb, bs, length = 16, 16, 70
+    hkv, dh, g = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    cache = PagedKVCache(cfg, num_blocks=nb, block_size=bs, max_slots=3, max_blocks_per_slot=6,
+                         device=dev, kv_bits=8 if kind == "int8" else None)
+    gen = torch.Generator().manual_seed(5)
+    for name in ("k", "v"):
+        rows = torch.randn(tuple(cache.k.shape), generator=gen).to(dev)
+        pool = getattr(cache, name)
+        if kind == "int8":
+            codes, scale, zero = quantize_kv_rows(rows)
+            pool.copy_(codes)
+            cache.quant[f"{name}_scale"].copy_(scale)
+            cache.quant[f"{name}_zero"].copy_(zero)
+        else:
+            pool.copy_(rows.to(pool.dtype))
+    q = torch.randn(1, hkv, g, dh, generator=gen).to(dev, torch.bfloat16)
+
+    def attend(slot):
+        table = torch.as_tensor(cache.block_tables[slot:slot + 1], device=dev)
+        n = torch.tensor([length], dtype=torch.int32, device=dev)
+        return [ops.paged_attention(
+            q, cache.k[l, :nb * bs].view(nb, bs, hkv, dh), cache.v[l, :nb * bs].view(nb, bs, hkv, dh),
+            table, n, quant=(tuple(t[l, :nb * bs].view(nb, bs, hkv) for t in cache.quant_tables)
+                             if cache.quant is not None else None))
+            for l in range(cfg.num_layers)]
+
+    def rows_of(slot):
+        idx = torch.as_tensor(np.concatenate([np.arange(b * bs, (b + 1) * bs)
+                                              for b in cache.slot_blocks[slot]]), device=dev)
+        return [t[:, idx].contiguous().view(torch.uint8)
+                for t in (cache.k, cache.v, *cache.quant_tables)]
+
+    slot = cache.acquire_slot(length)
+    pages = set(cache.slot_blocks[slot])
+    before, rows_before = attend(slot), rows_of(slot)
+    swapped = cache.swap_out(slot, length)
+    assert swapped.n_pages == 5 and swapped.k.device.type == "cpu"
+    assert swapped.payload_checksum() == swapped.checksum
+    cache.acquire_slot(length)  # takes the freed pages: the restore lands elsewhere
+    slot = cache.acquire_slot(length)
+    assert pages.isdisjoint(cache.slot_blocks[slot])
+    torch.use_deterministic_algorithms(True)  # the write-back is legal there: no atomics
+    try:
+        assert cache.swap_in(slot, swapped) == swapped.nbytes
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(rows_of(slot), rows_before))
+    assert all(_bitwise(a, b) for a, b in zip(attend(slot), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kv_bits", [("swap", None), ("recompute", None), ("swap", 8)])
+def test_preemption_card_matches_cpu(dev, mode, kv_bits):
+    """The fp workload's requests on ``PREEMPT``'s 11-page pool with page
+    growth, on the reduced PMQ model (f32), at trace level ``full``: the card
+    gives the CPU's tokens, counters and deterministic trace bit for bit,
+    and in swap mode with fp KV the schedule is ``PREEMPT_COUNTERS``."""
+    import dataclasses
+
+    from repro_torch.core.tree import to_device
+    from repro_torch.launch import workload
+    from repro_torch.serving import PagedServingEngine
+
+    cfg, params = _reduced_pmq()
+    ecfg = dataclasses.replace(workload.PREEMPT, preempt_mode=mode, kv_bits=kv_bits,
+                               trace_level="full")
+    runs = []
+    for device, p in (("cpu", params), (dev, to_device(params, dev))):
+        eng = PagedServingEngine(cfg, p, ecfg, device=device)
+        runs.append(_control_plane_run(eng, lambda e: e.serve(workload.requests(cfg))))
+    assert runs[1] == runs[0]
+    counters = runs[1][2]
+    assert [pre["rid"] for pre in counters["preemptions"]] == [workload.PREEMPT_VICTIM]
+    assert (counters["swap_in_bytes"] > 0) == (mode == "swap")
+    if (mode, kv_bits) == ("swap", None):
+        assert workload.preempt_schedule(counters) == workload.PREEMPT_COUNTERS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ["reduced", "full"])
+def test_reprefilled_kv_rows_against_decode_written(dev, widths):
+    """What a recompute-mode resume rewrites, measured at bf16 on a PMQ
+    model of 4 layers, at reduced widths or at moonshot-v1-16b-a3b's: a
+    64-token prompt prefilled, 16 tokens decoded (the decode writes rows
+    64-79 after attending through ``paged_attention``), then the same
+    80-token context re-prefilled into other pages (rows 64-79 written after
+    the prefill's attention). The prompt's rows come back bitwise; rows
+    64-79 may differ by rounding (the two attentions sum in other orders),
+    within the bf16 kernel tolerance. Prints ``max|Δ|`` per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.synthetic import build_synthetic
+    from repro_torch.models.transformer import paged_decode_horizon, paged_prefill_chunk
+    from repro_torch.serving.kvcache import PagedKVCache
+
+    cfg = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(cfg.reduced() if widths == "reduced" else cfg, dtype="bfloat16",
+                              num_layers=4)
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+    params = build_synthetic(cfg, seed=0, device=dev)
+    p_len, h, bs = 64, 16, 16
+    cache = PagedKVCache(cfg, num_blocks=12, block_size=bs, max_slots=2, max_blocks_per_slot=6,
+                         device=dev)
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (p_len,), generator=gen).to(dev)
+
+    def prefill(slot, seq):
+        table = cache.tables_device()[slot:slot + 1]
+        for off in range(0, len(seq), bs):
+            n = min(bs, len(seq) - off)
+            chunk = torch.zeros((1, bs), dtype=torch.long, device=dev)
+            chunk[0, :n] = seq[off:off + n]
+            logits, _ = paged_prefill_chunk(params, cache.k, cache.v, table, chunk, off, n, cfg,
+                                            block_size=bs)
+        return logits
+
+    def rows(slot):
+        pos = torch.arange(p_len + h)
+        blocks = torch.as_tensor(cache.slot_blocks[slot])
+        idx = (blocks[pos // bs] * bs + pos % bs).to(dev)
+        return cache.k[:, idx].float(), cache.v[:, idx].float()
+
+    first = prefill(cache.acquire_slot(p_len + h), prompt)[0, -1].argmax()
+    i32 = dict(dtype=torch.int32, device=dev)
+    toks, _, _, _ = paged_decode_horizon(
+        params, cache.k, cache.v, cache.tables_device()[:1], first.reshape(1, 1),
+        torch.tensor([p_len], **i32), torch.ones(1, dtype=torch.bool, device=dev), cfg,
+        block_size=bs, horizon=h, budgets=torch.tensor([h + 1], **i32),
+        eos_ids=torch.full((1,), -1, **i32))
+    decoded = rows(0)
+    context = torch.cat([prompt, first.reshape(1), toks[:h - 1, 0]])
+    prefill(cache.acquire_slot(p_len + h), context)
+    again = rows(1)
+    for a, b in zip(decoded, again):
+        assert torch.equal(a[:, :p_len], b[:, :p_len])  # the prompt: same chunks, same code
+        tail_a, tail_b = a[:, p_len:], b[:, p_len:]
+        assert torch.isfinite(tail_b).all()
+        delta = (tail_a - tail_b).abs().amax(dim=(1, 2, 3))
+        scale = tail_a.abs().amax(dim=(1, 2, 3))
+        print(f"re-prefilled rows 64-79 ({widths} widths), max|Δ| per layer:", delta.tolist(),
+              "of max|row|", scale.tolist())
+        assert (delta <= TOL[torch.bfloat16] * scale).all()

@@ -201,7 +201,7 @@ def test_blocked_head_clears_prefix_cache():
     cfg = tget_config(ARCH).reduced()
     params = build_synthetic(cfg, seed=0, device="cpu")
     geo = dict(max_slots=1, block_size=4, num_blocks=4, max_blocks_per_slot=4,
-               prefill_chunk=4, decode_horizon=2, kv_bits=8)
+               prefill_chunk=4, decode_horizon=2, kv_bits=8, reserve_full=True)
     rng = np.random.default_rng(4)
     a = rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
     b = np.concatenate([a[:4], rng.integers(0, cfg.vocab_size, size=8)]).astype(np.int32)

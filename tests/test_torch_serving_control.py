@@ -45,7 +45,8 @@ from repro_torch.launch import workload  # noqa: E402
 
 from _torch_interop import (  # noqa: E402,F401
     flatten_reference, planned_reference, torch_one_thread)
-from test_serving_sim import BLOCK, TINY_DENSE, TINY_MOE, Trace, _tenant_mix_trace  # noqa: E402
+from test_serving_sim import (  # noqa: E402
+    BLOCK, TINY_DENSE, TINY_MOE, Trace, _tenant_mix_trace, check_invariants)
 
 MAX_TICKS = 10_000
 
@@ -80,13 +81,17 @@ def _model(name):
 
 # --------------------------------------------------------------- runners
 def _ecfg(trace, **kw):
+    """The trace's ``EngineConfig`` fields, full reservation unless ``kw``
+    says otherwise."""
     mb = -(-(max(p + m for p, m in zip(trace.full_lens, trace.max_news))) // BLOCK)
-    return dict(max_slots=trace.max_slots, block_size=BLOCK, num_blocks=trace.pool_blocks,
+    ecfg = dict(max_slots=trace.max_slots, block_size=BLOCK, num_blocks=trace.pool_blocks,
                 max_blocks_per_slot=mb, prefill_chunk=BLOCK, decode_horizon=trace.horizon,
-                prefix_cache=trace.prefix_cache, reserve_full=True, policy=trace.policy,
+                prefix_cache=trace.prefix_cache, reserve_full=True,
+                preempt_mode=trace.preempt_mode, policy=trace.policy,
                 tenant_weights=trace.tenant_weights or None,
-                ttft_budget_steps=trace.ttft_budget_steps if trace.ttft_budget_steps >= 0 else None,
-                **kw)
+                ttft_budget_steps=trace.ttft_budget_steps if trace.ttft_budget_steps >= 0 else None)
+    ecfg.update(kw)
+    return ecfg
 
 
 def _requests(pkg, trace, vocab, overrides=None):
@@ -111,8 +116,8 @@ def _engine(pkg, m, trace, faults=None, **kw):
 def _run(pkg, m, trace, faults=None, cancel_at=None, midprefill=(), overrides=None, **kw):
     """Drive one engine through ``trace`` boundary by boundary (arrivals
     at their ticks, client cancels at theirs, ``midprefill`` rids cancelled
-    right after their first prefill chunk), checking the pool after every
-    step and that it drains clean."""
+    right after their first prefill chunk), checking the simulation
+    harness's invariants after every step and that the pool drains clean."""
     engine = _engine(pkg, m, trace, faults, **kw)
     mid = set(midprefill)
     if mid:
@@ -139,7 +144,7 @@ def _run(pkg, m, trace, faults=None, cancel_at=None, midprefill=(), overrides=No
                 engine.cancel(rid)
         if engine.scheduler.has_work():
             engine.step()
-            engine.cache.check_consistency()
+            check_invariants(engine)
         tick += 1
     _assert_drained_clean(engine, trace.pool_blocks, trace.max_slots)
     return engine
@@ -170,6 +175,7 @@ def _assert_same(je, te, jsonl=True):
     assert te.metrics.counters() == je.metrics.counters()
     if jsonl:
         assert te.tracer.deterministic_jsonl() == je.tracer.deterministic_jsonl()
+        assert T.validate_events(te.tracer.events) == len(te.tracer.events)
 
 
 def _both(m, trace, plan=None, **kw):
@@ -181,7 +187,7 @@ def _both(m, trace, plan=None, **kw):
         tplan = T.FaultPlan([T.FaultSpec(**dataclasses.asdict(s)) for s in plan])
     je = _run(J, m, trace, jplan, **kw)
     te = _run(T, m, trace, tplan, **kw)
-    _assert_same(je, te, jsonl=kw.get("trace_level") == "spans")
+    _assert_same(je, te, jsonl=kw.get("trace_level") in ("spans", "full"))
     if plan is not None:
         assert tplan.log == jplan.log
     return te
