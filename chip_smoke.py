@@ -41,7 +41,12 @@ Phases (each failure exits non-zero):
    with page growth on a 4-page pool, where one of three requests is
    preempted, served on the card and on the CPU in swap and in recompute
    mode with fp KV and in swap mode with int8 KV: tokens card == CPU ==
-   the same model's unpressured run, ``counters()`` card == CPU;
+   the same model's unpressured run, ``counters()`` card == CPU; then the
+   reduced compressed model with its experts host-offloaded (3 of 8 slots:
+   synchronous at H = 1, tiered at H = 4; with 16 experts, 8 slots, async at
+   H = 1 with a committed batch), tokens card == CPU == the all-resident run
+   and ``counters()`` card == CPU, and
+   ``issue_async`` on the card under ``set_sync_debug_mode("error")``;
 5. full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
@@ -73,7 +78,19 @@ Phases (each failure exits non-zero):
    path's, and rid 1's agreement after its re-prefill printed, not gated
    (the re-prefill rewrites its KV through the prefill's attention, the
    original rows came from the decode kernel); the fp path's kernels
-   launched and no other;
+   launched and no other; then the expert-offload path (``OFFLOAD``: one
+   request of 16 + 4 tokens at H = 1 under ``resident_experts=32`` of 64
+   slots) served three times — (c) all-resident, the token oracle; (a)
+   synchronous at trace level ``spans``; (b) ``async_offload`` with the
+   tier store in a temporary directory, a 256 MiB host row cache and two
+   corrupted upload payloads: tokens of (a) and (b) those of (c); (a) misses,
+   replays its prefill chunk, grows a budget and keeps fewer expert bytes
+   than all-resident, its trace valid; (b) fetches from disk, retries the
+   corrupted uploads, degrades nothing, and stages uploads where its plans
+   held any; in each of (a) and (b), counted apart from (c) and from each
+   other, the fp path's kernels launched and no other; each path's (and
+   each offload run's) engines are collected before the next starts, so
+   each peak is its own;
    then, the compressed model freed, ``qwen3-14b`` (dense, 40 layers) and
    ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
    built on the card, served on the fp geometry (``paged_attention`` must
@@ -92,9 +109,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +152,7 @@ from repro_torch.models.transformer import (  # noqa: E402
 )
 from repro_torch.serving import (  # noqa: E402
     EngineConfig,
+    ExpertOffloadManager,
     PagedKVCache,
     PagedServingEngine,
     PoisonedRequest,
@@ -915,6 +935,83 @@ def tiny_preemption(model):
         f"cpu == unpressured run, counters card == cpu")
 
 
+def tiny_offload():
+    """The reduced compressed model (f32) with its experts host-offloaded at 3
+    of 8 slots per layer (one row per bucket), synchronous at H = 1 and
+    tiered (disk spill, a 64 KiB host row cache) at H = 4, and the same
+    widths with 16 experts at 8 of 16 slots, async at H = 1 (the reduced
+    model's prefill touches every expert, so only the wider one plans a
+    prefetch to stage and commit); each on the card and on the CPU. Tokens
+    card == CPU == the all-resident run, ``counters()`` card == CPU. Then
+    ``issue_async`` on the card under ``set_sync_debug_mode("error")``:
+    staging waits on nothing."""
+    arch, make = TINY["compressed"]
+    rng = np.random.default_rng(1)
+    lengths = (20, 33, 7)
+    base = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+                        prefill_chunk=16, decode_horizon=4, reserve_full=True)
+    models = {}
+    for experts in (8, 16):
+        cfg = dataclasses.replace(get_config(arch).reduced(), num_experts=experts)
+        params_cpu = make(cfg, seed=0, device="cpu")
+        models[experts] = (cfg, params_cpu, to_device(params_cpu, DEV))
+    prompts = [rng.integers(0, models[8][0].vocab_size, size=n).astype(np.int32) for n in lengths]
+
+    def serve(experts, ecfg, dev):
+        cfg, params_cpu, params_gpu = models[experts]
+        if ecfg.offload_dir is not None:  # each engine spills into a directory of its own
+            ecfg = dataclasses.replace(ecfg, offload_dir=f"{ecfg.offload_dir}/{dev}")
+        eng = PagedServingEngine(cfg, params_gpu if dev == DEV else params_cpu, ecfg, device=dev)
+        out = eng.serve(Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
+        return out, eng.metrics.counters()
+
+    done = []
+    with tempfile.TemporaryDirectory(prefix="tiny_spill_") as spill:
+        runs = (("sync H=1", 8, dict(resident_experts=3, decode_horizon=1)),
+                ("tiered H=4", 8, dict(resident_experts=3, offload_dir=spill,
+                                       host_expert_bytes=64 << 10)),
+                ("16 experts, async H=1", 16, dict(resident_experts=8, decode_horizon=1,
+                                                   async_offload=True)))
+        for label, experts, kw in runs:
+            ecfg = dataclasses.replace(base, **kw)
+            alone = serve(experts, base, DEV)[0]
+            (card, c_card), (cpu, c_cpu) = serve(experts, ecfg, DEV), serve(experts, ecfg, "cpu")
+            if card != cpu or card != alone:
+                raise AssertionError(f"tiny offload ({label}): tokens card == cpu {card == cpu}, "
+                                     f"== all-resident {card == alone}")
+            if c_card != c_cpu:
+                bad = [k for k in c_card if c_card[k] != c_cpu[k]]
+                raise AssertionError(f"tiny offload ({label}): counters {bad} differ card vs cpu")
+            if not c_card["expert_miss_uploads"] or (
+                    ecfg.async_offload and not c_card["uploads_committed"]):
+                raise AssertionError(f"tiny offload ({label}): {c_card['expert_miss_uploads']} "
+                                     f"misses, {c_card['uploads_committed']} committed")
+            done.append(f"{label}: {c_card['expert_miss_uploads']} miss + "
+                        f"{c_card['expert_prefetch_uploads']} prefetch uploads, "
+                        f"{c_card['decode_replays']} decode replays, "
+                        f"{c_card['uploads_overlapped']} staged / "
+                        f"{c_card['uploads_committed']} committed / "
+                        f"{c_card['uploads_dropped_stale']} dropped, "
+                        f"{c_card['tier_disk_hits']} disk fetches")
+    cfg, _, params_gpu = models[8]
+    mgr = ExpertOffloadManager([p["moe_ce"] for p in params_gpu["layers"]], resident_slots=3)
+    counts = np.zeros((cfg.num_layers, mgr.num_slots), np.int64)
+    counts[:, mgr.meta[1].start + 3] = 5
+    mgr.update_stats(counts)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        staged = mgr.issue_async(mgr.residency_targets())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    committed = mgr.commit_async()
+    if not staged[0] or committed[0] != staged[0]:
+        raise AssertionError(f"tiny offload: staged {staged}, committed {committed}")
+    log(f"tiny offload ({cfg.name} reduced): {'; '.join(done)}; each: "
+        f"tokens card == cpu == all-resident, counters card == cpu; issue_async of "
+        f"{staged[0]} rows under sync debug mode 'error': no host sync")
+
+
 # ------------------------------------------------ phase 5: full width
 #: kernels each serving path must launch (binary_matmul has no serving caller)
 FP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
@@ -929,12 +1026,21 @@ def _serve(cfg, params, ecfg, reqs):
     return eng, out
 
 
+def begin_path() -> None:
+    """Start a serving path: collect the engines of earlier paths (an engine
+    and its tracer's metrics consumer form a cycle, so only the collector
+    frees their pools), so that the path's peak device memory is its own,
+    then zero the peak and the launch counts."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+
+
 def _drive(name, cfg, params, ecfg, reqs, needed):
     """One serving path with the launch counts set to 0 just before it and
     read just after; fails on a bad output or a kernel of the path that
     never launched (or the other attention kernel launching)."""
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
+    begin_path()
     eng, out = _serve(cfg, params, ecfg, reqs)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -951,9 +1057,10 @@ def _drive(name, cfg, params, ecfg, reqs, needed):
 
 
 def compressed_paths():
-    """The PMQ + OTP model's fp, int8 KV + shared-prefix, tenant-mix and
-    preemption paths: their launches, and the fp path's expert bytes per
-    decode step and in all."""
+    """The PMQ + OTP model's fp, int8 KV + shared-prefix, tenant-mix,
+    preemption and expert-offload paths: their launches, and the fp path's
+    expert bytes per decode step and in all. Each path's engines are local
+    to its function, so ``begin_path`` frees them before the next."""
     t0 = time.perf_counter()
     cfg, params = workload.build(DEV)
     torch.cuda.synchronize()
@@ -961,8 +1068,17 @@ def compressed_paths():
         f"experts={cfg.num_experts} top-{cfg.top_k} vocab={cfg.vocab_size} bf16; "
         f"built in {time.perf_counter() - t0:.1f} s; "
         f"weights on device {weight_bytes(params) / 1e9:.3f} GB")
+    fp_launches, fp_out, experts = fp_path(cfg, params)
+    q_launches = prefix_path(cfg, params)
+    mix_launches = tenant_mix_path(cfg, params)
+    preempt_launches = preemption_path(cfg, params, fp_out)
+    offload_launches = offload_path(cfg, params)
+    return fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, experts
 
-    # the fp path
+
+def fp_path(cfg, params):
+    """The fp workload twice: its launches, tokens and expert bytes (per
+    decode step, in all)."""
     eng, fp_out, fp_launches, peak = _drive("fp path", cfg, params, workload.ENGINE,
                                             workload.requests(cfg), FP_PATH)
     _, out2 = _serve(cfg, params, workload.ENGINE, workload.requests(cfg))
@@ -978,8 +1094,12 @@ def compressed_paths():
     log("full width serving summary (fp KV): " + json.dumps(s))
     experts = (float(np.mean(profile_decode.expert_step_bytes(eng))),
                sum(weight_bytes(p["moe_ce"]) for p in params["layers"]))
+    return fp_launches, fp_out, experts
 
-    # the int8 KV + shared-prefix path
+
+def prefix_path(cfg, params):
+    """The int8 KV + shared-prefix workload, checked against an int8 engine
+    without the cache and a second prefix engine: its launches."""
     reqs = workload.shared_prefix_requests
     eng, out, q_launches, peak = _drive("int8 prefix path", cfg, params, workload.SHARED_PREFIX,
                                         reqs(cfg), INT8_PATH)
@@ -1011,9 +1131,7 @@ def compressed_paths():
         f"tokens in {s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; launches "
         f"{q_launches}; tokens identical without the cache and in a second engine")
     log("full width serving summary (int8 KV + prefix cache): " + json.dumps(s))
-    mix_launches = tenant_mix_path(cfg, params)
-    preempt_launches = preemption_path(cfg, params, fp_out)
-    return fp_launches, q_launches, mix_launches, preempt_launches, experts
+    return q_launches
 
 
 def _tenant_mix_run(cfg, params, ecfg, faults):
@@ -1027,8 +1145,7 @@ def _tenant_mix_run(cfg, params, ecfg, faults):
 def tenant_mix_path(cfg, params):
     """The tenant mix through the control plane, four times (see the module
     docstring): its launches; fails on any check."""
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
+    begin_path()
     plan = workload.tenant_mix_faults()
     a, out_a, wall_a = _tenant_mix_run(cfg, params, workload.TENANT_MIX, plan)
     b, out_b, wall_b = _tenant_mix_run(cfg, params, workload.TENANT_MIX, plan.replay())
@@ -1108,8 +1225,7 @@ def preemption_path(cfg, params, fp_out):
     """The fp workload on ``PREEMPT``'s 11-page pool with page growth, twice
     (see the module docstring): its launches; fails on any check. Tokens
     are held to ``fp_out``, the fp path's from this call."""
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
+    begin_path()
     a, out_a, wall_a = _preempt_run(cfg, params,
                                     dataclasses.replace(workload.PREEMPT, trace_level="spans"),
                                     None)
@@ -1178,6 +1294,124 @@ def preemption_path(cfg, params, fp_out):
     return launches
 
 
+def _offload_run(cfg, params, ecfg, faults=None):
+    """One engine on the offload workload: ``(engine, tokens, budgets at
+    construction, construction wall, serving wall)``."""
+    t0 = time.perf_counter()
+    eng = PagedServingEngine(cfg, params, ecfg, faults, device=DEV)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    budgets = eng.offload.budgets if eng.offload is not None else None
+    out = eng.serve(workload.offload_requests(cfg))
+    torch.cuda.synchronize()
+    return eng, out, budgets, built, time.perf_counter() - t0 - built
+
+
+def _offload_report(eng) -> dict:
+    """What the offload path prints of one run (the engine is freed after)."""
+    m, s = eng.metrics, eng.summary()
+    chunks = m.prefill_dispatches - m.prefill_replays
+    return {"prefill_runs": m.prefill_dispatches, "prefill_chunks": chunks,
+            "runs_per_decode_step": m.decode_dispatches / max(m.megasteps, 1),
+            "decode_runs": m.decode_dispatches, "decode_steps": m.megasteps,
+            "miss_uploads": m.expert_miss_uploads, "miss_bytes": m.expert_miss_bytes,
+            "prefetch_uploads": m.expert_prefetch_uploads,
+            "prefetch_bytes": m.expert_prefetch_bytes, "grows": eng.offload.grows,
+            "budgets_after": eng.offload.budgets, "resident_bytes": eng.offload.resident_bytes,
+            "decode_offload_s": float(sum(m.decode_offload_s)),
+            "decode_compute_s": float(sum(m.decode_compute_s)),
+            "upload_hidden_s": s["upload_hidden_s"], "upload_stall_s": s["upload_stall_s"],
+            "counters": m.counters()}
+
+
+def offload_path(cfg, params):
+    """The expert-offload workload (``OFFLOAD``, see the module docstring)
+    three times — (c) all-resident, the token oracle; (a) synchronous two
+    tiers at trace level ``spans``; (b) async with the tier store in a
+    temporary directory and ``offload_faults`` — each engine freed before
+    the next. The counts and the peak are zeroed after (c) and again after
+    (a), so each offload run's launches and peak are its own: their summed
+    launches; fails on any check."""
+    all_bytes = sum(p["moe_ce"].weight_bytes for p in params["layers"])
+    c, out_c, _, _, wall_c = _offload_run(cfg, params,
+                                          dataclasses.replace(workload.OFFLOAD,
+                                                              resident_experts=None))
+    del c
+    begin_path()
+    a, out_a, budgets_a, built_a, wall_a = _offload_run(
+        cfg, params, dataclasses.replace(workload.OFFLOAD, trace_level="spans"))
+    launches_a, peak_a = dict(build.LAUNCHES), torch.cuda.max_memory_allocated()
+    events = validate_events(a.tracer.events)
+    validate_chrome_trace(a.tracer.chrome_trace())
+    ra = _offload_report(a)
+    del a
+    begin_path()
+    with tempfile.TemporaryDirectory(prefix="expert_spill_") as spill:
+        free = shutil.disk_usage(spill).free
+        if free < 1.25 * all_bytes:
+            raise AssertionError(f"offload (b): {free / 1e9:.1f} GB free in {spill}, the spill "
+                                 f"needs {all_bytes / 1e9:.3f} GB")
+        b, out_b, budgets_b, built_b, wall_b = _offload_run(
+            cfg, params, dataclasses.replace(
+                workload.OFFLOAD, async_offload=True, offload_dir=spill,
+                host_expert_bytes=workload.OFFLOAD_HOST_BYTES), workload.offload_faults())
+        launches_b, peak_b = dict(build.LAUNCHES), torch.cuda.max_memory_allocated()
+        disk_bytes, cache_bytes = b.offload.store.disk_bytes, b.offload.store.host_cached_bytes
+        rb = _offload_report(b)
+        del b
+        gc.collect()
+    ca, cb = ra["counters"], rb["counters"]
+    bad = [name for name, out in (("(a)", out_a), ("(b)", out_b)) if out != out_c]
+    if bad:
+        raise AssertionError(f"offload {bad}: tokens differ from the all-resident run's")
+    if not (ca["expert_miss_uploads"] > 0 and ra["prefill_runs"] > ra["prefill_chunks"]
+            and ra["grows"] >= 1 and ra["resident_bytes"] < all_bytes):
+        raise AssertionError(f"offload (a): miss uploads {ca['expert_miss_uploads']}, prefill "
+                             f"runs {ra['prefill_runs']} for {ra['prefill_chunks']} chunks, "
+                             f"grows {ra['grows']}, resident {ra['resident_bytes']} of "
+                             f"{all_bytes} bytes")
+    planned = cb["plan_actions"].get("expert_uploads", 0)
+    if not (cb["tier_disk_hits"] > 0 and cb["upload_retries"] >= 1
+            and cb["degraded_serves"] == 0 and (not planned or cb["uploads_overlapped"] > 0)):
+        raise AssertionError(f"offload (b): disk hits {cb['tier_disk_hits']}, upload retries "
+                             f"{cb['upload_retries']}, degraded {cb['degraded_serves']}, "
+                             f"planned uploads {planned}, staged {cb['uploads_overlapped']}")
+    for name, launches in (("(a)", launches_a), ("(b)", launches_b)):
+        missing = [k for k in FP_PATH if launches[k] == 0]
+        stray = [k for k, v in launches.items() if v and k not in FP_PATH]
+        if missing or stray:
+            raise AssertionError(f"offload {name}: kernels never launched {missing}, off the "
+                                 f"path {stray}")
+    runs = (("(a) sync", ra, budgets_a, built_a, wall_a, launches_a, peak_a),
+            ("(b) async + tiers + faults", rb, budgets_b, built_b, wall_b, launches_b, peak_b))
+    for name, r, budgets, built, wall, launches, peak in runs:
+        log(f"full width serving (offload {name}): engine built in {built:.2f} s, served in "
+            f"{wall:.2f} s; prefill {r['prefill_runs']} runs for {r['prefill_chunks']} chunk(s) "
+            f"({r['prefill_runs'] / max(r['prefill_chunks'], 1):.1f} per chunk); decode "
+            f"{r['decode_runs']} runs for {r['decode_steps']} steps "
+            f"({r['runs_per_decode_step']:.1f} per step); miss uploads {r['miss_uploads']} "
+            f"({r['miss_bytes']} B), prefetch uploads {r['prefetch_uploads']} "
+            f"({r['prefetch_bytes']} B); grows {r['grows']}, budgets {budgets} -> "
+            f"{r['budgets_after']}; resident expert bytes {r['resident_bytes']} of {all_bytes} "
+            f"all-resident ({r['resident_bytes'] / all_bytes:.4f}); decode_offload_s "
+            f"{r['decode_offload_s']:.3f}, decode_compute_s {r['decode_compute_s']:.3f}; "
+            f"upload_hidden_s {r['upload_hidden_s']:.4f}, upload_stall_s "
+            f"{r['upload_stall_s']:.4f}; peak device memory {peak / 1e9:.3f} GB; launches "
+            f"{launches}")
+    log(f"full width serving (offload): {workload.OFFLOAD.resident_experts} of "
+        f"{cfg.num_experts} slots per layer; (c) all-resident served in {wall_c:.2f} s; tokens "
+        f"(a) == (b) == (c); (a) trace events {events} (valid); (b) spill + host copy in "
+        f"{built_b:.2f} s (host copy alone, (a): {built_a:.2f} s), disk bytes {disk_bytes}, "
+        f"host-cache bytes {cache_bytes} of {workload.OFFLOAD_HOST_BYTES}, disk fetches "
+        f"{cb['tier_disk_hits']} ({cb['tier_disk_bytes']} B), host hits {cb['tier_host_hits']}, "
+        f"upload faults {cb['fault_injected']}, retries {cb['upload_retries']}, degraded "
+        f"{cb['degraded_serves']}, planned upload actions {planned}, staged "
+        f"{cb['uploads_overlapped']} committed {cb['uploads_committed']} dropped "
+        f"{cb['uploads_dropped_stale']}; the peaks include the all-resident model's buckets, "
+        f"which stay allocated beside each engine's partitions")
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
 def plain_path(name, make, ecfg, needed):
     """A dense or uncompressed-MoE model built on the card at full width
     (``make``), served twice with ``ecfg`` on the fp workload's requests:
@@ -1220,8 +1454,8 @@ def full_width():
     """Phase 5: the compressed model's four paths, then — the compressed
     model freed — the dense and the uncompressed-MoE models', each freed
     before the next is built. Returns each path's launches."""
-    fp_launches, q_launches, mix_launches, preempt_launches, (fp_step, fp_all) = \
-        compressed_paths()
+    fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, \
+        (fp_step, fp_all) = compressed_paths()
     free_model()
     dense_launches, _ = plain_path("dense path", workload.build_dense, workload.DENSE,
                                    DENSE_PATH)
@@ -1236,6 +1470,7 @@ def full_width():
         f"path {fp_step / 1e9:.3f} GB (the routed experts' packed rows; {moe_step / fp_step:.2f}x)")
     return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
             "tenant mix serving": mix_launches, "preemption serving": preempt_launches,
+            "offload serving": offload_launches,
             "dense serving": dense_launches,
             "uncompressed MoE serving": moe_launches}
 
@@ -1283,6 +1518,7 @@ def main() -> int:
     tiny_parity(kv_bits=8)
     for model in TINY:
         tiny_preemption(model)
+    tiny_offload()
     paths = full_width()
 
     # launches of each kernel on the path that runs it; binary_matmul has no

@@ -1,14 +1,25 @@
 """PMQ-compressed MoE experts: bit-bucketed storage + grouped-GEMM compute.
 
-Port of ``repro/core/compressed_moe.py`` (all experts device-resident,
-one expert-parallel shard). Experts are permuted so that equal-width
-experts are contiguous and stacked into ≤ 3 buckets, one per bit width.
+Port of ``repro/core/compressed_moe.py`` (one expert-parallel shard).
+Experts are permuted so that equal-width experts are contiguous and
+stacked into ≤ 3 buckets, one per bit width.
 The capacity-dispatch layout is already expert-major and each slot's
 occupied rows are a prefix, so :func:`grouped_bucket_ffn` compacts the
 prefixes into back-to-back ``bm``-aligned groups and runs the bucket's
 SwiGLU as two grouped GEMMs (fused gate/up with the SwiGLU epilogue, then
 down) with a device-side ``block_expert`` table and ``num_active`` block
 count — the kernels skip every block past the routed-token frontier.
+
+All-resident (the default): each bucket leaf spans the bucket's ``[count,
+...]`` expert dim and ``resident_map is None``. Host-offloaded (serving, see
+:mod:`repro_torch.serving.offload`): each bucket leaf spans only
+``resident_rows[i]`` device rows and ``resident_map[bᵢ] [count]`` int32 maps
+each bucket slot to its resident row. The indirection is folded into the
+``block_expert`` table (``block_expert = resident_map[block_expert]``), so
+the kernels read resident rows directly — bitwise the all-resident result
+for every slot whose row holds its weights. A non-resident slot points at
+row 0 and must carry no routed tokens (the engine's miss replay sees to
+that).
 """
 from __future__ import annotations
 
@@ -56,8 +67,10 @@ class BucketMeta:
 class CompressedExperts:
     """One layer's quantized experts: ``arrays[f"b{i}"][name]`` holds
     ``data`` (or ``hi``/``lo``), ``scale`` and ``zero`` with a leading
-    ``[count]`` expert dim; ``slot_of_expert [E]`` maps original expert
-    ids to permuted slots."""
+    ``[count]`` expert dim (``[resident_rows[i]]`` when host-offloaded);
+    ``slot_of_expert [E]`` maps original expert ids to permuted slots and
+    ``resident_map`` (``{b<i>: [count] int32}``, or None) bucket slots to
+    resident rows."""
 
     meta: Tuple[BucketMeta, ...]
     slot_of_expert: torch.Tensor
@@ -66,9 +79,20 @@ class CompressedExperts:
     group: int
     d_model: int
     d_ff: int
+    resident_map: Optional[Dict] = None
+
+    @property
+    def resident_rows(self) -> Optional[Tuple[int, ...]]:
+        """Device rows per bucket when host-offloaded (the partitions' leading
+        dim), else None."""
+        if self.resident_map is None:
+            return None
+        return tuple(self.arrays[f"b{i}"]["w_down"]["scale"].shape[0]
+                     for i in range(len(self.meta)))
 
     @property
     def weight_bytes(self) -> int:
+        """Device-resident quantized bytes (all of them when all-resident)."""
         return sum(
             t.numel() * t.element_size()
             for b in self.arrays.values() for w in b.values() for t in w.values()
@@ -82,6 +106,8 @@ class CompressedExperts:
                 b: {n: {key: t.to(device) for key, t in w.items()} for n, w in bw.items()}
                 for b, bw in self.arrays.items()
             },
+            resident_map=(None if self.resident_map is None else
+                          {b: t.to(device) for b, t in self.resident_map.items()}),
         )
 
 
@@ -138,7 +164,8 @@ def _parts(w: Dict, bits: int):
 
 
 def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bits: int,
-                       group: int, count: int, cap: int) -> torch.Tensor:
+                       group: int, count: int, cap: int,
+                       rmap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One bucket's SwiGLU over its capacity slice ``xb [count·cap, D]`` as
     grouped GEMMs; returns ``[count·cap, D]`` in the same layout.
 
@@ -146,6 +173,8 @@ def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bit
     slot ``s`` row ``j < fill[s]`` moves to ``offsets[s] + j`` with groups
     packed back to back at ``bm`` boundaries; ``num_active`` counts the
     live blocks and unoccupied capacity rows come back exactly zero.
+    ``rmap [count]`` (host-offloaded buckets) maps each slot to its row of
+    ``wdict``'s resident leaves and is folded into ``block_expert``.
     Everything stays on the device — no host sync.
     """
     m = count * cap
@@ -174,6 +203,8 @@ def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bit
     block_expert = torch.clamp_max(
         torch.searchsorted(ends, blocks, right=True), count - 1
     ).to(torch.int32)
+    if rmap is not None:
+        block_expert = rmap[block_expert.long()].to(torch.int32)
     num_active = nblk.sum().to(torch.int32).reshape(1)
     gp, gs, gz = _parts(wdict["w_gate"], bits)
     up, us, uz = _parts(wdict["w_up"], bits)
@@ -187,13 +218,15 @@ def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bit
 def compressed_expert_ffn(ce: CompressedExperts, xp: torch.Tensor, cap: int,
                           slot_fill: torch.Tensor) -> torch.Tensor:
     """SwiGLU over the permuted capacity layout ``xp [num_slots·cap, D]``,
-    bucket by bucket through :func:`grouped_bucket_ffn`."""
+    bucket by bucket through :func:`grouped_bucket_ffn` (with each bucket's
+    resident map when the buckets are host-offloaded)."""
     ys = []
     for i, m in enumerate(ce.meta):
         xb = xp[m.start * cap:(m.start + m.count) * cap]
         fill = slot_fill[m.start:m.start + m.count]
+        rmap = None if ce.resident_map is None else ce.resident_map[f"b{i}"]
         ys.append(grouped_bucket_ffn(xb, ce.arrays[f"b{i}"], fill, bits=m.bits, group=ce.group,
-                                     count=m.count, cap=cap))
+                                     count=m.count, cap=cap, rmap=rmap))
     return torch.cat(ys, dim=0)
 
 

@@ -2,14 +2,30 @@
 :class:`PackedTensor` and :class:`CompressedExperts` leaves)."""
 from __future__ import annotations
 
-
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from .compressed_moe import CompressedExperts
 from .packing import PackedTensor
 
-__all__ = ["to_device", "weight_bytes"]
+__all__ = ["map_dict", "to_device", "tree_paths", "weight_bytes"]
+
+
+def map_dict(fn: Callable, tree: Dict, *rest: Dict) -> Dict:
+    """``fn`` over the leaves of nested dicts of one structure (``jax.tree.map``
+    over dict trees): ``fn(leaf, *leaves of rest at the same path)``."""
+    if isinstance(tree, dict):
+        return {k: map_dict(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_paths(tree: Dict, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], object]]:
+    """``(path, leaf)`` pairs of a nested-dict tree in sorted key order (the
+    reference's flatten order for dict trees)."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [pair for k in sorted(tree) for pair in tree_paths(tree[k], prefix + (k,))]
 
 
 def to_device(node, device):

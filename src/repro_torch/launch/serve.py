@@ -3,7 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch ID] [--pmq] [--kv-bits 8] \
         [--prefix-cache] [--pool-blocks N] [--preempt-mode swap|recompute] [--no-preempt] \
         [--policy fair --tenant-weights batch=1,interactive=4] \
-        [--ttft-budget-ms MS] [--trace-level spans --trace-out F] [--device cpu]
+        [--ttft-budget-ms MS] [--trace-level spans --trace-out F] \
+        [--resident-experts N [--async-offload] [--offload-dir DIR [--host-expert-bytes B]]] \
+        [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
 ``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the model is
@@ -25,6 +27,15 @@ tenants), ``--ttft-budget-ms`` sheds requests that wait longer for their
 first token, and ``--trace-out F`` writes the span trace as Chrome JSON to
 ``F`` and as a JSONL event log to ``F.jsonl``; check either with
 ``python -m repro_torch.serving.trace F F.jsonl``.
+
+``--resident-experts N`` (implies ``--pmq``) keeps N expert slots per layer
+on the device and the cold PMQ rows on the host, prefetched by routing
+statistics; a program that routes to a missing expert is replayed after a
+synchronous upload, so the tokens are the all-resident engine's.
+``--async-offload`` stages the planned uploads on a side stream while the
+next program runs, ``--offload-dir DIR`` spills the expert store to mmap'd,
+CRC-checked files under ``DIR`` with a host row cache of
+``--host-expert-bytes`` in front of it.
 """
 from __future__ import annotations
 
@@ -68,6 +79,18 @@ def main() -> None:
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--pmq", action="store_true",
                    help="serve PMQ-compressed experts with OTP (MoE models)")
+    p.add_argument("--resident-experts", type=int, default=None, metavar="N",
+                   help="per-layer device budget in expert slots; cold PMQ rows live on the "
+                        "host and are prefetched by router stats (implies --pmq)")
+    p.add_argument("--async-offload", action="store_true",
+                   help="stage planned expert uploads on a side stream while the next "
+                        "megastep computes (requires --resident-experts)")
+    p.add_argument("--offload-dir", default=None, metavar="DIR",
+                   help="spill the expert store to mmap'd packed buckets under DIR (disk -> "
+                        "host -> device; CRC-checked; requires --resident-experts)")
+    p.add_argument("--host-expert-bytes", type=int, default=None, metavar="B",
+                   help="byte budget of the host row cache in front of --offload-dir "
+                        "(default: unbounded)")
     p.add_argument("--decode-horizon", type=int, default=8, metavar="H",
                    help="decode steps per fused megastep")
     p.add_argument("--prefix-cache", action="store_true",
@@ -105,11 +128,17 @@ def main() -> None:
         raise SystemExit("--tenant-weights only applies to --policy fair")
     if args.ttft_budget_ms is not None and args.ttft_budget_ms < 0:
         raise SystemExit("--ttft-budget-ms must be >= 0")
+    if (args.async_offload or args.offload_dir is not None) and args.resident_experts is None:
+        raise SystemExit("--async-offload/--offload-dir require --resident-experts")
+    if args.host_expert_bytes is not None and args.offload_dir is None:
+        raise SystemExit("--host-expert-bytes requires --offload-dir")
+    args.pmq = args.pmq or args.resident_experts is not None
     tenant_weights = _parse_tenant_weights(args.tenant_weights) if args.tenant_weights else None
     trace_level = args.trace_level or ("full" if args.trace_out else "off")
     cfg = get_config(args.arch).reduced()
     if args.pmq and not cfg.is_moe:
-        raise SystemExit(f"--pmq compresses MoE experts; {args.arch} is {cfg.family}")
+        raise SystemExit(f"--pmq/--resident-experts need MoE experts; {args.arch} is "
+                         f"{cfg.family}")
     make = build_synthetic if args.pmq else build_uncompressed
     params = make(cfg, seed=0, device=args.device)
     rng = np.random.default_rng(0)
@@ -126,9 +155,13 @@ def main() -> None:
                      policy=args.policy, tenant_weights=tenant_weights,
                      ttft_budget_s=(args.ttft_budget_ms / 1000.0
                                     if args.ttft_budget_ms is not None else None),
-                     trace_level=trace_level),
+                     trace_level=trace_level, resident_experts=args.resident_experts,
+                     async_offload=args.async_offload, offload_dir=args.offload_dir,
+                     host_expert_bytes=args.host_expert_bytes),
         device=args.device,
     )
+    if engine.offload is not None:
+        del params  # the engine holds the resident partitions and the host store
     tenants = [t for t, _ in tenant_weights] if tenant_weights else ["default"]
     out = engine.serve(Request(rid=i, prompt=prompts[i], max_new=args.max_new,
                                tenant=tenants[i % len(tenants)])
@@ -147,6 +180,23 @@ def main() -> None:
           f"{m['swap_in_bytes']}, {m['swap_fallbacks']} swap fallbacks")
     print(f"scheduling: policy {args.policy}; {m['sheds']} sheds, {m['plans']} plans "
           f"{m['plan_actions']}; tenant tokens {m['tenant_tokens']}")
+    if engine.offload is not None:
+        off = engine.offload
+        print(f"expert offload: budget {off.budgets} (resident {off.resident_bytes} B of "
+              f"{off.host_bytes} B), hit rate {m['expert_hit_rate']:.2f}, "
+              f"{m['expert_prefetch_uploads']} prefetch + {m['expert_miss_uploads']} miss "
+              f"uploads ({m['expert_upload_bytes']} B), {off.grows} budget grows, prefill runs "
+              f"{engine.metrics.prefill_dispatches} for {m['prefill_chunks']} chunks, decode "
+              f"runs {engine.metrics.decode_dispatches} for {engine.metrics.megasteps} "
+              f"megasteps")
+        if args.async_offload:
+            print(f"async offload: {m['uploads_overlapped']} overlapped "
+                  f"({m['uploads_committed']} committed, {m['uploads_dropped_stale']} dropped "
+                  f"stale), stall {m['upload_stall_s']:.4f} s, hidden "
+                  f"{m['upload_hidden_s']:.4f} s")
+        if args.offload_dir is not None:
+            print(f"expert tiers: {m['tier_host_hits']} host hits, {m['tier_disk_hits']} disk "
+                  f"fetches ({m['tier_disk_bytes']} B, CRC-checked)")
     report = engine.routing_report()
     if report is not None:
         corr = report["mean_freq_bits_corr"]

@@ -55,6 +55,18 @@ PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
   PMQ routing telemetry; a PMQ model adds one ``routing`` counter per entry
   of ``capacity_utilization``.
 
+* ``OFFLOAD`` / :func:`offload_requests`: the fp geometry with the PMQ
+  experts host-offloaded under ``resident_experts=32`` of 64 slots per layer
+  (``_split_budget`` gives 1 / 29 / 2 rows to the buckets of 1 / 59 / 4
+  experts): one request of 16 prompt tokens (one prefill chunk; numpy seed
+  4) and 4 new tokens at ``decode_horizon=1`` — a device holding about half
+  of the model's expert bytes. The synthetic routers are close to uniform,
+  so the routing EMA cannot predict the next step's experts and the program
+  is replayed about once per layer that misses; one short request keeps
+  that bounded. ``OFFLOAD_HOST_BYTES`` (256 MiB) bounds the host row cache
+  of the tiered run and :func:`offload_faults` corrupts the first two
+  upload payloads (caught by the row CRC and fetched again).
+
 Two more models serve ``ENGINE``'s geometry and :func:`requests` (bf16, fp
 KV, random weights from seed 0, :func:`build_uncompressed`):
 
@@ -84,6 +96,8 @@ __all__ = [
     "DENSE_ARCH",
     "ENGINE",
     "MAX_NEW",
+    "OFFLOAD",
+    "OFFLOAD_HOST_BYTES",
     "PREEMPT",
     "PREEMPT_COUNTERS",
     "PREEMPT_FAULT_EVENTS",
@@ -97,6 +111,8 @@ __all__ = [
     "build",
     "build_dense",
     "build_uncompressed_moe",
+    "offload_faults",
+    "offload_requests",
     "preempt_schedule",
     "requests",
     "serve_tenant_mix",
@@ -200,6 +216,23 @@ PREEMPT_COUNTERS = {
     "swap_fallbacks": 0,
     "tenant_tokens": {"default": 128},
 }
+
+
+OFFLOAD = dataclasses.replace(ENGINE, decode_horizon=1, resident_experts=32)
+OFFLOAD_PROMPT_LEN, OFFLOAD_MAX_NEW = 16, 4
+OFFLOAD_HOST_BYTES = 256 << 20
+
+
+def offload_requests(cfg) -> List[Request]:
+    """The offload workload's one request (the same prompt each call)."""
+    rng = np.random.default_rng(4)
+    return [Request(rid=0, prompt=rng.integers(0, cfg.vocab_size, size=OFFLOAD_PROMPT_LEN)
+                    .astype(np.int32), max_new=OFFLOAD_MAX_NEW)]
+
+
+def offload_faults() -> FaultPlan:
+    """Corrupt the first two expert upload payloads (any row)."""
+    return FaultPlan([FaultSpec(site="upload", mode="corrupt", count=2)])
 
 
 def preempt_schedule(counters: Dict) -> Dict:

@@ -2,8 +2,9 @@
 with tenant policies and SLO shed, admission with on-demand page growth,
 victim preemption and the host KV swap store, chunked prefill,
 H-step greedy megasteps, fp or int8 KV pools, the copy-on-write
-shared-prefix cache, ``ServingMetrics``, the span tracer and the fault
-plane."""
+shared-prefix cache, host-offloaded PMQ expert buckets (miss replay, EMA
+prefetch, async uploads, the disk → host → device tier store),
+``ServingMetrics``, the span tracer and the fault plane."""
 from .controller import Observation, PlanAction, ResourceController, TargetState
 from .engine import EngineConfig, PagedServingEngine, quantized_greedy_reference
 from .faults import (
@@ -29,7 +30,9 @@ from .kvcache import (
     SwappedKV,
 )
 from .metrics import ServingMetrics
+from .offload import ExpertOffloadManager, degrade_expert_row
 from .scheduler import VALID_POLICIES, Request, Scheduler
+from .tierstore import TieredExpertStore
 from .trace import (
     ExpertRoutingTelemetry,
     MetricsConsumer,
@@ -39,11 +42,12 @@ from .trace import (
 )
 
 __all__ = [
-    "BlockAllocator", "DeadlineExceeded", "EngineConfig", "ExpertRoutingTelemetry",
-    "ExpertUploadFailed", "FaultPlan", "FaultSpec", "InvalidRequest", "LivelockDetected",
-    "MetricsConsumer", "Observation", "PagedKVCache", "PagedServingEngine", "PlanAction",
-    "PoisonedRequest", "PoolExhausted", "PrefixCache", "PrefixEntry", "Request",
+    "BlockAllocator", "DeadlineExceeded", "EngineConfig", "ExpertOffloadManager",
+    "ExpertRoutingTelemetry", "ExpertUploadFailed", "FaultPlan", "FaultSpec", "InvalidRequest",
+    "LivelockDetected", "MetricsConsumer", "Observation", "PagedKVCache", "PagedServingEngine",
+    "PlanAction", "PoisonedRequest", "PoolExhausted", "PrefixCache", "PrefixEntry", "Request",
     "RequestCancelled", "ResourceController", "Scheduler", "ServingFault", "ServingMetrics",
-    "SpanTracer", "SwapFault", "SwappedKV", "TargetState", "VALID_POLICIES", "WatchdogTimeout",
-    "checksum_tree", "quantized_greedy_reference", "validate_chrome_trace", "validate_events",
+    "SpanTracer", "SwapFault", "SwappedKV", "TargetState", "TieredExpertStore", "VALID_POLICIES",
+    "WatchdogTimeout", "checksum_tree", "degrade_expert_row", "quantized_greedy_reference",
+    "validate_chrome_trace", "validate_events",
 ]

@@ -3,7 +3,7 @@
 
 One controller owns the serving stack's resource pools: request slots
 (:mod:`.scheduler`), KV pages and prefix-cache pages (:mod:`.kvcache`), and
-resident expert partitions (an offload manager, once the port has one).
+resident expert partitions (:class:`~.offload.ExpertOffloadManager`).
 Each megastep boundary it
 
 (a) **observes** a consistent snapshot (queue composition per tenant, slot
@@ -26,8 +26,9 @@ Which waiter admits first and who is victimized is the scheduler's policy
 (``admission_order`` / ``victim_key``). Phase 1 grows every active slot
 horizon-ahead and plans policy-ordered preemptions where the pool cannot
 cover a grow (under full reservation no slot ever lacks pages, so it plans
-neither); phase 3 plans nothing without an offload manager. The plan itself is visible as one
-``plan`` lifecycle event per non-empty boundary.
+neither); phase 3 plans ``upload_experts`` from the offload manager's
+``residency_targets()`` (nothing without one). The plan itself is visible as
+one ``plan`` lifecycle event per non-empty boundary.
 """
 from __future__ import annotations
 

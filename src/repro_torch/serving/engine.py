@@ -46,8 +46,28 @@ moves the victim's pages to the host (:class:`~.kvcache.SwappedKV`, CRC
 checked) and writes them back at re-admission, ``"recompute"`` drops them
 and re-prefills ``prompt + out[:-1]``; a failed or corrupt swap falls back
 to the re-prefill. ``reserve_full=True`` reserves ``prompt + max_new`` up
-front, so neither happens. Expert offload and temperature sampling are
-later slices: their settings do not exist here.
+front, so neither happens.
+
+**Host-offloaded expert buckets.** With ``resident_experts`` set (PMQ
+params only) the device holds a budget of expert rows per layer and bucket
+(:class:`~.offload.ExpertOffloadManager`); cold rows live on the host, or
+on disk behind a host row cache with ``offload_dir``. Between megasteps the
+controller plans uploads of the routing-EMA-hottest experts
+(``upload_experts``), executed at once or, with ``async_offload``, staged on
+a side stream right after the next program's dispatch and committed at the
+boundary after it. Routing happens inside the program, so a run reports
+which experts it used: the engine uploads the missing ones synchronously and
+**replays the whole program** until a run finds its working set resident
+(:meth:`PagedServingEngine._run_offloaded`). A replay is idempotent on the
+port's pools: every KV write of a prefill chunk or decode step lands at a
+row its position determines and is written again with the correct values,
+and the program's inputs come from host arrays the loop does not change, so
+the accepted run's outputs and pool contents are the all-resident engine's.
+With offload on the prefill syncs once per run, since each chunk's counts
+decide whether it replays before the next chunk runs. The ``upload`` fault
+site fires in the manager's recovery ladder (retry, re-fetch, degrade to a
+lower bit width, or fail closed with ``ExpertUploadFailed``). Temperature
+sampling is a later slice: its settings do not exist here.
 """
 from __future__ import annotations
 
@@ -65,6 +85,7 @@ from ..runtime.fault_tolerance import HeartbeatTable
 from .controller import PlanAction, ResourceController
 from .faults import (
     DeadlineExceeded,
+    ExpertUploadFailed,
     FaultPlan,
     LivelockDetected,
     PoisonedRequest,
@@ -75,6 +96,7 @@ from .faults import (
 )
 from .kvcache import PagedKVCache, PoolExhausted
 from .metrics import ServingMetrics
+from .offload import ExpertOffloadManager
 from .scheduler import VALID_POLICIES, Request, Scheduler
 from .trace import ExpertRoutingTelemetry, MetricsConsumer, SpanTracer
 
@@ -92,6 +114,19 @@ class EngineConfig:
     use_otp: bool = True  # OTP decode masks when the model carries them
     # raise expert capacity to the drop-free bound inside every step
     drop_free_capacity: bool = True
+    # per-layer device budget in expert slots for PMQ buckets (None keeps
+    # every bucket resident); cold rows live on the host (serving.offload)
+    resident_experts: Optional[int] = None
+    # decay of the routing EMA that ranks experts for prefetch
+    prefetch_ema: float = 0.8
+    # stage the controller's expert uploads on a side stream while the next
+    # program computes, committed at the boundary after it (outputs unchanged)
+    async_offload: bool = False
+    # spill the expert store to mmap'd disk images in this directory: disk →
+    # host row cache → device, every disk row CRC-checked
+    offload_dir: Optional[str] = None
+    # byte budget of that host row cache (None: unbounded)
+    host_expert_bytes: Optional[int] = None
     decode_horizon: int = 8
     # how a preempted request is restored: "swap" moves its KV pages to the
     # host and back at re-admission (bit-exact), "recompute" drops them and
@@ -117,6 +152,11 @@ class EngineConfig:
     # logical steps (or wall-clock seconds) is shed; None disables
     ttft_budget_steps: Optional[int] = None
     ttft_budget_s: Optional[float] = None
+    # serve a lower-bit copy of an expert row whose upload keeps failing
+    # (False fails the engine closed with ExpertUploadFailed instead)
+    degrade_experts: bool = False
+    # miss-path retries per expert row before degrading or failing
+    upload_max_retries: int = 3
     # a megastep slower than this fails the engine closed (None = off)
     watchdog_timeout_s: Optional[float] = None
     # this many consecutive boundaries with work but no progress fail the
@@ -207,6 +247,26 @@ class PagedServingEngine:
         self.metrics = ServingMetrics()
         self.tracer = SpanTracer(ecfg.trace_level,
                                  consumers=(MetricsConsumer(lambda: self.metrics),))
+        self.offload = None
+        if ecfg.resident_experts is not None:
+            if any("moe_ce" not in p for p in params["layers"]):
+                raise ValueError("resident_experts requires PMQ-compressed params (a 'moe_ce' "
+                                 "entry in every layer)")
+            self.offload = ExpertOffloadManager(
+                [p["moe_ce"] for p in params["layers"]], resident_slots=ecfg.resident_experts,
+                ema_decay=ecfg.prefetch_ema, tracer=self.tracer, faults=faults,
+                degrade=ecfg.degrade_experts, max_retries=ecfg.upload_max_retries,
+                offload_dir=ecfg.offload_dir, host_budget_bytes=ecfg.host_expert_bytes,
+                device=self.device)
+            self.params = params = dict(params, layers=[
+                dict(p, moe_ce=ce) for p, ce in zip(params["layers"], self.offload.ces)])
+        elif ecfg.async_offload or ecfg.offload_dir is not None:
+            raise ValueError("async_offload/offload_dir require resident_experts (there is no "
+                             "expert streaming to overlap or tier)")
+        # async streaming: upload_experts targets deferred from the boundary
+        # to right after the next program's dispatch
+        self._pending_expert_targets: Tuple = ()
+        self._last_run_stats: Dict[str, float] = {}
         self.cache = PagedKVCache(
             cfg, num_blocks=ecfg.num_blocks, block_size=ecfg.block_size,
             max_slots=ecfg.max_slots, max_blocks_per_slot=ecfg.max_blocks_per_slot,
@@ -220,8 +280,9 @@ class PagedServingEngine:
             tenant_weights=dict(ecfg.tenant_weights) if ecfg.tenant_weights is not None else None,
         )
         self.controller = ResourceController(
-            self.scheduler, tracer=self.tracer, ttft_budget_steps=ecfg.ttft_budget_steps,
-            ttft_budget_s=ecfg.ttft_budget_s, faults=faults,
+            self.scheduler, offload=self.offload, tracer=self.tracer,
+            ttft_budget_steps=ecfg.ttft_budget_steps, ttft_budget_s=ecfg.ttft_budget_s,
+            faults=faults,
         )
         self.results: Dict[int, List[int]] = {}
         # rid → the typed ServingFault a request ended with; results[rid]
@@ -252,24 +313,28 @@ class PagedServingEngine:
     # ----------------------------------------------------- observability
     def routing_report(self) -> Optional[Dict]:
         """Observed per-(layer, expert-slot) dispatch frequency joined
-        against the PMQ bit buckets; ``None`` unless the model is PMQ and
-        tracing collected routing traffic."""
+        against the PMQ bit buckets (and the bits a degraded row serves at);
+        ``None`` unless the model is PMQ and tracing collected routing
+        traffic."""
         if self.routing is None or self._ce_meta is None:
             return None
-        return self.routing.bit_misallocation_report(self._ce_meta)
+        degraded = None
+        if self.offload is not None and self.offload.degraded:
+            degraded = {k: to_bits for k, (_, to_bits) in self.offload.degraded.items()}
+        return self.routing.bit_misallocation_report(self._ce_meta, degraded=degraded)
 
     def summary(self) -> Dict:
         """:meth:`ServingMetrics.summary` plus the engine's own keys: TTFT
-        mean and max, prefill chunks, decode tokens, seconds and rate (wall
-        clock on the host; the decode time ends in a device sync), mean OTP
-        activation, prefix hits and reused tokens."""
+        mean and max, prefill chunks (runs less replays), decode tokens,
+        seconds and rate (wall clock on the host; the decode time ends in a
+        device sync), mean OTP activation, prefix hits and reused tokens."""
         m = self.metrics
         out = m.summary()
         decode_s = float(sum(m.decode_step_s))
         tokens = out["generated_tokens"]
         out.update({
             "ttft_max_s": float(max(m.ttft_s)) if m.ttft_s else 0.0,
-            "prefill_chunks": m.prefill_dispatches,
+            "prefill_chunks": m.prefill_dispatches - m.prefill_replays,
             "decode_tokens": tokens,
             "decode_s": decode_s,
             "decode_tokens_per_s": tokens / decode_s if decode_s else 0.0,
@@ -346,7 +411,7 @@ class PagedServingEngine:
                 if self._watchdog is not None and self._watchdog.failed(now=self._clock()):
                     raise WatchdogTimeout(f"megastep exceeded the "
                                           f"{self.ecfg.watchdog_timeout_s}s watchdog budget")
-        except WatchdogTimeout as exc:
+        except (ExpertUploadFailed, WatchdogTimeout) as exc:
             self._fail_closed(exc)
         progress1 = (self._step_idx, sum(len(v) for v in self.results.values()))
         if self.scheduler.has_work() and progress1 == progress0:
@@ -415,7 +480,12 @@ class PagedServingEngine:
 
     # ----------------------------------------------------- reconciliation
     def _converge(self) -> None:
-        """Execute the controller's plan for this boundary."""
+        """Flip a staged async expert batch in (or drop it as stale) before
+        the controller observes residency, then execute its plan."""
+        if self.offload is not None and self.ecfg.async_offload:
+            committed, dropped, nbytes, wait_s = self.offload.commit_async()
+            if committed or dropped:
+                self.metrics.record_async_commit(committed, dropped, nbytes, wait_s)
         self._execute_plan(self.controller.plan_boundary(self._step_idx, time.time()))
 
     def _execute_plan(self, plan: List[PlanAction]) -> None:
@@ -431,9 +501,20 @@ class PagedServingEngine:
                     self.cache.prefix.evict_for(action.pages, frozenset(action.protect))
             elif action.kind == "shed":
                 self._execute_shed(action)
-            else:  # upload_experts cannot be planned without an offload manager
-                raise RuntimeError(f"plan action {action.kind!r} needs expert offload, which "
-                                   f"the port does not have yet")
+            elif action.kind == "upload_experts":
+                if self.ecfg.async_offload:
+                    # issued right after the next program's dispatch; the
+                    # targets are a boundary stale, which placement
+                    # invariance makes safe
+                    self._pending_expert_targets = action.targets
+                else:
+                    t0 = time.time()
+                    uploads, nbytes = self.offload.apply_residency(action.targets)
+                    if uploads:
+                        self.metrics.record_expert_prefetch(uploads, nbytes)
+                        self.metrics.record_upload_stall(time.time() - t0)
+            else:
+                raise ValueError(f"unknown plan action kind {action.kind!r}")
 
     # --------------------------------------------------------- admission
     def _execute_admit(self, action: PlanAction) -> None:
@@ -514,14 +595,16 @@ class PagedServingEngine:
         chunk is streamed and the final chunk's logits are discarded (they
         re-predict the known ``out[-1]``).
 
-        The prefill syncs with the host once: the first token, the logits'
-        finiteness flag and the chunks' dispatch counts come back in one
-        transfer (at trace level ``full`` the counts come back per chunk, so
-        the routing gauges interleave with the chunk spans as the
-        reference's do). Non-finite logits (the ``logits`` fault poisons a
-        device copy) end the request with :class:`PoisonedRequest` before
-        anything reaches the prefix cache. Then the prompt registers its own
-        prefixes in the cache."""
+        Without expert offload the prefill syncs with the host once: the
+        first token, the logits' finiteness flag and the chunks' dispatch
+        counts come back in one transfer (at trace level ``full`` the counts
+        come back per chunk, so the routing gauges interleave with the chunk
+        spans as the reference's do). With offload each chunk runs under
+        :meth:`_run_offloaded`, which fetches its counts after every run.
+        Non-finite logits (the ``logits`` fault poisons a device copy) end
+        the request with :class:`PoisonedRequest` before anything reaches the
+        prefix cache. Then the prompt registers its own prefixes in the
+        cache."""
         if resume:
             seq = np.concatenate([req.prompt, np.asarray(req.out[:-1], np.int32)])
             assert len(seq) == req.pos, (len(seq), req.pos)
@@ -545,23 +628,26 @@ class PagedServingEngine:
                 n = min(c, p_len - off)
                 chunk = np.zeros((1, c), np.int64)
                 chunk[0, :n] = seq[off:off + n]
+                chunk = torch.as_tensor(chunk, device=self.device)
                 t0 = self.tracer.now_us()
-                logits, counts = paged_prefill_chunk(
-                    self.params, self.cache.k, self.cache.v, table_row,
-                    torch.as_tensor(chunk, device=self.device), off, n, self.model_cfg,
-                    block_size=self.ecfg.block_size, use_otp=self.ecfg.use_otp,
-                    qs=self.cache.quant_tables,
-                )
-                self.tracer.complete("compute", track=track, cat="prefill", start_us=t0,
-                                     args={"run": 1})
-                self.metrics.record_prefill_runs(1)
+                (logits, counts), host_counts = self._run_offloaded(
+                    lambda: paged_prefill_chunk(
+                        self.params, self.cache.k, self.cache.v, table_row, chunk, off, n,
+                        self.model_cfg, block_size=self.ecfg.block_size,
+                        use_otp=self.ecfg.use_otp, qs=self.cache.quant_tables),
+                    self._fetch_prefill_counts, kind="prefill", track=track)
+                runs = int(self._last_run_stats["runs"])
+                self.metrics.record_prefill_runs(runs)
                 self.tracer.complete(
                     "prefill_chunk", track=track, cat="prefill", start_us=t0,
                     args={"rid": req.rid, "offset": off, "tokens": n, "resume": resume,
-                          "runs": 1})
-                pending.append(counts)
-                if self.tracer.full:
-                    self._record_counts(pending, c)
+                          "runs": runs})
+                if host_counts is not None:
+                    self._record_capacity_util(host_counts, c)
+                else:
+                    pending.append(counts)
+                    if self.tracer.full:
+                        self._record_counts(pending, c)
             if resume:
                 self._record_counts(pending, c)
                 return
@@ -584,6 +670,69 @@ class PagedServingEngine:
         req.pos = p_len
         self.metrics.record_tenant_tokens(req.tenant, 1)
         self.tracer.instant("first_token", track=track, cat="prefill", rid=req.rid, token=tok)
+
+    def _fetch_prefill_counts(self, out):
+        """A prefill run's counts on the host when expert offload needs them
+        now (else None: they wait for the prefill's one transfer)."""
+        if self.offload is None:
+            return out, None
+        return out, out[1].cpu().numpy().astype(np.int64)
+
+    # --------------------------------------------------- expert residency
+    def _run_offloaded(self, dispatch, fetch, kind: str = "decode", track: str = "engine"):
+        """Run one program (a prefill chunk or a decode megastep) under the
+        expert-residency contract: ``dispatch()`` enqueues it, ``fetch(out)``
+        returns ``(payload, counts)`` with the dispatch counts on the host
+        (``[L, S]``, or ``[H, L, S]`` for a megastep). With offload on, the
+        program is replayed after a synchronous upload until a run found
+        every expert it dispatched to resident; that run's payload is
+        returned. A staged async prefetch is issued right after the first
+        dispatch, before the fetch, so its copies overlap the program. Each
+        run is a ``compute`` (first) or ``replay`` span; ``_last_run_stats``
+        holds the run count, the first run's seconds and the rest (uploads
+        and replays) as ``offload_s``."""
+        if self.offload is not None:
+            self.offload.begin_step()
+        missed = False
+        runs = 0
+        compute_s = offload_s = 0.0
+        while True:
+            t0 = time.time()
+            t0_us = self.tracer.now_us()
+            out = dispatch()
+            if runs == 0 and self._pending_expert_targets:
+                targets, self._pending_expert_targets = self._pending_expert_targets, ()
+                ti = time.time()
+                ups, _ = self.offload.issue_async(targets)
+                if ups:
+                    self.metrics.record_async_issue(ups, time.time() - ti)
+            payload, counts = fetch(out)
+            runs += 1
+            dt = time.time() - t0
+            self.tracer.complete("compute" if runs == 1 else "replay", track=track, cat=kind,
+                                 start_us=t0_us, args={"run": runs})
+            if runs == 1:
+                compute_s = dt
+            else:
+                offload_s += dt
+            if self.offload is None:
+                self._last_run_stats = {"runs": runs, "compute_s": compute_s,
+                                        "offload_s": offload_s}
+                return payload, counts
+            t1 = time.time()
+            uploads, nbytes = self.offload.ensure_resident(counts)
+            if uploads == 0:
+                if missed:
+                    self.metrics.record_expert_miss_step()
+                else:
+                    self.metrics.record_expert_hit()
+                self.offload.update_stats(counts)
+                self._last_run_stats = {"runs": runs, "compute_s": compute_s,
+                                        "offload_s": offload_s + (time.time() - t1)}
+                return payload, counts
+            missed = True
+            offload_s += time.time() - t1
+            self.metrics.record_expert_miss(uploads, nbytes)
 
     def _record_counts(self, pending: List[torch.Tensor], t: int,
                        host: Optional[np.ndarray] = None) -> None:
@@ -662,10 +811,10 @@ class PagedServingEngine:
     # ------------------------------------------------------------ decode
     def _decode_megastep(self) -> None:
         """Advance every active slot up to ``decode_horizon`` tokens, fetch
-        tokens, emit mask, activations and dispatch counts in one transfer,
-        and apply them on the host; per-logical-step metrics are rebuilt
-        from the emit mask (exact) and the megastep's wall time (spread
-        evenly)."""
+        tokens, emit mask, activations and dispatch counts in one transfer
+        per run (replays only with expert offload), and apply them on the
+        host; per-logical-step metrics are rebuilt from the emit mask (exact)
+        and the megastep's wall time (spread evenly)."""
         b, h = self.ecfg.max_slots, self.ecfg.decode_horizon
         tokens = np.zeros((b, 1), np.int64)
         positions = np.zeros((b,), np.int32)
@@ -679,40 +828,43 @@ class PagedServingEngine:
             budgets[slot] = req.max_new - len(req.out)
             eos_ids[slot] = req.eos_id
         dev = self.device
+        inputs = [torch.as_tensor(a, device=dev) for a in (tokens, positions, active)]
+        tables = self.cache.tables_device()
+        stop = dict(budgets=torch.as_tensor(budgets, device=dev),
+                    eos_ids=torch.as_tensor(eos_ids, device=dev))
+        hb = h * b
+
+        def fetch(out):
+            toks, emits, acts, counts = out
+            # one host sync per run (f64 holds every token id, count and f32
+            # activation exactly)
+            host = torch.cat([toks.reshape(-1).double(), emits.reshape(-1).double(),
+                              acts.double(), counts.reshape(-1).double()]).cpu().numpy()
+            return ((host[:hb].reshape(h, b).astype(np.int64),  # -1 where not emitted
+                     host[hb:2 * hb].reshape(h, b) > 0, host[2 * hb:2 * hb + h]),
+                    host[2 * hb + h:].reshape(tuple(counts.shape)).astype(np.int64))
+
         t0 = time.time()
         t0_us = self.tracer.now_us()
-        toks, emits, acts, counts = paged_decode_horizon(
-            self.params, self.cache.k, self.cache.v, self.cache.tables_device(),
-            torch.as_tensor(tokens, device=dev), torch.as_tensor(positions, device=dev),
-            torch.as_tensor(active, device=dev), self.model_cfg,
-            block_size=self.ecfg.block_size, horizon=h,
-            budgets=torch.as_tensor(budgets, device=dev),
-            eos_ids=torch.as_tensor(eos_ids, device=dev), use_otp=self.ecfg.use_otp,
-            qs=self.cache.quant_tables,
-        )
-        # the megastep's one host sync (f64 holds every token id, count and
-        # f32 activation exactly)
-        host = torch.cat([toks.reshape(-1).double(), emits.reshape(-1).double(),
-                          acts.double(), counts.reshape(-1).double()]).cpu().numpy()
-        compute_s = time.time() - t0
-        self.tracer.complete("compute", track="engine", cat="decode", start_us=t0_us,
-                             args={"run": 1})
-        hb = h * b
-        toks = host[:hb].reshape(h, b).astype(np.int64)  # -1 where not emitted
-        emits = host[hb:2 * hb].reshape(h, b) > 0
-        acts = host[2 * hb:2 * hb + h]
-        counts = host[2 * hb + h:].reshape(tuple(counts.shape)).astype(np.int64)
+        (toks, emits, acts), counts = self._run_offloaded(
+            lambda: paged_decode_horizon(
+                self.params, self.cache.k, self.cache.v, tables, *inputs, self.model_cfg,
+                block_size=self.ecfg.block_size, horizon=h, use_otp=self.ecfg.use_otp,
+                qs=self.cache.quant_tables, **stop),
+            fetch)
         self.last_emits, self.last_slot_counts = emits, counts
         dt = time.time() - t0
+        stats = self._last_run_stats
         # logical steps that emitted ≥ 1 token; trailing all-stopped steps
         # computed nothing that counts
         emitting = np.flatnonzero(emits.any(axis=1))
         steps_run = len(emitting)
-        self.metrics.record_megastep(steps_run, compute_s, 0.0, 1, 1)
+        self.metrics.record_megastep(steps_run, stats["compute_s"], stats["offload_s"],
+                                     stats["runs"], stats["runs"])
         self.tracer.complete(
             "megastep", track="engine", cat="decode", start_us=t0_us,
             args={"megastep": self._megastep_idx, "horizon": h, "active": int(active.sum()),
-                  "steps": steps_run, "runs": 1})
+                  "steps": steps_run, "runs": int(stats["runs"])})
         for slot, req in self.scheduler.active.items():
             self.tracer.complete("decode", track=f"slot{slot}", cat="decode", start_us=t0_us,
                                  args={"rid": req.rid, "tokens": int(emits[:, slot].sum())})
@@ -725,6 +877,8 @@ class PagedServingEngine:
                 per_step_s, int(emits[s].sum()), float(acts[s]), self.scheduler.queue_depth,
                 page_utilization=self.cache.utilization)
             self._record_capacity_util(counts[s], b)
+        if self.offload is not None:
+            self.metrics.record_expert_residency(self.offload.resident_bytes)
         for slot, req in list(self.scheduler.active.items()):
             last_s = emitted = 0
             for s in range(h):

@@ -24,8 +24,8 @@ Fault sites:
 
 The port's engine and controller fire ``pool`` and ``logits``;
 :class:`~repro_torch.serving.kvcache.PagedKVCache` fires ``swap_out`` and
-``swap_in`` itself; ``upload`` belongs to expert offload, which the port
-does not have yet.
+``swap_in`` itself, and :class:`~repro_torch.serving.offload.ExpertOffloadManager`
+fires ``upload`` in its recovery ladder.
 
 A plan is replayable: it is keyed on the logical step (the engine calls
 :meth:`FaultPlan.at_step` at every megastep boundary, never a wall clock)

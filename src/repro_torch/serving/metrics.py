@@ -66,7 +66,7 @@ class ServingMetrics:
     ttft_by_tenant: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
     swap_out_bytes: int = 0
     swap_in_bytes: int = 0
-    # host-offloaded expert buckets (zero until the port offloads experts)
+    # host-offloaded expert buckets (serving.offload)
     expert_prefetch_hits: int = 0
     expert_prefetch_misses: int = 0
     expert_miss_uploads: int = 0

@@ -212,7 +212,8 @@ def test_import_leaves_jax_and_repro_out():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "for m in ('models.registry', 'models.moe', 'configs.qwen3_14b', 'launch.fp_tokens'):\n"
+        "for m in ('models.registry', 'models.moe', 'configs.qwen3_14b', 'launch.fp_tokens',\n"
+        "          'serving.offload', 'serving.tierstore'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
@@ -234,7 +235,7 @@ def test_engine_refuses_later_slice_settings(served_model):
         PagedServingEngine(cfg, params_t, EngineConfig(decode_horizon=0), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         PagedServingEngine(dataclasses.replace(cfg, num_layers=3), params_t, device="cpu")
-    for later in ("temperature", "resident_experts", "ffn_backend"):
+    for later in ("temperature", "sample_seed", "ffn_backend"):
         with pytest.raises(TypeError):
             EngineConfig(**{later: 1})
     with pytest.raises(ValueError, match="policy"):

@@ -806,3 +806,137 @@ def test_reprefilled_kv_rows_against_decode_written(dev, widths):
         print(f"re-prefilled rows 64-79 ({widths} widths), max|Δ| per layer:", delta.tolist(),
               "of max|row|", scale.tolist())
         assert (delta <= TOL[torch.bfloat16] * scale).all()
+
+
+# ------------------------------------------------------- expert offload
+def _rows(packed, scale, zero, idx, bits):
+    """The experts ``idx`` of a packed bucket, as a new contiguous buffer."""
+    pick = (lambda t: t.index_select(0, idx).contiguous())
+    data = tuple(pick(p) for p in packed) if bits == 3 else pick(packed)
+    return data, pick(scale), pick(zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 3])
+def test_moe_gmm_over_resident_rows_is_bitwise(dev, bits, dtype):
+    """``moe_gmm`` and ``moe_gmm_swiglu`` over an ``[R]`` resident buffer —
+    the live blocks' experts at permuted rows, the other slots mapped to row
+    0 — with ``block_expert`` indirected through the resident map give the
+    ``[count]`` call's rows bit for bit, dead blocks (exactly zero) included."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu
+
+    gen = torch.Generator().manual_seed(70 + bits)
+    count, cap, bm, d, f = 6, 32, 16, 256, 192
+    for _ in range(3):
+        be, na, live = _ragged(gen, count, cap, bm, dev)
+        used = sorted(set(be[:live].tolist()))
+        filler = [e for e in range(count) if e not in used][:1]
+        order = torch.randperm(len(used) + len(filler), generator=gen)
+        experts = [(used + filler)[int(i)] for i in order]  # row r holds expert experts[r]
+        rmap = torch.zeros(count, dtype=torch.int32)
+        for r, e in enumerate(experts):
+            rmap[e] = r
+        idx = torch.tensor(experts, device=dev)
+        be_res = rmap.to(dev)[be.long()].to(torch.int32)
+        gate, up, down = (_weights(gen, count, *kn, bits, dev) for kn in ((d, f), (d, f), (f, d)))
+        x = torch.randn(count * cap, d, generator=gen).to(dev, dtype)
+        h = moe_gmm_swiglu(x, gate[0], up[0], gate[1], gate[2], up[1], up[2], be, na, bits=bits,
+                           bm=bm)
+        y = moe_gmm(h, *down, be, na, bits=bits, bm=bm)
+        g_r, u_r, d_r = (_rows(*w, idx, bits) for w in (gate, up, down))
+        h_r = moe_gmm_swiglu(x, g_r[0], u_r[0], g_r[1], g_r[2], u_r[1], u_r[2], be_res, na,
+                             bits=bits, bm=bm)
+        y_r = moe_gmm(h_r, *d_r, be_res, na, bits=bits, bm=bm)
+        assert _bitwise(h_r, h) and _bitwise(y_r, y)
+        assert not y_r[live * bm:].any()
+
+
+def _offload_serve(cfg, params, ecfg, device):
+    import numpy as np
+
+    from repro_torch.serving import PagedServingEngine, Request
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
+    eng = PagedServingEngine(cfg, params, ecfg, device=device)
+    eng.serve(Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_offload", [False, True])
+@pytest.mark.parametrize("horizon", [1, 4])
+@pytest.mark.parametrize("budget", [2, 3])
+def test_offload_card_matches_cpu(dev, budget, horizon, async_offload):
+    """The reduced PMQ model (f32) with its experts host-offloaded (budget 2
+    clamps to 3 rows, one per bucket): the card gives the CPU's tokens and
+    counters, and the tokens of the all-resident engine."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.core.tree import to_device
+    from repro_torch.serving import EngineConfig
+
+    cfg, params = _reduced_pmq()
+    base = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+                        prefill_chunk=16, decode_horizon=horizon, reserve_full=True)
+    ecfg = dataclasses.replace(base, resident_experts=budget, async_offload=async_offload)
+    runs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the budget-2 clamp
+        for device, p in (("cpu", params), (dev, to_device(params, dev))):
+            eng = _offload_serve(cfg, p, ecfg, device)
+            runs.append((eng.results, eng.metrics.counters()))
+    assert runs[1] == runs[0]
+    assert runs[1][0] == _offload_serve(cfg, to_device(params, dev), base, dev).results
+    assert runs[1][1]["expert_miss_uploads"] > 0
+
+
+@pytest.mark.cuda
+def test_issue_async_never_syncs_and_stale_drop_is_harmless(dev):
+    """``issue_async`` stages on the side stream without waiting on the device
+    or reading from it (``set_sync_debug_mode("error")`` would raise); a batch
+    dropped as stale after a miss upload leaves the layer's output the
+    all-resident one, and a committed batch's rows are the host rows."""
+    import numpy as np
+
+    from repro_torch.core.compressed_moe import compressed_expert_ffn
+    from repro_torch.core.tree import to_device
+    from repro_torch.serving import ExpertOffloadManager
+
+    cfg, params = _reduced_pmq()
+    ces = [to_device(p["moe_ce"], dev) for p in params["layers"]]
+    for stale in (True, False):
+        mgr = ExpertOffloadManager(ces, resident_slots=4, ema_decay=0.5)
+        counts = np.zeros((cfg.num_layers, mgr.num_slots), np.int64)
+        counts[:, mgr.meta[1].start + 3] = 5  # a cold slot of the big bucket turns hot
+        mgr.update_stats(counts)
+        targets = mgr.residency_targets()
+        assert targets
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ups, nbytes = mgr.issue_async(targets)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ups >= 1 and nbytes > 0
+        if stale:
+            miss = np.zeros((cfg.num_layers, mgr.num_slots), np.int64)
+            miss[0, mgr.meta[1].start + 5] = 1
+            assert mgr.ensure_resident(miss)[0] >= 1
+            assert mgr.commit_async()[:2] == (0, ups)
+        else:
+            assert mgr.commit_async()[:2] == (ups, 0)
+        gen = torch.Generator().manual_seed(3)
+        cap = 16
+        fill = torch.zeros(mgr.num_slots, dtype=torch.long)
+        for l, ce in enumerate(ces):
+            for i, bk in enumerate(mgr.slot_row):
+                res = np.nonzero(mgr.slot_row[bk][l] >= 0)[0] + mgr.meta[i].start
+                fill[res] = torch.randint(1, cap + 1, (len(res),), generator=gen)
+            xp = torch.randn(mgr.num_slots * cap, cfg.d_model, generator=gen).to(dev)
+            want = compressed_expert_ffn(ce, xp, cap, fill.to(dev))
+            got = compressed_expert_ffn(mgr.ces[l], xp, cap, fill.to(dev))
+            assert _bitwise(got, want), (stale, l)
+            fill.zero_()
