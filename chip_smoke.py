@@ -46,7 +46,12 @@ Phases (each failure exits non-zero):
    synchronous at H = 1, tiered at H = 4; with 16 experts, 8 slots, async at
    H = 1 with a committed batch), tokens card == CPU == the all-resident run
    and ``counters()`` card == CPU, and
-   ``issue_async`` on the card under ``set_sync_debug_mode("error")``;
+   ``issue_async`` on the card under ``set_sync_debug_mode("error")``; then
+   the reduced ``moonshot-v1-16b-a3b`` (f32, seed 0) compressed by the
+   port's pipeline on the card and on the CPU: the same PMQ plan, packed
+   codes equal on ≥ 99.9 % of their bytes (the count printed), greedy tokens
+   card == CPU, each on its own tree; and a sampled (T = 0.8) megastep of
+   the card's tree under ``set_sync_debug_mode("error")``;
 5. full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
@@ -95,8 +100,21 @@ Phases (each failure exits non-zero):
    ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
    built on the card, served on the fp geometry (``paged_attention`` must
    launch and no other kernel; a second engine must emit the same tokens)
-   and freed; a last line sets the uncompressed model's expert bytes
-   against the compressed one's, on the device and per decode step;
+   and freed; a line sets the uncompressed model's expert bytes
+   against the compressed one's, on the device and per decode step; then
+   ``COMPRESS``: the same uncompressed weights compressed on the card by the
+   port's pipeline — (a) ``calibrate`` on 4 × 64 tokens, (b) ``compute_eps``
+   (9264 MoE-layer forwards over 128 tokens; eps finite, eps[1 bit] ≥
+   eps[3 bit] for > 90 % of the experts), (c) ``run_pmq`` (the DP plan's
+   objective equal to the MILP's within 1e-9 relative), (d) GPTQ on layer 0
+   (192 matrices; its MoE output error on the calibration inputs below 1.05×
+   RTN's on the same plan), (e) ``compress_for_serving`` freeing each
+   layer's float weights as it goes (2.0625 average bits, expert buckets of
+   48 · (64 · 540,672 + 132 · 1,081,344) B, the peak printed), (f) the fp
+   workload twice (``FP_PATH``'s kernels and no other, tokens identical,
+   greedy agreement with the uncompressed model's printed, not gated), (g)
+   sampled at T = 0.8 with seeds 0, 0 (identical) and 1 (the positions that
+   differ printed);
 6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
    ``binary_matmul`` has no serving caller (as in the reference), so its
    launches are those of phase 3.
@@ -123,7 +141,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.compressed_moe import gmm_block_rows  # noqa: E402
+from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core.compressed_moe import compressed_moe_layer, gmm_block_rows  # noqa: E402
 from repro_torch.core.quantizers import quantize_parts  # noqa: E402
 from repro_torch.core.synthetic import (  # noqa: E402
     bucket_counts,
@@ -144,7 +163,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 )
 from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
 from repro_torch.launch import probe_attention, profile_decode, workload  # noqa: E402
-from repro_torch.models.moe import dispatch_capacity  # noqa: E402
+from repro_torch.models.moe import dispatch_capacity, moe_layer  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _paged_decode_core,
     paged_decode_horizon,
@@ -786,10 +805,12 @@ def greedy_logits(cfg, params, prompt, max_new, device, kv_bits=None):
     return toks, steps
 
 
-def sync_free_megastep(cfg, params, kv_bits=None):
+def sync_free_megastep(cfg, params, kv_bits=None, temperature=0.0):
     """One decode megastep on the card under ``set_sync_debug_mode("error")``:
     anything inside the horizon that waits on the device (an ``.item()``, a
-    ``bincount``, a blocking copy) raises."""
+    ``bincount``, a blocking copy) raises. Sampled (``temperature > 0``), its
+    generator is made and seeded inside the checked region, as the engine
+    makes one per run."""
     mcfg = (dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
             if cfg.is_moe else cfg)
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2,
@@ -802,17 +823,20 @@ def sync_free_megastep(cfg, params, kv_bits=None):
             torch.tensor([[3], [5]], device=DEV), torch.tensor([20, 15], **i32),
             torch.ones(2, dtype=torch.bool, device=DEV), mcfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
-              eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables)
+              eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables,
+              temperature=temperature)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, emits, _, _ = paged_decode_horizon(*args, **kw)
+        gen = torch.Generator(device=DEV).manual_seed(7) if temperature > 0 else None
+        _, emits, _, _ = paged_decode_horizon(*args, **kw, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     if emits.sum(dim=0).tolist() != [4, 2]:
         raise AssertionError(f"sync-free megastep emitted {emits.sum(dim=0).tolist()}")
-    log(f"{cfg.name} {'int8' if kv_bits else 'fp'} decode megastep (after a page grow) under "
-        f"sync debug mode 'error': no host sync inside the horizon")
+    kind = f"sampled (T = {temperature})" if temperature > 0 else "greedy"
+    log(f"{cfg.name} {'int8' if kv_bits else 'fp'} {kind} decode megastep (after a page grow) "
+        f"under sync debug mode 'error': no host sync inside the horizon")
 
 
 #: the reduced models of phase 4: the compressed MoE (PMQ + OTP), the dense
@@ -1012,6 +1036,34 @@ def tiny_offload():
         f"{staged[0]} rows under sync debug mode 'error': no host sync")
 
 
+def tiny_pipeline():
+    """The reduced ``moonshot-v1-16b-a3b`` (f32, seed 0, built on the host and
+    copied) compressed by the port's pipeline on the card and on the CPU
+    (``workload.tiny_pipeline``): the same PMQ plan, packed codes equal on
+    ≥ 99.9 % of their bytes (the count that differ printed), and each tree's
+    greedy tokens equal; then a sampled (T = 0.8) megastep of the card's
+    tree under ``set_sync_debug_mode("error")``."""
+    cfg = get_config(workload.ARCH).reduced()
+    params_host = build_uncompressed(cfg, seed=0, device="cpu")
+    _, plan_g, avg_g, codes_g, out_g, params_g = workload.tiny_pipeline(DEV, params_host)
+    _, plan_c, avg_c, codes_c, out_c, _ = workload.tiny_pipeline("cpu", params_host)
+    if [b.tolist() for b in plan_g.bits] != [b.tolist() for b in plan_c.bits]:
+        raise AssertionError(f"tiny pipeline: PMQ plans differ card vs cpu: "
+                             f"{[b.tolist() for b in plan_g.bits]} / "
+                             f"{[b.tolist() for b in plan_c.bits]}")
+    differ = int((codes_g != codes_c).sum())
+    if differ > 1e-3 * codes_c.numel():
+        raise AssertionError(f"tiny pipeline: {differ} of {codes_c.numel()} packed code bytes "
+                             f"differ card vs cpu")
+    if out_g != out_c:
+        raise AssertionError("tiny pipeline: greedy tokens differ card vs cpu")
+    log(f"tiny pipeline ({cfg.name} reduced, f32): plan card == cpu "
+        f"{[b.tolist() for b in plan_g.bits]}, layer-uniform {avg_g} / {avg_c} bits; packed code "
+        f"bytes differing {differ} of {codes_c.numel()}; {len(out_c)} requests, greedy tokens "
+        f"card == cpu")
+    sync_free_megastep(cfg, params_g, temperature=0.8)
+
+
 # ------------------------------------------------ phase 5: full width
 #: kernels each serving path must launch (binary_matmul has no serving caller)
 FP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
@@ -1036,6 +1088,12 @@ def begin_path() -> None:
     build.reset_launches()
 
 
+def _check_tokens(name, cfg, out):
+    for rid, toks in out.items():
+        if len(toks) != workload.MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{name} request {rid}: bad output {toks}")
+
+
 def _drive(name, cfg, params, ecfg, reqs, needed):
     """One serving path with the launch counts set to 0 just before it and
     read just after; fails on a bad output or a kernel of the path that
@@ -1044,9 +1102,7 @@ def _drive(name, cfg, params, ecfg, reqs, needed):
     eng, out = _serve(cfg, params, ecfg, reqs)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for rid, toks in out.items():
-        if len(toks) != workload.MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"{name} request {rid}: bad output {toks}")
+    _check_tokens(name, cfg, out)
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched while serving: {missing}")
@@ -1412,18 +1468,24 @@ def offload_path(cfg, params):
     return {k: launches_a[k] + launches_b[k] for k in launches_a}
 
 
-def plain_path(name, make, ecfg, needed):
-    """A dense or uncompressed-MoE model built on the card at full width
-    (``make``), served twice with ``ecfg`` on the fp workload's requests:
-    its launches, and its expert bytes per decode step and in all."""
+def build_logged(make):
+    """``(cfg, params)`` of a full-width dense or uncompressed-MoE model built
+    on the card by ``make``, with its build line."""
     t0 = time.perf_counter()
     cfg, params = make(DEV)
     torch.cuda.synchronize()
-    weights = weight_bytes(params)
     log(f"full width: {cfg.name} ({cfg.family}) d_model={cfg.d_model} layers={cfg.num_layers} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff_expert or cfg.d_ff} "
         f"experts={cfg.num_experts} vocab={cfg.vocab_size} {cfg.dtype}; built in "
-        f"{time.perf_counter() - t0:.1f} s; weights on device {weights / 1e9:.3f} GB")
+        f"{time.perf_counter() - t0:.1f} s; weights on device {weight_bytes(params) / 1e9:.3f} GB")
+    return cfg, params
+
+
+def plain_path(name, cfg, params, ecfg, needed):
+    """A dense or uncompressed-MoE model served twice with ``ecfg`` on the fp
+    workload's requests: its launches, its expert bytes per decode step and
+    in all, and its tokens."""
+    weights = weight_bytes(params)
     eng, out, launches, peak = _drive(name, cfg, params, ecfg, workload.requests(cfg), needed)
     _, out2 = _serve(cfg, params, ecfg, workload.requests(cfg))
     if out2 != out:
@@ -1438,7 +1500,140 @@ def plain_path(name, make, ecfg, needed):
         f"{s['decode_tokens_per_s']:.1f} tokens/s; launches {launches}; second engine "
         f"(full depth) tokens identical")
     log(f"full width serving summary ({name}): " + json.dumps(s))
-    return launches, experts
+    return launches, experts, out
+
+
+def _timed(fn):
+    """``(fn(), seconds)``, the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def compress_path(cfg, params, moe_out):
+    """``COMPRESS``: the uncompressed model (``params``, consumed layer by
+    layer in (e)) compressed on the card by the port's pipeline, then served:
+    (a) calibrate, (b) Eq. 6 eps, (c) the DP plan against the MILP's, (d)
+    GPTQ on layer 0 against RTN on the same plan, (e) the layer-uniform
+    serving tree, (f) the fp workload twice (``FP_PATH``'s launches; greedy
+    agreement with the uncompressed model's tokens ``moe_out`` printed, not
+    gated: the weights are random), (g) sampled at T = 0.8 with seeds 0, 0
+    and 1. Returns the launches of (f)."""
+    gc.collect()  # the uncompressed path's engines and pools
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
+    tokens = torch.as_tensor(workload.calibration_tokens(cfg), device=DEV)
+    calib, dt = _timed(lambda: pipeline.calibrate(params, tokens, cfg))
+    t = calib.moe_inputs[0].shape[0]
+    log(f"compress (a) calibrate: {tokens.shape[0]} x {tokens.shape[1]} = {tokens.numel()} "
+        f"tokens (numpy seed {workload.CALIB_SEED}) through {cfg.num_layers} layers in "
+        f"{dt:.3f} s; MoE inputs [{t}, {d}] f32 per layer on the device")
+
+    eps, dt = _timed(lambda: pipeline.compute_eps(params, calib, cfg))
+    forwards = cfg.num_layers * (1 + e * 3)
+    share = float((eps[..., 0] >= eps[..., 2]).mean())
+    if not np.isfinite(eps).all() or share <= 0.9:
+        raise AssertionError(f"compress (b): eps finite {np.isfinite(eps).all()}, share "
+                             f"eps[1 bit] >= eps[3 bit] {share}")
+    log(f"compress (b) compute_eps: {forwards} MoE-layer forwards over "
+        f"{min(pipeline.EPS_TOKENS, t)} tokens in {dt:.3f} s ({dt / forwards * 1e3:.3f} ms "
+        f"each); eps finite, {eps.min():.4e} to {eps.max():.4e}; share of experts with "
+        f"eps[1 bit] >= eps[3 bit] {share:.4f}")
+
+    plan, dt_dp = _timed(lambda: pipeline.run_pmq(calib, eps, cfg, pipeline.TARGET_AVG_BITS))
+    milp, dt_milp = _timed(lambda: pipeline.run_pmq(calib, eps, cfg, pipeline.TARGET_AVG_BITS,
+                                                    solver="milp"))
+    rel = abs(plan.objective - milp.objective) / abs(milp.objective)
+    if rel > 1e-9:
+        raise AssertionError(f"compress (c): DP objective {plan.objective!r} against MILP "
+                             f"{milp.objective!r} (rel {rel:.2e})")
+    budgets = plan.layer_budgets.tolist()
+    log(f"compress (c) run_pmq: dp {dt_dp:.3f} s, milp {dt_milp:.3f} s; "
+        f"objective {plan.objective!r} / {milp.objective!r} (rel {rel:.1e}); histogram "
+        f"{dict(sorted(plan.histogram().items()))}; average {plan.avg_bits:.6f} bits; layer "
+        f"budgets {sorted(set(budgets), reverse=True)} ({budgets.count(max(budgets))} layers at "
+        f"{max(budgets)}); layer 0 "
+        f"{ {int(b): int(c) for b, c in zip(*np.unique(plan.bits[0], return_counts=True))} }")
+
+    one = dict(params, layers=params["layers"][:1])
+    (gptq, _), dt = _timed(lambda: pipeline.compress_model(one, calib, plan, cfg, use_gptq=True))
+    rtn, _ = pipeline.compress_model(one, calib, plan, cfg, use_gptq=False)
+    dtype = params["embed"].dtype
+    h2 = calib.moe_inputs[0][None].to(dtype)
+    y_fp = moe_layer(params["layers"][0]["moe"], h2, cfg).y.float()
+    mse = {}
+    for name, blk in (("gptq", gptq[0]), ("rtn", rtn[0])):
+        y, _ = compressed_moe_layer(blk["moe"], blk["moe_ce"], h2, cfg)
+        mse[name] = float(((y.float() - y_fp) ** 2).mean())
+    if not mse["gptq"] < 1.05 * mse["rtn"]:
+        raise AssertionError(f"compress (d): layer-0 MSE GPTQ {mse['gptq']:.4e} against RTN "
+                             f"{mse['rtn']:.4e}")
+    log(f"compress (d) GPTQ (compress_model, use_gptq=True) on layer 0: {e} experts x 3 "
+        f"matrices in {dt:.3f} s ({dt / (3 * e) * 1e3:.1f} ms per matrix, f64 on the card); "
+        f"layer-0 MoE output MSE on the {t} calibration tokens ({str(dtype)[6:]}): GPTQ "
+        f"{mse['gptq']:.4e}, RTN {mse['rtn']:.4e} ({mse['gptq'] / mse['rtn']:.4f}x RTN)")
+    del gptq, rtn, one, h2, y_fp
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (params_c, avg), dt = _timed(lambda: pipeline.compress_for_serving(
+        params, calib, cfg, eps=eps, consume=True))
+    peak = torch.cuda.max_memory_allocated()
+    del calib
+    gc.collect()
+    ce0 = params_c["layers"][0]["moe_ce"]
+    hist = {m.bits: m.count * cfg.num_layers for m in ce0.meta}
+    g = cfg.quant.group
+    row_fixed = 8 * (2 * -(-d // g) * f + -(-f // g) * d)  # f32 scale + zero per group
+    want_bytes = cfg.num_layers * (e * row_fixed + budgets[0] * 3 * d * f // 8)
+    got_bytes = sum(p["moe_ce"].weight_bytes for p in params_c["layers"])
+    if avg != budgets[0] / e or got_bytes != want_bytes or "otp" in params_c["layers"][0]:
+        raise AssertionError(f"compress (e): {avg} bits (want {budgets[0] / e}), expert buckets "
+                             f"{got_bytes} B (want {want_bytes})")
+    log(f"compress (e) compress_for_serving (layer-uniform, layer 0's {budgets[0]} bits): "
+        f"histogram {hist}, average {avg} bits in {dt:.3f} s, each layer's float weights freed "
+        f"as it was compressed; device memory {before / 1e9:.3f} GB before, peak "
+        f"{peak / 1e9:.3f} GB, {torch.cuda.memory_allocated() / 1e9:.3f} GB after; expert "
+        f"buckets {got_bytes} B; weights on device {weight_bytes(params_c) / 1e9:.3f} GB; "
+        f"no OTP routers")
+
+    eng, out, launches, peak = _drive("compressed (pipeline) path", cfg, params_c,
+                                      workload.COMPRESS, workload.requests(cfg), FP_PATH)
+    _, out2 = _serve(cfg, params_c, workload.COMPRESS, workload.requests(cfg))
+    if out2 != out:
+        raise AssertionError("compressed (pipeline) path: a second engine served different "
+                             "tokens")
+    s = eng.summary()
+    agree = sum(a == b for rid in out for a, b in zip(out[rid], moe_out[rid]))
+    n = sum(len(v) for v in out.values())
+    first = [next((i for i, (a, b) in enumerate(zip(out[r], moe_out[r])) if a != b), None)
+             for r in sorted(out)]
+    log(f"compress (f) full width serving (pipeline-compressed, fp KV): {len(out)} requests x "
+        f"{workload.MAX_NEW} tokens; peak device memory {peak / 1e9:.3f} GB; TTFT mean "
+        f"{s['ttft_mean_s']:.3f} s max {s['ttft_max_s']:.3f} s; decode {s['decode_tokens']} "
+        f"tokens in {s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; launches "
+        f"{launches}; second engine tokens identical; greedy agreement with the uncompressed "
+        f"model {agree} of {n} positions (first difference per request {first}; not gated: "
+        f"random weights)")
+    log("full width serving summary (compressed (pipeline)): " + json.dumps(s))
+
+    sampled = []
+    for seed in (0, 0, 1):
+        ecfg = dataclasses.replace(workload.COMPRESS, temperature=0.8, sample_seed=seed)
+        (_, o), dt = _timed(lambda: _serve(cfg, params_c, ecfg, workload.requests(cfg)))
+        _check_tokens("compress (g)", cfg, o)
+        sampled.append((o, dt))
+    (a, dt_a), (b, dt_b), (c, dt_c) = sampled
+    if a != b:
+        raise AssertionError("compress (g): two sampled engines with seed 0 differ")
+    differ = sum(x != y for rid in a for x, y in zip(a[rid], c[rid]))
+    vs_greedy = sum(x != y for rid in a for x, y in zip(a[rid], out[rid]))
+    log(f"compress (g) sampled serving (T = 0.8): seed 0 twice byte-identical ({dt_a:.3f} / "
+        f"{dt_b:.3f} s); seed 1 differs at {differ} of {n} positions ({dt_c:.3f} s); seed 0 "
+        f"differs from greedy at {vs_greedy}")
+    return launches
 
 
 def free_model() -> None:
@@ -1451,28 +1646,32 @@ def free_model() -> None:
 
 
 def full_width():
-    """Phase 5: the compressed model's four paths, then — the compressed
-    model freed — the dense and the uncompressed-MoE models', each freed
-    before the next is built. Returns each path's launches."""
+    """Phase 5: the compressed model's five paths, then — the compressed
+    model freed — the dense model's, then the uncompressed MoE's and, on the
+    same weights, the pipeline's, each model freed before the next is built.
+    Returns each path's launches."""
     fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, \
         (fp_step, fp_all) = compressed_paths()
     free_model()
-    dense_launches, _ = plain_path("dense path", workload.build_dense, workload.DENSE,
-                                   DENSE_PATH)
+    dense_launches, _, _ = plain_path("dense path", *build_logged(workload.build_dense),
+                                      workload.DENSE, DENSE_PATH)
     free_model()
-    moe_launches, (moe_step, moe_all) = plain_path(
-        "uncompressed MoE path", workload.build_uncompressed_moe, workload.UNCOMPRESSED_MOE,
-        UNCOMPRESSED_MOE_PATH)
-    free_model()
+    cfg, params = build_logged(workload.build_uncompressed_moe)
+    moe_launches, (moe_step, moe_all), moe_out = plain_path(
+        "uncompressed MoE path", cfg, params, workload.UNCOMPRESSED_MOE, UNCOMPRESSED_MOE_PATH)
     log(f"expert bytes of {workload.ARCH} on the device: uncompressed {moe_all / 1e9:.3f} GB, "
         f"PMQ {fp_all / 1e9:.3f} GB ({moe_all / fp_all:.2f}x); read per decode step: "
         f"uncompressed {moe_step / 1e9:.3f} GB (every expert of every layer), PMQ + OTP fp "
         f"path {fp_step / 1e9:.3f} GB (the routed experts' packed rows; {moe_step / fp_step:.2f}x)")
+    compress_launches = compress_path(cfg, params, moe_out)
+    del params
+    free_model()
     return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
             "tenant mix serving": mix_launches, "preemption serving": preempt_launches,
             "offload serving": offload_launches,
             "dense serving": dense_launches,
-            "uncompressed MoE serving": moe_launches}
+            "uncompressed MoE serving": moe_launches,
+            "compressed (pipeline) serving": compress_launches}
 
 
 def main() -> int:
@@ -1519,6 +1718,7 @@ def main() -> int:
     for model in TINY:
         tiny_preemption(model)
     tiny_offload()
+    tiny_pipeline()
     paths = full_width()
 
     # launches of each kernel on the path that runs it; binary_matmul has no

@@ -41,7 +41,7 @@ from ..models.moe import (
     slot_fill_counts,
 )
 from . import otp as otp_mod
-from .quantizers import quantize_parts
+from .quantizers import pack_codes, quantize_parts
 
 __all__ = [
     "BucketMeta",
@@ -111,10 +111,7 @@ class CompressedExperts:
         )
 
 
-def _pack_stack(ws: torch.Tensor, bits: int, group: int, refine: bool) -> Dict:
-    """Quantize + pack one bucket's ``[count, K, N]`` weights (each expert
-    exactly as ``quantize_to_packed`` would)."""
-    data, scale, zero = quantize_parts(ws, bits, group, refine)
+def _bucket_leaves(data, scale, zero, bits: int) -> Dict:
     out = {"scale": scale, "zero": zero}
     if bits == 3:
         out["hi"], out["lo"] = data
@@ -123,10 +120,26 @@ def _pack_stack(ws: torch.Tensor, bits: int, group: int, refine: bool) -> Dict:
     return out
 
 
+def _pack_stack(ws: torch.Tensor, bits: int, group: int, refine: bool) -> Dict:
+    """Quantize + pack one bucket's ``[count, K, N]`` weights (each expert
+    exactly as ``quantize_to_packed`` would)."""
+    return _bucket_leaves(*quantize_parts(ws, bits, group, refine), bits)
+
+
+def _pack_gptq(results: Sequence, bits: int) -> Dict:
+    """Pack one bucket's GPTQ codes, scales and zeros as they are."""
+    codes = torch.stack([r.codes for r in results])
+    return _bucket_leaves(pack_codes(codes, bits), torch.stack([r.scale for r in results]),
+                          torch.stack([r.zero for r in results]), bits)
+
+
 def build_compressed_experts(experts: Dict, bits_per_expert: Sequence[int], *,
-                             group: int = 128, refine: bool = True) -> CompressedExperts:
+                             group: int = 128, refine: bool = True,
+                             gptq_results: Optional[Dict] = None) -> CompressedExperts:
     """Quantize + bucket one layer's experts: ``experts`` = {"w_gate": [E, D,
-    F], "w_up": [E, D, F], "w_down": [E, F, D]} (quantized from f32)."""
+    F], "w_up": [E, D, F], "w_down": [E, F, D]} (quantized from f32), or, with
+    ``gptq_results[(expert, name)]`` (:class:`~.gptq.GPTQResult`), the GPTQ
+    codes, scales and zeros of each expert packed as they are."""
     e = len(bits_per_expert)
     bits_arr = np.asarray(bits_per_expert)
     order = np.argsort(bits_arr, kind="stable")  # ascending bit groups
@@ -138,7 +151,9 @@ def build_compressed_experts(experts: Dict, bits_per_expert: Sequence[int], *,
         slot_of_expert[ids] = slot + np.arange(len(ids))
         pick = torch.as_tensor(ids, device=experts["w_gate"].device)
         arrays[f"b{len(meta)}"] = {
-            name: _pack_stack(experts[name].index_select(0, pick).float(), bits, group, refine)
+            name: (_pack_stack(experts[name].index_select(0, pick).float(), bits, group, refine)
+                   if gptq_results is None else
+                   _pack_gptq([gptq_results[(i, name)] for i in ids], bits))
             for name in _NAMES
         }
         meta.append(BucketMeta(bits=bits, start=slot, count=len(ids)))

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["PackedTensor", "pack_bits", "pad_to_multiple", "unpack_bits"]
+__all__ = ["PackedTensor", "dequantize_affine", "pack_bits", "pad_to_multiple", "unpack_bits"]
 
 
 def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int) -> torch.Tensor:
@@ -77,6 +77,17 @@ def unpack_bits(packed, bits: int, axis: int = -1) -> torch.Tensor:
     raise ValueError(f"unsupported bit-width {bits}")
 
 
+def dequantize_affine(codes, scale, zero, group: int = 128, dtype=torch.float32):
+    """``(q − z) · s`` per K group of codes ``[..., K, N]`` (scale and zero
+    ``[..., ceil(K/group), N]``), in f32, cast to ``dtype``."""
+    k, n = codes.shape[-2:]
+    ngroups = -(-k // group)
+    qg = pad_to_multiple(codes.float(), group, -2)
+    qg = qg.reshape(*codes.shape[:-2], ngroups, group, n)
+    w = (qg - zero.unsqueeze(-2)) * scale.unsqueeze(-2)
+    return w.reshape(*codes.shape[:-2], ngroups * group, n)[..., :k, :].to(dtype)
+
+
 def _tensors(data):
     return tuple(data) if isinstance(data, tuple) else (data,)
 
@@ -97,6 +108,12 @@ class PackedTensor:
     bits: int
     shape: Tuple[int, ...]  # logical (unpacked) shape
     group: int
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        """The ``[K, N]`` weight ``(q − z) · s`` per K group, in f32, cast to
+        ``dtype`` (the reference's ``PackedTensor.dequantize``)."""
+        codes = unpack_bits(self.data, self.bits, axis=0)[:self.shape[0]]
+        return dequantize_affine(codes, self.scale, self.zero, self.group, dtype)
 
     def to(self, device) -> "PackedTensor":
         data = tuple(t.to(device) for t in self.data) if self.bits == 3 else self.data.to(device)

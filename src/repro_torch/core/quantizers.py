@@ -19,14 +19,17 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .packing import PackedTensor, pack_bits, pad_to_multiple
+from .packing import PackedTensor, dequantize_affine, pack_bits, pad_to_multiple
 
 __all__ = [
     "affine_params",
+    "dequantize_affine",
+    "dequantize_binary",
     "dequantize_kv_rows",
     "hqq_refine",
     "kv_quant_codes",
     "kv_quant_params",
+    "pack_codes",
     "quantize_affine",
     "quantize_binary",
     "quantize_kv_rows",
@@ -173,6 +176,17 @@ def quantize_binary(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return b01, _xla_mean(w.abs(), dim=-2).unsqueeze(-2).float()
 
 
+def dequantize_binary(b01: torch.Tensor, scale: torch.Tensor, dtype=torch.float32):
+    """``±α`` from the ``{0, 1}`` codes and the per-column scale ``α``."""
+    return ((b01.float() * 2.0 - 1.0) * scale).to(dtype)
+
+
+def pack_codes(codes: torch.Tensor, bits: int):
+    """Zero-pad codes ``[..., K, N]`` along K to whole bytes and pack them
+    (the ``(hi, lo)`` pair at 3 bits)."""
+    return pack_bits(pad_to_multiple(codes, _PER[bits], axis=-2), bits, axis=-2)
+
+
 def quantize_parts(w: torch.Tensor, bits: int, group: int = 128, refine: bool = True):
     """Quantize + pack ``W[..., K, N]`` → ``(data, scale, zero)`` exactly as
     :func:`quantize_to_packed` (``data`` is the ``(hi, lo)`` pair at 3 bits).
@@ -187,14 +201,14 @@ def quantize_parts(w: torch.Tensor, bits: int, group: int = 128, refine: bool = 
         zero = torch.full_like(scale, 0.5)
     else:
         codes, scale, zero = quantize_affine(w, bits, group, refine=refine)
-    codes = pad_to_multiple(codes, _PER[bits], axis=-2)
-    return pack_bits(codes, bits, axis=-2), scale.contiguous(), zero.contiguous()
+    return pack_codes(codes, bits), scale.contiguous(), zero.contiguous()
 
 
 def quantize_to_packed(w: torch.Tensor, bits: int, group: int = 128,
                        refine: bool = True) -> PackedTensor:
     """Quantize ``W[K, N]`` to a :class:`PackedTensor` ready for the kernels
-    (GPTQ's pre-computed codes arrive with the compression-pipeline slice)."""
+    (GPTQ's pre-computed codes are packed per bucket through
+    :func:`pack_codes`, in :func:`~.compressed_moe.build_compressed_experts`)."""
     data, scale, zero = quantize_parts(w, bits, group, refine)
     return PackedTensor(data=data, scale=scale, zero=zero, bits=bits, shape=tuple(w.shape),
                         group=group)

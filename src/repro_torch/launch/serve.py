@@ -5,14 +5,21 @@
         [--policy fair --tenant-weights batch=1,interactive=4] \
         [--ttft-budget-ms MS] [--trace-level spans --trace-out F] \
         [--resident-experts N [--async-offload] [--offload-dir DIR [--host-expert-bytes B]]] \
-        [--device cpu]
+        [--temperature T [--sample-seed S]] [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
-``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the model is
-built from seed 0 by :mod:`repro_torch.core.synthetic`: with ``--pmq`` (MoE
-only) PMQ bit buckets at an average of 2.05 bits, 4-bit attention and
-shared experts and OTP routers, without it the uncompressed weights of a
-dense or MoE model. Runs on the GPU unless ``--device cpu``.
+``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the
+uncompressed weights of a dense or MoE model are built from seed 0
+(:func:`repro_torch.core.synthetic.build_uncompressed`). ``--pmq`` (MoE only)
+compresses them first with the MC# pipeline
+(:mod:`repro_torch.core.pipeline`), as the reference CLI does: calibration
+on 4 × 64 random tokens (numpy seed 0), Eq. 6 significance, the layer-uniform
+PMQ plan at an average of 2.05 bits, 4-bit attention and shared experts, no
+OTP routers; it prints the plan's histogram and average bits. Runs on the
+GPU unless ``--device cpu``.
+
+``--temperature T`` samples ``softmax(logits / T)`` on the device instead
+of decoding greedily, seeded per megastep from ``--sample-seed``.
 
 Admission reserves pages for the context and the next megastep and the
 engine grows slots on demand, as the reference does; ``--pool-blocks``
@@ -43,10 +50,13 @@ import argparse
 import json
 
 import numpy as np
+import torch
 
 from ..configs import ARCH_IDS, get_config
-from ..core.synthetic import build_synthetic, build_uncompressed
+from ..core import pipeline
+from ..core.synthetic import build_uncompressed
 from ..serving import EngineConfig, PagedServingEngine, Request
+from .workload import calibration_tokens
 
 PROMPT_TOKENS = 24
 
@@ -69,6 +79,20 @@ def _parse_tenant_weights(spec: str):
     return tuple(pairs)
 
 
+def _compress_for_serving(cfg, device):
+    """The reduced model from seed 0 compressed by the MC# pipeline on the
+    reference CLI's calibration tokens; prints the plan."""
+    params = build_uncompressed(cfg, seed=0, device=device)
+    calib = pipeline.calibrate(params, torch.as_tensor(calibration_tokens(cfg), device=device),
+                               cfg)
+    params_c, avg_bits = pipeline.compress_for_serving(params, calib, cfg, consume=True)
+    meta = params_c["layers"][0]["moe_ce"].meta
+    hist = {m.bits: m.count * cfg.num_layers for m in meta}
+    print(f"PMQ plan (layer-uniform, {cfg.num_layers} layers x {cfg.num_experts} experts): "
+          f"histogram {hist}, average {avg_bits:.4f} bits")
+    return params_c
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -78,7 +102,8 @@ def main() -> None:
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--pmq", action="store_true",
-                   help="serve PMQ-compressed experts with OTP (MoE models)")
+                   help="compress the model with the MC# pipeline (PMQ experts, 4-bit "
+                        "attention; MoE models) and serve it")
     p.add_argument("--resident-experts", type=int, default=None, metavar="N",
                    help="per-layer device budget in expert slots; cold PMQ rows live on the "
                         "host and are prefetched by router stats (implies --pmq)")
@@ -93,6 +118,12 @@ def main() -> None:
                         "(default: unbounded)")
     p.add_argument("--decode-horizon", type=int, default=8, metavar="H",
                    help="decode steps per fused megastep")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="on-device sampling temperature inside the megastep (0 = greedy "
+                        "argmax, the default)")
+    p.add_argument("--sample-seed", type=int, default=0,
+                   help="seed for temperature sampling; one generator per megastep, so runs "
+                        "replay deterministically")
     p.add_argument("--prefix-cache", action="store_true",
                    help="share cached prompt prefixes copy-on-write and skip their "
                         "prefill (outputs stay bit-identical)")
@@ -139,8 +170,10 @@ def main() -> None:
     if args.pmq and not cfg.is_moe:
         raise SystemExit(f"--pmq/--resident-experts need MoE experts; {args.arch} is "
                          f"{cfg.family}")
-    make = build_synthetic if args.pmq else build_uncompressed
-    params = make(cfg, seed=0, device=args.device)
+    if args.pmq:
+        params = _compress_for_serving(cfg, args.device)
+    else:
+        params = build_uncompressed(cfg, seed=0, device=args.device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT_TOKENS).astype(np.int32)
                for _ in range(args.requests)]
@@ -151,6 +184,7 @@ def main() -> None:
                      num_blocks=args.pool_blocks or args.slots * blocks_per_req,
                      max_blocks_per_slot=blocks_per_req, preempt_mode=args.preempt_mode,
                      reserve_full=args.no_preempt, decode_horizon=args.decode_horizon,
+                     temperature=args.temperature, sample_seed=args.sample_seed,
                      prefix_cache=args.prefix_cache, kv_bits=args.kv_bits,
                      policy=args.policy, tenant_weights=tenant_weights,
                      ttft_budget_s=(args.ttft_budget_ms / 1000.0

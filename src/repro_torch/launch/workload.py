@@ -67,6 +67,16 @@ PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
   of the tiered run and :func:`offload_faults` corrupts the first two
   upload payloads (caught by the row CRC and fetched again).
 
+* ``COMPRESS``: the uncompressed ``moonshot-v1-16b-a3b`` below compressed on
+  the device by the MC# pipeline (:mod:`repro_torch.core.pipeline`):
+  calibration on :func:`calibration_tokens` (4 × 64 tokens, numpy seed 0,
+  the reference serving CLI's), then ``compress_for_serving`` at its
+  settings (Eq. 6 significance over ``pipeline.EPS_TOKENS`` = 128 tokens,
+  the DP plan at ``pipeline.TARGET_AVG_BITS`` = 2.05 made layer-uniform,
+  4-bit HQQ attention and shared experts, no OTP routers); served on
+  ``ENGINE``'s geometry and :func:`requests`. :func:`tiny_pipeline` runs the
+  same steps on the reduced model, to hold one device against another.
+
 Two more models serve ``ENGINE``'s geometry and :func:`requests` (bf16, fp
 KV, random weights from seed 0, :func:`build_uncompressed`):
 
@@ -85,13 +95,18 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from ..configs import get_config
+from ..core import pipeline
+from ..core.packing import PackedTensor
 from ..core.synthetic import build_synthetic, build_uncompressed
-from ..serving import EngineConfig, FaultPlan, FaultSpec, Request
+from ..core.tree import to_device
+from ..serving import EngineConfig, FaultPlan, FaultSpec, PagedServingEngine, Request
 
 __all__ = [
     "ARCH",
+    "COMPRESS",
     "DENSE",
     "DENSE_ARCH",
     "ENGINE",
@@ -111,14 +126,17 @@ __all__ = [
     "build",
     "build_dense",
     "build_uncompressed_moe",
+    "calibration_tokens",
     "offload_faults",
     "offload_requests",
+    "packed_code_bytes",
     "preempt_schedule",
     "requests",
     "serve_tenant_mix",
     "shared_prefix_requests",
     "tenant_mix_faults",
     "tenant_mix_requests",
+    "tiny_pipeline",
 ]
 
 ARCH = "moonshot-v1-16b-a3b"
@@ -130,8 +148,11 @@ SYSTEM_PROMPT_LEN = 48
 #: prefill chunks and COW page copies of SHARED_PREFIX under the reference's rules
 SHARED_PREFIX_CHUNKS, SHARED_PREFIX_COW_COPIES = 6, 1
 DENSE_ARCH = "qwen3-14b"
-#: the dense and uncompressed-MoE paths serve the fp workload's geometry
-DENSE = UNCOMPRESSED_MOE = ENGINE
+#: the dense, uncompressed-MoE and pipeline-compressed paths serve the fp
+#: workload's geometry
+DENSE = UNCOMPRESSED_MOE = COMPRESS = ENGINE
+#: the compression pipeline's settings (the reference serving CLI's)
+CALIB_BATCHES, CALIB_LEN, CALIB_SEED = 4, 64, 0
 #: (tenant, requests, prompt tokens, new tokens, priority, arrival boundaries)
 TENANTS = (("batch", 2, 64, 32, 0, (0, 0)),
            ("chat", 3, 32, 16, 1, (0, 0, 0)),
@@ -260,6 +281,60 @@ def build_uncompressed_moe(device="cuda") -> Tuple[object, Dict]:
     """``(cfg, params)`` of the full-width MoE model without compression."""
     cfg = get_config(ARCH)
     return cfg, build_uncompressed(cfg, seed=0, device=device)
+
+
+def calibration_tokens(cfg) -> np.ndarray:
+    """The calibration batch ``[4, 64]`` (numpy seed 0), as the reference
+    serving CLI draws it."""
+    rng = np.random.default_rng(CALIB_SEED)
+    return rng.integers(0, cfg.vocab_size, (CALIB_BATCHES, CALIB_LEN)).astype(np.int64)
+
+
+def packed_code_bytes(params) -> torch.Tensor:
+    """Every packed code byte of a compressed serving tree (attention, shared
+    experts, the expert buckets), flattened in a fixed order, on the host."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, PackedTensor):
+            out.extend(t.reshape(-1).cpu() for t in
+                       (node.data if node.bits == 3 else (node.data,)))
+        elif isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key])
+
+    for layer in params["layers"]:
+        walk(layer)
+        for _, bucket in sorted(layer["moe_ce"].arrays.items()):
+            for name in sorted(bucket):
+                out.extend(bucket[name][k].reshape(-1).cpu() for k in ("data", "hi", "lo")
+                           if k in bucket[name])
+    return torch.cat(out)
+
+
+def tiny_pipeline(device, params_host=None):
+    """The reduced ``ARCH`` (f32, seed 0; or ``params_host``, copied to
+    ``device``) compressed by the pipeline on ``device`` on
+    :func:`calibration_tokens`, then served greedily (three prompts, numpy
+    seed 1, 12 new tokens): ``(cfg, plan, avg_bits, packed code bytes,
+    tokens, params_c)``. ``plan`` is ``run_pmq``'s on the eps that
+    ``compress_for_serving`` reuses, before it is made layer-uniform."""
+    cfg = get_config(ARCH).reduced()
+    if params_host is None:
+        params_host = build_uncompressed(cfg, seed=0, device="cpu")
+    params = to_device(params_host, device)
+    calib = pipeline.calibrate(params, torch.as_tensor(calibration_tokens(cfg), device=device),
+                               cfg)
+    eps = pipeline.compute_eps(params, calib, cfg)
+    plan = pipeline.run_pmq(calib, eps, cfg, pipeline.TARGET_AVG_BITS)
+    params_c, avg = pipeline.compress_for_serving(params, calib, cfg, eps=eps)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
+    ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+                        prefill_chunk=16, decode_horizon=4, reserve_full=True)
+    out = PagedServingEngine(cfg, params_c, ecfg, device=device).serve(
+        Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
+    return cfg, plan, avg, packed_code_bytes(params_c), out, params_c
 
 
 def requests(cfg) -> List[Request]:

@@ -25,6 +25,8 @@ The dense cache is ``{"k": [L, B, S, Hkv, dh], "v": ..., "pos"}``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -42,6 +44,7 @@ __all__ = [
     "paged_decode_horizon",
     "paged_prefill_chunk",
     "prefill",
+    "sample_gumbel",
 ]
 
 
@@ -219,19 +222,41 @@ def _masked_activation(per_slot, active):
     return torch.sum(per_slot * w) / torch.clamp_min(w.sum(), 1.0)
 
 
+def sample_gumbel(logits: torch.Tensor, temperature: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One categorical draw per row of ``logits [..., V]`` from
+    ``softmax(logits / T)`` by Gumbel-max, ``argmax(lg / T − log(−log U))``
+    with ``U ~ U[tiny, 1)`` from ``generator`` (``torch.rand``'s 0 raised to
+    the smallest normal float, as ``jax.random.gumbel`` bounds it, so no
+    entry's noise is −inf) — what ``jax.random.categorical`` computes (not
+    its bits). All on the device: no host sync."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min_(torch.finfo(u.dtype).tiny)
+    return torch.argmax(logits.float() / temperature - torch.log(-torch.log(u)), dim=-1)
+
+
 def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, *,
                          block_size: int, horizon: int, budgets, eos_ids,
-                         use_otp: bool = True, qs=()):
-    """``H`` greedy decode steps, each exactly :func:`_paged_decode_core`,
-    with on-device argmax feeding the next step and per-slot stop logic in
+                         use_otp: bool = True, qs=(), temperature: float = 0.0,
+                         generator: Optional[torch.Generator] = None):
+    """``H`` decode steps, each exactly :func:`_paged_decode_core`, with the
+    on-device token choice feeding the next step and per-slot stop logic in
     the carried ``active`` mask (budget spent, EOS emitted). Nothing syncs
     with the host inside the horizon.
+
+    ``temperature = 0`` (default) is greedy argmax; ``> 0`` draws each step's
+    token with :func:`sample_gumbel` from ``generator`` (one draw per step, in
+    step order), so a run seeded the same — an offload replay of the
+    megastep — draws the same tokens.
 
     Returns ``(tokens [H, B] (-1 where not emitted), emits [H, B],
     expert_activation [H], slot_counts [H, L, num_slots])``.
     """
     if horizon < 1:
         raise ValueError(f"horizon must be ≥ 1, got {horizon}")
+    greedy = temperature <= 0.0
+    if not greedy and generator is None:
+        raise ValueError("temperature sampling needs an explicit generator")
     bs = block_size
     nb = (kf.shape[1] - 1) // bs
     cur, pos, act, budget = token, positions, active, budgets
@@ -240,7 +265,10 @@ def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, 
         logits, per_slot, cnt = _paged_decode_core(
             params, kf, vf, tables, cur, pos, act, cfg, nb, bs, use_otp=use_otp, qs=qs
         )
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        if greedy:
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        else:
+            nxt = sample_gumbel(logits[:, -1, :], temperature, generator).to(torch.int32)
         emit = act
         budget = budget - emit.to(torch.int32)
         stop = (budget <= 0) | ((eos_ids >= 0) & (nxt == eos_ids))

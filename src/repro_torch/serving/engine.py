@@ -5,8 +5,8 @@
   :func:`paged_prefill_chunk` in fixed-size chunks, writing K/V straight
   into its pages; the last chunk's logits give the first token (TTFT).
 * **decode megastep** — every slot advances up to ``decode_horizon``
-  tokens through :func:`paged_decode_horizon`: greedy argmax on the device
-  feeds each step's token into the next, per-slot stop logic rides the
+  tokens through :func:`paged_decode_horizon`: the token chosen on the
+  device (greedy argmax, or a temperature draw) feeds the next step, per-slot stop logic rides the
   carried ``active`` mask, and the host fetches the ``[H, slots]`` token
   matrix, emit mask, activations and dispatch counts in one transfer per
   megastep.
@@ -66,8 +66,17 @@ the accepted run's outputs and pool contents are the all-resident engine's.
 With offload on the prefill syncs once per run, since each chunk's counts
 decide whether it replays before the next chunk runs. The ``upload`` fault
 site fires in the manager's recovery ladder (retry, re-fetch, degrade to a
-lower bit width, or fail closed with ``ExpertUploadFailed``). Temperature
-sampling is a later slice: its settings do not exist here.
+lower bit width, or fail closed with ``ExpertUploadFailed``).
+
+**Sampling.** ``temperature = 0`` (the default) decodes greedily; ``> 0``
+draws every token from ``softmax(logits / T)`` by Gumbel-max on the device
+(:func:`~repro_torch.models.transformer.sample_gumbel`). A megastep's draws
+come from a generator seeded from ``(sample_seed, 0, megastep index)`` and
+made anew for every run, so an offload replay draws the same tokens; the
+first token after a prefill from ``(sample_seed, 1, rid)``. The reference's
+two ``jax.random`` key streams have this structure; torch's generator
+cannot give their bits, so sampled tokens are held within the port
+(deterministic per seed, unchanged by replay), and card and CPU differ.
 """
 from __future__ import annotations
 
@@ -80,7 +89,7 @@ import torch
 
 from ..models.moe import dispatch_capacity
 from ..models.registry import get_model
-from ..models.transformer import paged_decode_horizon, paged_prefill_chunk
+from ..models.transformer import paged_decode_horizon, paged_prefill_chunk, sample_gumbel
 from ..runtime.fault_tolerance import HeartbeatTable
 from .controller import PlanAction, ResourceController
 from .faults import (
@@ -128,6 +137,11 @@ class EngineConfig:
     # byte budget of that host row cache (None: unbounded)
     host_expert_bytes: Optional[int] = None
     decode_horizon: int = 8
+    # 0 decodes greedily; > 0 samples softmax(logits / T) on the device, one
+    # generator per megastep seeded from sample_seed, so runs (and offload
+    # replays) are deterministic
+    temperature: float = 0.0
+    sample_seed: int = 0
     # how a preempted request is restored: "swap" moves its KV pages to the
     # host and back at re-admission (bit-exact), "recompute" drops them and
     # re-prefills prompt + generated-so-far
@@ -223,6 +237,8 @@ class PagedServingEngine:
                              f"got {ecfg.preempt_mode!r}")
         if ecfg.decode_horizon < 1:
             raise ValueError(f"decode_horizon must be ≥ 1, got {ecfg.decode_horizon}")
+        if ecfg.temperature < 0.0:
+            raise ValueError(f"temperature must be ≥ 0, got {ecfg.temperature}")
         if ecfg.policy not in VALID_POLICIES:
             raise ValueError(f"policy must be one of {VALID_POLICIES}, got {ecfg.policy!r}")
         if ecfg.ttft_budget_steps is not None and ecfg.ttft_budget_steps < 0:
@@ -659,7 +675,10 @@ class PagedServingEngine:
                                       rid=req.rid)
                 last = last.clone()
                 last[0] = float("nan")
-        head = torch.stack([torch.argmax(last), torch.isfinite(last).all().long()])
+        gen = self._sample_generator(1, req.rid)
+        first = (torch.argmax(last) if gen is None
+                 else sample_gumbel(last, self.ecfg.temperature, gen))
+        head = torch.stack([first, torch.isfinite(last).all().long()])
         host = torch.cat([head] + [t.reshape(-1).long() for t in pending]).cpu().numpy()
         tok, finite = int(host[0]), bool(host[1])
         self._record_counts(pending, c, host[2:])
@@ -763,6 +782,18 @@ class PagedServingEngine:
             if gauges:
                 self.tracer.counter("routing", track="engine", **gauges)
 
+    def _sample_generator(self, stream: int, index: int) -> Optional[torch.Generator]:
+        """The generator of one sampled draw on the engine's device, seeded
+        from ``(sample_seed, stream, index)`` (stream 0: the megastep index;
+        1: the request id of a first token); None when decoding greedily."""
+        if self.ecfg.temperature <= 0.0:
+            return None
+        words = np.random.SeedSequence(
+            [v % 2**64 for v in (self.ecfg.sample_seed, stream, index)]
+        ).generate_state(2, np.uint32)
+        return torch.Generator(device=self.device).manual_seed(
+            int(words[0]) | int(words[1]) << 32)
+
     # ---------------------------------------------------- growth/preempt
     def _note_preempt(self, vreq: Request, vslot: int, *, for_rid: int,
                       for_tenant: str) -> None:
@@ -846,11 +877,13 @@ class PagedServingEngine:
 
         t0 = time.time()
         t0_us = self.tracer.now_us()
+        # a fresh generator per run: a replay draws what the first run drew
         (toks, emits, acts), counts = self._run_offloaded(
             lambda: paged_decode_horizon(
                 self.params, self.cache.k, self.cache.v, tables, *inputs, self.model_cfg,
                 block_size=self.ecfg.block_size, horizon=h, use_otp=self.ecfg.use_otp,
-                qs=self.cache.quant_tables, **stop),
+                qs=self.cache.quant_tables, temperature=self.ecfg.temperature,
+                generator=self._sample_generator(0, self._megastep_idx), **stop),
             fetch)
         self.last_emits, self.last_slot_counts = emits, counts
         dt = time.time() - t0

@@ -514,15 +514,49 @@ def test_int8_decode_horizon_never_syncs(dev):
 
 
 @pytest.mark.cuda
-def test_decode_horizon_never_syncs(dev):
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_decode_horizon_never_syncs(dev, temperature):
     """A decode megastep of the reduced model keeps the host out of the loop,
     with one slot writing into a page it grew at the boundary: under
     ``set_sync_debug_mode("error")`` anything inside the horizon that waits
-    on the device (an ``.item()``, a ``bincount``, a blocking copy) raises."""
-    _sync_free_horizon(dev, kv_bits=None)
+    on the device (an ``.item()``, a ``bincount``, a blocking copy) raises.
+    Sampled (``temperature > 0``), the megastep's generator is made and
+    seeded inside the checked region, as the engine makes one per run."""
+    _sync_free_horizon(dev, kv_bits=None, temperature=temperature)
 
 
-def _sync_free_horizon(dev, kv_bits):
+@pytest.mark.cuda
+def test_gumbel_max_draws_follow_the_softmax_on_the_card(dev):
+    """The draws as a sampled megastep makes them on the card: one CUDA
+    generator per megastep (400 of them), ``H = 8`` steps of 8 rows each
+    from it. The pooled draws follow ``softmax(lg / T)`` (chi-square, as
+    ``tests/test_torch_sampling.py`` holds the CPU's), and a row's draw at
+    step ``s + 1`` is independent of its draw at step ``s`` (a generator
+    offset reused or skipped across steps would repeat them)."""
+    import numpy as np
+    from scipy import stats
+
+    from repro_torch.models.transformer import sample_gumbel
+
+    logits = torch.tensor([2.0, 1.0, 0.5, 0.0, -0.5, -1.0, 1.5, 0.25], device=dev)
+    t, megasteps, horizon, rows = 0.8, 400, 8, 8
+    steps = []
+    for m in range(megasteps):
+        gen = torch.Generator(device=dev).manual_seed(m)
+        steps.append(torch.stack([sample_gumbel(logits.expand(rows, 8), t, gen)
+                                  for _ in range(horizon)]))
+    draws = torch.stack(steps).cpu().numpy()  # [megasteps, horizon, rows]
+    observed = np.bincount(draws.reshape(-1), minlength=8)
+    expected = torch.softmax(logits.double().cpu() / t, dim=-1).numpy() * draws.size
+    p = stats.chisquare(observed, expected).pvalue
+    assert p > 1e-3, (observed, expected, p)
+    pairs = np.zeros((8, 8))
+    np.add.at(pairs, (draws[:, :-1].reshape(-1), draws[:, 1:].reshape(-1)), 1)
+    p_pairs = stats.chi2_contingency(pairs).pvalue
+    assert p_pairs > 1e-3, (pairs, p_pairs)
+
+
+def _sync_free_horizon(dev, kv_bits, temperature=0.0):
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -544,11 +578,14 @@ def _sync_free_horizon(dev, kv_bits):
             torch.ones(2, dtype=torch.bool, device=dev), cfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
               eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables)
-    paged_decode_horizon(*args, **kw)  # builds the kernels, warms the libraries
-    torch.cuda.synchronize()
+    if temperature > 0:
+        kw["temperature"] = temperature
+    paged_decode_horizon(*args, **kw, generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()  # the first call built the kernels and warmed the libraries
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, emits, _, _ = paged_decode_horizon(*args, **kw)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        _, emits, _, _ = paged_decode_horizon(*args, **kw, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert emits.sum(dim=0).tolist() == [4, 2]
@@ -940,3 +977,23 @@ def test_issue_async_never_syncs_and_stale_drop_is_harmless(dev):
             got = compressed_expert_ffn(mgr.ces[l], xp, cap, fill.to(dev))
             assert _bitwise(got, want), (stale, l)
             fill.zero_()
+
+
+# ------------------------------------------------------ compression pipeline
+@pytest.mark.cuda
+def test_pipeline_card_matches_cpu(dev):
+    """The reduced moonshot-v1-16b-a3b (f32, seed 0) compressed by the port's
+    pipeline on the card and on the CPU (``workload.tiny_pipeline``): the
+    same PMQ plan, packed codes equal on at least 99.9 % of their bytes (the
+    HQQ zero mean and the range reductions may round differently on the
+    card), and each tree's greedy tokens equal."""
+    from repro_torch.launch import workload
+
+    _, plan_g, avg_g, codes_g, out_g, _ = workload.tiny_pipeline(dev)
+    _, plan_c, avg_c, codes_c, out_c, _ = workload.tiny_pipeline("cpu")
+    assert [b.tolist() for b in plan_g.bits] == [b.tolist() for b in plan_c.bits]
+    assert avg_g == avg_c == 2.125
+    differ = int((codes_g != codes_c).sum())
+    print(f"packed code bytes differing card vs cpu: {differ} of {codes_c.numel()}")
+    assert differ <= 1e-3 * codes_c.numel()
+    assert out_g == out_c

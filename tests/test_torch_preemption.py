@@ -374,8 +374,9 @@ def test_preempt_counters_are_the_reference_schedule(dense):
 
 
 def test_serve_cli_preempts_on_an_undersized_pool(monkeypatch, capsys):
-    """``--pmq --pool-blocks 11 --device cpu``: the CLI's 8 requests grow into
-    an 11-page pool, preempt, swap back in and all finish."""
+    """``--pmq --pool-blocks 11 --device cpu``: the CLI's 8 requests, served by
+    the reduced model the pipeline compresses, grow into an 11-page pool,
+    preempt, swap back in and all finish."""
     import sys
 
     from repro_torch.launch import serve
