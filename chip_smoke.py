@@ -11,7 +11,8 @@ Phases (each failure exits non-zero):
    mid-group and K < group, G = 1 and 2, windows, ragged lengths, length 0,
    permuted block tables, all-zero int8 rows; attention lengths at chunk
    edges and at 4096 positions, head_dim 32/128/256, G up to 8 (5 for
-   qwen3-14b), windows starting mid-chunk; f32 and bf16); bitwise batch
+   qwen3-14b), windows starting mid-chunk, gemma3-27b's G = 2 and kimi-k2's
+   G = 8 at lengths 1088-1120 with a 1024 window; f32 and bf16); bitwise batch
    invariance of the dequant GEMMs (``quant_matmul`` rows of ``x[:m]`` for m in 1/4/8/16/24
    equal the full call's; a live ``moe_gmm`` or ``moe_gmm_swiglu`` block's
    rows do not move when ``num_active`` or the other blocks' experts
@@ -23,12 +24,18 @@ Phases (each failure exits non-zero):
    min and max of 50 L2-flushed launches, the SM clock read before and
    after on a ``timing`` line) beside the plain version, one library call
    and its bound — ``quant_matmul`` at the decode and the prefill shape,
-   the attention kernels at the decode shape, at 4096 positions (``long``)
-   and at G = 5 (``decode_g5``); then the bf16 dequant GEMMs where K outgrows one item's
-   shared memory and is walked in chunks — ``quant_matmul``, ``moe_gmm``
+   the attention kernels at the decode shape, at 4096 positions (``long``),
+   at G = 5 (``decode_g5``), at G = 2 over a 1024 window at length 1104
+   (``window_g2``) and at G = 8 (``decode_g8``); then the bf16 dequant
+   GEMMs where K outgrows one item's shared memory and is walked in chunks — ``quant_matmul``, ``moe_gmm``
    and ``moe_gmm_swiglu`` at K = 7168 (kimi-k2's d_model; bits 1-4, bm 8
    and 16) and ``quant_matmul`` at K = 17408 (qwen3-14b's d_ff, 4 bits):
-   parity, batch invariance and one timing each (``k7168``, ``k17408``);
+   parity, batch invariance and one timing each (``k7168``, ``k17408``;
+   ``quant_matmul`` also at kimi-k2's ``wo``, K = 8192 → N = 7168: ``k8192``,
+   each timed shape also checked); every GEMM shape of kimi-k2's served
+   path against its plain version: ``quant_matmul`` at its five (K, N) at
+   M = 4 and 16 (bits 1-4), ``moe_gmm_swiglu`` and ``moe_gmm`` on its
+   363-expert 2-bit bucket at drop-free decode capacity;
 4. tiny end-to-end parity: reduced configs (f32, one seed) served on the
    card and on the CPU — ``moonshot-v1-16b-a3b`` PMQ + OTP with fp KV and
    with int8 KV plus the prefix cache, ``qwen3-14b`` (dense) and
@@ -99,8 +106,12 @@ Phases (each failure exits non-zero):
    then, the compressed model freed, ``qwen3-14b`` (dense, 40 layers) and
    ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
    built on the card, served on the fp geometry (``paged_attention`` must
-   launch and no other kernel; a second engine must emit the same tokens)
-   and freed; a line sets the uncompressed model's expert bytes
+   launch and no other kernel; a second engine must emit the same tokens;
+   each request's agreement with the dense-cache oracle printed, and at its
+   first differing step the oracle's gap to the engine's token in bf16
+   ulps, beside the least routing margins up to there in an MoE model: a
+   divergence that no near-tie of ``ORACLE_GAP_ULPS`` explains fails the
+   phase once every path has printed) and freed; a line sets the uncompressed model's expert bytes
    against the compressed one's, on the device and per decode step; then
    ``COMPRESS``: the same uncompressed weights compressed on the card by the
    port's pipeline — (a) ``calibrate`` on 4 × 64 tokens, (b) ``compute_eps``
@@ -114,7 +125,18 @@ Phases (each failure exits non-zero):
    workload twice (``FP_PATH``'s kernels and no other, tokens identical,
    greedy agreement with the uncompressed model's printed, not gated), (g)
    sampled at T = 0.8 with seeds 0, 0 (identical) and 1 (the positions that
-   differ printed);
+   differ printed); then three more of the reference's configs at full
+   width, each built after the previous model is freed and served twice on
+   its workload (``paged_attention`` alone, or ``FP_PATH``'s kernels for the
+   compressed one, and no other; tokens identical; each request's agreement
+   with the dense-cache oracle held to ``ORACLE_GAP_ULPS`` as above): ``VLM``
+   (``llava-next-mistral-7b``, 32 layers, on tokens; then the dense-cache
+   prefill of 2880 patch embeddings ahead of a 64-token prompt, ``pos`` =
+   2944, 16 greedy tokens identical on a second run, no kernel launched),
+   ``WINDOWED`` (``gemma3-27b``, 62 layers, 2 requests of 1088 + 32 tokens
+   past its 1024-token window) and ``WIDE_MOE`` (``kimi-k2-1t-a32b`` at 4
+   of its 61 layers, PMQ + OTP, 384 experts: expert bytes, OTP activation
+   and the drop-free dispatch buffer printed);
 6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
    ``binary_matmul`` has no serving caller (as in the reference), so its
    launches are those of phase 3.
@@ -127,6 +149,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -141,7 +164,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core import compressed_moe as cm_mod, otp as otp_mod, pipeline  # noqa: E402
 from repro_torch.core.compressed_moe import compressed_moe_layer, gmm_block_rows  # noqa: E402
 from repro_torch.core.quantizers import quantize_parts  # noqa: E402
 from repro_torch.core.synthetic import (  # noqa: E402
@@ -163,9 +186,13 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 )
 from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
 from repro_torch.launch import probe_attention, profile_decode, workload  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import linear  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity, moe_layer  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _paged_decode_core,
+    layer_windows_static,
     paged_decode_horizon,
     paged_prefill_chunk,
 )
@@ -279,9 +306,31 @@ def nbytes(*ts) -> int:
 
 
 def rand_weights(gen, e, k, n, bits, group=128):
-    """Quantized random expert stack ``[e, K, N]`` (packed, scale, zero)."""
-    w = torch.randn((e, k, n), generator=gen, device=DEV) * k**-0.5
-    return quantize_parts(w, bits, group, refine=False)
+    """Quantized random expert stack ``[e, K, N]`` (packed, scale, zero),
+    drawn and quantized in slices of at most 2^28 f32 elements of the expert
+    axis (kimi-k2's 2-bit bucket is 21.3 GB in f32), the leaves
+    concatenated."""
+    step = max(1, (1 << 28) // (k * n))
+    parts = [quantize_parts(torch.randn((min(step, e - e0), k, n), generator=gen, device=DEV)
+                            * k**-0.5, bits, group, refine=False) for e0 in range(0, e, step)]
+    return _cat_experts(parts)
+
+
+def _cat_experts(parts):
+    """Concatenate along the expert axis packed stacks ``(data, scale,
+    zero)``, ``data`` a tuple of planes at 3 bits."""
+    if len(parts) == 1:
+        return parts[0]
+    cat = lambda ts: (tuple(torch.cat(p) for p in zip(*ts)) if isinstance(ts[0], tuple)
+                      else torch.cat(ts))
+    return tuple(cat([p[i] for p in parts]) for i in range(3))
+
+
+def _pick_experts(w, ids):
+    """Experts ``ids`` of a packed stack ``(data, scale, zero)``."""
+    pick = lambda t: (tuple(x.index_select(0, ids) for x in t) if isinstance(t, tuple)
+                      else t.index_select(0, ids))
+    return tuple(pick(t) for t in w)
 
 
 def ragged_tables(experts: int, cap: int, live_rows):
@@ -323,7 +372,7 @@ def parity_quant_matmul(gen, results):
     # main-path shapes, 4-bit bf16: wq at decode (4 slots), the shared
     # experts' gate/up at prefill (a 16-token chunk)
     r = _time_quant_matmul("quant_matmul decode", 4, 2048, 2048, 4, gen)
-    results["quant_matmul"] = dict(max_abs_err=max(errs), **r)
+    results["quant_matmul"] = {**r, "max_abs_err": max(errs + [r["max_abs_err"]])}
     r = _time_quant_matmul("quant_matmul prefill", 16, 2048, 2816, 4, gen)
     results["quant_matmul"]["prefill"] = r
     log_extra("quant_matmul", "prefill", r)
@@ -443,22 +492,33 @@ def check_tile_plans(cfg):
 
 
 def _gmm_case(gen, kind, bits, dtype, cap, experts, live_rows, k, n):
+    """The kernel on the whole ``[experts, K, N]`` stack and all ``experts
+    · cap`` rows; its live row blocks against the plain version on those
+    blocks and the experts they name (``block_expert`` renumbered: the
+    plain version dequantizes every expert it is given and gathers one
+    weight per block, 85 GB in f32 for kimi-k2's bucket), its dead blocks
+    against zero."""
     be, na, bm, nlive = ragged_tables(experts, cap, live_rows)
     m = experts * cap
     x = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
+    x_live = x[: nlive * bm]
+    used, be_used = torch.unique(be[:nlive].long(), return_inverse=True)
+    be_used = be_used.to(torch.int32)
     if kind == "moe_gmm":
         w = rand_weights(gen, experts, k, n, bits)
         got = moe_gmm(x, *w, be, na, bits=bits, bm=bm)
-        want = ref.moe_gmm_ref(x, *w, be, na, bits=bits, bm=bm)
+        want = ref.moe_gmm_ref(x_live, *_pick_experts(w, used), be_used, na, bits=bits, bm=bm)
         ws = [w]
     else:
         wg = rand_weights(gen, experts, k, n, bits)
         wu = rand_weights(gen, experts, k, n, bits)
         args = (wg[0], wu[0], wg[1], wg[2], wu[1], wu[2], be, na)
+        (g0, g1, g2), (u0, u1, u2) = _pick_experts(wg, used), _pick_experts(wu, used)
         got = moe_gmm_swiglu(x, *args, bits=bits, bm=bm)
-        want = ref.moe_gmm_swiglu_ref(x, *args, bits=bits, bm=bm)
+        want = ref.moe_gmm_swiglu_ref(x_live, g0, u0, g1, g2, u1, u2, be_used, na, bits=bits,
+                                      bm=bm)
         ws = [wg, wu]
-    err = compare(f"{kind} b{bits} bm{bm} K={k} {dtype}", got, want, dtype)
+    err = compare(f"{kind} b{bits} bm{bm} K={k} {dtype}", got[: nlive * bm], want, dtype)
     if not (got[nlive * bm:] == 0).all():
         raise AssertionError(f"{kind}: dead row blocks are not zero")
     return err, dict(x=x, ws=ws, be=be, na=na, bm=bm, nlive=nlive, m=m)
@@ -530,14 +590,18 @@ def _time_gmm(label, kind, c, bits, k, n, live):
 
 
 def _time_quant_matmul(label, m, k, n, bits, gen):
-    """Time ``quant_matmul`` at one shape beside its plain version,
-    ``torch.matmul`` on the pre-dequantized weight and its bound."""
+    """Check ``quant_matmul`` at one shape against its plain version, then
+    time it beside the plain version, ``torch.matmul`` on the
+    pre-dequantized weight and its bound."""
     (data, s, z) = rand_weights(gen, 1, k, n, bits)
     data = tuple(t[0] for t in data) if bits == 3 else data[0]
     s, z = s[0], z[0]
     x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    err = compare(f"{label} {bits}-bit M={m} N={n}", quant_matmul(x, data, s, z, bits=bits),
+                  ref.quant_matmul_ref(x, data, s, z, bits=bits), torch.bfloat16)
     w_deq = ref.dequant_ref(data, s, z, bits, k, dtype=torch.bfloat16)
     return dict(
+        max_abs_err=err,
         **time_kernel(label, lambda: quant_matmul(x, data, s, z, bits=bits)),
         plain_ms=time_ms(lambda: ref.quant_matmul_ref(x, data, s, z, bits=bits))[0],
         library_ms=time_ms(lambda: torch.matmul(x, w_deq))[0],
@@ -552,13 +616,26 @@ def log_extra(name: str, key: str, r: dict) -> None:
         f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
 
+#: kimi-k2-1t-a32b's dense GEMMs (M, K, N) as its served path gives them to
+#: ``quant_matmul``: ``wq`` and ``wk``/``wv`` (K = d_model), ``wo`` (K = 64 ·
+#: 128), the shared expert's gate/up and down, at the decode batch (4 slots)
+#: and a 16-token prefill chunk
+KIMI_QMM = [(m, k, n) for m in (4, 16)
+            for k, n in ((7168, 8192), (7168, 1024), (8192, 7168), (7168, 2048), (2048, 7168))]
+
+
 def parity_split_k(gen, results, cfg):
     """The bf16 dequant GEMMs where an item's K range outgrows shared memory
     and the body walks K in chunks: kimi-k2's d_model (K = 7168; bits 1-4;
     ``quant_matmul``, ``moe_gmm`` and ``moe_gmm_swiglu`` at bm 8 and 16)
     and qwen3-14b's d_ff (K = 17408; 4-bit ``quant_matmul``), each against
-    its plain version; then one timing per kernel at K = 7168 (``k7168``)
-    and one of ``quant_matmul`` at K = 17408 (``k17408``)."""
+    its plain version; ``quant_matmul`` at every shape of kimi-k2's served
+    path (:data:`KIMI_QMM`, bits 1-4), and ``moe_gmm_swiglu`` (K = 7168 → N
+    = 2048) and ``moe_gmm`` (K = 2048 → N = 7168) on its 363-expert 2-bit
+    bucket at drop-free decode capacity, live blocks spread to its last
+    expert; then one timing per kernel at K = 7168 (``k7168``), and
+    ``quant_matmul``'s at kimi-k2's ``wo`` (K = 8192, N = 7168: ``k8192``)
+    and at K = 17408 (``k17408``), each also checked."""
     k, n = 7168, 2048
     decode_cap = dispatch_capacity(dataclasses.replace(
         cfg, moe_capacity_factor=float(cfg.num_experts)), 4)        # 24 -> bm 8
@@ -566,7 +643,7 @@ def parity_split_k(gen, results, cfg):
         cfg, moe_capacity_factor=float(cfg.num_experts)), 16)       # 96 -> bm 16
     errs = []
     for bits in (1, 2, 3, 4):
-        for m, kk, nn in ((4, k, n), (16, 17408, 512)):
+        for m, kk, nn in [(4, k, n), (16, 17408, 512)] + KIMI_QMM:
             if kk == 17408 and bits != 4:
                 continue
             (data, sc, z) = rand_weights(gen, 1, kk, nn, bits)
@@ -580,14 +657,32 @@ def parity_split_k(gen, results, cfg):
             for cap in (decode_cap, prefill_cap):
                 errs.append(_gmm_case(gen, kind, bits, torch.bfloat16, cap, 3, [1, 2, 0], k,
                                       n)[0])
+    kimi = get_config("kimi-k2-1t-a32b")
+    _, n2, _ = bucket_counts(kimi.num_experts)                      # 363
+    kimi_cap = dispatch_capacity(dataclasses.replace(
+        kimi, moe_capacity_factor=float(kimi.num_experts)), 4)      # 32 -> bm 8
+    # a decode step's 4 x 8 routed pairs: 30 experts spread over the bucket
+    # (its first and last with two rows each)
+    spread = np.linspace(0, n2 - 1, 30).round().astype(int)
+    live = [0] * n2
+    for i in spread:
+        live[i] = 1
+    live[spread[0]] = live[spread[-1]] = 2
+    for kind, (kk, nn) in (("moe_gmm_swiglu", (kimi.d_model, kimi.d_ff_expert)),
+                           ("moe_gmm", (kimi.d_ff_expert, kimi.d_model))):
+        err, _ = _gmm_case(gen, kind, 2, torch.bfloat16, kimi_cap, n2, live, kk, nn)
+        errs.append(err)
+        torch.cuda.empty_cache()
+        log(f"{kind} on kimi-k2's 2-bit bucket ({n2} experts, capacity {kimi_cap}, 30 live "
+            f"experts up to the last) K={kk} N={nn} bf16: max|err| {err:.3e}")
+    for key, (kk, nn) in (("k7168", (k, 8192)), ("k8192", (8192, k)),   # kimi-k2's wq, wo
+                          ("k17408", (17408, 5120))):
+        r = _time_quant_matmul(f"quant_matmul K={kk}", 4, kk, nn, 4, gen)
+        results["quant_matmul"][key] = r
+        log_extra("quant_matmul", key, r)
+        errs.append(r["max_abs_err"])
     for name in ("quant_matmul", "moe_gmm_swiglu", "moe_gmm"):
         results[name]["split_k_max_abs_err"] = max(errs)
-    r = _time_quant_matmul("quant_matmul K=7168", 4, k, 8192, 4, gen)
-    results["quant_matmul"]["k7168"] = r
-    log_extra("quant_matmul", "k7168", r)
-    r = _time_quant_matmul("quant_matmul K=17408", 4, 17408, 5120, 4, gen)
-    results["quant_matmul"]["k17408"] = r
-    log_extra("quant_matmul", "k17408", r)
     live = [1] * 12 + [2] * 4
     for kind in ("moe_gmm_swiglu", "moe_gmm"):
         _, c = _gmm_case(gen, kind, 2, torch.bfloat16, decode_cap, 16, live, k, n)
@@ -595,8 +690,9 @@ def parity_split_k(gen, results, cfg):
         results[kind]["k7168"] = r
         log_extra(kind, "k7168", r)
     log(f"split K: quant_matmul, moe_gmm and moe_gmm_swiglu at K = 7168 (bits 1-4, bm 8 and "
-        f"16) and quant_matmul at K = 17408 (4 bits) match their plain versions, max|err| "
-        f"{max(errs):.3e}")
+        f"16), quant_matmul at K = 17408 (4 bits) and at kimi-k2's {len(KIMI_QMM)} served "
+        f"shapes (bits 1-4), and the grouped GEMMs on its {n2}-expert bucket match their plain "
+        f"versions, max|err| {max(errs):.3e}")
 
 
 def _attn_case(gen, dtype, b, hkv, g, dh, bs, nb, mb, lengths, window):
@@ -639,10 +735,12 @@ def parity_attention(gen, results, kind):
     0 at the decode geometry; lengths at the edges of the 256-position
     chunks for head_dim 32/128/256 and G 1/2/5/8 with windows whose first
     valid position falls mid-chunk; 4096 positions (16 chunks) with and
-    without a window; f32 and bf16. Then the kernel's time at the decode
-    shape, at 4096 positions and at qwen3-14b's G = 5 (``probe_attention``),
-    beside its plain version, SDPA over the gathered pages and its byte
-    bound."""
+    without a window; gemma3-27b's G = 2 over 16 KV heads and kimi-k2's G =
+    8 at lengths 1088-1120 with a window of 1024, a global layer's window
+    and none; f32 and bf16. Then the kernel's time at the decode shape, at
+    4096 positions, at qwen3-14b's G = 5, at gemma3-27b's G = 2 with its
+    window and at kimi-k2's G = 8 (``probe_attention``), beside its plain
+    version, SDPA over the gathered pages and its byte bound."""
     case = _attn_case if kind == "fp" else _attn_quant_case
     name = "paged_attention" if kind == "fp" else "paged_attention_quant"
     errs = []
@@ -658,6 +756,12 @@ def parity_attention(gen, results, kind):
                                      [0, 255, 256, 257, 320], window))
         for window in (None, 1000):
             errs.append(case(gen, dtype, 2, 2, 2, 128, 16, 520, 256, [4096, 2500], window))
+        # the served shapes of gemma3-27b (G = 2, 16 KV heads; its local window
+        # and a global layer's, past the window) and kimi-k2-1t-a32b (G = 8)
+        for g, hkv in ((2, 16), (8, 8)):
+            for window in (1024, 70 * 16 + 1, None):
+                errs.append(case(gen, dtype, 4, hkv, g, 128, 16, 290, 70,
+                                 [1088, 1097, 1104, 1120], window))
     mods = probe_attention.load(Path(__file__).resolve().parent)
     r = {}
     for shape in probe_attention.SHAPES:
@@ -1066,9 +1170,10 @@ def tiny_pipeline():
 
 # ------------------------------------------------ phase 5: full width
 #: kernels each serving path must launch (binary_matmul has no serving caller)
-FP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
+FP_PATH = WIDE_MOE_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
 INT8_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention_quant")
-DENSE_PATH = UNCOMPRESSED_MOE_PATH = ("paged_attention",)  # every linear is a bf16 matmul
+# every linear is a bf16 matmul
+DENSE_PATH = UNCOMPRESSED_MOE_PATH = VLM_PATH = WINDOWED_PATH = ("paged_attention",)
 
 
 def _serve(cfg, params, ecfg, reqs):
@@ -1088,10 +1193,15 @@ def begin_path() -> None:
     build.reset_launches()
 
 
-def _check_tokens(name, cfg, out):
-    for rid, toks in out.items():
-        if len(toks) != workload.MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"{name} request {rid}: bad output {toks}")
+def _check_tokens(name, cfg, out, reqs):
+    """Each request of ``reqs`` answered with its own ``max_new`` tokens,
+    each in the vocabulary."""
+    if sorted(out) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"{name}: answered {sorted(out)}, asked {[r.rid for r in reqs]}")
+    for r in reqs:
+        toks = out[r.rid]
+        if len(toks) != r.max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{name} request {r.rid}: bad output {toks}")
 
 
 def _drive(name, cfg, params, ecfg, reqs, needed):
@@ -1102,7 +1212,7 @@ def _drive(name, cfg, params, ecfg, reqs, needed):
     eng, out = _serve(cfg, params, ecfg, reqs)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    _check_tokens(name, cfg, out)
+    _check_tokens(name, cfg, out, reqs)
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched while serving: {missing}")
@@ -1470,37 +1580,136 @@ def offload_path(cfg, params):
 
 def build_logged(make):
     """``(cfg, params)`` of a full-width dense or uncompressed-MoE model built
-    on the card by ``make``, with its build line."""
+    on the card by ``make``, with its build line (time, weights and the
+    build's peak device memory)."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, params = make(DEV)
     torch.cuda.synchronize()
     log(f"full width: {cfg.name} ({cfg.family}) d_model={cfg.d_model} layers={cfg.num_layers} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff_expert or cfg.d_ff} "
         f"experts={cfg.num_experts} vocab={cfg.vocab_size} {cfg.dtype}; built in "
-        f"{time.perf_counter() - t0:.1f} s; weights on device {weight_bytes(params) / 1e9:.3f} GB")
+        f"{time.perf_counter() - t0:.1f} s; weights on device {weight_bytes(params) / 1e9:.3f} GB; "
+        f"build peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     return cfg, params
 
 
-def plain_path(name, cfg, params, ecfg, needed):
-    """A dense or uncompressed-MoE model served twice with ``ecfg`` on the fp
-    workload's requests: its launches, its expert bytes per decode step and
-    in all, and its tokens."""
+#: a near-tie: the paged engine and the dense-cache oracle add in other
+#: orders in bf16, so where the oracle's logit of its own token exceeds
+#: that of the engine's by at most this many bf16 ulps of the step's
+#: max|logit| (or, in an MoE model, a routing decision up to that step is
+#: as close), the argmax may flip without a defect; a larger gap is one
+ORACLE_GAP_ULPS = 4.0
+#: divergences from the oracle that no near-tie explains, raised once every
+#: full-width path has printed its own
+ORACLE_FAULTS: list = []
+
+
+def bf16_ulps(gap, scale):
+    """``gap`` in units of the bf16 spacing at ``|scale|`` (8 significant
+    bits); tensors are taken row by row."""
+    return gap / 2.0 ** (np.floor(np.log2(np.abs(scale))) - 7)
+
+
+def _least_margin(logits: torch.Tensor, k: int) -> float:
+    """Smallest gap over the rows of ``logits`` between each row's k-th and
+    (k+1)-th largest value, in bf16 ulps of the row's max|·|."""
+    logits = logits.float()
+    top = torch.topk(logits, k + 1, dim=-1).values
+    return float(bf16_ulps((top[:, k - 1] - top[:, k]).cpu().numpy(),
+                           logits.abs().amax(-1).cpu().numpy()).min())
+
+
+def routing_margins(cfg, params, prompt, steps: int):
+    """The least routing margins of the dense-cache oracle's run over
+    ``prompt`` and its first ``steps`` decode steps — every token an
+    oracle's logits at step ``steps`` depend on — at any layer, in bf16
+    ulps: the top-k router's (its k-th against its (k+1)-th logit) and the
+    OTP router's (its best candidate mask against the next; None without
+    OTP)."""
+    seen = {"router": [], "otp": []}
+    route, dm = moe_mod.route_topk, otp_mod.dm_logits
+
+    def route_logged(router_p, x2, k):
+        seen["router"].append(_least_margin(linear(router_p, x2.float()), k))
+        return route(router_p, x2, k)
+
+    def dm_logged(p, x2, gates_sorted):
+        out = dm(p, x2, gates_sorted)
+        seen["otp"].append(_least_margin(out, 1))
+        return out
+
+    moe_mod.route_topk = cm_mod.route_topk = route_logged
+    otp_mod.dm_logits = dm_logged
+    try:
+        dense_greedy_reference(cfg, params, prompt, steps + 1, device=DEV)
+    finally:
+        moe_mod.route_topk = cm_mod.route_topk = route
+        otp_mod.dm_logits = dm
+    return min(seen["router"]), (min(seen["otp"]) if seen["otp"] else None)
+
+
+def oracle_agreement(name, eng, params, reqs, out) -> str:
+    """Each request decoded through the dense-cache oracle beside the
+    engine's tokens: the agreement and, at the first differing step, the
+    oracle's gap from its token to the engine's and its top-2 gap, in bf16
+    ulps of that step's max|logit| (in an MoE model also the least routing
+    margins up to that step). A divergence that no near-tie
+    (:data:`ORACLE_GAP_ULPS`) explains goes to :data:`ORACLE_FAULTS`."""
+    cfg = eng.model_cfg
+    parts = []
+    for r in reqs:
+        dense, steps = dense_greedy_reference(cfg, params, r.prompt, r.max_new, device=DEV)
+        got = out[r.rid]
+        part = f"rid {r.rid} {sum(a == b for a, b in zip(got, dense))}/{len(dense)}"
+        first = next((i for i, (a, b) in enumerate(zip(got, dense)) if a != b), None)
+        if first is not None:
+            v = steps[first]
+            scale = np.abs(v).max()
+            gap = float(bf16_ulps(v[dense[first]] - v[got[first]], scale))
+            top2 = float(bf16_ulps(v[dense[first]] - np.partition(v, -2)[-2], scale))
+            part += (f" (first difference at {first}: oracle gap to the engine's token "
+                     f"{gap:.3f} ulps, top-2 gap {top2:.3f} ulps, max|logit| {scale:.4g}")
+            margins = [gap]
+            if cfg.is_moe:
+                router, otp = routing_margins(cfg, params, r.prompt, first)
+                part += f"; least routing margin {router:.3f} ulps"
+                margins.append(router)
+                if otp is not None:
+                    part += f", OTP {otp:.3f} ulps"
+                    margins.append(otp)
+            near_tie = min(margins) <= ORACLE_GAP_ULPS
+            part += ("; near-tie)" if near_tie else
+                     f"; no near-tie within {ORACLE_GAP_ULPS} ulps)")
+            if not near_tie:
+                ORACLE_FAULTS.append(f"{name} rid {r.rid} step {first}")
+        parts.append(part)
+    return f"{name}: paged tokens against the dense-cache oracle's: " + "; ".join(parts)
+
+
+def plain_path(name, cfg, params, ecfg, needed, reqs=workload.requests):
+    """A model served twice with ``ecfg`` on ``reqs(cfg)`` (the fp workload's
+    requests by default), each request also decoded through the dense-cache
+    oracle (:func:`oracle_agreement`): its launches, its expert bytes per
+    decode step and in all, its tokens and the first engine's summary."""
     weights = weight_bytes(params)
-    eng, out, launches, peak = _drive(name, cfg, params, ecfg, workload.requests(cfg), needed)
-    _, out2 = _serve(cfg, params, ecfg, workload.requests(cfg))
+    eng, out, launches, peak = _drive(name, cfg, params, ecfg, reqs(cfg), needed)
+    _, out2 = _serve(cfg, params, ecfg, reqs(cfg))
     if out2 != out:
         raise AssertionError(f"{name}: a second engine served different tokens")
     s = eng.summary()
     experts = (float(np.mean(profile_decode.expert_step_bytes(eng))),
-               sum(weight_bytes(p["moe"]["experts"]) for p in params["layers"] if "moe" in p))
-    log(f"full width serving ({name}, {cfg.name}): {len(out)} requests x {workload.MAX_NEW} "
-        f"tokens; weights on device {weights / 1e9:.3f} GB; peak device memory "
-        f"{peak / 1e9:.3f} GB; TTFT mean {s['ttft_mean_s']:.3f} s max {s['ttft_max_s']:.3f} s; "
-        f"decode {s['decode_tokens']} tokens in {s['decode_s']:.3f} s = "
-        f"{s['decode_tokens_per_s']:.1f} tokens/s; launches {launches}; second engine "
-        f"(full depth) tokens identical")
+               sum(weight_bytes(p.get("moe_ce")) + weight_bytes(p.get("moe", {}).get("experts"))
+                   for p in params["layers"]))
+    log(f"full width serving ({name}, {cfg.name}): {len(out)} requests x "
+        f"{reqs(cfg)[0].max_new} tokens; weights on device {weights / 1e9:.3f} GB; peak device "
+        f"memory {peak / 1e9:.3f} GB; TTFT mean {s['ttft_mean_s']:.3f} s max "
+        f"{s['ttft_max_s']:.3f} s; decode {s['decode_tokens']} tokens in {s['decode_s']:.3f} s "
+        f"= {s['decode_tokens_per_s']:.1f} tokens/s; launches {launches}; second engine "
+        f"({cfg.num_layers} layers) tokens identical")
     log(f"full width serving summary ({name}): " + json.dumps(s))
-    return launches, experts, out
+    log(oracle_agreement(name, eng, params, reqs(cfg), out))
+    return launches, experts, out, s
 
 
 def _timed(fn):
@@ -1623,7 +1832,7 @@ def compress_path(cfg, params, moe_out):
     for seed in (0, 0, 1):
         ecfg = dataclasses.replace(workload.COMPRESS, temperature=0.8, sample_seed=seed)
         (_, o), dt = _timed(lambda: _serve(cfg, params_c, ecfg, workload.requests(cfg)))
-        _check_tokens("compress (g)", cfg, o)
+        _check_tokens("compress (g)", cfg, o, workload.requests(cfg))
         sampled.append((o, dt))
     (a, dt_a), (b, dt_b), (c, dt_c) = sampled
     if a != b:
@@ -1633,6 +1842,81 @@ def compress_path(cfg, params, moe_out):
     log(f"compress (g) sampled serving (T = 0.8): seed 0 twice byte-identical ({dt_a:.3f} / "
         f"{dt_b:.3f} s); seed 1 differs at {differ} of {n} positions ({dt_c:.3f} s); seed 0 "
         f"differs from greedy at {vs_greedy}")
+    return launches
+
+
+def vlm_path():
+    """``VLM``: ``llava-next-mistral-7b`` served on tokens alone (twice, the
+    dense-cache oracle beside it), then the dense-cache prefill of its 2880
+    patch embeddings ahead of the first prompt and 16 greedy tokens, twice.
+    Returns the serving launches."""
+    cfg, params = build_logged(workload.build_vlm)
+    launches, _, _, _ = plain_path("vlm path", cfg, params, workload.VLM, VLM_PATH)
+    patches = workload.vlm_patches(cfg, DEV)
+    prompt = workload.requests(cfg)[0].prompt
+    batch = {"tokens": torch.as_tensor(prompt[None].astype(np.int64), device=DEV),
+             "patch_embeds": patches}
+    begin_path()
+    (cache, logits), wall = _timed(lambda: get_model(cfg).prefill(params, batch))
+    pos = cfg.num_patch_tokens + len(prompt)
+    if cache["pos"] != pos or cache["k"].shape[2] != pos:
+        raise AssertionError(f"vlm patch prefill: cache pos {cache['pos']}, rows "
+                             f"{cache['k'].shape[2]}, expected {pos}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("vlm patch prefill: non-finite logits")
+    kv = nbytes(cache["k"], cache["v"])
+    del cache, logits
+    runs = [_timed(lambda: dense_greedy_reference(cfg, params, prompt, workload.VLM_PATCH_NEW,
+                                                  patch_embeds=patches, device=DEV)[0])
+            for _ in range(2)]
+    toks = runs[0][0]
+    _check_tokens("vlm patch decode", cfg, {0: toks},
+                  [Request(rid=0, prompt=prompt, max_new=workload.VLM_PATCH_NEW)])
+    if runs[1][0] != toks:
+        raise AssertionError("vlm patch decode: a second run decoded different tokens")
+    if any(build.LAUNCHES.values()):
+        raise AssertionError(f"vlm patch decode: kernels launched on the dense-cache path: "
+                             f"{dict(build.LAUNCHES)}")
+    log(f"vlm patch prefill ({cfg.name}): {cfg.num_patch_tokens} patch embeddings + "
+        f"{len(prompt)} prompt tokens prefilled in {wall:.3f} s; cache pos {pos}; KV cache "
+        f"{kv / 1e9:.3f} GB; {workload.VLM_PATCH_NEW} greedy tokens {toks} in "
+        f"{runs[0][1]:.3f} / {runs[1][1]:.3f} s (prefill included, cache padded by "
+        f"{workload.VLM_PATCH_NEW} rows), identical on a second run; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return launches
+
+
+def windowed_path():
+    """``WINDOWED``: ``gemma3-27b`` on 2 requests of 1088 + 32 tokens, twice,
+    the dense-cache oracle beside it. Returns the launches."""
+    cfg, params = build_logged(workload.build_windowed)
+    ecfg = workload.WINDOWED
+    wins = layer_windows_static(cfg, ecfg.max_blocks_per_slot * ecfg.block_size)
+    local = int((wins == cfg.local_window).sum())
+    log(f"windowed path: {local} local layers (window {cfg.local_window}) and "
+        f"{cfg.num_layers - local} global; decode positions {workload.WINDOWED_PROMPT_LEN}-"
+        f"{workload.WINDOWED_PROMPT_LEN + workload.WINDOWED_MAX_NEW - 1}, past the window; "
+        f"prefill chunk {ecfg.prefill_chunk}")
+    launches, _, _, _ = plain_path("windowed path", cfg, params, ecfg, WINDOWED_PATH,
+                                   reqs=workload.windowed_requests)
+    return launches
+
+
+def wide_moe_path():
+    """``WIDE_MOE``: ``kimi-k2-1t-a32b`` at 4 layers (PMQ + OTP) on the fp
+    workload, twice, the dense-cache oracle beside it: its expert bytes, OTP
+    activation and drop-free prefill dispatch buffer. Returns the launches."""
+    cfg, params = build_logged(workload.build_wide_moe)
+    launches, (step, every), _, s = plain_path("wide MoE path", cfg, params, workload.WIDE_MOE,
+                                               WIDE_MOE_PATH)
+    meta = params["layers"][0]["moe_ce"].meta
+    cap = dispatch_capacity(dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts)),
+                            workload.WIDE_MOE.prefill_chunk)
+    log(f"wide MoE path ({cfg.name}, {cfg.num_layers} of 61 layers): buckets "
+        f"{[(m.bits, m.count) for m in meta]}; expert bytes on the device {every / 1e9:.3f} GB, "
+        f"read per decode step {step / 1e9:.3f} GB; OTP expert activation "
+        f"{s['expert_activation']:.4f}; drop-free prefill dispatch buffer [{cfg.num_experts}, "
+        f"{cap}, {cfg.d_model}] = {cfg.num_experts * cap * cfg.d_model * 2 / 1e9:.3f} GB bf16")
     return launches
 
 
@@ -1648,16 +1932,17 @@ def free_model() -> None:
 def full_width():
     """Phase 5: the compressed model's five paths, then — the compressed
     model freed — the dense model's, then the uncompressed MoE's and, on the
-    same weights, the pipeline's, each model freed before the next is built.
-    Returns each path's launches."""
+    same weights, the pipeline's, then the VLM's, the sliding-window
+    model's and the 384-expert model's, each model freed before the next is
+    built. Returns each path's launches."""
     fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, \
         (fp_step, fp_all) = compressed_paths()
     free_model()
-    dense_launches, _, _ = plain_path("dense path", *build_logged(workload.build_dense),
-                                      workload.DENSE, DENSE_PATH)
+    dense_launches, _, _, _ = plain_path("dense path", *build_logged(workload.build_dense),
+                                         workload.DENSE, DENSE_PATH)
     free_model()
     cfg, params = build_logged(workload.build_uncompressed_moe)
-    moe_launches, (moe_step, moe_all), moe_out = plain_path(
+    moe_launches, (moe_step, moe_all), moe_out, _ = plain_path(
         "uncompressed MoE path", cfg, params, workload.UNCOMPRESSED_MOE, UNCOMPRESSED_MOE_PATH)
     log(f"expert bytes of {workload.ARCH} on the device: uncompressed {moe_all / 1e9:.3f} GB, "
         f"PMQ {fp_all / 1e9:.3f} GB ({moe_all / fp_all:.2f}x); read per decode step: "
@@ -1666,12 +1951,23 @@ def full_width():
     compress_launches = compress_path(cfg, params, moe_out)
     del params
     free_model()
+    vlm_launches = vlm_path()
+    free_model()
+    windowed_launches = windowed_path()
+    free_model()
+    wide_launches = wide_moe_path()
+    free_model()
+    if ORACLE_FAULTS:
+        raise AssertionError(f"divergences from the dense-cache oracle with no near-tie within "
+                             f"{ORACLE_GAP_ULPS} bf16 ulps: {ORACLE_FAULTS}")
     return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
             "tenant mix serving": mix_launches, "preemption serving": preempt_launches,
             "offload serving": offload_launches,
             "dense serving": dense_launches,
             "uncompressed MoE serving": moe_launches,
-            "compressed (pipeline) serving": compress_launches}
+            "compressed (pipeline) serving": compress_launches,
+            "vlm serving": vlm_launches, "windowed serving": windowed_launches,
+            "wide MoE serving": wide_launches}
 
 
 def main() -> int:
@@ -1734,7 +2030,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "long", "decode_g5",
-                                     "k7168", "k17408", "split_k_max_abs_err") if key in r}}
+                                     "window_g2", "decode_g8", "k7168", "k8192", "k17408",
+                                     "split_k_max_abs_err") if key in r}}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,10 +120,33 @@ def _bucket_leaves(data, scale, zero, bits: int) -> Dict:
     return out
 
 
+#: f32 elements of one slice of a bucket quantized at once (1 GiB): HQQ's
+#: temporaries are a few times the slice, and a whole bucket can be far
+#: larger (kimi-k2's 363-expert 2-bit bucket is 21.3 GB per matrix in f32)
+SLICE_ELEMENTS = 1 << 28
+
+
 def _pack_stack(ws: torch.Tensor, bits: int, group: int, refine: bool) -> Dict:
     """Quantize + pack one bucket's ``[count, K, N]`` weights (each expert
     exactly as ``quantize_to_packed`` would)."""
     return _bucket_leaves(*quantize_parts(ws, bits, group, refine), bits)
+
+
+def _pack_sliced(w: torch.Tensor, ids: Sequence[int], bits: int, group: int,
+                 refine: bool) -> Dict:
+    """:func:`_pack_stack` of experts ``ids`` of ``w [E, K, N]``, upcast and
+    quantized a slice of the expert axis at a time (at most
+    :data:`SLICE_ELEMENTS` f32 elements), the packed leaves concatenated.
+    Quantization is per expert and group, so the bytes are the one-shot
+    build's."""
+    step = max(1, SLICE_ELEMENTS // (w.shape[1] * w.shape[2]))
+    parts = []
+    for s0 in range(0, len(ids), step):
+        pick = torch.as_tensor(ids[s0:s0 + step], device=w.device)
+        parts.append(_pack_stack(w.index_select(0, pick).float(), bits, group, refine))
+    if len(parts) == 1:
+        return parts[0]
+    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
 
 
 def _pack_gptq(results: Sequence, bits: int) -> Dict:
@@ -133,34 +156,42 @@ def _pack_gptq(results: Sequence, bits: int) -> Dict:
                           torch.stack([r.zero for r in results]), bits)
 
 
-def build_compressed_experts(experts: Dict, bits_per_expert: Sequence[int], *,
-                             group: int = 128, refine: bool = True,
+def build_compressed_experts(experts: Dict[str, Callable[[], torch.Tensor]],
+                             bits_per_expert: Sequence[int], *, group: int = 128,
+                             refine: bool = True,
                              gptq_results: Optional[Dict] = None) -> CompressedExperts:
-    """Quantize + bucket one layer's experts: ``experts`` = {"w_gate": [E, D,
-    F], "w_up": [E, D, F], "w_down": [E, F, D]} (quantized from f32), or, with
-    ``gptq_results[(expert, name)]`` (:class:`~.gptq.GPTQResult`), the GPTQ
-    codes, scales and zeros of each expert packed as they are."""
+    """Quantize + bucket one layer's experts. ``experts`` maps each of
+    "w_gate", "w_up", "w_down" to a function that makes its matrix (``[E,
+    D, F]``, ``[E, D, F]``, ``[E, F, D]``); each is called in that order and
+    its matrix dropped once packed, so a caller that draws them on demand
+    holds one expert matrix at a time (one layer of kimi-k2-1t-a32b's is
+    11.3 GB in bf16). Each bucket is quantized from f32 in slices of the
+    expert axis (:func:`_pack_sliced`), or, with ``gptq_results[(expert,
+    name)]`` (:class:`~.gptq.GPTQResult`), the GPTQ codes, scales and zeros
+    of each expert are packed as they are."""
     e = len(bits_per_expert)
     bits_arr = np.asarray(bits_per_expert)
     order = np.argsort(bits_arr, kind="stable")  # ascending bit groups
     slot_of_expert = np.full(e, -1, np.int64)
-    d, f = experts["w_gate"].shape[1], experts["w_gate"].shape[2]
-    meta, arrays, slot = [], {}, 0
-    for bits in sorted(set(bits_arr.tolist())):
-        ids = [int(i) for i in order if bits_arr[i] == bits]
+    buckets = [(bits, [int(i) for i in order if bits_arr[i] == bits])
+               for bits in sorted(set(bits_arr.tolist()))]
+    meta, slot = [], 0
+    for bits, ids in buckets:
         slot_of_expert[ids] = slot + np.arange(len(ids))
-        pick = torch.as_tensor(ids, device=experts["w_gate"].device)
-        arrays[f"b{len(meta)}"] = {
-            name: (_pack_stack(experts[name].index_select(0, pick).float(), bits, group, refine)
-                   if gptq_results is None else
-                   _pack_gptq([gptq_results[(i, name)] for i in ids], bits))
-            for name in _NAMES
-        }
         meta.append(BucketMeta(bits=bits, start=slot, count=len(ids)))
         slot += len(ids)
+    arrays = {f"b{i}": {} for i in range(len(buckets))}
+    for name in _NAMES:
+        w = experts[name]()
+        if name == "w_gate":
+            d, f, device = w.shape[1], w.shape[2], w.device
+        for i, (bits, ids) in enumerate(buckets):
+            arrays[f"b{i}"][name] = (
+                _pack_sliced(w, ids, bits, group, refine) if gptq_results is None else
+                _pack_gptq([gptq_results[(j, name)] for j in ids], bits))
+        del w
     return CompressedExperts(
-        meta=tuple(meta),
-        slot_of_expert=torch.as_tensor(slot_of_expert, device=experts["w_gate"].device),
+        meta=tuple(meta), slot_of_expert=torch.as_tensor(slot_of_expert, device=device),
         arrays=arrays, num_slots=slot, group=group, d_model=d, d_ff=f,
     )
 

@@ -216,7 +216,8 @@ def compress_model(params, calib: CalibrationResult, plan: pmq.PMQPlan, cfg,
             "attn": quantize_tree_uniform(p_l["attn"], q.attn_bits, q.group),
             "ln2": p_l["ln2"],
             "moe": moe_p,
-            "moe_ce": build_compressed_experts(experts, plan.bits[l], group=q.group,
+            "moe_ce": build_compressed_experts({k: (lambda k=k: experts[k]) for k in _NAMES},
+                                               plan.bits[l], group=q.group,
                                                gptq_results=gptq_results),
         })
         if consume:

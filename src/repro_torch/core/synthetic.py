@@ -1,5 +1,5 @@
 """Decoders built on the device from a seed: a PMQ + OTP compressed MoE
-(:func:`build_synthetic`), and a dense or uncompressed MoE one
+(:func:`build_synthetic`), and a dense, VLM-backbone or uncompressed MoE one
 (:func:`build_uncompressed`).
 
 No weights can be downloaded, so serving at a model's full width starts
@@ -21,7 +21,9 @@ behaviour:
   search of ``synthetic_stacked_compressed`` (``pipeline.py:314``) with
   ep = 1 and the ``compress_for_serving`` target of 2.05 bits, the experts
   assigned to widths by a seeded permutation, buckets built by
-  :func:`build_compressed_experts`;
+  :func:`build_compressed_experts`, each expert matrix drawn just before it
+  is packed (one layer of ``kimi-k2-1t-a32b``'s experts is 33.8 GB in bf16:
+  drawn at once, they do not leave room on an 80 GB card);
 * a random OTP router per layer, shaped as ``init_otp_router``
   (``repro/core/otp.py:48``).
 """
@@ -102,13 +104,14 @@ def build_synthetic(cfg, *, seed: int = 0, device="cuda") -> Dict:
             layer["moe"]["shared"] = {
                 "w_gate": packed(d, fs), "w_up": packed(d, fs), "w_down": packed(fs, d),
             }
+        # each expert matrix drawn when its turn to be packed comes (the
+        # stream's order), so one is alive at a time
         experts = {
-            "w_gate": _normal(gen, (e, d, f), d**-0.5, dt, device),
-            "w_up": _normal(gen, (e, d, f), d**-0.5, dt, device),
-            "w_down": _normal(gen, (e, f, d), f**-0.5, dt, device),
+            "w_gate": lambda: _normal(gen, (e, d, f), d**-0.5, dt, device),
+            "w_up": lambda: _normal(gen, (e, d, f), d**-0.5, dt, device),
+            "w_down": lambda: _normal(gen, (e, f, d), f**-0.5, dt, device),
         }
         layer["moe_ce"] = build_compressed_experts(experts, bits.tolist(), group=q.group)
-        del experts
         layer["otp"] = {
             "fc1": _normal(gen, (d, k), d**-0.5, torch.float32, device),
             "fc2": _normal(gen, (2 * k, k), (2 * k) ** -0.5, torch.float32, device),
@@ -119,14 +122,15 @@ def build_synthetic(cfg, *, seed: int = 0, device="cuda") -> Dict:
 
 
 def build_uncompressed(cfg, *, seed: int = 0, device="cuda") -> Dict:
-    """Params of a dense (``mlp``) or uncompressed MoE (``moe``: router,
-    ``[E, ·, ·]`` expert stacks, shared experts) decoder with all
-    ``cfg.num_layers`` layers, in the layout of
+    """Params of a dense or VLM-backbone (``mlp``) or uncompressed MoE
+    (``moe``: router, ``[E, ·, ·]`` expert stacks, shared experts) decoder
+    with all ``cfg.num_layers`` layers, in the layout of
     :mod:`repro_torch.models.transformer`, built on ``device``: the shapes
     and scales of ``init_lm`` (``1/√fan_in`` linears, an f32 router, 0.02
     embeddings, zero norms)."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"build_uncompressed makes dense and MoE decoders, got {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"build_uncompressed makes dense, MoE and VLM-backbone decoders, got "
+                         f"{cfg.family!r}")
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     gen = torch.Generator(device=device).manual_seed(seed)
     d, dh = cfg.d_model, cfg.head_dim

@@ -11,8 +11,11 @@ not with ``-m``, or the package of the current directory is imported first.
 Shapes: B=4 sequences, head_dim 128, 16-token pages, bf16 q, permuted
 physical pages; 16 KV heads at G=1 (``moonshot-v1-16b-a3b``) with every
 sequence at length 80 (``decode``: 6-page tables, the full-width serving
-shape mid-decode) or 4096 (``long``: 256-page tables), and 8 KV heads at
-G=5 (``qwen3-14b``) at length 80 (``decode_g5``). For ``paged_attention``
+shape mid-decode) or 4096 (``long``: 256-page tables), 8 KV heads at G=5
+(``qwen3-14b``) at length 80 (``decode_g5``), 16 KV heads at G=2 at length
+1104 under a window of 1024 (``window_g2``: ``gemma3-27b``'s local layers
+mid-decode; only the window's rows count in the bound) and 8 KV heads at
+G=8 (``kimi-k2-1t-a32b``) at length 80 (``decode_g8``). For ``paged_attention``
 (bf16 pools) and ``paged_attention_quant`` (uint8 pools + f32 row tables) at
 each shape it measures the kernel, its plain version and
 ``scaled_dot_product_attention`` over the gathered (for int8: dequantized
@@ -35,8 +38,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_BF16_OPS_PER_S = 989e12
-#: name -> (length, KV heads, G)
-SHAPES = {"decode": (80, 16, 1), "long": (4096, 16, 1), "decode_g5": (80, 8, 5)}
+#: name -> (length, KV heads, G, window)
+SHAPES = {"decode": (80, 16, 1, None), "long": (4096, 16, 1, None),
+          "decode_g5": (80, 8, 5, None), "window_g2": (1104, 16, 2, 1024),
+          "decode_g8": (80, 8, 8, None)}
 B, DH, BS = 4, 128, 16
 
 
@@ -80,12 +85,13 @@ def load(root: Path) -> SimpleNamespace:
                            dequantize_kv_rows=quant.dequantize_kv_rows)
 
 
-def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1) -> dict:
-    """Inputs at ``length`` (``hkv`` KV heads of ``g`` queries each) and
-    three callables on them — ``kernel``,
-    ``plain`` and ``library`` (SDPA over the gathered pages) — with the
-    bytes the kernel must move and the products it does. The inputs are
-    made on ``gen``'s device."""
+def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1,
+                   window=None) -> dict:
+    """Inputs at ``length`` (``hkv`` KV heads of ``g`` queries each; the
+    last ``window`` positions attended, if given) and three callables on
+    them — ``kernel``, ``plain`` and ``library`` (SDPA over the gathered
+    pages) — with the bytes the kernel must move (the attended rows) and
+    the products it does. The inputs are made on ``gen``'s device."""
     dev = gen.device
     mb = -(-length // BS) + (1 if length == SHAPES["decode"][0] else 0)  # decode: 6 pages
     nb = B * mb
@@ -94,13 +100,14 @@ def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1)
     tables = torch.randperm(nb, generator=gen, device=dev).reshape(B, mb).to(torch.int32)
     lens = torch.full((B,), length, dtype=torch.int32, device=dev)
     phys = (tables.long()[:, :, None] * BS + torch.arange(BS, device=dev)).reshape(B, -1)
-    pages = B * -(-length // BS)
+    # attended rows: whole pages without a window (80 and 4096 are whole)
+    kv_rows = B * (min(length, window) if window else -(-length // BS) * BS)
     if kind == "paged_attention":
         kp, vp = (r.to(torch.bfloat16) for r in rows)
         k_g, v_g = (p.reshape(-1, hkv, DH)[phys] for p in (kp, vp))
-        kernel = lambda: mods.paged_attention(q, kp, vp, tables, lens)  # noqa: E731
-        plain = lambda: mods.ref(q, kp, vp, tables, lens)  # noqa: E731
-        kv_bytes = pages * BS * hkv * DH * 2 * 2
+        kernel = lambda: mods.paged_attention(q, kp, vp, tables, lens, window=window)  # noqa: E731
+        plain = lambda: mods.ref(q, kp, vp, tables, lens, window=window)  # noqa: E731
+        kv_bytes = kv_rows * hkv * DH * 2 * 2
     else:
         (kc, ks, kz), (vc, vs, vz) = (mods.quantize_kv_rows(r * 2) for r in rows)
         quant = (ks, kz, vs, vz)
@@ -108,12 +115,18 @@ def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1)
         k_g = mods.dequantize_kv_rows(kc.reshape(-1, hkv, DH)[phys], gs[0], gs[1])
         v_g = mods.dequantize_kv_rows(vc.reshape(-1, hkv, DH)[phys], gs[2], gs[3])
         k_g, v_g = k_g.to(torch.bfloat16), v_g.to(torch.bfloat16)
-        kernel = lambda: mods.paged_attention_quant(q, kc, vc, *quant, tables, lens)  # noqa: E731
-        plain = lambda: mods.ref(q, kc, vc, tables, lens, quant=quant)  # noqa: E731
-        # per visited row and KV head: dh code bytes of K and of V, 4 f32 table entries
-        kv_bytes = pages * BS * hkv * (2 * DH + 16)
+        kernel = lambda: mods.paged_attention_quant(q, kc, vc, *quant, tables, lens,  # noqa: E731
+                                                    window=window)
+        plain = lambda: mods.ref(q, kc, vc, tables, lens, window=window,  # noqa: E731
+                                 quant=quant)
+        # per attended row and KV head: dh code bytes of K and of V, 4 f32 table entries
+        kv_bytes = kv_rows * hkv * (2 * DH + 16)
     k_g, v_g = k_g.permute(0, 2, 1, 3), v_g.permute(0, 2, 1, 3)
-    mask = (torch.arange(mb * BS, device=dev)[None, :] < lens[:, None].long())[:, None, None]
+    pos = torch.arange(mb * BS, device=dev)[None, :]
+    mask = pos < lens[:, None].long()
+    if window:
+        mask &= pos > lens[:, None].long() - 1 - window
+    mask = mask[:, None, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if g > 1:  # SDPA's grouped-query form: the query heads of a KV head side by side
         library = lambda: sdpa(q.reshape(B, hkv * g, 1, DH), k_g, v_g,  # noqa: E731
@@ -122,7 +135,7 @@ def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1)
         library = lambda: sdpa(q, k_g, v_g, attn_mask=mask)  # noqa: E731
     io_bytes = kv_bytes + 2 * q.numel() * q.element_size() + (tables.numel() + B) * 4
     return dict(kernel=kernel, plain=plain, library=library, bytes=io_bytes,
-                ops=4 * B * hkv * g * length * DH)
+                ops=4 * hkv * g * kv_rows * DH)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -131,8 +144,8 @@ def bound_ms(nbytes: float, ops: float):
 
 
 def measure(mods, kind: str, shape: str, gen) -> dict:
-    length, hkv, g = SHAPES[shape]
-    c = attention_case(mods, kind, length, gen, hkv, g)
+    length, hkv, g, window = SHAPES[shape]
+    c = attention_case(mods, kind, length, gen, hkv, g, window)
     before = sm_clock()
     med, lo, hi = time_ms(c["kernel"])
     after = sm_clock()
@@ -140,7 +153,8 @@ def measure(mods, kind: str, shape: str, gen) -> dict:
     return dict(ms=med, ms_min=lo, ms_max=hi, sm_clock=[before, after],
                 plain_ms=time_ms(c["plain"])[0], library_ms=time_ms(c["library"])[0],
                 bound_ms=b_ms, bound_by=b_by,
-                shape=f"B={B} Hkv={hkv} G={g} dh={DH} BS={BS} len={length} bf16 q")
+                shape=f"B={B} Hkv={hkv} G={g} dh={DH} BS={BS} len={length}"
+                      + (f" window={window}" if window else "") + " bf16 q")
 
 
 def main() -> None:

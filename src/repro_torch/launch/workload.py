@@ -88,6 +88,37 @@ KV, random weights from seed 0, :func:`build_uncompressed`):
   OTP — the model MC# compresses; ~57.8 GB. Expert capacity is drop-free,
   and the expert FFN reads all 64 experts of a layer every step, as the
   reference's batched einsum does.
+
+Three more of the reference's transformer configs, at full width in bf16
+with random weights from seed 0:
+
+* ``VLM`` (:func:`build_vlm`): ``llava-next-mistral-7b``, all 32 layers —
+  d_model 4096, 32 query and 8 KV heads of 128 (G = 4), d_ff 14336, vocab
+  32000; ~14.5 GB (:func:`build_uncompressed`). Served on ``ENGINE``'s
+  geometry and :func:`requests` on tokens alone, as the reference's engine
+  serves a ``vlm`` model; then the dense-cache ``prefill`` takes
+  :func:`vlm_patches` (the anyres stub's 2880 patch embeddings, numpy seed
+  5, normal × 0.02) ahead of the first prompt of :func:`requests` and
+  decodes ``VLM_PATCH_NEW`` tokens from position 2944 on (a KV cache of
+  0.386 GB, derived).
+* ``WINDOWED`` (:func:`build_windowed`): ``gemma3-27b``, all 62 layers —
+  d_model 5376, 32 query and 16 KV heads of 128 (G = 2), ``qk_norm``, tied
+  embeddings, vocab 262144, 5 local layers with a window of 1024 per global
+  layer; ~54.0 GB (:func:`build_uncompressed`). :func:`windowed_requests`:
+  2 requests of 1088 prompt tokens (numpy seed 6) and 32 new, 2 slots,
+  16-token pages, 64-token prefill chunks, H = 8, full reservation (70
+  pages a request). Every decode position lies past the window, so the 52
+  local layers mask and the 10 global layers do not; the KV costs 507,904
+  bytes a token (derived), 1.14 GB for the pool.
+* ``WIDE_MOE`` (:func:`build_wide_moe`): ``kimi-k2-1t-a32b`` at full width
+  and ``WIDE_MOE_LAYERS`` = 4 of its 61 layers (the depth is the only cut)
+  — d_model 7168, 64 query and 8 KV heads of 128 (G = 8), 384 experts
+  top-8, 1 shared expert, expert hidden 2048, vocab 163840, untied
+  embeddings — with PMQ + OTP weights from :func:`build_synthetic`
+  (``bucket_counts(384)`` = 1 / 363 / 20 experts at 1 / 2 / 3 bits); about
+  26.4 GB (derived). Served on ``ENGINE``'s geometry and :func:`requests`:
+  the bf16 dequant GEMMs at d_model 7168 walk K in chunks, and drop-free
+  capacity gives a prefill chunk a ``[384, 128, 7168]`` dispatch buffer.
 """
 from __future__ import annotations
 
@@ -123,9 +154,16 @@ __all__ = [
     "TENANT_MIX",
     "TENANT_MIX_COUNTERS",
     "UNCOMPRESSED_MOE",
+    "VLM",
+    "VLM_PATCH_NEW",
+    "WIDE_MOE",
+    "WINDOWED",
     "build",
     "build_dense",
     "build_uncompressed_moe",
+    "build_vlm",
+    "build_wide_moe",
+    "build_windowed",
     "calibration_tokens",
     "offload_faults",
     "offload_requests",
@@ -137,6 +175,8 @@ __all__ = [
     "tenant_mix_faults",
     "tenant_mix_requests",
     "tiny_pipeline",
+    "vlm_patches",
+    "windowed_requests",
 ]
 
 ARCH = "moonshot-v1-16b-a3b"
@@ -151,6 +191,15 @@ DENSE_ARCH = "qwen3-14b"
 #: the dense, uncompressed-MoE and pipeline-compressed paths serve the fp
 #: workload's geometry
 DENSE = UNCOMPRESSED_MOE = COMPRESS = ENGINE
+VLM_ARCH, WINDOWED_ARCH, WIDE_MOE_ARCH = ("llava-next-mistral-7b", "gemma3-27b",
+                                          "kimi-k2-1t-a32b")
+#: the llava and kimi-k2 paths serve the fp workload's geometry too
+VLM = WIDE_MOE = ENGINE
+VLM_PATCH_SEED, VLM_PATCH_NEW = 5, 16
+WINDOWED_PROMPT_LEN, WINDOWED_MAX_NEW, WINDOWED_REQUESTS = 1088, 32, 2
+WINDOWED = EngineConfig(max_slots=2, block_size=16, num_blocks=140, max_blocks_per_slot=70,
+                        prefill_chunk=64, decode_horizon=8, reserve_full=True)
+WIDE_MOE_LAYERS = 4
 #: the compression pipeline's settings (the reference serving CLI's)
 CALIB_BATCHES, CALIB_LEN, CALIB_SEED = 4, 64, 0
 #: (tenant, requests, prompt tokens, new tokens, priority, arrival boundaries)
@@ -281,6 +330,42 @@ def build_uncompressed_moe(device="cuda") -> Tuple[object, Dict]:
     """``(cfg, params)`` of the full-width MoE model without compression."""
     cfg = get_config(ARCH)
     return cfg, build_uncompressed(cfg, seed=0, device=device)
+
+
+def build_vlm(device="cuda") -> Tuple[object, Dict]:
+    """``(cfg, params)`` of the full-width VLM backbone."""
+    cfg = get_config(VLM_ARCH)
+    return cfg, build_uncompressed(cfg, seed=0, device=device)
+
+
+def build_windowed(device="cuda") -> Tuple[object, Dict]:
+    """``(cfg, params)`` of the full-width sliding-window model."""
+    cfg = get_config(WINDOWED_ARCH)
+    return cfg, build_uncompressed(cfg, seed=0, device=device)
+
+
+def build_wide_moe(device="cuda") -> Tuple[object, Dict]:
+    """``(cfg, params)`` of the full-width 384-expert model at
+    ``WIDE_MOE_LAYERS`` layers, PMQ + OTP compressed."""
+    cfg = dataclasses.replace(get_config(WIDE_MOE_ARCH), num_layers=WIDE_MOE_LAYERS)
+    return cfg, build_synthetic(cfg, seed=0, device=device)
+
+
+def vlm_patches(cfg, device="cuda") -> torch.Tensor:
+    """The patch stub's ``[1, num_patch_tokens, d_model]`` embeddings in the
+    config's dtype (numpy seed 5, normal × 0.02)."""
+    rng = np.random.default_rng(VLM_PATCH_SEED)
+    x = rng.normal(size=(1, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32) * 0.02
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return torch.as_tensor(x, device=device).to(dt)
+
+
+def windowed_requests(cfg) -> List[Request]:
+    """Fresh :class:`Request`s of ``WINDOWED`` (the same prompts each call)."""
+    rng = np.random.default_rng(6)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=WINDOWED_PROMPT_LEN)
+                    .astype(np.int32), max_new=WINDOWED_MAX_NEW)
+            for i in range(WINDOWED_REQUESTS)]
 
 
 def calibration_tokens(cfg) -> np.ndarray:

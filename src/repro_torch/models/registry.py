@@ -1,10 +1,12 @@
 """The model API the serving oracle calls (port of ``repro/models/registry.py``).
 
 ``get_model(cfg)`` returns a :class:`ModelBundle` whose members close over
-the config. The port serves the transformer families ``dense`` and ``moe``,
-so a bundle holds their dense-cache ``prefill`` and ``decode_step``:
+the config. The port serves the transformer families ``dense``, ``moe``
+and ``vlm``, so a bundle holds their dense-cache ``prefill`` and
+``decode_step``:
 
-* ``prefill(params, batch) -> (cache, logits)``
+* ``prefill(params, batch) -> (cache, logits)`` (``batch["patch_embeds"]``
+  goes ahead of ``batch["tokens"]`` for ``vlm``)
 * ``decode_step(params, cache, token, pos) -> (cache, logits)``
 """
 from __future__ import annotations
@@ -25,10 +27,7 @@ class ModelBundle:
 
 
 def get_model(cfg) -> ModelBundle:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return ModelBundle(prefill=partial(transformer.prefill, cfg=cfg),
                            decode_step=partial(transformer.decode_step, cfg=cfg))
-    if cfg.family == "vlm":
-        raise ValueError("the vlm family needs the patch-embedding inputs, which the port "
-                         "does not have yet")
     raise ValueError(f"the port has no model of family {cfg.family!r}")

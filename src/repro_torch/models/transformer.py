@@ -1,6 +1,9 @@
-"""The decoder-only LM of the dense and MoE families (port of
+"""The decoder-only LM of the dense, MoE and VLM-backbone families (port of
 ``repro/models/transformer.py``): the dense-cache prefill and decode step,
-and the paged decode and chunked prefill the serving engine runs.
+and the paged decode and chunked prefill the serving engine runs. A ``vlm``
+model's dense-cache prefill takes ``batch["patch_embeds"] [B, P, D]`` ahead
+of the prompt's embeddings, as the reference's anyres patch stub does; the
+paged path serves tokens alone, as the reference's engine does.
 
 ``jax.lax.scan`` over stacked layers becomes a Python loop over
 ``params["layers"]`` (one dict per layer); the jitted programs with donated
@@ -39,6 +42,7 @@ from .moe import moe_layer
 __all__ = [
     "KV_QUANT_BITS",
     "decode_step",
+    "extend_cache",
     "forward_hidden",
     "layer_windows_static",
     "paged_decode_horizon",
@@ -125,10 +129,21 @@ def _block(p, x, cfg, *, positions, window: int):
     return x + delta, kv
 
 
-def forward_hidden(params, tokens: torch.Tensor, cfg, *, collect_cache: bool = False):
-    """Run all blocks over ``tokens [B, S]``: ``(hidden [B, S, D],
-    cache | None)`` with the cache ``{"k", "v"}`` ``[L, B, S, Hkv, dh]``."""
+def _embed_inputs(params, cfg, tokens, patch_embeds=None):
+    """Token embeddings ``[B, S, D]``; a ``vlm`` model's ``patch_embeds
+    [B, P, D]`` go ahead of them (``[B, P + S, D]``)."""
     x = L.embed_tokens(params["embed"], tokens)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg, *,
+                   patch_embeds: Optional[torch.Tensor] = None, collect_cache: bool = False):
+    """Run all blocks over ``tokens [B, S]`` (after ``patch_embeds [B, P,
+    D]`` for a ``vlm`` model): ``(hidden [B, P + S, D], cache | None)`` with
+    the cache ``{"k", "v"}`` ``[L, B, P + S, Hkv, dh]``."""
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     windows = layer_windows_static(cfg, s)
@@ -143,12 +158,24 @@ def forward_hidden(params, tokens: torch.Tensor, cfg, *, collect_cache: bool = F
 
 
 def prefill(params, batch, cfg):
-    """Build the dense KV cache of ``batch["tokens"] [B, S]``: ``(cache,
-    logits [B, 1, V])`` of the last token, ``cache["pos"] = S``."""
+    """Build the dense KV cache of ``batch["tokens"] [B, S]`` (after
+    ``batch["patch_embeds"] [B, P, D]``, if given): ``(cache, logits [B, 1,
+    V])`` of the last token, ``cache["pos"] = S + P``, where decoding
+    continues."""
     tokens = batch["tokens"]
-    hidden, cache = forward_hidden(params, tokens, cfg, collect_cache=True)
-    cache["pos"] = tokens.shape[1]
+    patch = batch.get("patch_embeds")
+    hidden, cache = forward_hidden(params, tokens, cfg, patch_embeds=patch, collect_cache=True)
+    cache["pos"] = tokens.shape[1] + (patch.shape[1] if patch is not None else 0)
     return cache, _logits(params, hidden[:, -1:])
+
+
+def extend_cache(cache, rows: int):
+    """The dense cache with ``rows`` zero positions appended to ``k`` and
+    ``v`` (a prefill cache covers exactly its inputs; decode steps write
+    past them)."""
+    pad = cache["k"].new_zeros((*cache["k"].shape[:2], rows, *cache["k"].shape[3:]))
+    return dict(cache, k=torch.cat([cache["k"], pad], dim=2),
+                v=torch.cat([cache["v"], pad], dim=2))
 
 
 def _decode_block(p, x, cfg, *, k_cache, v_cache, pos: int, window: int):

@@ -26,8 +26,9 @@ the shed budget, the fault plan and release steps all read it. A megastep
 slower than ``watchdog_timeout_s`` or ``livelock_steps`` boundaries without
 progress fail the engine closed with a typed error and a clean pool.
 
-The engine serves the ``dense`` family and the ``moe`` family, PMQ-compressed
-or not. In an MoE model expert capacity is raised to the drop-free bound
+The engine serves the ``dense`` and ``vlm`` families (a ``vlm`` model on
+tokens alone, as the reference's engine does) and the ``moe`` family,
+PMQ-compressed or not. In an MoE model expert capacity is raised to the drop-free bound
 (capacity factor = number of experts), so a request's tokens never depend on
 who it shares a step with. :func:`dense_greedy_reference` decodes through the
 dense cache instead: the oracle the paged engine's greedy tokens are held to.
@@ -89,7 +90,12 @@ import torch
 
 from ..models.moe import dispatch_capacity
 from ..models.registry import get_model
-from ..models.transformer import paged_decode_horizon, paged_prefill_chunk, sample_gumbel
+from ..models.transformer import (
+    extend_cache,
+    paged_decode_horizon,
+    paged_prefill_chunk,
+    sample_gumbel,
+)
 from ..runtime.fault_tolerance import HeartbeatTable
 from .controller import PlanAction, ResourceController
 from .faults import (
@@ -178,26 +184,29 @@ class EngineConfig:
     livelock_steps: int = 4096
 
 
-def dense_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *, device="cuda"):
+def dense_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *,
+                           patch_embeds: Optional[torch.Tensor] = None, device="cuda"):
     """Greedy decode through the dense cache — the oracle the paged engine
     is held to (paged == dense). Returns ``(tokens, per_step_logits)``,
     ``per_step_logits[i]`` the last-token logits ``[V]`` (f32, on the
     host) that chose ``tokens[i]``. Run it with the engine's ``model_cfg``
-    so both sides use drop-free expert capacity."""
+    so both sides use drop-free expert capacity. A ``vlm`` model's
+    ``patch_embeds [1, P, D]`` go ahead of the prompt, and decoding
+    continues at ``cache["pos"]`` = prompt + P."""
     bundle = get_model(cfg)
     tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=device)
-    cache, logits = bundle.prefill(params, {"tokens": tokens})
-    # the prefill cache covers exactly the prompt; extend it for decode
-    pad = cache["k"].new_zeros((*cache["k"].shape[:2], max_new, *cache["k"].shape[3:]))
-    cache = dict(cache, k=torch.cat([cache["k"], pad], dim=2),
-                 v=torch.cat([cache["v"], pad], dim=2))
+    batch = {"tokens": tokens}
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+    cache, logits = bundle.prefill(params, batch)
+    cache = extend_cache(cache, max_new)
     toks, steps = [], []
     for step in range(max_new):
         steps.append(logits[0, -1].cpu().numpy())
         cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
         toks.append(int(cur[0, 0]))
         if step < max_new - 1:
-            cache, logits = bundle.decode_step(params, cache, cur, len(prompt) + step)
+            cache, logits = bundle.decode_step(params, cache, cur, cache["pos"])
     return toks, steps
 
 
@@ -226,11 +235,8 @@ class PagedServingEngine:
     def __init__(self, cfg, params: Dict, engine_cfg: Optional[EngineConfig] = None,
                  faults: Optional[FaultPlan] = None, *, device="cuda"):
         self.ecfg = ecfg = engine_cfg or EngineConfig()
-        if cfg.family == "vlm":
-            raise ValueError("vlm serving needs the patch-embedding path (image patches "
-                             "ahead of the prompt), which the port does not have yet")
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"paged serving supports the dense and moe families, got "
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"paged serving supports the dense, moe and vlm families, got "
                              f"{cfg.family!r}")
         if ecfg.preempt_mode not in ("swap", "recompute"):
             raise ValueError(f"preempt_mode must be 'swap' or 'recompute', "

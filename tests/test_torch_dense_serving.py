@@ -252,15 +252,18 @@ def test_engine_matches_reference_and_dense_oracle(served, horizon):
 
 
 def test_engine_families(served):
-    """vlm is refused with the missing patch path named; drop-free expert
-    capacity applies to MoE models only."""
+    """vlm is served (on tokens, as the reference's engine serves it), ssm is
+    refused; drop-free expert capacity applies to MoE models only."""
     _, tcfg, _, params_t, _, _ = served
     eng = PagedServingEngine(tcfg, params_t, EngineConfig(**GEO), device="cpu")
     if tcfg.is_moe:
         assert eng.model_cfg.moe_capacity_factor == tcfg.num_experts
     else:
         assert eng.model_cfg is tcfg
-    with pytest.raises(ValueError, match="patch"):
-        PagedServingEngine(dataclasses.replace(tcfg, family="vlm"), params_t, device="cpu")
+    vcfg = dataclasses.replace(tcfg, family="vlm")
+    prompt = _prompts(tcfg.vocab_size)[0]
+    vlm = PagedServingEngine(vcfg, params_t, EngineConfig(**GEO), device="cpu")
+    assert vlm.serve([Request(rid=0, prompt=prompt, max_new=MAX_NEW)]) == \
+        eng.serve([Request(rid=0, prompt=prompt, max_new=MAX_NEW)])
     with pytest.raises(ValueError, match="families"):
         PagedServingEngine(dataclasses.replace(tcfg, family="ssm"), params_t, device="cpu")

@@ -359,6 +359,46 @@ def test_paged_attention_long_context(dev, kind, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", [(2, 16), (8, 8)])
+def test_paged_attention_served_shapes(dev, kind, dtype, g, hkv):
+    """gemma3-27b's G = 2 over 16 KV heads at lengths 1088-1120 under its
+    local window of 1024, a global layer's window (the table + 1) and none;
+    kimi-k2-1t-a32b's G = 8 at the same lengths."""
+    gen = torch.Generator().manual_seed(1088 + g)
+    call, plain = _attn(gen, dev, kind, dtype, g, 128, [1088, 1097, 1104, 1120], mb=70,
+                        hkv=hkv)
+    for window in (1024, 70 * 16 + 1, None):
+        _close(call(window), plain(window), dtype)
+
+
+@pytest.mark.cuda
+def test_sliced_expert_build_is_bytewise(dev, monkeypatch):
+    """Buckets quantized on the card in slices of 5 experts (the last
+    ragged) equal the one-shot build byte for byte."""
+    from repro_torch.core import compressed_moe as cm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    e, d, f = 24, 512, 384
+    experts = {"w_gate": torch.randn(e, d, f, generator=gen, device=dev).to(torch.bfloat16),
+               "w_up": torch.randn(e, d, f, generator=gen, device=dev).to(torch.bfloat16),
+               "w_down": torch.randn(e, f, d, generator=gen, device=dev).to(torch.bfloat16)}
+    bits = [1, 3, 2, 2] * 6
+    makers = {k: (lambda w=w: w) for k, w in experts.items()}
+    whole = cm.build_compressed_experts(makers, bits)
+    monkeypatch.setattr(cm, "SLICE_ELEMENTS", 5 * d * f)
+    sliced = cm.build_compressed_experts(makers, bits)
+    assert sliced.meta == whole.meta and torch.equal(sliced.slot_of_expert, whole.slot_of_expert)
+    for b, bucket in whole.arrays.items():
+        for name, leaves in bucket.items():
+            for key, t in leaves.items():
+                got = sliced.arrays[b][name][key]
+                assert got.shape == t.shape and torch.equal(got.view(torch.uint8),
+                                                            t.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp", "int8"])
 def test_paged_attention_batch_invariant(dev, kind):
     """One sequence's output is bit-identical alone, in a batch of 4 with other
     lengths, with a wider block table (more chunks) and on other physical

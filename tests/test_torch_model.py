@@ -96,8 +96,8 @@ def test_compressed_moe_layer(use_otp):
     ex = _experts(rng, E, D, 64)
     bits = [1, 3, 2, 2, 4, 1, 3, 2]
     jce = jcm.build_compressed_experts(ex, bits, group=32, ep=1, refine=False)
-    tce = tcm.build_compressed_experts({k: torch.from_numpy(v) for k, v in ex.items()}, bits,
-                                       group=32, refine=False)
+    makers = {k: (lambda v=v: torch.from_numpy(v)) for k, v in ex.items()}
+    tce = tcm.build_compressed_experts(makers, bits, group=32, refine=False)
     _eq(tce.slot_of_expert, jce.slot_of_expert)
     assert [dataclasses.astuple(m) for m in tce.meta] == [dataclasses.astuple(m)
                                                            for m in jce.meta]
