@@ -35,7 +35,12 @@ Phases (each failure exits non-zero):
    each timed shape also checked); every GEMM shape of kimi-k2's served
    path against its plain version: ``quant_matmul`` at its five (K, N) at
    M = 4 and 16 (bits 1-4), ``moe_gmm_swiglu`` and ``moe_gmm`` on its
-   363-expert 2-bit bucket at drop-free decode capacity;
+   363-expert 2-bit bucket at drop-free decode capacity; then the three
+   dequant GEMMs under autograd (``kernels/grad.py``: the kernel forward, a
+   plain backward) against autograd through their plain versions at the
+   full-width OTP training's shapes (``grad_parity``: ``x``'s gradient
+   within ``TOL``, dead row blocks' exactly zero, each side's time and
+   peak memory printed);
 4. tiny end-to-end parity: reduced configs (f32, one seed) served on the
    card and on the CPU — ``moonshot-v1-16b-a3b`` PMQ + OTP with fp KV and
    with int8 KV plus the prefix cache, ``qwen3-14b`` (dense) and
@@ -58,7 +63,15 @@ Phases (each failure exits non-zero):
    port's pipeline on the card and on the CPU: the same PMQ plan, packed
    codes equal on ≥ 99.9 % of their bytes (the count printed), greedy tokens
    card == CPU, each on its own tree; and a sampled (T = 0.8) megastep of
-   the card's tree under ``set_sync_debug_mode("error")``;
+   the card's tree under ``set_sync_debug_mode("error")``; then 3 steps of
+   ``train_otp`` on the reduced PMQ + OTP model on the card and on the CPU
+   with the same draws (routers within 2e-3, history within 1e-3
+   relative); 3 AdamW steps with 8-bit moments on the reduced
+   ``tinyllama-1.1b``, the card applying the CPU's gradients (codes,
+   scales and params apart in at most 1e-4 of their elements); and the
+   reduced PMQ + OTP model served with ``ffn_backend="ref"`` and
+   ``"grouped"`` on the card (the same greedy tokens; the grouped kernels
+   launch only in the second);
 5. full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
@@ -125,7 +138,14 @@ Phases (each failure exits non-zero):
    workload twice (``FP_PATH``'s kernels and no other, tokens identical,
    greedy agreement with the uncompressed model's printed, not gated), (g)
    sampled at T = 0.8 with seeds 0, 0 (identical) and 1 (the positions that
-   differ printed); then three more of the reference's configs at full
+   differ printed); then ``OTP``: (h) routers trained on that tree at full
+   width by ``train_otp`` (``workload.OTP_TRAIN``: 20 steps of 4 × 64
+   synthetic calibration tokens, λ = 2, τ = 1, lr 5e-3; ``quant_matmul``,
+   ``moe_gmm_swiglu`` and ``moe_gmm`` launched and no other; the peak
+   beside its prediction, the time a step, mask ratio and KL of the first
+   and last five steps), (i) the fp workload served twice with the trained
+   routers (``FP_PATH``'s kernels, tokens identical, OTP activation below
+   1.0, the oracle gate); then three more of the reference's configs at full
    width, each built after the previous model is freed and served twice on
    its workload (``paged_attention`` alone, or ``FP_PATH``'s kernels for the
    compressed one, and no other; tokens identical; each request's agreement
@@ -136,7 +156,16 @@ Phases (each failure exits non-zero):
    ``WINDOWED`` (``gemma3-27b``, 62 layers, 2 requests of 1088 + 32 tokens
    past its 1024-token window) and ``WIDE_MOE`` (``kimi-k2-1t-a32b`` at 4
    of its 61 layers, PMQ + OTP, 384 experts: expert bytes, OTP activation
-   and the drop-free dispatch buffer printed);
+   and the drop-free dispatch buffer printed); and last ``TRAIN``:
+   ``tinyllama-1.1b`` at full width in f32 trained for 20 steps of 8 × 128
+   tokens through ``launch.train.train_step`` (AdamW, 32-bit moments)
+   under ``torch.use_deterministic_algorithms``: the loss falls; the state
+   is checkpointed and restored into a fresh trainer whose next step's loss
+   and params equal the uninterrupted run's bit for bit (no kernel of the
+   port runs on the dense training path); then the same 20 steps with 8-bit
+   moments, their losses reported beside the 32-bit ones, not gated. The
+   host wall of the build, of phases 1-4 and of each path of phase 5 is
+   printed;
 6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
    ``binary_matmul`` has no serving caller (as in the reference), so its
    launches are those of phase 3.
@@ -150,20 +179,32 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS's deterministic workspace, for the training path's bit-exact resume
+# (read when cuBLAS first runs, so set before any device work)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.otp_train import OTPTrainConfig, train_otp  # noqa: E402
+from repro_torch.data.pipeline import HostDataLoader, make_calibration_tokens  # noqa: E402
+from repro_torch.kernels import grad as grad_mod, ops as kernel_ops  # noqa: E402
+from repro_torch.launch.train import batch_to, train_step  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.core import compressed_moe as cm_mod, otp as otp_mod, pipeline  # noqa: E402
 from repro_torch.core.compressed_moe import compressed_moe_layer, gmm_block_rows  # noqa: E402
 from repro_torch.core.quantizers import quantize_parts  # noqa: E402
@@ -172,7 +213,14 @@ from repro_torch.core.synthetic import (  # noqa: E402
     build_synthetic,
     build_uncompressed,
 )
-from repro_torch.core.tree import to_device, weight_bytes  # noqa: E402
+from repro_torch.core.tree import (  # noqa: E402
+    to_device,
+    tree_leaves,
+    tree_map,
+    tree_paths,
+    tree_unflatten,
+    weight_bytes,
+)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.core.quantizers import quantize_kv_rows  # noqa: E402
 from repro_torch.core.packing import pack_bits, pad_to_multiple, unpack_bits  # noqa: E402
@@ -852,6 +900,84 @@ def _binary_case(gen, dtype, m, k, n):
     return compare(f"binary_matmul {m}x{k}x{n} {dtype}", got, want, dtype), (x, b_packed, alpha)
 
 
+def grad_parity(gen):
+    """The three dequant GEMMs under autograd (``ops``: the kernel forward,
+    the plain backward of ``kernels/grad.py``) against autograd through
+    their plain versions, at the shapes of the full-width OTP training
+    (``workload.OTP_TRAIN``: 4 × 64 = 256 tokens): ``quant_matmul`` 4-bit
+    at K = N = d_model, and ``moe_gmm_swiglu`` / ``moe_gmm`` on 16 experts of
+    the 2-bit bucket at the training capacity (32, ``bm`` 16) with dead
+    row blocks; f32 and bf16, ``x``'s gradient within ``TOL`` · max|plain|,
+    the dead blocks' exactly zero. Prints each side's forward + backward
+    time and peak memory (the plain side keeps every gathered f32 weight
+    for its backward)."""
+    cfg = get_config(workload.ARCH)
+    d, f = cfg.d_model, cfg.d_ff_expert
+    t = workload.OTP_TRAIN.batch * workload.OTP_SEQ
+    cap = dispatch_capacity(cfg, t)
+    experts = 16
+    live = np.random.default_rng(4).integers(0, cap + 1, size=experts).tolist()
+    live[-3:] = [0, 0, 0]
+    be, na, bm, nlive = ragged_tables(experts, cap, live)
+    wg, wu = rand_weights(gen, experts, d, f, 2), rand_weights(gen, experts, d, f, 2)
+    wd = rand_weights(gen, experts, f, d, 2)
+    wq = tuple(a[0] for a in rand_weights(gen, 1, d, d, 4))
+    m = experts * cap
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = {
+            "quant_matmul": (t, d, d, lambda x, grad_fn: grad_fn.quant_matmul_parts(
+                x, wq[0], wq[1], wq[2], bits=4)),
+            "moe_gmm_swiglu": (m, d, f, lambda x, grad_fn: grad_fn.moe_gmm_swiglu(
+                x, wg[0], wu[0], wg[1], wg[2], wu[1], wu[2], be, na, bits=2, bm=bm)),
+            "moe_gmm": (m, f, d, lambda x, grad_fn: grad_fn.moe_gmm(
+                x, wd[0], wd[1], wd[2], be, na, bits=2, bm=bm)),
+        }
+        for name, (rows, k, n, call) in cases.items():
+            x = torch.randn((rows, k), generator=gen, device=DEV).to(dtype)
+            gy = torch.randn((rows, n), generator=gen, device=DEV).to(dtype)
+            out = {}
+            for side, grad_fn in (("ops", kernel_ops), ("plain", PlainOps)):
+                xs = x.clone().requires_grad_()
+                torch.autograd.grad(call(xs, grad_fn), xs, gy)  # warm up (cuBLAS, allocator)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                (g,) = torch.autograd.grad(call(xs, grad_fn), xs, gy)
+                torch.cuda.synchronize()
+                out[side] = (g, (time.perf_counter() - t0) * 1e3,
+                             torch.cuda.max_memory_allocated() - base, dict(build.LAUNCHES))
+            g, ms, peak, launches = out["ops"]
+            if launches[name] != 1 or sum(launches.values()) != 1:
+                raise AssertionError(f"grad {name}: launches {launches} (want one forward)")
+            err = compare(f"grad {name} {dtype}", g, out["plain"][0], dtype)
+            if name != "quant_matmul" and (g[nlive * bm:] != 0).any():
+                raise AssertionError(f"grad {name}: dead row blocks got a gradient")
+            lines.append(f"{name} {str(dtype)[6:]} [{rows}x{k}->{n}] max|err| {err:.3e}, "
+                         f"fwd+bwd {ms:.2f} ms / plain {out['plain'][1]:.2f} ms, peak "
+                         f"{peak / 1e6:.1f} MB / plain {out['plain'][2] / 1e6:.1f} MB")
+    log(f"autograd wrappers (x gradient against autograd through the plain versions; "
+        f"{nlive} of {m // bm} row blocks live): " + "; ".join(lines))
+
+
+class PlainOps:
+    """The three GEMMs as their plain versions, for autograd to differentiate."""
+
+    @staticmethod
+    def quant_matmul_parts(x, w, scale, zero, *, bits):
+        return ref.quant_matmul_ref(x, w, scale, zero, bits=bits)
+
+    @staticmethod
+    def moe_gmm_swiglu(x, *args, bits, bm):
+        return ref.moe_gmm_swiglu_ref(x, *args, bits=bits, bm=bm)
+
+    @staticmethod
+    def moe_gmm(x, *args, bits, bm):
+        return ref.moe_gmm_ref(x, *args, bits=bits, bm=bm)
+
+
 def parity_binary_matmul(gen, results, cfg):
     """Eq. 9 at an expert's gate/up shape (K = d_model, N = d_ff_expert),
     ragged M, a ragged K (neither a multiple of 8 nor of 16) and N off the
@@ -1166,6 +1292,93 @@ def tiny_pipeline():
         f"bytes differing {differ} of {codes_c.numel()}; {len(out_c)} requests, greedy tokens "
         f"card == cpu")
     sync_free_megastep(cfg, params_g, temperature=0.8)
+
+
+def tiny_otp_training():
+    """``train_otp`` (3 steps, λ = 2) on the reduced PMQ + OTP model (f32,
+    seed 0) on the card and on the CPU, on the same draws (the default
+    draws come from one CPU generator): the routers within 2e-3 and the
+    history within 1e-3 relative."""
+    cfg = get_config(workload.ARCH).reduced()
+    params_cpu = build_synthetic(cfg, seed=0, device="cpu")
+    data = make_calibration_tokens(cfg.vocab_size, 8, 16, seed=3)
+    tcfg = OTPTrainConfig(steps=3, batch=2, lr=5e-3, lam=2.0, seed=0)
+    runs = {}
+    for name, params in (("card", to_device(params_cpu, DEV)), ("cpu", params_cpu)):
+        top = {k: v for k, v in params.items() if k != "layers"}
+        runs[name] = train_otp(params["layers"], top, cfg, data, tcfg)
+    (rg, hg), (rc, hc) = runs["card"], runs["cpu"]
+    err = max((a[n].cpu() - b[n]).abs().max().item() for a, b in zip(rg, rc) for n in a)
+    hist = max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
+               for a, b in zip(hg, hc) for key in ("loss", "kl", "mask_ratio"))
+    if err > 2e-3 or hist > 1e-3:
+        raise AssertionError(f"tiny OTP training: routers differ card vs cpu by {err:.3e}, "
+                             f"history by {hist:.3e} relative")
+    log(f"tiny OTP training ({cfg.name} reduced, f32, 3 steps, λ = 2): routers card vs cpu "
+        f"max|diff| {err:.3e}, history max rel diff {hist:.3e}; mask ratio "
+        f"{[round(h['mask_ratio'], 4) for h in hg]}")
+
+
+def tiny_adamw8():
+    """AdamW with 8-bit moments on the card against the CPU: the reduced
+    ``TRAIN_ARCH`` (f32) takes three steps at lr 1e-3 on the CPU, and the
+    card applies each step's CPU gradients to its own params and state. The
+    moments' int8 codes and scales, and the params, may differ in at most
+    1e-4 of their elements (codes: any difference; scales: 1e-6 relative;
+    params: 1e-5 · max|param|): the update is elementwise, so only the bias
+    corrections' ``pow`` may round apart."""
+    cfg = dataclasses.replace(get_config(workload.TRAIN_ARCH).reduced(), dtype="float32")
+    bundle = get_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3, state_bits=8)
+    loader = HostDataLoader(vocab=cfg.vocab_size, global_batch=4, seq_len=32, seed=0)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    card = to_device(params, DEV)
+    opt, opt_card = adamw_init(params, ocfg), adamw_init(card, ocfg)
+    for i in range(3):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = bundle.train_loss(live, batch_to(loader.batch_at(i), "cpu"))
+        grads = tree_unflatten(live, torch.autograd.grad(loss, tree_leaves(live)))
+        params, opt = adamw_update(params, grads, opt, ocfg)
+        card, opt_card = adamw_update(card, to_device(grads, DEV), opt_card, ocfg)
+    off, total = {"codes": 0, "scales": 0, "params": 0}, {"codes": 0, "scales": 0, "params": 0}
+    for (path, a), (_, b) in zip(tree_paths({"opt": opt["per_param"], "params": params}),
+                                 tree_paths({"opt": opt_card["per_param"], "params": card})):
+        b = b.detach().cpu()
+        a = a.detach()
+        kind = "codes" if path[-1] == ".q" else "scales" if path[-1] == ".scale" else "params"
+        tol = {"codes": 0.0, "scales": 1e-6 * a.abs().max().item(),
+               "params": 1e-5 * a.abs().max().item()}[kind]
+        off[kind] += int(((a.float() - b.float()).abs() > tol).sum())
+        total[kind] += a.numel()
+    log(f"tiny AdamW 8-bit ({cfg.name} reduced, f32, 3 steps at lr 1e-3, the CPU's gradients): "
+        f"card vs cpu elements apart {off} of {total}")
+    if any(off[k] > 1e-4 * total[k] for k in off):
+        raise AssertionError(f"tiny AdamW 8-bit: card and cpu apart in {off} of {total}")
+
+
+def tiny_ffn_backend():
+    """The reduced PMQ + OTP model (f32) served on the card with
+    ``ffn_backend="ref"`` (the plain grouped GEMMs) and ``"grouped"`` (the
+    kernels): the same greedy tokens; the grouped kernels launch only in the
+    second."""
+    cfg = get_config(workload.ARCH).reduced()
+    params = build_synthetic(cfg, seed=0, device=DEV)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
+    outs, gmm = {}, {}
+    for backend in ("ref", "grouped"):
+        ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+                            prefill_chunk=16, decode_horizon=4, reserve_full=True,
+                            ffn_backend=backend)
+        build.reset_launches()
+        outs[backend] = PagedServingEngine(cfg, params, ecfg, device=DEV).serve(
+            Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
+        gmm[backend] = build.LAUNCHES["moe_gmm"] + build.LAUNCHES["moe_gmm_swiglu"]
+    if outs["ref"] != outs["grouped"] or gmm["ref"] or not gmm["grouped"]:
+        raise AssertionError(f"ffn_backend: tokens equal {outs['ref'] == outs['grouped']}, "
+                             f"grouped GEMM launches {gmm}")
+    log(f"ffn_backend ({cfg.name} reduced, f32, on the card): 'ref' and 'grouped' serve the "
+        f"same greedy tokens ({len(prompts)} requests x 12); grouped GEMM launches {gmm}")
 
 
 # ------------------------------------------------ phase 5: full width
@@ -1842,7 +2055,91 @@ def compress_path(cfg, params, moe_out):
     log(f"compress (g) sampled serving (T = 0.8): seed 0 twice byte-identical ({dt_a:.3f} / "
         f"{dt_b:.3f} s); seed 1 differs at {differ} of {n} positions ({dt_c:.3f} s); seed 0 "
         f"differs from greedy at {vs_greedy}")
-    return launches
+    del eng
+    return launches, otp_path(cfg, params_c)
+
+
+#: kernels of the OTP training forward (its attention is the dense sweep)
+OTP_TRAIN_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm")
+
+
+def otp_memory_prediction(cfg, t: int) -> dict:
+    """Bytes the OTP training adds on top of the model (derived before the
+    first run): what the port's autograd keeps per layer (the SwiGLU's
+    compacted input and the capacity layout, ~24 [T, D] bf16 activations),
+    the f32 logits (student, teacher, softmax) and the f32 copy of the
+    output embedding the logits keep for the backward, and the backward's
+    dequantized expert slices; beside it what autograd through the plain
+    grouped GEMMs would keep: each GEMM's gathered ``[blocks, K, N]`` f32
+    weights, three GEMMs a layer."""
+    d, f, v = cfg.d_model, cfg.d_ff_expert, cfg.vocab_size
+    cap = dispatch_capacity(cfg, t)
+    rows = cfg.num_experts * cap
+    layer = rows * (d + f) * 2 + 24 * t * d * 2
+    logits = 3 * t * v * 4 + v * d * 4
+    transient = 2 * 4 * grad_mod.SLICE_ELEMENTS  # two operands' slices, f32 and its temporaries
+    plain_layer = 3 * (rows // gmm_block_rows(cap)) * d * f * 4
+    return dict(activations=cfg.num_layers * layer, logits=logits, transient=transient,
+                plain=cfg.num_layers * plain_layer)
+
+
+def otp_path(cfg, params_c):
+    """``OTP``: (h) routers trained on the pipeline-compressed tree by
+    ``train_otp`` (``workload.OTP_TRAIN``: 20 steps, batch 4 × 64, λ = 2, τ
+    = 1, lr 5e-3) at full width, ``OTP_TRAIN_PATH``'s kernels launched in the
+    forward and no other, the peak set against its prediction, the loss, KL
+    and mask ratio finite; (i) the fp workload served twice with the trained
+    routers: ``FP_PATH``'s launches, tokens identical, the OTP activation
+    below 1.0, each request held to the dense-cache oracle. Returns the
+    launches of (h) and (i)."""
+    t = workload.OTP_TRAIN.batch * workload.OTP_SEQ
+    pred = otp_memory_prediction(cfg, t)
+    blocks = params_c["layers"]
+    top = {k: v for k, v in params_c.items() if k != "layers"}
+    begin_path()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    (routers, hist), dt = _timed(lambda: train_otp(blocks, top, cfg, workload.otp_tokens(cfg),
+                                                   workload.OTP_TRAIN))
+    train_launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in OTP_TRAIN_PATH if train_launches[k] == 0]
+    stray = [k for k, n in train_launches.items() if n and k not in OTP_TRAIN_PATH]
+    if missing or stray:
+        raise AssertionError(f"OTP training: kernels never launched {missing}, off its path "
+                             f"{stray}")
+    if not all(np.isfinite([h[key] for h in hist for key in ("loss", "kl", "mask_ratio")])):
+        raise AssertionError("OTP training: non-finite loss, KL or mask ratio")
+    first, last = hist[:5], hist[-5:]
+    mean = lambda hs, key: float(np.mean([h[key] for h in hs]))
+    log(f"OTP (h) train_otp at full width ({cfg.num_layers} layers, {workload.OTP_TRAIN}): "
+        f"{len(hist)} steps in {dt:.3f} s ({dt / len(hist):.3f} s a step); device memory "
+        f"{before / 1e9:.3f} GB before, peak {peak / 1e9:.3f} GB (+{(peak - before) / 1e9:.3f}); "
+        f"predicted +{(pred['activations'] + pred['logits']) / 1e9:.3f} GB kept for the "
+        f"backward (activations {pred['activations'] / 1e9:.3f}, logits and f32 embedding "
+        f"{pred['logits'] / 1e9:.3f}) and up to {pred['transient'] / 1e9:.3f} GB of dequantized "
+        f"expert slices; autograd through the plain GEMMs would keep "
+        f"{pred['plain'] / 1e9:.1f} GB; launches {train_launches}")
+    ratio = [[round(h["mask_ratio"], 4) for h in hs] for hs in (first, last)]
+    kl = [[float(f"{h['kl']:.4g}") for h in hs] for hs in (first, last)]
+    log(f"OTP (h) mask ratio first five {ratio[0]}, last five {ratio[1]} (mean "
+        f"{mean(first, 'mask_ratio'):.4f} -> {mean(last, 'mask_ratio'):.4f}); KL first five "
+        f"{kl[0]}, last five {kl[1]}")
+    params_otp = dict(params_c, layers=[dict(p, otp=r) for p, r in zip(blocks, routers)])
+    eng, out, launches, peak = _drive("OTP-trained path", cfg, params_otp, workload.COMPRESS,
+                                      workload.requests(cfg), FP_PATH)
+    _, out2 = _serve(cfg, params_otp, workload.COMPRESS, workload.requests(cfg))
+    s = eng.summary()
+    if out2 != out or not s["expert_activation"] < 1.0:
+        raise AssertionError(f"OTP (i): second engine tokens identical {out2 == out}, "
+                             f"activation {s['expert_activation']}")
+    log(f"OTP (i) full width serving with the trained routers: {len(out)} requests x "
+        f"{workload.MAX_NEW} tokens; peak device memory {peak / 1e9:.3f} GB; decode "
+        f"{s['decode_tokens']} tokens in {s['decode_s']:.3f} s = "
+        f"{s['decode_tokens_per_s']:.1f} tokens/s; OTP expert activation "
+        f"{s['expert_activation']:.4f}; launches {launches}; second engine tokens identical")
+    log(oracle_agreement("OTP-trained path", eng, params_otp, workload.requests(cfg), out))
+    return train_launches, launches
 
 
 def vlm_path():
@@ -1920,6 +2217,130 @@ def wide_moe_path():
     return launches
 
 
+def _bitwise_tree(a, b) -> bool:
+    return all(bitwise_equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def train_path():
+    """``TRAIN``: ``tinyllama-1.1b`` at full width in f32 trained for
+    ``TRAIN_STEPS`` steps through ``launch.train.train_step`` (AdamW, 32-bit
+    moments, warmup 10) on ``HostDataLoader`` batches, under
+    ``torch.use_deterministic_algorithms`` (each op without a deterministic
+    form printed): the loss falls; the step is checkpointed (async writer,
+    a ``tempfile`` directory) and restored into a fresh trainer, whose next
+    step's loss and params equal the uninterrupted run's bit for bit.
+    Returns the launches (the dense path runs no kernel of the port)."""
+    cfg = dataclasses.replace(get_config(workload.TRAIN_ARCH), dtype="float32")
+    bundle = get_model(cfg)
+    ocfg = AdamWConfig(lr=workload.TRAIN_LR)
+    n = workload.TRAIN_STEPS
+    loader = HostDataLoader(vocab=cfg.vocab_size, global_batch=workload.TRAIN_BATCH,
+                            seq_len=workload.TRAIN_SEQ, seed=0)
+    step_kw = dict(warmup=10, total=n + 1)
+
+    def step(params, opt, i):
+        return train_step(bundle.train_loss, params, opt, batch_to(loader.batch_at(i), DEV),
+                          ocfg, **step_kw)
+
+    begin_path()
+    nparams = cfg.param_count()
+    pred = nparams * 4 * 7  # params, grads, m, v, and the new params, m, v beside the old
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            (params, opt), dt = _timed(lambda: (lambda p: (p, adamw_init(p, ocfg)))(
+                bundle.init(torch.Generator(device=DEV).manual_seed(0))))
+            losses, times = [], []
+            for i in range(n):
+                (params, opt, loss), t_step = _timed(lambda: step(params, opt, i))
+                losses.append(float(loss))
+                times.append(t_step)
+            peak = torch.cuda.max_memory_allocated()
+            if not (np.isfinite(losses).all() and np.mean(losses[-5:]) < np.mean(losses[:5])):
+                raise AssertionError(f"train: loss did not fall: {losses}")
+            with tempfile.TemporaryDirectory() as tmp:
+                free = shutil.disk_usage(tmp).free
+                ckpt = Checkpointer(tmp, keep=1)
+                (_, _), t_save = _timed(lambda: (ckpt.save(n - 1, {"params": params,
+                                                                  "opt": opt}), ckpt.wait()))
+                size = sum(os.path.getsize(os.path.join(r, f))
+                           for r, _, fs in os.walk(tmp) for f in fs)
+                params_a, _, loss_a = step(params, opt, n)
+                del params, opt
+                fresh = bundle.init(torch.Generator(device=DEV).manual_seed(1))
+                like = {"params": fresh, "opt": adamw_init(fresh, ocfg)}
+                state, t_load = _timed(lambda: ckpt.restore(n - 1, like))
+                del fresh, like
+                params_b, _, loss_b = step(state["params"], state["opt"], n)
+                del state
+        finally:
+            torch.use_deterministic_algorithms(False)
+    launches = dict(build.LAUNCHES)
+    nondet = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                     if "deterministic" in str(w.message)})
+    same_loss = bitwise_equal(loss_a, loss_b)
+    same_params = _bitwise_tree(params_a, params_b)
+    gap = max((a - b).abs().max().item()
+              for a, b in zip(tree_leaves(params_a), tree_leaves(params_b)))
+    log(f"train ({cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{nparams / 1e9:.3f} B params, f32, AdamW 32-bit moments): init {dt:.3f} s; "
+        f"{n} steps of {workload.TRAIN_BATCH} x {workload.TRAIN_SEQ} tokens, median "
+        f"{statistics.median(times):.4f} s a step (first {times[0]:.3f} s); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {[round(x, 4) for x in losses[:5]]}, "
+        f"last five {[round(x, 4) for x in losses[-5:]]}); peak device memory "
+        f"{peak / 1e9:.3f} GB (predicted {pred / 1e9:.3f} GB plus activations); launches "
+        f"{launches}")
+    log(f"train checkpoint: {size / 1e9:.3f} GB written in {t_save:.3f} s ({free / 1e9:.1f} GB "
+        f"free in TMPDIR), restored into a fresh trainer in {t_load:.3f} s; step {n} after the "
+        f"restore: loss {float(loss_b):.6f} against {float(loss_a):.6f} uninterrupted, loss "
+        f"bitwise equal {same_loss}, params bitwise equal {same_params} (max|diff| {gap:.3e}); "
+        f"ops without a deterministic form: {nondet or 'none'}")
+    if not (same_loss and same_params):
+        raise AssertionError("train: the resumed step differs from the uninterrupted one")
+    if any(launches.values()):
+        raise AssertionError(f"train: kernels launched on the dense training path: {launches}")
+    del params_a, params_b
+    train_8bit(bundle, loader, dataclasses.replace(ocfg, state_bits=8), step_kw, losses)
+    return launches
+
+
+def train_8bit(bundle, loader, ocfg8, step_kw, losses32):
+    """``TRAIN``'s steps again from the same init and batches with 8-bit
+    moments (reported beside the 32-bit losses, not gated: the reference's
+    linear code for ``v`` steps by ``lr · m̂ / eps`` where a small ``v``
+    rounds to 0 and the row's gradient is 0; the card's 8-bit update is
+    held to the CPU's by :func:`tiny_adamw8`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(0))
+    opt = adamw_init(params, ocfg8)
+    losses, times = [], []
+    for i in range(workload.TRAIN_STEPS):
+        (params, opt, loss), t_step = _timed(lambda: train_step(
+            bundle.train_loss, params, opt, batch_to(loader.batch_at(i), DEV), ocfg8, **step_kw))
+        losses.append(float(loss))
+        times.append(t_step)
+    log(f"train 8-bit moments (lr {ocfg8.lr:g}, the same init and batches; reported, not "
+        f"gated): median {statistics.median(times):.4f} s a step; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (max {max(losses):.4f} at step {int(np.argmax(losses))}; 32-bit "
+        f"{losses32[0]:.4f} -> {losses32[-1]:.4f}); all losses "
+        f"{[round(x, 4) for x in losses]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+
+WALLS: dict = {}
+
+
+def walled(name: str, fn):
+    """``fn()``, its host wall time kept in ``WALLS[name]`` (seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    WALLS[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def free_model() -> None:
     """Release the last path's model (its references died with the path's
     function) and the allocator's cached blocks before the next is built."""
@@ -1936,26 +2357,34 @@ def full_width():
     model's and the 384-expert model's, each model freed before the next is
     built. Returns each path's launches."""
     fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, \
-        (fp_step, fp_all) = compressed_paths()
+        (fp_step, fp_all) = walled("compressed paths", compressed_paths)
     free_model()
-    dense_launches, _, _, _ = plain_path("dense path", *build_logged(workload.build_dense),
-                                         workload.DENSE, DENSE_PATH)
+    dense_launches, _, _, _ = walled("dense", lambda: plain_path(
+        "dense path", *build_logged(workload.build_dense), workload.DENSE, DENSE_PATH))
     free_model()
-    cfg, params = build_logged(workload.build_uncompressed_moe)
-    moe_launches, (moe_step, moe_all), moe_out, _ = plain_path(
-        "uncompressed MoE path", cfg, params, workload.UNCOMPRESSED_MOE, UNCOMPRESSED_MOE_PATH)
+
+    def uncompressed():
+        cfg, params = build_logged(workload.build_uncompressed_moe)
+        return cfg, params, plain_path("uncompressed MoE path", cfg, params,
+                                       workload.UNCOMPRESSED_MOE, UNCOMPRESSED_MOE_PATH)
+
+    cfg, params, (moe_launches, (moe_step, moe_all), moe_out, _) = walled("uncompressed MoE",
+                                                                          uncompressed)
     log(f"expert bytes of {workload.ARCH} on the device: uncompressed {moe_all / 1e9:.3f} GB, "
         f"PMQ {fp_all / 1e9:.3f} GB ({moe_all / fp_all:.2f}x); read per decode step: "
         f"uncompressed {moe_step / 1e9:.3f} GB (every expert of every layer), PMQ + OTP fp "
         f"path {fp_step / 1e9:.3f} GB (the routed experts' packed rows; {moe_step / fp_step:.2f}x)")
-    compress_launches = compress_path(cfg, params, moe_out)
+    compress_launches, (otp_train_launches, otp_launches) = walled(
+        "compress + OTP", lambda: compress_path(cfg, params, moe_out))
     del params
     free_model()
-    vlm_launches = vlm_path()
+    vlm_launches = walled("vlm", vlm_path)
     free_model()
-    windowed_launches = windowed_path()
+    windowed_launches = walled("windowed", windowed_path)
     free_model()
-    wide_launches = wide_moe_path()
+    wide_launches = walled("wide MoE", wide_moe_path)
+    free_model()
+    train_launches = walled("train", train_path)
     free_model()
     if ORACLE_FAULTS:
         raise AssertionError(f"divergences from the dense-cache oracle with no near-tie within "
@@ -1966,6 +2395,8 @@ def full_width():
             "dense serving": dense_launches,
             "uncompressed MoE serving": moe_launches,
             "compressed (pipeline) serving": compress_launches,
+            "OTP training": otp_train_launches, "OTP-trained serving": otp_launches,
+            "dense training": train_launches,
             "vlm serving": vlm_launches, "windowed serving": windowed_launches,
             "wide MoE serving": wide_launches}
 
@@ -1983,7 +2414,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
 
-    log(f"build: {build.timed_build():.1f} s ({build.BUILD_DIR})")
+    log(f"build: {walled('build', build.timed_build):.1f} s ({build.BUILD_DIR})")
+    t_phases = time.perf_counter()
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     results = {}
@@ -1999,6 +2431,7 @@ def main() -> int:
     parity_attention(gen, results, "int8")
     invariance_attention(gen)
     invariance_binary_matmul(gen, cfg)
+    grad_parity(gen)
     build.reset_launches()
     parity_binary_matmul(gen, results, cfg)
     binary_launches = build.LAUNCHES["binary_matmul"]
@@ -2015,7 +2448,12 @@ def main() -> int:
         tiny_preemption(model)
     tiny_offload()
     tiny_pipeline()
+    tiny_otp_training()
+    tiny_adamw8()
+    tiny_ffn_backend()
+    WALLS["phases 1-4"] = round(time.perf_counter() - t_phases, 1)
     paths = full_width()
+    log(f"wall by phase (s, host clock): {WALLS}")
 
     # launches of each kernel on the path that runs it; binary_matmul has no
     # serving caller (none in the reference either), so its count is phase 3's

@@ -20,17 +20,26 @@ the kernels read resident rows directly — bitwise the all-resident result
 for every slot whose row holds its weights. A non-resident slot points at
 row 0 and must carry no routed tokens (the engine's miss replay sees to
 that).
+
+**Backend knob** (``ffn_backend=``, the reference's ``FFN_BACKENDS``):
+``"grouped"`` (the default) runs the Hopper kernels on a CUDA tensor and
+their plain versions on a CPU one; ``"ref"`` runs the plain versions on
+either device, chosen by the caller, never as a fallback.
+``REPRO_FFN_BACKEND`` sets the process default. The reference's
+``"scan"`` (the per-expert scan of its expert-parallel shards) and
+``"interpret"`` (the Pallas interpreter) are refused by name.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..models.layers import mlp
 from ..models.moe import (
     capacity_dispatch,
@@ -46,14 +55,42 @@ from .quantizers import pack_codes, quantize_parts
 __all__ = [
     "BucketMeta",
     "CompressedExperts",
+    "FFN_BACKENDS",
     "build_compressed_experts",
     "compressed_expert_ffn",
     "compressed_moe_layer",
+    "default_ffn_backend",
     "gmm_block_rows",
     "grouped_bucket_ffn",
+    "resolve_ffn_backend",
 ]
 
 _NAMES = ("w_gate", "w_up", "w_down")
+
+FFN_BACKENDS = ("grouped", "ref")
+#: the reference's backends the port refuses, and why
+_REFUSED = {
+    "scan": "the per-expert scan of the expert-parallel shards; it comes with expert "
+            "parallelism (ROADMAP queue 1 item 5)",
+    "interpret": "the Pallas interpreter, which has no torch counterpart; 'ref' runs the "
+                 "plain versions",
+}
+
+
+def resolve_ffn_backend(backend: Optional[str]) -> str:
+    """``backend`` (or the process default) checked: ``"grouped"`` or
+    ``"ref"``; a ValueError names the reference's other two."""
+    b = backend or default_ffn_backend()
+    if b in _REFUSED:
+        raise ValueError(f"ffn backend {b!r} is not ported: {_REFUSED[b]}")
+    if b not in FFN_BACKENDS:
+        raise ValueError(f"ffn backend {b!r} not in {FFN_BACKENDS}")
+    return b
+
+
+def default_ffn_backend() -> str:
+    """Process-wide expert-FFN path: ``REPRO_FFN_BACKEND`` or ``grouped``."""
+    return os.environ.get("REPRO_FFN_BACKEND", "").strip().lower() or "grouped"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +248,8 @@ def _parts(w: Dict, bits: int):
 
 def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bits: int,
                        group: int, count: int, cap: int,
-                       rmap: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       rmap: Optional[torch.Tensor] = None,
+                       ffn_backend: str = "grouped") -> torch.Tensor:
     """One bucket's SwiGLU over its capacity slice ``xb [count·cap, D]`` as
     grouped GEMMs; returns ``[count·cap, D]`` in the same layout.
 
@@ -221,6 +259,9 @@ def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bit
     live blocks and unoccupied capacity rows come back exactly zero.
     ``rmap [count]`` (host-offloaded buckets) maps each slot to its row of
     ``wdict``'s resident leaves and is folded into ``block_expert``.
+    ``ffn_backend`` (resolved, :data:`FFN_BACKENDS`) picks the GEMMs:
+    ``"grouped"`` the :mod:`..kernels.ops` wrappers, ``"ref"`` their plain
+    versions (differentiated by autograd, as the reference's are).
     Everything stays on the device — no host sync.
     """
     m = count * cap
@@ -255,37 +296,48 @@ def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bit
     gp, gs, gz = _parts(wdict["w_gate"], bits)
     up, us, uz = _parts(wdict["w_up"], bits)
     dp, ds, dz = _parts(wdict["w_down"], bits)
-    h = ops.moe_gmm_swiglu(xg, gp, up, gs, gz, us, uz, block_expert, num_active, bits=bits,
-                           group=group, bm=bm)
-    yg = ops.moe_gmm(h, dp, ds, dz, block_expert, num_active, bits=bits, group=group, bm=bm)
+    if ffn_backend == "ref":
+        gmm_swiglu, gmm = ref.moe_gmm_swiglu_ref, ref.moe_gmm_ref
+    else:
+        gmm_swiglu, gmm = ops.moe_gmm_swiglu, ops.moe_gmm
+    h = gmm_swiglu(xg, gp, up, gs, gz, us, uz, block_expert, num_active, bits=bits,
+                   group=group, bm=bm)
+    yg = gmm(h, dp, ds, dz, block_expert, num_active, bits=bits, group=group, bm=bm)
     return torch.cat([yg, yg.new_zeros(1, d)], dim=0)[gdest]
 
 
 def compressed_expert_ffn(ce: CompressedExperts, xp: torch.Tensor, cap: int,
-                          slot_fill: torch.Tensor) -> torch.Tensor:
+                          slot_fill: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
     """SwiGLU over the permuted capacity layout ``xp [num_slots·cap, D]``,
     bucket by bucket through :func:`grouped_bucket_ffn` (with each bucket's
-    resident map when the buckets are host-offloaded)."""
+    resident map when the buckets are host-offloaded), on the expert-FFN
+    ``backend`` (:data:`FFN_BACKENDS`; None = the process default)."""
+    backend = resolve_ffn_backend(backend)
     ys = []
     for i, m in enumerate(ce.meta):
         xb = xp[m.start * cap:(m.start + m.count) * cap]
         fill = slot_fill[m.start:m.start + m.count]
         rmap = None if ce.resident_map is None else ce.resident_map[f"b{i}"]
         ys.append(grouped_bucket_ffn(xb, ce.arrays[f"b{i}"], fill, bits=m.bits, group=ce.group,
-                                     count=m.count, cap=cap, rmap=rmap))
+                                     count=m.count, cap=cap, rmap=rmap, ffn_backend=backend))
     return torch.cat(ys, dim=0)
 
 
 def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *,
-                         otp_params: Optional[Dict] = None,
+                         otp_params: Optional[Dict] = None, otp_rng=None,
+                         otp_tau: float = 1.0,
                          capacity_factor: Optional[float] = None,
-                         count_weight: Optional[torch.Tensor] = None):
+                         count_weight: Optional[torch.Tensor] = None,
+                         ffn_backend: Optional[str] = None):
     """MoE block with PMQ experts and optional OTP pruning (the reference's
     local path). ``p`` carries the router and the shared experts. Returns
     ``(y [B, S, D], info)``; ``info["mask"]`` is the OTP mask ``[T, k]`` (or
-    None) and ``info["slot_counts"]`` the per-slot count of dispatched
-    (token, choice) pairs after masking, with tokens where ``count_weight``
-    is false left out."""
+    None), ``info["mask_l1"]`` its mean (the Eq. 14 ℓ1 term, or None) and
+    ``info["slot_counts"]`` the per-slot count of dispatched (token, choice)
+    pairs after masking, with tokens where ``count_weight`` is false left
+    out. ``otp_rng`` (uniforms ``[T, k]`` or a generator) samples the mask by
+    Gumbel-Softmax at temperature ``otp_tau`` (training); without it the
+    mask is the argmax. ``ffn_backend`` as in :func:`compressed_expert_ffn`."""
     b, s, d = x.shape
     t = b * s
     x2 = x.reshape(t, d)
@@ -293,7 +345,7 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
     probs, idx, gates = route_topk(p["router"], x2, k)
     mask = None
     if otp_params is not None:
-        mask = otp_mod.otp_mask(otp_params, x2, idx, gates)
+        mask = otp_mod.otp_mask(otp_params, x2, idx, gates, rng=otp_rng, tau=otp_tau)
     slots = ce.slot_of_expert[idx]  # original expert ids → permuted slots
     eff = slots.reshape(-1)
     if mask is not None:
@@ -305,10 +357,10 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
     cap = dispatch_capacity(cfg, t, capacity_factor)
     xp, dest, valid, gflat = capacity_dispatch(x2, slots, gates, ce.num_slots, cap, mask)
     slot_fill = slot_fill_counts(dest, valid, ce.num_slots, cap)
-    yp = compressed_expert_ffn(ce, xp, cap, slot_fill)
+    yp = compressed_expert_ffn(ce, xp, cap, slot_fill, backend=ffn_backend)
     y = combine(yp, dest, valid, gflat, t, k)
     if "shared" in p:
         y = y + mlp(p["shared"], x2)
     info = {"probs": probs, "idx": idx, "gates": gates, "mask": mask,
-            "slot_counts": slot_counts}
+            "mask_l1": mask.mean() if mask is not None else None, "slot_counts": slot_counts}
     return y.reshape(b, s, d), info

@@ -17,8 +17,9 @@ port's per-layer layout (``{"embed", "final_norm", ["unembed"], "layers":
    as it is.
 
 The compressed model evaluates through :func:`compressed_forward` (the
-argmax OTP mask when routers are given; the Gumbel branch of OTP training
-is not ported), and :func:`compress_for_serving` gives the layer-uniform
+argmax OTP mask when routers are given, or Gumbel-sampled masks with
+gradients for OTP training, :mod:`repro_torch.core.otp_train`), and
+:func:`compress_for_serving` gives the layer-uniform
 tree the serving engine takes. The reference's dry-run helper
 (``synthetic_stacked_compressed``) has its counterpart in
 :mod:`repro_torch.core.synthetic`.
@@ -264,27 +265,41 @@ def quantize_tree_uniform(tree, bits: int, group: int):
 
 
 # ----------------------------------------------------- compressed forward
-@torch.no_grad()
 def compressed_forward(blocks_c, top, tokens: torch.Tensor, cfg,
-                       otp_params: Optional[List] = None) -> torch.Tensor:
-    """Layer-by-layer forward of the compressed model → the final hidden
-    states; ``otp_params[l]`` applies layer ``l``'s argmax OTP mask."""
-    x = L.embed_tokens(top["embed"], tokens)
-    windows = layer_windows_static(cfg, tokens.shape[1])
-    for l, p_l in enumerate(blocks_c):
-        x, h2 = _block_parts(p_l, x, cfg, int(windows[l]))
-        y, _ = compressed_moe_layer(
-            p_l["moe"], p_l["moe_ce"], h2, cfg,
-            otp_params=otp_params[l] if otp_params is not None else None,
-        )
-        x = x + y
-    return L.rms_norm(x, top["final_norm"], cfg.norm_eps)
+                       otp_params: Optional[List] = None, otp_rngs: Optional[List] = None,
+                       otp_tau: float = 1.0, collect_masks: bool = False):
+    """Layer-by-layer forward of the compressed model → ``(hidden, masks)``:
+    the final hidden states and, with ``collect_masks``, each layer's OTP
+    mask ``[T, k]``. ``otp_params[l]`` applies layer ``l``'s router: its
+    argmax mask, or with ``otp_rngs[l]`` (uniforms ``[T, k]`` or a
+    generator) a Gumbel sample at temperature ``otp_tau``.
+
+    The argmax forward runs without autograd, as inference does; the Gumbel
+    branch records the graph, so the routers (the only tensors that
+    require grad) receive the Eq. 14 gradients."""
+    with torch.set_grad_enabled(otp_rngs is not None and torch.is_grad_enabled()):
+        x = L.embed_tokens(top["embed"], tokens)
+        windows = layer_windows_static(cfg, tokens.shape[1])
+        masks = []
+        for l, p_l in enumerate(blocks_c):
+            x, h2 = _block_parts(p_l, x, cfg, int(windows[l]))
+            y, info = compressed_moe_layer(
+                p_l["moe"], p_l["moe_ce"], h2, cfg,
+                otp_params=otp_params[l] if otp_params is not None else None,
+                otp_rng=otp_rngs[l] if otp_rngs is not None else None,
+                otp_tau=otp_tau,
+            )
+            x = x + y
+            if collect_masks and info["mask"] is not None:
+                masks.append(info["mask"])
+        return L.rms_norm(x, top["final_norm"], cfg.norm_eps), masks
 
 
-def compressed_logits(blocks_c, top, tokens, cfg, otp_params: Optional[List] = None):
-    hidden = compressed_forward(blocks_c, top, tokens, cfg, otp_params)
+def compressed_logits(blocks_c, top, tokens, cfg, **kw):
+    """``(logits [B, S, V] f32, masks)`` of :func:`compressed_forward`."""
+    hidden, masks = compressed_forward(blocks_c, top, tokens, cfg, **kw)
     emb = top.get("unembed", top["embed"])
-    return torch.einsum("btd,vd->btv", hidden.float(), emb.float())
+    return torch.einsum("btd,vd->btv", hidden.float(), emb.float()), masks
 
 
 def model_weight_bytes(blocks_c, top) -> int:

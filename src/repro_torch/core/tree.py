@@ -2,30 +2,58 @@
 :class:`PackedTensor` and :class:`CompressedExperts` leaves)."""
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from .compressed_moe import CompressedExperts
 from .packing import PackedTensor
 
-__all__ = ["map_dict", "to_device", "tree_paths", "weight_bytes"]
+__all__ = ["to_device", "tree_leaves", "tree_map", "tree_paths", "tree_unflatten",
+           "weight_bytes"]
 
 
-def map_dict(fn: Callable, tree: Dict, *rest: Dict) -> Dict:
-    """``fn`` over the leaves of nested dicts of one structure (``jax.tree.map``
-    over dict trees): ``fn(leaf, *leaves of rest at the same path)``."""
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
+    """``fn`` over the leaves of nested dicts and lists of one structure
+    (``jax.tree.map`` over the port's trees): ``fn(leaf, *leaves of rest at
+    the same path)``. A node for which ``is_leaf`` is true is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: map_dict(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
-def tree_paths(tree: Dict, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], object]]:
-    """``(path, leaf)`` pairs of a nested-dict tree in sorted key order (the
-    reference's flatten order for dict trees)."""
-    if not isinstance(tree, dict):
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts and lists, in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def tree_paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, object]]:
+    """``(path, leaf)`` pairs in the reference's flatten order: dict keys
+    sorted, list and tuple items by index, a NamedTuple's fields as
+    ``".name"``."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{n}", getattr(tree, n)) for n in tree._fields]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
         return [(prefix, tree)]
-    return [pair for k in sorted(tree) for pair in tree_paths(tree[k], prefix + (k,))]
+    return [pair for k, v in items for pair in tree_paths(v, prefix + (k,))]
 
 
 def to_device(node, device):

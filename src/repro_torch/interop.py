@@ -18,8 +18,13 @@ the reference tree into numpy lives with the tests:
   count], ...], "num_slots", "group", "d_model", "d_ff"}}`` (``moe_ce``
   only for a compressed MoE).
 
-bf16 arrays may arrive as numpy's ``bfloat16`` extension dtype; their bits
-are reinterpreted, never converted.
+bf16 arrays may arrive as numpy's ``bfloat16`` extension dtype, or as the
+2-byte void arrays numpy reads such an array back from a checkpoint as;
+their bits are reinterpreted, never converted.
+
+:func:`params_from_checkpoint` carries the ``params`` of a checkpoint the
+reference's trainer wrote (``repro.launch.train``, the examples) through the
+same mapping: that is how a model trained by the reference reaches the port.
 """
 from __future__ import annotations
 
@@ -31,14 +36,14 @@ import torch
 from .core.compressed_moe import BucketMeta, CompressedExperts
 from .core.packing import PackedTensor
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_checkpoint", "params_from_reference"]
 
 _BLOCKS = "blocks/"
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
 
@@ -90,3 +95,17 @@ def params_from_reference(flat: Dict[str, np.ndarray], meta: Dict, *, device="cu
             )
         params["layers"].append(layer)
     return params
+
+
+def params_from_checkpoint(ckpt, step: int, *, device="cuda") -> Dict:
+    """The uncompressed ``params`` of checkpoint ``step`` of ``ckpt`` (a
+    :class:`~repro_torch.checkpoint.checkpointer.Checkpointer`) in the port's
+    per-layer layout; the checkpoint holds the reference's stacked tree
+    (``params/blocks/...`` with layers on axis 0)."""
+    head = "params/"
+    flat = {k[len(head):]: a for k, a in ckpt.arrays(step).items() if k.startswith(head)}
+    layers = {a.shape[0] for k, a in flat.items() if k.startswith(_BLOCKS)}
+    if len(layers) != 1:
+        raise ValueError(f"checkpoint {step}: no stacked blocks under {head!r}")
+    return params_from_reference(flat, {"num_layers": layers.pop(), "packed": {}},
+                                 device=device)

@@ -4,6 +4,13 @@ They flatten leading dims, take a :class:`PackedTensor`, check block
 shapes, and hand the tensors to the kernel wrappers, which route by
 device: a CUDA tensor launches the Hopper kernel (or raises), a CPU tensor
 runs the plain version. Models never call a kernel directly.
+
+The three dequant GEMMs are differentiable in ``x``: when ``x`` requires
+grad they run through a :class:`torch.autograd.Function` whose forward is
+the same kernel (or plain version) and whose backward is plain PyTorch
+(:mod:`.grad`). Packed weights, scales and zeros are frozen and get no
+gradient. The reference differentiates through its plain versions; it has
+no backward kernel either.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import torch
 
 from ..core.packing import PackedTensor
 from . import binary_matmul as _bm
+from . import grad as _grad
 from . import moe_gmm as _gmm
 from . import paged_attention as _pa
 from . import quant_matmul as _qm
@@ -39,8 +47,11 @@ def quant_matmul_parts(x: torch.Tensor, w_packed, scale, zero, *, bits: int,
     needs no padding."""
     k = x.shape[-1]
     lead = x.shape[:-1]
-    y = _qm.quant_matmul(x.reshape(-1, k).contiguous(), w_packed, scale, zero, bits=bits,
-                         group=group)
+    x2 = x.reshape(-1, k)
+    if _grad.wants_grad(x2):
+        y = _grad.QuantMatmul.apply(x2, bits, group, scale, zero, *_qm.planes(w_packed, bits))
+    else:
+        y = _qm.quant_matmul(x2.contiguous(), w_packed, scale, zero, bits=bits, group=group)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -48,6 +59,9 @@ def moe_gmm(x_padded, w_packed, scale, zero, block_expert, num_active, *, bits: 
             group: int = 128, bm: int = 16) -> torch.Tensor:
     """Grouped expert GEMM with the ragged skip of row blocks at or past
     ``num_active[0]`` (the routed-token frontier)."""
+    if _grad.wants_grad(x_padded):
+        return _grad.MoeGmm.apply(x_padded, bits, group, bm, scale, zero, block_expert,
+                                  num_active, *_qm.planes(w_packed, bits))
     return _gmm.moe_gmm(x_padded.contiguous(), w_packed, scale, zero, block_expert,
                         num_active, bits=bits, group=group, bm=bm)
 
@@ -56,6 +70,10 @@ def moe_gmm_swiglu(x_padded, wg_packed, wu_packed, g_scale, g_zero, u_scale, u_z
                    block_expert, num_active, *, bits: int, group: int = 128,
                    bm: int = 16) -> torch.Tensor:
     """Fused gate/up grouped GEMM + SwiGLU epilogue."""
+    if _grad.wants_grad(x_padded):
+        return _grad.MoeGmmSwiglu.apply(x_padded, bits, group, bm, g_scale, g_zero, u_scale,
+                                        u_zero, block_expert, num_active,
+                                        *_qm.planes(wg_packed, bits), *_qm.planes(wu_packed, bits))
     return _gmm.moe_gmm_swiglu(x_padded.contiguous(), wg_packed, wu_packed, g_scale, g_zero,
                                u_scale, u_zero, block_expert, num_active, bits=bits,
                                group=group, bm=bm)

@@ -6,7 +6,7 @@
         [--ttft-budget-ms MS] [--trace-level spans --trace-out F] \
         [--resident-experts N [--async-offload] [--offload-dir DIR [--host-expert-bytes B]]] \
         [--temperature T [--sample-seed S]] [--chaos-seed SEED] [--deadline-steps N] \
-        [--legacy] [--device cpu]
+        [--ffn-backend grouped|ref] [--legacy] [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
 ``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the
@@ -54,6 +54,11 @@ logical steps; the run then prints the fault plane's counters and each typed
 error. Every request still finishes with the tokens it would have had, or
 ends with a typed error.
 
+``--ffn-backend`` picks the PMQ expert FFN's path for the engine and the
+wave batcher alike: ``grouped`` (the default: the Hopper kernels on the card,
+their plain versions on the CPU) or ``ref`` (the plain versions on either
+device); the reference's ``scan`` and ``interpret`` are refused by name.
+
 ``--legacy`` serves with :class:`BatchedServer` instead, the static wave
 batcher the paged engine replaced, kept for comparison: it refuses the
 options that live in the paged engine, as the reference CLI does.
@@ -71,6 +76,7 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..core import pipeline
+from ..core.compressed_moe import resolve_ffn_backend
 from ..core.synthetic import build_uncompressed
 from ..models.registry import get_model
 from ..models.transformer import extend_cache
@@ -102,8 +108,9 @@ class BatchedServer:
     the wave's longest request is done."""
 
     def __init__(self, cfg, params, max_slots: int = 4, prompt_len: int = 32, *,
-                 device="cuda"):
+                 device="cuda", ffn_backend: Optional[str] = None):
         self.cfg = cfg
+        self.ffn_backend = ffn_backend
         self.bundle = get_model(cfg)
         self.params = params
         self.max_slots = max_slots
@@ -133,7 +140,8 @@ class BatchedServer:
             tokens = self._pad_prompts(wave)
             max_new = max(r.max_new for r in wave)
             t0 = time.perf_counter()
-            cache, logits = self.bundle.prefill(self.params, {"tokens": tokens})
+            cache, logits = self.bundle.prefill(self.params, {"tokens": tokens},
+                                                ffn_backend=self.ffn_backend)
             self._sync()
             self.stats["prefill_s"].append(time.perf_counter() - t0)
             cache = extend_cache(cache, max_new)
@@ -146,7 +154,8 @@ class BatchedServer:
             for step in range(max_new - 1):
                 t0 = time.perf_counter()
                 cache, logits = self.bundle.decode_step(self.params, cache, cur,
-                                                        self.prompt_len + step)
+                                                        self.prompt_len + step,
+                                                        ffn_backend=self.ffn_backend)
                 self._sync()
                 self.stats["decode_s"].append(time.perf_counter() - t0)
                 live = [r.rid >= 0 and step + 1 < r.max_new for r in wave]
@@ -273,10 +282,20 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--deadline-steps", type=int, default=None, metavar="N",
                    help="per-request deadline in logical steps; a request not finished "
                         "within N steps of submission ends with DeadlineExceeded")
+    p.add_argument("--ffn-backend", choices=["grouped", "ref", "scan", "interpret"],
+                   default=None,
+                   help="PMQ expert-FFN path: grouped (default; the Hopper kernels on the "
+                        "card) or ref (the plain versions); scan and interpret are not "
+                        "ported")
     p.add_argument("--legacy", action="store_true",
                    help="serve with the static wave batcher instead of the paged engine")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    if args.ffn_backend is not None:
+        try:
+            resolve_ffn_backend(args.ffn_backend)
+        except ValueError as e:
+            raise SystemExit(f"--ffn-backend: {e}") from None
     if args.legacy and (args.prefix_cache or args.kv_bits is not None):
         raise SystemExit("--prefix-cache/--kv-bits require the paged engine (drop --legacy)")
     if args.legacy and (args.trace_out or args.trace_level not in (None, "off")):
@@ -315,7 +334,8 @@ def main(argv: Optional[List[str]] = None):
     prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT_TOKENS).astype(np.int32)
                for _ in range(args.requests)]
     if args.legacy:
-        server = BatchedServer(cfg, params, max_slots=args.slots, device=args.device)
+        server = BatchedServer(cfg, params, max_slots=args.slots, device=args.device,
+                               ffn_backend=args.ffn_backend)
         out = server.serve([Request(rid=i, prompt=prompts[i], max_new=args.max_new)
                             for i in range(args.requests)])
         for rid, toks in sorted(out.items()):
@@ -344,7 +364,8 @@ def main(argv: Optional[List[str]] = None):
                                     if args.ttft_budget_ms is not None else None),
                      trace_level=trace_level, resident_experts=args.resident_experts,
                      async_offload=args.async_offload, offload_dir=args.offload_dir,
-                     host_expert_bytes=args.host_expert_bytes),
+                     host_expert_bytes=args.host_expert_bytes,
+                     ffn_backend=args.ffn_backend),
         faults=plan, device=args.device,
     )
     if engine.offload is not None:

@@ -119,6 +119,13 @@ with random weights from seed 0:
   26.4 GB (derived). Served on ``ENGINE``'s geometry and :func:`requests`:
   the bf16 dequant GEMMs at d_model 7168 walk K in chunks, and drop-free
   capacity gives a prefill chunk a ``[384, 128, 7168]`` dispatch buffer.
+* ``OTP``: routers trained by ``core.otp_train.train_otp`` (``OTP_TRAIN``)
+  on the ``COMPRESS`` tree, on :func:`otp_tokens`, then served on ``ENGINE``'s
+  geometry and :func:`requests`.
+* ``TRAIN``: ``tinyllama-1.1b`` at full width in f32 trained for
+  ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens
+  (``HostDataLoader``, seed 0) through ``launch.train.train_step``, then
+  checkpointed and resumed.
 """
 from __future__ import annotations
 
@@ -130,9 +137,11 @@ import torch
 
 from ..configs import get_config
 from ..core import pipeline
+from ..core.otp_train import OTPTrainConfig
 from ..core.packing import PackedTensor
 from ..core.synthetic import build_synthetic, build_uncompressed
 from ..core.tree import to_device
+from ..data.pipeline import make_calibration_tokens
 from ..serving import EngineConfig, FaultPlan, FaultSpec, PagedServingEngine, Request
 
 __all__ = [
@@ -169,6 +178,7 @@ __all__ = [
     "offload_requests",
     "packed_code_bytes",
     "preempt_schedule",
+    "otp_tokens",
     "requests",
     "serve_tenant_mix",
     "shared_prefix_requests",
@@ -202,6 +212,20 @@ WINDOWED = EngineConfig(max_slots=2, block_size=16, num_blocks=140, max_blocks_p
 WIDE_MOE_LAYERS = 4
 #: the compression pipeline's settings (the reference serving CLI's)
 CALIB_BATCHES, CALIB_LEN, CALIB_SEED = 4, 64, 0
+#: OTP router training on the pipeline-compressed model (``OTP``): the
+#: reference's ``test_otp_training_increases_mask_ratio_and_keeps_kl_low``
+#: settings (λ = 2, lr 5e-3, batch 4) for 20 steps (30 there: the mask ratio
+#: has risen by step 20 at full width, and the script's time limit is shared),
+#: on 32 synthetic calibration samples of 64 tokens
+OTP_TRAIN = OTPTrainConfig(steps=20, batch=4, lr=5e-3, lam=2.0, tau=1.0, seed=0)
+OTP_SAMPLES, OTP_SEQ, OTP_SEED = 32, 64, 3
+#: full-width training of a dense model through ``launch.train.train_step``
+#: (``TRAIN``): f32 params, AdamW with 32-bit moments at ``train_reduced``'s
+#: lr, ``HostDataLoader`` batches; then the same steps with 8-bit moments,
+#: whose linear code for ``v`` makes a step of ``lr · m̂ / eps`` where a
+#: small ``v`` rounds to 0 and the row's gradient is 0 (as the reference's
+#: does), reported beside the 32-bit losses
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = "tinyllama-1.1b", 20, 8, 128, 3e-4
 #: (tenant, requests, prompt tokens, new tokens, priority, arrival boundaries)
 TENANTS = (("batch", 2, 64, 32, 0, (0, 0)),
            ("chat", 3, 32, 16, 1, (0, 0, 0)),
@@ -420,6 +444,13 @@ def tiny_pipeline(device, params_host=None):
     out = PagedServingEngine(cfg, params_c, ecfg, device=device).serve(
         Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
     return cfg, plan, avg, packed_code_bytes(params_c), out, params_c
+
+
+def otp_tokens(cfg) -> np.ndarray:
+    """``OTP_SAMPLES`` synthetic calibration samples of ``OTP_SEQ`` tokens
+    (``make_calibration_tokens``, seed ``OTP_SEED``), as the reference's
+    ``examples/otp_training.py`` draws its training data."""
+    return make_calibration_tokens(cfg.vocab_size, OTP_SAMPLES, OTP_SEQ, seed=OTP_SEED)
 
 
 def requests(cfg) -> List[Request]:

@@ -2,7 +2,8 @@
 
 Weights are ``[K_in, N_out]`` (``y = x @ W``), so a :class:`PackedTensor`
 leaf substitutes 1:1 and routes through ``ops.quant_matmul``. Activations
-are ``[B, S, D]``, attention heads ``[B, S, H, dh]``.
+are ``[B, S, D]``, attention heads ``[B, S, H, dh]``. Every ``init_*``
+draws from an explicit ``torch.Generator`` on the generator's device.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from ..core.packing import PackedTensor
 from ..kernels import ops
@@ -17,14 +19,42 @@ from ..kernels import ops
 __all__ = [
     "apply_rope",
     "attention",
+    "chunked_kl",
+    "chunked_xent",
     "decode_attention",
     "embed_tokens",
+    "init_attention",
+    "init_linear",
+    "init_mlp",
     "linear",
     "mlp",
     "rms_norm",
 ]
 
 NEG_INF = -1e30
+
+
+def init_linear(gen: torch.Generator, k: int, n: int, dtype=torch.float32,
+                scale: Optional[float] = None):
+    """``{"w": N(0, 1) · scale}`` of shape ``[k, n]`` (scale ``k^-1/2``
+    unless given), drawn in ``dtype``."""
+    scale = scale if scale is not None else 1.0 / (k ** 0.5)
+    return {"w": torch.randn(k, n, generator=gen, device=gen.device, dtype=dtype) * scale}
+
+
+def init_attention(gen: torch.Generator, cfg, dtype=torch.float32):
+    d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"wq": init_linear(gen, d, hq * dh, dtype), "wk": init_linear(gen, d, hkv * dh, dtype),
+         "wv": init_linear(gen, d, hkv * dh, dtype), "wo": init_linear(gen, hq * dh, d, dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(dh, dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.zeros(dh, dtype=dtype, device=gen.device)
+    return p
+
+
+def init_mlp(gen: torch.Generator, d: int, f: int, dtype=torch.float32):
+    return {"w_gate": init_linear(gen, d, f, dtype), "w_up": init_linear(gen, d, f, dtype),
+            "w_down": init_linear(gen, f, d, dtype)}
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -204,3 +234,70 @@ def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU feed-forward."""
     return linear(p["w_down"], F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
+
+
+# ------------------------------------------------------------------- loss
+def _divisor_chunk(s: int, chunk: int) -> int:
+    """Largest divisor of ``s`` that is ≤ chunk (streaming chunk size)."""
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _chunk_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ wᵀ`` in f32 from operands in ``w``'s dtype (the reference's
+    einsum with an f32 result; bf16 products are exact in f32)."""
+    return torch.matmul(h.to(w.dtype).float(), w.float().t())
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in the backward pass when
+    a graph is recorded (the reference's ``jax.checkpoint`` of the chunk)."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _xent_chunk(h, w, y):
+    logits = _chunk_logits(h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, torch.clamp_min(y, 0).long()[..., None])[..., 0]
+    valid = (y >= 0).float()
+    return ((lse - picked) * valid).sum(), valid.sum()
+
+
+def chunked_xent(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Streaming softmax cross-entropy over sequence chunks, never holding
+    ``[B, S, V]``: ``hidden [B, S, D]``, ``emb [V, D]`` (output projection
+    ``embᵀ``), ``labels [B, S]`` (−1 = ignore). Mean NLL over the valid
+    positions; each chunk's logits are recomputed in the backward pass."""
+    s = hidden.shape[1]
+    chunk = _divisor_chunk(s, chunk)
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, s, chunk):
+        t, c = _recomputed(_xent_chunk, hidden[:, c0:c0 + chunk], emb, labels[:, c0:c0 + chunk])
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _kl_chunk(a, t, w):
+    ls = torch.log_softmax(_chunk_logits(a, w), dim=-1)
+    lt = torch.log_softmax(_chunk_logits(t, w), dim=-1)
+    return torch.sum(torch.exp(lt) * (lt - ls))
+
+
+def chunked_kl(hidden_s: torch.Tensor, hidden_t: torch.Tensor, emb: torch.Tensor,
+               chunk: int = 512) -> torch.Tensor:
+    """Streaming ``KL(teacher ‖ student)`` over the vocabulary, mean over
+    positions, never holding ``[B, S, V]`` (the OTP distillation loss,
+    Eq. 14's first term, from hidden states)."""
+    b, s, _ = hidden_s.shape
+    chunk = _divisor_chunk(s, chunk)
+    tot = torch.zeros((), device=hidden_s.device)
+    for c0 in range(0, s, chunk):
+        tot = tot + _recomputed(_kl_chunk, hidden_s[:, c0:c0 + chunk],
+                                hidden_t[:, c0:c0 + chunk], emb)
+    return tot / (b * s)

@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import linear, mlp
+from .layers import init_linear, init_mlp, linear, mlp
 
 __all__ = [
     "MoEOut",
@@ -22,6 +22,7 @@ __all__ = [
     "count_ids",
     "dispatch_capacity",
     "expert_ffn",
+    "init_moe",
     "load_balance_loss",
     "moe_layer",
     "route_topk",
@@ -35,6 +36,23 @@ def dispatch_capacity(cfg, t: int, capacity_factor=None) -> int:
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
     cap = int(cf * t * cfg.top_k / cfg.num_experts)
     return max(8, ((cap + 7) // 8) * 8)
+
+
+def init_moe(gen: torch.Generator, cfg, dtype=torch.float32):
+    """Router (f32, ``N(0, 1/D)``), experts ``[E, D, F]`` / ``[E, F, D]``
+    and the shared experts' MLP, drawn from ``gen`` on its device."""
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.num_experts
+    scale = 1.0 / (d ** 0.5)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device, dtype=dtype)
+
+    p = {"router": init_linear(gen, d, e, torch.float32, scale),
+         "experts": {"w_gate": normal(e, d, f) * scale, "w_up": normal(e, d, f) * scale,
+                     "w_down": normal(e, f, d) * (1.0 / f ** 0.5)}}
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, f * cfg.num_shared_experts, dtype)
+    return p
 
 
 def route_topk(router_p, x2: torch.Tensor, k: int):

@@ -25,6 +25,12 @@ Params: ``{"embed": [V, D], "final_norm": [D], "unembed"?: [V, D],
 "moe_ce": CompressedExperts, "otp"?: {"fc1", "fc2"}`` (PMQ + OTP) —
 attention, MLP and shared-expert ``w`` may be :class:`PackedTensor` leaves.
 The dense cache is ``{"k": [L, B, S, Hkv, dh], "v": ..., "pos"}``.
+
+Training: :func:`init_lm` draws a model from a ``torch.Generator`` (on the
+generator's device) and :func:`train_loss` is the reference's streaming
+cross-entropy plus the MoE load-balance term (``aux_weight``). The PMQ
+layers' ``ffn_backend`` (``compressed_moe.FFN_BACKENDS``) is threaded
+through every path.
 """
 from __future__ import annotations
 
@@ -37,18 +43,20 @@ from ..core.compressed_moe import compressed_moe_layer
 from ..core.quantizers import dequantize_kv_rows, quantize_kv_rows
 from ..kernels import ops
 from . import layers as L
-from .moe import moe_layer
+from .moe import init_moe, moe_layer
 
 __all__ = [
     "KV_QUANT_BITS",
     "decode_step",
     "extend_cache",
     "forward_hidden",
+    "init_lm",
     "layer_windows_static",
     "paged_decode_horizon",
     "paged_prefill_chunk",
     "prefill",
     "sample_gumbel",
+    "train_loss",
 ]
 
 
@@ -90,43 +98,78 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), _out_embedding(params).float().t())
 
 
-def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None):
-    """FFN half of a block: ``(Δx, expert_activation [B, S], slot_counts)``,
-    for the dense ``mlp``, the PMQ-compressed MoE or the uncompressed
-    :func:`moe_layer`; shared by the dense-cache and paged paths.
+def _dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ------------------------------------------------------------------- init
+def init_lm(gen: torch.Generator, cfg):
+    """A model of ``cfg`` in the port's layout, every tensor drawn from
+    ``gen`` on its device in ``cfg.dtype`` (the reference's ``init_lm``
+    shapes and scales: attention and MLP ``N(0, 1/K)``, embeddings ``N(0,
+    0.02²)``, norms zero; its draws are jax's and are not reproduced)."""
+    dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
+    embed = torch.randn(cfg.vocab_size, d, generator=gen, device=dev, dtype=dt) * 0.02
+    layers = []
+    for _ in range(cfg.num_layers):
+        p = {"ln1": torch.zeros(d, dtype=dt, device=dev),
+             "attn": L.init_attention(gen, cfg, dt),
+             "ln2": torch.zeros(d, dtype=dt, device=dev)}
+        if cfg.is_moe:
+            p["moe"] = init_moe(gen, cfg, dt)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dt)
+        layers.append(p)
+    params = {"embed": embed, "layers": layers,
+              "final_norm": torch.zeros(d, dtype=dt, device=dev)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = torch.randn(cfg.vocab_size, d, generator=gen, device=dev,
+                                        dtype=dt) * 0.02
+    return params
+
+
+def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backend=None):
+    """FFN half of a block: ``(Δx, expert_activation [B, S], slot_counts,
+    aux)``, for the dense ``mlp``, the PMQ-compressed MoE or the
+    uncompressed :func:`moe_layer`; shared by the dense-cache and paged
+    paths.
 
     ``expert_activation`` is the per-token executed fraction of the top-k
     slots — the mean of the OTP mask when OTP runs, else 1.
     ``slot_counts`` is the compressed layer's per-slot dispatch count, and
-    empty (``[0]``) on the other two branches.
+    empty (``[0]``) on the other two branches. ``aux`` is the MoE
+    load-balance loss (uncompressed MoE), the Gumbel mask's mean (PMQ +
+    OTP training, Eq. 14's ℓ1 term) or 0.
     """
     ones = torch.ones(h.shape[:2], device=h.device)
     no_counts = torch.zeros(0, dtype=torch.long, device=h.device)
+    zero = torch.zeros((), device=h.device)
     if not cfg.is_moe:
-        return L.mlp(p["mlp"], h), ones, no_counts
+        return L.mlp(p["mlp"], h), ones, no_counts, zero
     if "moe_ce" in p:
         otp = p.get("otp") if use_otp else None
         y, info = compressed_moe_layer(p["moe"], p["moe_ce"], h, cfg, otp_params=otp,
-                                       count_weight=count_weight)
+                                       count_weight=count_weight, ffn_backend=ffn_backend)
         act = ones
         if info["mask"] is not None:
             act = info["mask"].mean(dim=-1).reshape(h.shape[:2])
-        return y, act, info["slot_counts"]
-    return moe_layer(p["moe"], h, cfg).y, ones, no_counts
+        aux = info["mask_l1"] if info["mask_l1"] is not None else zero
+        return y, act, info["slot_counts"], aux
+    out = moe_layer(p["moe"], h, cfg)
+    return out.y, ones, no_counts, out.aux_loss
 
 
 # ------------------------------------------------------- dense-cache path
-def _block(p, x, cfg, *, positions, window: int):
-    """One transformer block over a whole sequence: ``(x, (k, v))``. The
-    reference's training aux loss is not returned: the port has no
-    trainer yet."""
+def _block(p, x, cfg, *, positions, window: int, ffn_backend=None):
+    """One transformer block over a whole sequence: ``(x, aux, (k, v))``
+    with ``aux`` :func:`_ffn_delta`'s."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, kv = L.attention(p["attn"], h, cfg, positions=positions, causal=True,
                                window=window)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    delta, _, _ = _ffn_delta(p, h, cfg)
-    return x + delta, kv
+    delta, _, _, aux = _ffn_delta(p, h, cfg, ffn_backend=ffn_backend)
+    return x + delta, aux, kv
 
 
 def _embed_inputs(params, cfg, tokens, patch_embeds=None):
@@ -139,32 +182,52 @@ def _embed_inputs(params, cfg, tokens, patch_embeds=None):
 
 
 def forward_hidden(params, tokens: torch.Tensor, cfg, *,
-                   patch_embeds: Optional[torch.Tensor] = None, collect_cache: bool = False):
+                   patch_embeds: Optional[torch.Tensor] = None, collect_cache: bool = False,
+                   ffn_backend: Optional[str] = None):
     """Run all blocks over ``tokens [B, S]`` (after ``patch_embeds [B, P,
-    D]`` for a ``vlm`` model): ``(hidden [B, P + S, D], cache | None)`` with
-    the cache ``{"k", "v"}`` ``[L, B, P + S, Hkv, dh]``."""
+    D]`` for a ``vlm`` model): ``(hidden [B, P + S, D], aux, cache | None)``
+    with ``aux`` the layers' summed aux terms (f32) and the cache ``{"k",
+    "v"}`` ``[L, B, P + S, Hkv, dh]``."""
     x = _embed_inputs(params, cfg, tokens, patch_embeds)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     windows = layer_windows_static(cfg, s)
     ks, vs = [], []
+    aux = torch.zeros((), device=x.device)
     for p_l, win in zip(params["layers"], windows):
-        x, (k, v) = _block(p_l, x, cfg, positions=positions, window=int(win))
+        x, a, (k, v) = _block(p_l, x, cfg, positions=positions, window=int(win),
+                              ffn_backend=ffn_backend)
+        aux = aux + a
         if collect_cache:
             ks.append(k)
             vs.append(v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, ({"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None)
+    return x, aux, ({"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None)
 
 
-def prefill(params, batch, cfg):
+def train_loss(params, batch, cfg, *, aux_weight: float = 0.01):
+    """Streaming next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (−1 ignored; a ``vlm`` batch's ``patch_embeds``
+    positions carry no loss) plus ``aux_weight`` times the layers' mean aux
+    term. Returns ``(loss, {"nll", "aux"})``."""
+    patch = batch.get("patch_embeds")
+    hidden, aux, _ = forward_hidden(params, batch["tokens"], cfg, patch_embeds=patch)
+    if patch is not None:
+        hidden = hidden[:, patch.shape[1]:]
+    nll = L.chunked_xent(hidden, _out_embedding(params), batch["labels"], cfg.logits_chunk)
+    loss = nll + aux_weight * aux / max(cfg.num_layers, 1)
+    return loss, {"nll": nll, "aux": aux}
+
+
+def prefill(params, batch, cfg, *, ffn_backend: Optional[str] = None):
     """Build the dense KV cache of ``batch["tokens"] [B, S]`` (after
     ``batch["patch_embeds"] [B, P, D]``, if given): ``(cache, logits [B, 1,
     V])`` of the last token, ``cache["pos"] = S + P``, where decoding
     continues."""
     tokens = batch["tokens"]
     patch = batch.get("patch_embeds")
-    hidden, cache = forward_hidden(params, tokens, cfg, patch_embeds=patch, collect_cache=True)
+    hidden, _, cache = forward_hidden(params, tokens, cfg, patch_embeds=patch,
+                                      collect_cache=True, ffn_backend=ffn_backend)
     cache["pos"] = tokens.shape[1] + (patch.shape[1] if patch is not None else 0)
     return cache, _logits(params, hidden[:, -1:])
 
@@ -178,17 +241,18 @@ def extend_cache(cache, rows: int):
                 v=torch.cat([cache["v"], pad], dim=2))
 
 
-def _decode_block(p, x, cfg, *, k_cache, v_cache, pos: int, window: int):
+def _decode_block(p, x, cfg, *, k_cache, v_cache, pos: int, window: int, ffn_backend=None):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, (k_cache, v_cache) = L.decode_attention(
         p["attn"], h, cfg, k_cache=k_cache, v_cache=v_cache, pos=pos, window=window)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    delta, _, _ = _ffn_delta(p, h, cfg)
+    delta, _, _, _ = _ffn_delta(p, h, cfg, ffn_backend=ffn_backend)
     return x + delta, (k_cache, v_cache)
 
 
-def decode_step(params, cache, token: torch.Tensor, pos: int, cfg):
+def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, *,
+                ffn_backend: Optional[str] = None):
     """One decode step over the dense cache: ``token [B, 1]`` at position
     ``pos`` (a host int). Each layer's new K/V row is written into
     ``cache["k"]``/``cache["v"]`` in place, as the reference's donated
@@ -198,14 +262,14 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg):
     windows = layer_windows_static(cfg, kf.shape[2])
     for l, p_l in enumerate(params["layers"]):
         x, _ = _decode_block(p_l, x, cfg, k_cache=kf[l], v_cache=vf[l], pos=pos,
-                             window=int(windows[l]))
+                             window=int(windows[l]), ffn_backend=ffn_backend)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return {"k": kf, "v": vf, "pos": pos + 1}, _logits(params, x)
 
 
 # ------------------------------------------------------------ paged path
 def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb: int,
-                       bs: int, *, use_otp: bool, qs=()):
+                       bs: int, *, use_otp: bool, qs=(), ffn_backend=None):
     """One decode step over the flattened pools ``kf``/``vf`` ``[L, NB·BS+1,
     Hkv, dh]`` (written in place; ``qs`` their int8 tables or ``()``).
     ``tables [B, MB]`` int32, ``token [B, 1]``, ``positions [B]``, ``active
@@ -235,7 +299,8 @@ def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb
         )
         x = x + L.linear(p_l["attn"]["wo"], attn.reshape(b, 1, hq * dh).to(x.dtype))
         h2 = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        delta, act, cnt = _ffn_delta(p_l, h2, cfg, use_otp=use_otp, count_weight=active)
+        delta, act, cnt, _ = _ffn_delta(p_l, h2, cfg, use_otp=use_otp, count_weight=active,
+                                        ffn_backend=ffn_backend)
         x = x + delta
         acts.append(act)
         counts.append(cnt)
@@ -265,7 +330,8 @@ def sample_gumbel(logits: torch.Tensor, temperature: float,
 def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, *,
                          block_size: int, horizon: int, budgets, eos_ids,
                          use_otp: bool = True, qs=(), temperature: float = 0.0,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         ffn_backend: Optional[str] = None):
     """``H`` decode steps, each exactly :func:`_paged_decode_core`, with the
     on-device token choice feeding the next step and per-slot stop logic in
     the carried ``active`` mask (budget spent, EOS emitted). Nothing syncs
@@ -290,8 +356,8 @@ def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, 
     toks, emits, acts, counts = [], [], [], []
     for _ in range(horizon):
         logits, per_slot, cnt = _paged_decode_core(
-            params, kf, vf, tables, cur, pos, act, cfg, nb, bs, use_otp=use_otp, qs=qs
-        )
+            params, kf, vf, tables, cur, pos, act, cfg, nb, bs, use_otp=use_otp, qs=qs,
+            ffn_backend=ffn_backend)
         if greedy:
             nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         else:
@@ -308,7 +374,8 @@ def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, 
 
 
 def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len: int,
-                        cfg, *, block_size: int, use_otp: bool = True, qs=()):
+                        cfg, *, block_size: int, use_otp: bool = True, qs=(),
+                        ffn_backend: Optional[str] = None):
     """Chunked prefill of ONE request into its pages.
 
     ``tokens [1, C]`` is one fixed-size chunk (the tail right-padded);
@@ -356,7 +423,8 @@ def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len
         )
         x = x + attn_out
         h2 = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        delta, _, cnt = _ffn_delta(p_l, h2, cfg, use_otp=use_otp, count_weight=count_weight)
+        delta, _, cnt, _ = _ffn_delta(p_l, h2, cfg, use_otp=use_otp,
+                                      count_weight=count_weight, ffn_backend=ffn_backend)
         x = x + delta
         counts.append(cnt)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

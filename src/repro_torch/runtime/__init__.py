@@ -1,2 +1,3 @@
 """Runtime pieces of the port: the deadline failure detector the serving
-watchdog reads (:class:`fault_tolerance.HeartbeatTable`)."""
+watchdog reads, the straggler monitor and the resilient training loop
+(:mod:`.fault_tolerance`)."""

@@ -88,6 +88,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.compressed_moe import resolve_ffn_backend
 from ..models.moe import dispatch_capacity
 from ..models.registry import get_model
 from ..models.transformer import (
@@ -127,6 +128,10 @@ class EngineConfig:
     max_blocks_per_slot: int = 8
     prefill_chunk: int = 16
     use_otp: bool = True  # OTP decode masks when the model carries them
+    # PMQ expert-FFN path: "grouped" (the Hopper kernels on the card, their
+    # plain versions on the CPU) or "ref" (the plain versions on either);
+    # None takes REPRO_FFN_BACKEND, else "grouped"
+    ffn_backend: Optional[str] = None
     # raise expert capacity to the drop-free bound inside every step
     drop_free_capacity: bool = True
     # per-layer device budget in expert slots for PMQ buckets (None keeps
@@ -182,6 +187,10 @@ class EngineConfig:
     # this many consecutive boundaries with work but no progress fail the
     # engine closed with LivelockDetected
     livelock_steps: int = 4096
+
+    def __post_init__(self):
+        if self.ffn_backend is not None:
+            resolve_ffn_backend(self.ffn_backend)
 
 
 def dense_greedy_reference(cfg, params, prompt: np.ndarray, max_new: int, *,
@@ -656,7 +665,8 @@ class PagedServingEngine:
                     lambda: paged_prefill_chunk(
                         self.params, self.cache.k, self.cache.v, table_row, chunk, off, n,
                         self.model_cfg, block_size=self.ecfg.block_size,
-                        use_otp=self.ecfg.use_otp, qs=self.cache.quant_tables),
+                        use_otp=self.ecfg.use_otp, qs=self.cache.quant_tables,
+                        ffn_backend=self.ecfg.ffn_backend),
                     self._fetch_prefill_counts, kind="prefill", track=track)
                 runs = int(self._last_run_stats["runs"])
                 self.metrics.record_prefill_runs(runs)
@@ -889,7 +899,8 @@ class PagedServingEngine:
                 self.params, self.cache.k, self.cache.v, tables, *inputs, self.model_cfg,
                 block_size=self.ecfg.block_size, horizon=h, use_otp=self.ecfg.use_otp,
                 qs=self.cache.quant_tables, temperature=self.ecfg.temperature,
-                generator=self._sample_generator(0, self._megastep_idx), **stop),
+                generator=self._sample_generator(0, self._megastep_idx),
+                ffn_backend=self.ecfg.ffn_backend, **stop),
             fetch)
         self.last_emits, self.last_slot_counts = emits, counts
         dt = time.time() - t0

@@ -64,7 +64,7 @@ import torch
 
 from ..core.compressed_moe import CompressedExperts
 from ..core.packing import pack_bits, unpack_bits
-from ..core.tree import map_dict, tree_paths
+from ..core.tree import tree_map, tree_paths
 from .faults import ExpertUploadFailed, FaultPlan, checksum_tree, corrupt_tree
 from .tierstore import TieredExpertStore
 
@@ -157,7 +157,7 @@ class ExpertOffloadManager:
         self._bkeys = [f"b{i}" for i in range(len(ce0.meta))]
         # the full host backing store, [L, count, ...] numpy per leaf
         self.host: Optional[Dict[str, Dict]] = {
-            bk: map_dict(lambda *ls: torch.stack([t.detach() for t in ls]).cpu().numpy(),
+            bk: tree_map(lambda *ls: torch.stack([t.detach() for t in ls]).cpu().numpy(),
                          *(ce.arrays[bk] for ce in ces))
             for bk in self._bkeys
         }
@@ -188,7 +188,7 @@ class ExpertOffloadManager:
             sr[:, :r] = np.arange(r, dtype=np.int32)[None, :]
             self.slot_row[bk] = sr
             self.row_slot[bk] = np.tile(np.arange(r, dtype=np.int32), (self.num_layers, 1))
-            self.arrays[bk] = map_dict(
+            self.arrays[bk] = tree_map(
                 lambda a: torch.from_numpy(np.ascontiguousarray(a[:, :r])).to(self.device),
                 self.host[bk])
             self.maps[bk] = torch.from_numpy(np.maximum(sr, 0)).to(self.device)
@@ -207,7 +207,7 @@ class ExpertOffloadManager:
         """Point every layer's :class:`CompressedExperts` at its ``[l]`` views
         of the resident partitions and maps (after construction and grows)."""
         for l, ce in enumerate(self.ces):
-            ce.arrays = {bk: map_dict(lambda a: a[l], self.arrays[bk]) for bk in self._bkeys}
+            ce.arrays = {bk: tree_map(lambda a: a[l], self.arrays[bk]) for bk in self._bkeys}
             ce.resident_map = {bk: self.maps[bk][l] for bk in self._bkeys}
 
     # ---------------------------------------------------------- budgeting
@@ -264,7 +264,7 @@ class ExpertOffloadManager:
         if self.store is not None:
             gslot = self.meta[self._bkeys.index(bk)].start + int(slot)
             return self.store.row(bk, layer, slot, heat=float(self.ema[int(layer), gslot]))
-        return map_dict(lambda a: a[layer, slot], self.host[bk])
+        return tree_map(lambda a: a[layer, slot], self.host[bk])
 
     def _row_crc(self, bk: str, layer: int, slot: int) -> int:
         """Checksum of the pristine host row (cached), which every staged
@@ -391,9 +391,9 @@ class ExpertOffloadManager:
         ``payloads`` (one verified row tree per placement). Returns ``(rows,
         nbytes)``."""
         if payloads is None:
-            per_leaf = map_dict(lambda a: [a[l, s] for l, _, s in triples], self.host[bk])
+            per_leaf = tree_map(lambda a: [a[l, s] for l, _, s in triples], self.host[bk])
         else:
-            per_leaf = map_dict(lambda *rows: list(rows), *payloads)
+            per_leaf = tree_map(lambda *rows: list(rows), *payloads)
 
         def stack(rows):
             first = np.asarray(rows[0])
@@ -404,7 +404,7 @@ class ExpertOffloadManager:
                 view[j] = r
             return buf
 
-        rows = map_dict(stack, per_leaf)  # the lists are leaves
+        rows = tree_map(stack, per_leaf, is_leaf=lambda n: isinstance(n, list))
         return rows, sum(a.numel() * a.element_size() for _, a in tree_paths(rows))
 
     @staticmethod
@@ -416,7 +416,7 @@ class ExpertOffloadManager:
     def _scatter(self, bk: str, li: torch.Tensor, ri: torch.Tensor, rows: Dict) -> None:
         """Write staged rows into bucket ``bk``'s resident partitions in place
         (one ``index_put_`` per leaf, on the current stream)."""
-        map_dict(lambda dev, src: dev.index_put_((li, ri), src), self.arrays[bk], rows)
+        tree_map(lambda dev, src: dev.index_put_((li, ri), src), self.arrays[bk], rows)
 
     def _upload_batch(self, bk: str, triples, payloads=None) -> int:
         """Synchronous host→device upload of placements into the live
@@ -427,7 +427,7 @@ class ExpertOffloadManager:
         rows, nbytes = self._gather(bk, triples, payloads)
         li, ri = self._indices(triples)
         dev = self.device
-        self._scatter(bk, li.to(dev), ri.to(dev), map_dict(lambda a: a.to(dev), rows))
+        self._scatter(bk, li.to(dev), ri.to(dev), tree_map(lambda a: a.to(dev), rows))
         self._bucket_version[bk] += 1
         return nbytes
 
@@ -446,7 +446,7 @@ class ExpertOffloadManager:
         pad = new_r - old
         self.row_slot[bk] = np.concatenate(
             [self.row_slot[bk], np.full((self.num_layers, pad), -1, np.int32)], axis=1)
-        self.arrays[bk] = map_dict(
+        self.arrays[bk] = tree_map(
             lambda a: torch.cat([a, a.new_zeros((a.shape[0], pad) + tuple(a.shape[2:]))], dim=1),
             self.arrays[bk])
         self._budgets[i] = new_r
@@ -654,7 +654,7 @@ class ExpertOffloadManager:
                 # program may still use is handed out here
                 staged = {bk: (li.to(self.device, non_blocking=True),
                                ri.to(self.device, non_blocking=True),
-                               map_dict(lambda a: a.to(self.device, non_blocking=True), rows))
+                               tree_map(lambda a: a.to(self.device, non_blocking=True), rows))
                           for bk, (li, ri, rows) in staged.items()}
                 event = torch.cuda.Event()
                 event.record(self._side_stream)

@@ -39,7 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.tree import map_dict, tree_paths
+from ..core.tree import tree_map, tree_paths
 from .faults import ExpertUploadFailed, checksum_tree
 
 __all__ = ["TieredExpertStore"]
@@ -95,7 +95,7 @@ class TieredExpertStore:
             first = tree_paths(host[bk])[0][1]
             for layer in range(first.shape[0]):
                 for slot in range(first.shape[1]):
-                    row = map_dict(lambda a: a[layer, slot], host[bk])
+                    row = tree_map(lambda a: a[layer, slot], host[bk])
                     manifest["crc"][f"{bk}/{layer}/{slot}"] = checksum_tree(row)
         with open(os.path.join(self.dir, _MANIFEST), "w") as f:
             json.dump(manifest, f, sort_keys=True)
@@ -153,7 +153,7 @@ class TieredExpertStore:
             self._cache[key] = (row, nbytes, float(heat))
             self.tracer.lifecycle("tier_fetch", track="experts", tier="host", nbytes=0)
             return row
-        row = map_dict(lambda a: np.array(a[int(layer), int(slot)]), self.disk[bk])
+        row = tree_map(lambda a: np.array(a[int(layer), int(slot)]), self.disk[bk])
         if checksum_tree(row) != self.crc(bk, layer, slot):
             raise ExpertUploadFailed(
                 f"disk-tier row ({bk}, layer {layer}, slot {slot}) failed CRC against the "

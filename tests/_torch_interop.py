@@ -83,17 +83,15 @@ def compressed_reference(cfg, seed: int = 0):
     return _with_otp(params_c, cfg)
 
 
-def planned_reference(cfg, bits, seed: int = 0):
-    """``cfg`` initialized from ``seed`` and compressed by the reference
-    ``compress_model`` with the fixed layer-uniform PMQ plan ``bits`` (one
-    width per expert; RTN + HQQ, no GPTQ, so no calibration pass), 4-bit
-    attention and shared experts, in the stacked serving layout with OTP
-    routers — the serving tree of :func:`compressed_reference` without its
-    calibration and LP, at a third of the cost."""
+def planned_blocks(cfg, bits, seed: int = 0):
+    """``(params, blocks_c, top)``: ``cfg`` initialized from ``seed`` and its
+    per-layer compressed blocks from the reference ``compress_model`` with
+    the fixed layer-uniform PMQ plan ``bits`` (one width per expert; RTN +
+    HQQ, no GPTQ, so no calibration pass), 4-bit attention and shared
+    experts — the layout ``compressed_forward`` and ``train_otp`` take."""
     import types
 
     from repro.core import pipeline, pmq
-    from repro.models import transformer as tf
     from repro.models.registry import get_model
 
     params = get_model(cfg).init(jax.random.PRNGKey(seed))
@@ -103,6 +101,16 @@ def planned_reference(cfg, bits, seed: int = 0):
     no_calib = types.SimpleNamespace(
         moe_inputs=[np.zeros((1, cfg.d_model), np.float32)] * cfg.num_layers)
     blocks_c, top = pipeline.compress_model(params, no_calib, plan, cfg, use_gptq=False)
+    return params, blocks_c, top
+
+
+def planned_reference(cfg, bits, seed: int = 0):
+    """The blocks of :func:`planned_blocks` in the stacked serving layout with
+    OTP routers — the serving tree of :func:`compressed_reference` without
+    its calibration and LP, at a third of the cost."""
+    from repro.models import transformer as tf
+
+    _, blocks_c, top = planned_blocks(cfg, bits, seed)
     params_c = dict(top, blocks=tf.restack_blocks(blocks_c))
     return _with_otp(params_c, cfg)
 

@@ -11,7 +11,9 @@ reference CLI's (``repro/launch/serve.py``), in-process on the CPU.
 * the ``--legacy`` wave batcher (:class:`BatchedServer`) emits the reference
   ``BatchedServer``'s tokens on ``TINY_DENSE`` weights carried across by
   ``repro_torch.interop``, and the CLI refuses every option of the paged
-  engine with the reference CLI's message.
+  engine with the reference CLI's message;
+* ``--ffn-backend`` takes ``grouped`` and ``ref`` into the engine's config
+  and refuses the reference's ``scan`` and ``interpret`` by name.
 """
 import dataclasses
 import sys
@@ -142,3 +144,13 @@ def test_legacy_refusals_match_reference(extra, monkeypatch):
         tserve.main(argv + ["--device", "cpu"])
     assert isinstance(got.value.code, str) and "(drop --legacy)" in got.value.code
     assert got.value.code == ref.value.code
+
+
+def test_ffn_backend_flag():
+    for backend in ("grouped", "ref"):
+        engine = tserve.main(CHAOS + ["--ffn-backend", backend])
+        assert engine.ecfg.ffn_backend == backend and len(engine.results) == 4
+    with pytest.raises(SystemExit, match="'scan' is not ported.*item 5"):
+        tserve.main(CHAOS + ["--ffn-backend", "scan"])
+    with pytest.raises(SystemExit, match="'interpret' is not ported.*Pallas interpreter"):
+        tserve.main(CHAOS + ["--ffn-backend", "interpret"])

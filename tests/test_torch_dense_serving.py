@@ -133,16 +133,23 @@ def _layer(params_j, l):
 
 def test_ffn_delta_matches_reference(served):
     """The branch of the model's family: Δx within 1e-5·max|Δx|, activation 1
-    per token and empty dispatch counts, as the reference's."""
+    per token and empty dispatch counts, as the reference's; the aux term
+    (which the port's ``_ffn_delta`` also returns, for ``train_loss``) 0 for
+    a dense layer and the reference ``moe_layer``'s load-balance loss within
+    1e-5 relative for an MoE one."""
     jcfg, tcfg, params_j, params_t, _, _ = served
     h = np.random.default_rng(1).standard_normal((2, 5, jcfg.d_model)).astype(np.float32)
     for l in range(jcfg.num_layers):
         want, jact, jcounts = jtf._ffn_delta(_layer(params_j, l), jnp.asarray(h), jcfg)
-        got, act, counts = ttf._ffn_delta(params_t["layers"][l], torch.from_numpy(h), tcfg)
+        got, act, counts, aux = ttf._ffn_delta(params_t["layers"][l], torch.from_numpy(h),
+                                               tcfg)
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
         assert np.array_equal(act.numpy(), np.asarray(jact))
         assert tuple(counts.shape) == tuple(jcounts.shape) == (0,)
+        want_aux = (jmoe.moe_layer(_layer(params_j, l)["moe"], jnp.asarray(h), jcfg).aux_loss
+                    if jcfg.is_moe else 0.0)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-7)
 
 
 @pytest.fixture(scope="module")

@@ -189,6 +189,46 @@ def test_engine_greedy_tokens_match_reference(served_model, horizon):
     assert 0.0 < eng.summary()["expert_activation"] < 1.0  # OTP pruned some experts
 
 
+@pytest.mark.parametrize("ffn_backend", ["grouped", "ref"])
+def test_engine_ffn_backend_tokens_match_reference(served_model, ffn_backend):
+    """``EngineConfig(ffn_backend=)`` on both sides: the port's ``grouped``
+    (plain versions on the CPU) and ``ref`` serve the reference engine's
+    tokens under the same backend."""
+    cfg, params_j, params_t = served_model
+    geo = dict(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+               prefill_chunk=16, decode_horizon=4, reserve_full=True, use_otp=True,
+               ffn_backend=ffn_backend)
+    prompts = _prompts(cfg, seed=8)
+    want = JEngine(cfg, params_j, JEngineConfig(**geo)).serve(
+        JRequest(rid=i, prompt=p, max_new=5) for i, p in enumerate(prompts))
+    eng = PagedServingEngine(tget_config("moonshot-v1-16b-a3b").reduced(), params_t,
+                             EngineConfig(**geo), device="cpu")
+    assert eng.serve(Request(rid=i, prompt=p, max_new=5) for i, p in enumerate(prompts)) == want
+
+
+def test_ffn_backend_env_sets_the_process_default(served_model, monkeypatch):
+    """``REPRO_FFN_BACKEND`` is the default of an engine left at
+    ``ffn_backend=None``, read as the reference reads it; a refused backend
+    named there fails where it is resolved."""
+    from repro.core.compressed_moe import default_ffn_backend as jdefault
+    from repro_torch.core.compressed_moe import default_ffn_backend, resolve_ffn_backend
+
+    cfg, params_j, params_t = served_model
+    monkeypatch.setenv("REPRO_FFN_BACKEND", " Ref ")
+    assert default_ffn_backend() == jdefault() == resolve_ffn_backend(None) == "ref"
+    geo = dict(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
+               prefill_chunk=16, decode_horizon=4, reserve_full=True, use_otp=True)
+    prompts = _prompts(cfg, seed=9)
+    want = JEngine(cfg, params_j, JEngineConfig(**geo)).serve(
+        JRequest(rid=i, prompt=p, max_new=4) for i, p in enumerate(prompts))
+    eng = PagedServingEngine(tget_config("moonshot-v1-16b-a3b").reduced(), params_t,
+                             EngineConfig(**geo), device="cpu")
+    assert eng.serve(Request(rid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)) == want
+    monkeypatch.setenv("REPRO_FFN_BACKEND", "scan")
+    with pytest.raises(ValueError, match="queue 1 item 5"):
+        resolve_ffn_backend(None)
+
+
 def test_block_tables_match_reference():
     cfg = jget_config("moonshot-v1-16b-a3b").reduced()
     geo = dict(num_blocks=10, block_size=4, max_slots=3, max_blocks_per_slot=4)
@@ -236,8 +276,14 @@ def test_engine_refuses_later_slice_settings(served_model):
         PagedServingEngine(cfg, params_t, EngineConfig(decode_horizon=0), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         PagedServingEngine(dataclasses.replace(cfg, num_layers=3), params_t, device="cpu")
-    with pytest.raises(TypeError):  # the reference's FFN backend knob is a later slice
+    # the reference's FFN backend knob: grouped and ref are ported, scan (expert
+    # parallelism) and interpret (the Pallas interpreter) are refused by name
+    for backend in ("grouped", "ref"):
+        assert EngineConfig(ffn_backend=backend).ffn_backend == backend
+    with pytest.raises(ValueError, match="queue 1 item 5"):
         EngineConfig(ffn_backend="scan")
+    with pytest.raises(ValueError, match="interpret.*not ported"):
+        EngineConfig(ffn_backend="interpret")
     with pytest.raises(ValueError, match="policy"):
         PagedServingEngine(cfg, params_t, EngineConfig(policy="lottery"), device="cpu")
     with pytest.raises(ValueError, match="trace level"):

@@ -1037,3 +1037,69 @@ def test_pipeline_card_matches_cpu(dev):
     print(f"packed code bytes differing card vs cpu: {differ} of {codes_c.numel()}")
     assert differ <= 1e-3 * codes_c.numel()
     assert out_g == out_c
+
+
+# ------------------------------------------------- gradients for training
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_gemm_x_gradients_match_plain(dev, bits, dtype):
+    """``ops``' three dequant GEMMs under autograd (kernel forward, plain
+    backward for ``x``) against autograd through their plain versions on
+    the same card tensors; dead row blocks get exactly zero gradient."""
+    from repro_torch.kernels import build, ops
+
+    gen = torch.Generator().manual_seed(10 + bits)
+    e, k, n, bm, cap = 4, 256, 96, 8, 16
+    parts = [tuple(t.to(dev) if isinstance(t, torch.Tensor) else tuple(p.to(dev) for p in t)
+                   for t in quantize_parts(torch.randn(e, k, n, generator=gen) * k**-0.5,
+                                           bits, 128, refine=False)) for _ in range(2)]
+    (wg, gs, gz), (wu, us, uz) = parts
+    be, na, live = _ragged(gen, e, cap, bm, dev)
+    x = (torch.randn(e * cap, k, generator=gen)).to(dev, dtype).requires_grad_()
+    gy = torch.randn(e * cap, n, generator=gen).to(dev, dtype)
+    xr = x.detach().clone().requires_grad_()
+    cases = [
+        (lambda a: ops.moe_gmm(a, wg, gs, gz, be, na, bits=bits, bm=bm),
+         lambda a: ref.moe_gmm_ref(a, wg, gs, gz, be, na, bits=bits, bm=bm)),
+        (lambda a: ops.moe_gmm_swiglu(a, wg, wu, gs, gz, us, uz, be, na, bits=bits, bm=bm),
+         lambda a: ref.moe_gmm_swiglu_ref(a, wg, wu, gs, gz, us, uz, be, na, bits=bits,
+                                          bm=bm)),
+    ]
+    w0 = tuple(p[0] for p in wg) if bits == 3 else wg[0]
+    cases.append((lambda a: ops.quant_matmul_parts(a, w0, gs[0], gz[0], bits=bits),
+                  lambda a: ref.quant_matmul_ref(a, w0, gs[0], gz[0], bits=bits)))
+    for fn, plain in cases:
+        build.reset_launches()
+        (got,) = torch.autograd.grad(fn(x), x, gy)
+        assert sum(build.LAUNCHES.values()) == 1  # the forward kernel; the backward is plain
+        (want,) = torch.autograd.grad(plain(xr), xr, gy)
+        _close(got, want, dtype)
+    (got,) = torch.autograd.grad(cases[0][0](x), x, gy)
+    assert not got[live * bm:].any()
+
+
+@pytest.mark.cuda
+def test_ffn_backend_ref_runs_the_plain_versions_on_the_card(dev):
+    """``ffn_backend="ref"`` on CUDA tensors runs the plain grouped GEMMs
+    (no grouped kernel launches) and agrees with ``grouped``; ``scan`` is
+    refused."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressed_moe import compressed_moe_layer
+    from repro_torch.core.synthetic import build_synthetic
+    from repro_torch.kernels import build
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    params = build_synthetic(cfg, seed=0, device=dev)
+    p = params["layers"][0]
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator().manual_seed(0)).to(dev)
+    out = {}
+    for backend in ("grouped", "ref"):
+        build.reset_launches()
+        out[backend], _ = compressed_moe_layer(p["moe"], p["moe_ce"], x, cfg,
+                                               otp_params=p.get("otp"), ffn_backend=backend)
+        gmm = build.LAUNCHES["moe_gmm"] + build.LAUNCHES["moe_gmm_swiglu"]
+        assert (gmm > 0) == (backend == "grouped")
+    _close(out["grouped"], out["ref"], torch.float32)
+    with pytest.raises(ValueError, match="item 5"):
+        compressed_moe_layer(p["moe"], p["moe_ce"], x, cfg, ffn_backend="scan")

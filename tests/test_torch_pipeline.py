@@ -207,11 +207,11 @@ def test_compress_model_matches_reference(model, use_gptq):
     assert tpipe.model_weight_bytes(blocks_t, top_t) == jpipe.model_weight_bytes(blocks_j, top_j)
     tokens = model["tokens"][:2]
     h_j, _ = jpipe.compressed_forward(blocks_j, top_j, jnp.asarray(tokens), JCFG)
-    h_t = tpipe.compressed_forward(blocks_t, top_t, torch.as_tensor(tokens, dtype=torch.long),
-                                   TCFG)
+    h_t, _ = tpipe.compressed_forward(blocks_t, top_t,
+                                      torch.as_tensor(tokens, dtype=torch.long), TCFG)
     assert _rel(h_t.numpy(), h_j) < 1e-4
-    lg_t = tpipe.compressed_logits(blocks_t, top_t, torch.as_tensor(tokens, dtype=torch.long),
-                                   TCFG)
+    lg_t, _ = tpipe.compressed_logits(blocks_t, top_t, torch.as_tensor(tokens, dtype=torch.long),
+                                      TCFG)
     assert tuple(lg_t.shape) == (2, 64, JCFG.vocab_size) and torch.isfinite(lg_t).all()
 
 
@@ -237,11 +237,12 @@ def test_compressed_forward_argmax_otp_matches_reference(model):
         otp_params=[{n: jnp.asarray(v) for n, v in p.items()} for p in otp])
     assert 0 < float(np.mean([np.asarray(m).mean() for m in masks])) < 1
     tt = torch.as_tensor(tokens, dtype=torch.long)
-    h_t = tpipe.compressed_forward(
-        blocks_t, top_t, tt, TCFG,
+    h_t, masks_t = tpipe.compressed_forward(
+        blocks_t, top_t, tt, TCFG, collect_masks=True,
         otp_params=[{n: torch.from_numpy(v) for n, v in p.items()} for p in otp])
     assert _rel(h_t.numpy(), h_j) < 1e-4
-    assert _rel(tpipe.compressed_forward(blocks_t, top_t, tt, TCFG).numpy(), h_j) > 1e-3
+    assert all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in zip(masks_t, masks))
+    assert _rel(tpipe.compressed_forward(blocks_t, top_t, tt, TCFG)[0].numpy(), h_j) > 1e-3
 
 
 def test_compress_for_serving_serves_the_reference_tokens(model):
