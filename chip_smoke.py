@@ -71,7 +71,12 @@ Phases (each failure exits non-zero):
    scales and params apart in at most 1e-4 of their elements); and the
    reduced PMQ + OTP model served with ``ffn_backend="ref"`` and
    ``"grouped"`` on the card (the same greedy tokens; the grouped kernels
-   launch only in the second);
+   launch only in the second); then the reduced whisper, recurrentgemma
+   (also at 5 layers, so its trailing recurrent blocks run) and xlstm
+   (also on 72-token prompts, so the mLSTM's chunked scan runs), f32, seed
+   0, prefilled and decoded 8 greedy steps on the card and on the CPU:
+   identical tokens, per-step logits within 1e-3·max|logit|, no kernel
+   launched;
 5. full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
@@ -82,8 +87,9 @@ Phases (each failure exits non-zero):
    must launch, the fp attention kernel must not; tokens byte-identical to
    an int8 engine without the prefix cache and to a second prefix engine;
    prefill chunks and copy-on-write copies as the reference's rules give);
-   then the tenant mix (``TENANT_MIX``: batch, chat and interactive tenants
-   on a 14-page pool through the control plane, ``fair`` policy, a TTFT
+   then the tenant mix (``TENANT_MIX``, on the first 12 of the 48 layers:
+   batch, chat and interactive tenants on a 14-page pool through the
+   control plane, ``fair`` policy, a TTFT
    budget, a ``pool`` and a ``logits`` fault, ``spans`` tracing) served four
    times — (a) as set, (b) a fresh engine replaying the fault plan, (c)
    ``fcfs`` and (d) ``priority`` without faults: (a) and (b) identical in
@@ -91,21 +97,25 @@ Phases (each failure exits non-zero):
    valid; the poisoned request empty with ``PoisonedRequest``; (a)'s schedule
    counters the reference engine's (``workload.TENANT_MIX_COUNTERS``); every
    rid completed in two runs with the same tokens in both; the fp path's
-   kernels launched and no other; then the preemption path (``PREEMPT``: the
-   fp workload on an 11-page pool with page growth) served twice — (a) in
-   swap mode: one preemption (rid 1, its 5 pages swapped out and back in,
-   31,457,280 bytes each way), 3 page grows, the schedule counters the
-   reference engine's (``workload.PREEMPT_COUNTERS``), every rid's tokens
-   byte-identical to the fp path's; (b) with ``PREEMPT_FAULTS`` corrupting
-   rid 1's payload at swap-in, at trace level ``full``: one swap fallback,
-   no swap-in bytes, 21 prefill chunks, a valid trace with the reference's
-   event count on this schedule, rids 0, 2 and 3 byte-identical to the fp
-   path's, and rid 1's agreement after its re-prefill printed, not gated
+   kernels launched and no other; then the preemption path (``PREEMPT``, on
+   the first 12 of the 48 layers: the fp workload on an 11-page pool with
+   page growth) served twice after an unpressured run on the fp geometry,
+   the token oracle — (a) in swap mode: one preemption (rid 1, its 5 pages
+   swapped out and back in, 7,864,320 bytes each way at 12 layers), 3 page
+   grows, the schedule counters the reference engine's
+   (``workload.PREEMPT_COUNTERS``), every rid's tokens byte-identical to
+   the unpressured run's; (b) with ``PREEMPT_FAULTS`` corrupting rid 1's
+   payload at swap-in, at trace level ``full``: one swap fallback, no
+   swap-in bytes, 21 prefill chunks, a valid trace with the reference's
+   event count on this schedule, rids 0, 2 and 3 byte-identical to the
+   unpressured run's, and rid 1's agreement after its re-prefill printed,
+   not gated
    (the re-prefill rewrites its KV through the prefill's attention, the
    original rows came from the decode kernel); the fp path's kernels
-   launched and no other; then the expert-offload path (``OFFLOAD``: one
-   request of 16 + 4 tokens at H = 1 under ``resident_experts=32`` of 64
-   slots) served three times — (c) all-resident, the token oracle; (a)
+   launched and no other; then the expert-offload path (``OFFLOAD``, on
+   the first 12 of the 48 layers: one request of 16 + 4 tokens at H = 1
+   under ``resident_experts=32`` of 64 slots) served three times — (c)
+   all-resident, the token oracle; (a)
    synchronous at trace level ``spans``; (b) ``async_offload`` with the
    tier store in a temporary directory, a 256 MiB host row cache and two
    corrupted upload payloads: tokens of (a) and (b) those of (c); (a) misses,
@@ -137,9 +147,10 @@ Phases (each failure exits non-zero):
    48 · (64 · 540,672 + 132 · 1,081,344) B, the peak printed), (f) the fp
    workload twice (``FP_PATH``'s kernels and no other, tokens identical,
    greedy agreement with the uncompressed model's printed, not gated), (g)
-   sampled at T = 0.8 with seeds 0, 0 (identical) and 1 (the positions that
-   differ printed); then ``OTP``: (h) routers trained on that tree at full
-   width by ``train_otp`` (``workload.OTP_TRAIN``: 20 steps of 4 × 64
+   sampled at T = 0.8 on the first 12 layers with seeds 0, 0 (identical)
+   and 1 (the positions that differ printed); then ``OTP``, on the first
+   12 layers of that tree: (h) routers trained at full width by
+   ``train_otp`` (``workload.OTP_TRAIN``: 20 steps of 4 × 64
    synthetic calibration tokens, λ = 2, τ = 1, lr 5e-3; ``quant_matmul``,
    ``moe_gmm_swiglu`` and ``moe_gmm`` launched and no other; the peak
    beside its prediction, the time a step, mask ratio and KL of the first
@@ -154,9 +165,22 @@ Phases (each failure exits non-zero):
    prefill of 2880 patch embeddings ahead of a 64-token prompt, ``pos`` =
    2944, 16 greedy tokens identical on a second run, no kernel launched),
    ``WINDOWED`` (``gemma3-27b``, 62 layers, 2 requests of 1088 + 32 tokens
-   past its 1024-token window) and ``WIDE_MOE`` (``kimi-k2-1t-a32b`` at 4
+   past its 1024-token window) and ``WIDE_MOE`` (``kimi-k2-1t-a32b`` at 2
    of its 61 layers, PMQ + OTP, 384 experts: expert bytes, OTP activation
-   and the drop-free dispatch buffer printed); and last ``TRAIN``:
+   and the drop-free dispatch buffer printed); then the three
+   non-transformer families at full width in bf16, each built after the
+   previous model is freed and decoded greedily twice through the
+   dense-cache ``prefill`` and ``decode_step`` (the paged engine refuses
+   them, as the reference's does): ``WHISPER`` (``whisper-small``, 4
+   requests of 64 tokens over 1500 frames), ``RECURRENT``
+   (``recurrentgemma-2b``, 2 requests of 2080 tokens, decoding past its
+   2048 window) and ``XLSTM`` (``xlstm-350m``, 4 × 64), 32 tokens each:
+   the two runs' tokens identical, each held to a teacher-forced forward
+   over prompt and tokens (a first drift must start at a near-tie within
+   ``ORACLE_GAP_ULPS``), no kernel launched, weight bytes, peak, prefill
+   wall and tokens/s printed; then ``xlstm-350m`` in f32 trained 3 steps of
+   4 × 256 tokens through ``launch.train.train_step`` (finite losses, the
+   peak beside its prediction); and last ``TRAIN``:
    ``tinyllama-1.1b`` at full width in f32 trained for 20 steps of 8 × 128
    tokens through ``launch.train.train_step`` (AdamW, 32-bit moments)
    under ``torch.use_deterministic_algorithms``: the loss falls; the state
@@ -238,6 +262,7 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import linear  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity, moe_layer  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.models.xlstm import MLSTM_CHUNK  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     _paged_decode_core,
     layer_windows_static,
@@ -1381,6 +1406,45 @@ def tiny_ffn_backend():
         f"same greedy tokens ({len(prompts)} requests x 12); grouped GEMM launches {gmm}")
 
 
+#: phase 4's reduced non-transformer models: (arch, layers or None for the
+#: reduced config's, prompt tokens) — recurrentgemma at 5 layers runs its
+#: trailing recurrent blocks, xlstm on 72 tokens its chunked mLSTM scan
+FAMILY_TINY = (("whisper-small", None, 16), ("recurrentgemma-2b", None, 20),
+               ("recurrentgemma-2b", 5, 20), ("xlstm-350m", None, 16), ("xlstm-350m", None, 72))
+FAMILY_TINY_STEPS = 8
+
+
+def tiny_families():
+    """Each of :data:`FAMILY_TINY` (f32, its bundle's ``init`` at seed 0 on
+    the CPU, copied to the card), 2 prompts prefilled and decoded
+    :data:`FAMILY_TINY_STEPS` greedy steps on the card and on the CPU:
+    identical tokens, per-step logits within 1e-3·max|logit|, no kernel
+    launched."""
+    build.reset_launches()
+    for arch, layers, s in FAMILY_TINY:
+        cfg = get_config(arch).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = get_model(cfg).init(torch.Generator().manual_seed(0))
+        batch = workload.family_batch(cfg, 2, s, "cpu")
+        runs = {dev: workload.greedy_family(cfg, to_device(params, dev),
+                                            {k: v.to(dev) for k, v in batch.items()},
+                                            FAMILY_TINY_STEPS + 1)
+                for dev in ("cpu", DEV)}
+        (tok_c, lg_c, _, _), (tok_g, lg_g, _, _) = runs["cpu"], runs[DEV]
+        err = float((lg_g - lg_c).abs().max())
+        scale = float(lg_c.abs().max())
+        if not torch.equal(tok_g, tok_c) or not err <= 1e-3 * scale:
+            raise AssertionError(f"{arch} reduced ({cfg.num_layers} layers, {s} tokens): card "
+                                 f"tokens {tok_g.tolist()} against the CPU's {tok_c.tolist()}, "
+                                 f"logits max|diff| {err:.3e} of max|logit| {scale:.3e}")
+        log(f"{arch} reduced ({cfg.family}, {cfg.num_layers} layers, f32, {s}-token prompts): "
+            f"prefill + {FAMILY_TINY_STEPS} greedy steps, card == CPU tokens "
+            f"{tok_g.tolist()}, logits max|diff| {err:.3e} (max|logit| {scale:.3e})")
+    if any(build.LAUNCHES.values()):
+        raise AssertionError(f"families: kernels launched: {dict(build.LAUNCHES)}")
+
+
 # ------------------------------------------------ phase 5: full width
 #: kernels each serving path must launch (binary_matmul has no serving caller)
 FP_PATH = WIDE_MOE_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
@@ -1447,17 +1511,18 @@ def compressed_paths():
         f"experts={cfg.num_experts} top-{cfg.top_k} vocab={cfg.vocab_size} bf16; "
         f"built in {time.perf_counter() - t0:.1f} s; "
         f"weights on device {weight_bytes(params) / 1e9:.3f} GB")
-    fp_launches, fp_out, experts = fp_path(cfg, params)
+    fp_launches, experts = fp_path(cfg, params)
     q_launches = prefix_path(cfg, params)
-    mix_launches = tenant_mix_path(cfg, params)
-    preempt_launches = preemption_path(cfg, params, fp_out)
-    offload_launches = offload_path(cfg, params)
+    cut = workload.first_layers(cfg, params, workload.CUT_LAYERS)
+    mix_launches = tenant_mix_path(*cut)
+    preempt_launches = preemption_path(*cut)
+    offload_launches = offload_path(*cut)
     return fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, experts
 
 
 def fp_path(cfg, params):
-    """The fp workload twice: its launches, tokens and expert bytes (per
-    decode step, in all)."""
+    """The fp workload twice: its launches and expert bytes (per decode
+    step, in all)."""
     eng, fp_out, fp_launches, peak = _drive("fp path", cfg, params, workload.ENGINE,
                                             workload.requests(cfg), FP_PATH)
     _, out2 = _serve(cfg, params, workload.ENGINE, workload.requests(cfg))
@@ -1473,7 +1538,7 @@ def fp_path(cfg, params):
     log("full width serving summary (fp KV): " + json.dumps(s))
     experts = (float(np.mean(profile_decode.expert_step_bytes(eng))),
                sum(weight_bytes(p["moe_ce"]) for p in params["layers"]))
-    return fp_launches, fp_out, experts
+    return fp_launches, experts
 
 
 def prefix_path(cfg, params):
@@ -1577,8 +1642,8 @@ def tenant_mix_path(cfg, params):
     tokens = {t: sum(len(out_a[r.rid]) for _, r in workload.tenant_mix_requests(cfg)
                      if r.tenant == t) for t, *_ in workload.TENANTS}
     ttft = {t: float(np.mean(xs)) for t, xs in sorted(a.metrics.ttft_by_tenant.items())}
-    log(f"full width serving (tenant mix): policy fair, {workload.TENANT_MIX.num_blocks} "
-        f"pages; tokens per tenant {tokens}; sheds "
+    log(f"full width serving (tenant mix, {cfg.num_layers} layers): policy fair, "
+        f"{workload.TENANT_MIX.num_blocks} pages; tokens per tenant {tokens}; sheds "
         f"{[(x['rid'], x['tenant']) for x in counters['sheds']]}; poisoned {poisoned}; TTFT "
         f"mean per tenant (s) { {t: round(v, 3) for t, v in ttft.items()} }; decode "
         f"{s['decode_tokens']} tokens in {s['decode_s']:.3f} s = "
@@ -1600,10 +1665,12 @@ def _preempt_run(cfg, params, ecfg, faults):
     return eng, out, time.perf_counter() - t0
 
 
-def preemption_path(cfg, params, fp_out):
+def preemption_path(cfg, params):
     """The fp workload on ``PREEMPT``'s 11-page pool with page growth, twice
     (see the module docstring): its launches; fails on any check. Tokens
-    are held to ``fp_out``, the fp path's from this call."""
+    are held to ``fp_out``, an unpressured run on ``ENGINE`` of the same
+    model, served before the counts are zeroed."""
+    _, fp_out = _serve(cfg, params, workload.ENGINE, workload.requests(cfg))
     begin_path()
     a, out_a, wall_a = _preempt_run(cfg, params,
                                     dataclasses.replace(workload.PREEMPT, trace_level="spans"),
@@ -1630,7 +1697,7 @@ def preemption_path(cfg, params, fp_out):
                              f"{ca['swap_in_bytes']} (expected {swap_bytes})")
     if out_a != fp_out:
         raise AssertionError(f"preemption (a): rids {[r for r in fp_out if out_a[r] != fp_out[r]]}"
-                             f" differ from the fp path's tokens")
+                             f" differ from the unpressured run's tokens")
     if (cb["swap_fallbacks"], cb["swap_in_bytes"], cb["prefill_dispatches"]) != (1, 0, 21):
         raise AssertionError(f"preemption (b): {cb['swap_fallbacks']} swap fallbacks, "
                              f"{cb['swap_in_bytes']} swap-in bytes, "
@@ -1643,7 +1710,8 @@ def preemption_path(cfg, params, fp_out):
                              f"gives {want_events}")
     others = [r for r in fp_out if r != victim and out_b[r] != fp_out[r]]
     if others:
-        raise AssertionError(f"preemption (b): rids {others} differ from the fp path's tokens")
+        raise AssertionError(f"preemption (b): rids {others} differ from the unpressured "
+                             f"run's tokens")
     same = [x == y for x, y in zip(out_b[victim], fp_out[victim])]
     first = same.index(False) if not all(same) else None
     missing = [k for k in FP_PATH if launches[k] == 0]
@@ -1661,13 +1729,15 @@ def preemption_path(cfg, params, fp_out):
             f"{s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s")
     spans = {e["name"]: e["dur_us"] / 1e3 for e in a.tracer.events
              if e["name"] in ("kv_swap_out", "kv_swap_in")}
-    log(f"full width serving (preemption): {workload.PREEMPT.num_blocks} pages; (a) "
+    log(f"full width serving (preemption, {cfg.num_layers} layers): "
+        f"{workload.PREEMPT.num_blocks} pages; (a) "
         f"kv_swap_out {spans['kv_swap_out']:.1f} ms, kv_swap_in {spans['kv_swap_in']:.1f} ms "
         f"(host wall, device copies included); schedule "
         f"counters = reference's, {grows} page grows, rid {victim} swapped out and in "
-        f"({swap_bytes} bytes), every rid's tokens = fp path's; (b) trace events {events}, rids "
-        f"{[r for r in fp_out if r != victim]} = fp path's; rid {victim} after its re-prefill: "
-        f"{sum(same)}/{len(same)} tokens = fp path's, first differing position {first} "
+        f"({swap_bytes} bytes), every rid's tokens = the unpressured run's; (b) trace events "
+        f"{events}, rids {[r for r in fp_out if r != victim]} = the unpressured run's; rid "
+        f"{victim} after its re-prefill: {sum(same)}/{len(same)} tokens = the unpressured "
+        f"run's, first differing position {first} "
         f"(reported, not gated); peak device memory {peak / 1e9:.3f} GB; launches {launches}")
     log("full width serving summary (preemption, swap): " + json.dumps(a.summary()))
     return launches
@@ -1777,8 +1847,9 @@ def offload_path(cfg, params):
             f"upload_hidden_s {r['upload_hidden_s']:.4f}, upload_stall_s "
             f"{r['upload_stall_s']:.4f}; peak device memory {peak / 1e9:.3f} GB; launches "
             f"{launches}")
-    log(f"full width serving (offload): {workload.OFFLOAD.resident_experts} of "
-        f"{cfg.num_experts} slots per layer; (c) all-resident served in {wall_c:.2f} s; tokens "
+    log(f"full width serving (offload, {cfg.num_layers} layers): "
+        f"{workload.OFFLOAD.resident_experts} of {cfg.num_experts} slots per layer; (c) "
+        f"all-resident served in {wall_c:.2f} s; tokens "
         f"(a) == (b) == (c); (a) trace events {events} (valid); (b) spill + host copy in "
         f"{built_b:.2f} s (host copy alone, (a): {built_a:.2f} s), disk bytes {disk_bytes}, "
         f"host-cache bytes {cache_bytes} of {workload.OFFLOAD_HOST_BYTES}, disk fetches "
@@ -1942,7 +2013,8 @@ def compress_path(cfg, params, moe_out):
     serving tree, (f) the fp workload twice (``FP_PATH``'s launches; greedy
     agreement with the uncompressed model's tokens ``moe_out`` printed, not
     gated: the weights are random), (g) sampled at T = 0.8 with seeds 0, 0
-    and 1. Returns the launches of (f)."""
+    and 1 on the first ``workload.CUT_LAYERS`` layers. Returns the launches
+    of (f)."""
     gc.collect()  # the uncompressed path's engines and pools
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
     tokens = torch.as_tensor(workload.calibration_tokens(cfg), device=DEV)
@@ -2042,21 +2114,21 @@ def compress_path(cfg, params, moe_out):
     log("full width serving summary (compressed (pipeline)): " + json.dumps(s))
 
     sampled = []
+    cut_cfg, cut_c = workload.first_layers(cfg, params_c, workload.CUT_LAYERS)
     for seed in (0, 0, 1):
         ecfg = dataclasses.replace(workload.COMPRESS, temperature=0.8, sample_seed=seed)
-        (_, o), dt = _timed(lambda: _serve(cfg, params_c, ecfg, workload.requests(cfg)))
+        (_, o), dt = _timed(lambda: _serve(cut_cfg, cut_c, ecfg, workload.requests(cfg)))
         _check_tokens("compress (g)", cfg, o, workload.requests(cfg))
         sampled.append((o, dt))
     (a, dt_a), (b, dt_b), (c, dt_c) = sampled
     if a != b:
         raise AssertionError("compress (g): two sampled engines with seed 0 differ")
     differ = sum(x != y for rid in a for x, y in zip(a[rid], c[rid]))
-    vs_greedy = sum(x != y for rid in a for x, y in zip(a[rid], out[rid]))
-    log(f"compress (g) sampled serving (T = 0.8): seed 0 twice byte-identical ({dt_a:.3f} / "
-        f"{dt_b:.3f} s); seed 1 differs at {differ} of {n} positions ({dt_c:.3f} s); seed 0 "
-        f"differs from greedy at {vs_greedy}")
+    log(f"compress (g) sampled serving (T = 0.8, first {cut_cfg.num_layers} layers): seed 0 "
+        f"twice byte-identical ({dt_a:.3f} / {dt_b:.3f} s); seed 1 differs at {differ} of "
+        f"{n} positions ({dt_c:.3f} s)")
     del eng
-    return launches, otp_path(cfg, params_c)
+    return launches, otp_path(*workload.first_layers(cfg, params_c, workload.CUT_LAYERS))
 
 
 #: kernels of the OTP training forward (its attention is the dense sweep)
@@ -2084,9 +2156,10 @@ def otp_memory_prediction(cfg, t: int) -> dict:
 
 
 def otp_path(cfg, params_c):
-    """``OTP``: (h) routers trained on the pipeline-compressed tree by
-    ``train_otp`` (``workload.OTP_TRAIN``: 20 steps, batch 4 × 64, λ = 2, τ
-    = 1, lr 5e-3) at full width, ``OTP_TRAIN_PATH``'s kernels launched in the
+    """``OTP``: (h) routers trained on the pipeline-compressed tree
+    (its first ``workload.CUT_LAYERS`` layers) by ``train_otp``
+    (``workload.OTP_TRAIN``: 20 steps, batch 4 × 64, λ = 2, τ = 1, lr 5e-3)
+    at full width, ``OTP_TRAIN_PATH``'s kernels launched in the
     forward and no other, the peak set against its prediction, the loss, KL
     and mask ratio finite; (i) the fp workload served twice with the trained
     routers: ``FP_PATH``'s launches, tokens identical, the OTP activation
@@ -2200,7 +2273,7 @@ def windowed_path():
 
 
 def wide_moe_path():
-    """``WIDE_MOE``: ``kimi-k2-1t-a32b`` at 4 layers (PMQ + OTP) on the fp
+    """``WIDE_MOE``: ``kimi-k2-1t-a32b`` at 2 layers (PMQ + OTP) on the fp
     workload, twice, the dense-cache oracle beside it: its expert bytes, OTP
     activation and drop-free prefill dispatch buffer. Returns the launches."""
     cfg, params = build_logged(workload.build_wide_moe)
@@ -2214,6 +2287,125 @@ def wide_moe_path():
         f"read per decode step {step / 1e9:.3f} GB; OTP expert activation "
         f"{s['expert_activation']:.4f}; drop-free prefill dispatch buffer [{cfg.num_experts}, "
         f"{cap}, {cfg.d_model}] = {cfg.num_experts * cap * cfg.d_model * 2 / 1e9:.3f} GB bf16")
+    return launches
+
+
+#: the weight bytes each family's config gives in bf16 (the reference
+#: ``init``'s parameters by ``jax.eval_shape``, times 2)
+FAMILY_WEIGHT_GB = {"whisper-small": 0.589, "recurrentgemma-2b": 5.789, "xlstm-350m": 0.757}
+
+
+def teacher_forced_agreement(name, cfg, params, batch, toks) -> str:
+    """Each request's decoded tokens against one teacher-forced forward over
+    its prompt and tokens: the agreement and, at the first step where the
+    forward picks another token, its gap to the decoded one in bf16 ulps of
+    that step's max|logit|; a gap above :data:`ORACLE_GAP_ULPS` goes to
+    :data:`ORACLE_FAULTS`."""
+    tf = workload.teacher_forced_logits(cfg, params, batch, toks)
+    parts = []
+    for r in range(toks.shape[0]):
+        pick = tf[r].argmax(dim=-1)
+        same = (pick == toks[r]).tolist()
+        part = f"rid {r} {sum(same)}/{len(same)}"
+        if not all(same):
+            i = same.index(False)
+            v = tf[r, i].numpy()
+            gap = float(bf16_ulps(v[int(pick[i])] - v[int(toks[r, i])], np.abs(v).max()))
+            near = gap <= ORACLE_GAP_ULPS
+            part += (f" (first difference at {i}: gap {gap:.3f} ulps of max|logit| "
+                     f"{np.abs(v).max():.4g}; {'near-tie' if near else 'no near-tie'})")
+            if not near:
+                ORACLE_FAULTS.append(f"{name} rid {r} step {i}")
+        parts.append(part)
+    return f"{name}: decoded tokens against a teacher-forced forward's: " + "; ".join(parts)
+
+
+def family_path(arch: str):
+    """``WHISPER``, ``RECURRENT`` or ``XLSTM``: the model at full width in
+    bf16 (its ``init`` at seed 0 on the card), :data:`workload.FAMILY_ARCHS`'s
+    requests decoded greedily twice through the dense-cache ``prefill`` and
+    ``decode_step`` — identical tokens, each held to a teacher-forced
+    forward, no kernel launched. Returns the launches (all 0)."""
+    cfg, params = build_logged(lambda dev: workload.build_family(arch, dev))
+    n, s = workload.FAMILY_ARCHS[arch]
+    batch = workload.family_batch(cfg, n, s, DEV)
+    begin_path()
+    runs = [workload.greedy_family(cfg, params, batch, workload.FAMILY_MAX_NEW)
+            for _ in range(2)]
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    toks, _, t_prefill, t_decode = runs[0]
+    if tuple(toks.shape) != (n, workload.FAMILY_MAX_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: bad tokens {toks.tolist()}")
+    if not torch.equal(runs[1][0], toks):
+        raise AssertionError(f"{arch}: a second run decoded different tokens")
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: kernels launched: {launches}")
+    decoded = n * (workload.FAMILY_MAX_NEW - 1)
+    log(f"full width decoding ({arch}, {cfg.family}): {n} requests x {s} prompt tokens"
+        f"{' over frames ' + str(list(batch['frames'].shape)) if 'frames' in batch else ''}, "
+        f"{workload.FAMILY_MAX_NEW} greedy tokens; weights on device "
+        f"{weight_bytes(params) / 1e9:.3f} GB (config: {FAMILY_WEIGHT_GB[arch]} GB); peak "
+        f"device memory {peak / 1e9:.3f} GB; prefill {t_prefill:.3f} s (second run "
+        f"{runs[1][2]:.3f} s); decode {decoded} tokens in {t_decode:.3f} s = "
+        f"{decoded / t_decode:.1f} tokens/s (second run {decoded / runs[1][3]:.1f}); tokens "
+        f"identical on a second run; launches {launches}")
+    log(teacher_forced_agreement(arch, cfg, params, batch, toks))
+    return launches
+
+
+def xlstm_memory_prediction(cfg, nparams: int, batch: int, seq: int) -> dict:
+    """Bytes of the f32 training step (derived from the shapes): the
+    parameter states (params, grads, AdamW's m and v, and the update's new
+    params, m and v beside the old), the mLSTM's ``C [B, H, dh, dh]`` kept at
+    the 64-step chunk boundaries, one chunk's recompute (``C`` and the
+    outer product ``v kᵀ`` a step), and ``C`` at every step without the
+    chunked recompute."""
+    dh = 2 * cfg.d_model // cfg.num_heads
+    c = batch * cfg.num_heads * dh * dh * 4
+    layers = cfg.num_layers // 2
+    return {"states": 7 * 4 * nparams, "boundaries": layers * (-(-seq // MLSTM_CHUNK)) * c,
+            "recompute": 2 * MLSTM_CHUNK * c, "every_step": layers * seq * c}
+
+
+def xlstm_train():
+    """``XLSTM``'s training: ``xlstm-350m`` at full width in f32,
+    :data:`workload.XLSTM_TRAIN_STEPS` steps of 4 × 256 tokens
+    (``HostDataLoader``, seed 0) through ``launch.train.train_step`` (AdamW,
+    32-bit moments): finite losses, the peak beside its prediction, no kernel
+    launched. Returns the launches."""
+    cfg, params = build_logged(lambda dev: workload.build_family("xlstm-350m", dev, "float32"))
+    bundle = get_model(cfg)
+    ocfg = AdamWConfig(lr=workload.TRAIN_LR)
+    bsz, seq = workload.XLSTM_TRAIN_BATCH, workload.XLSTM_TRAIN_SEQ
+    loader = HostDataLoader(vocab=cfg.vocab_size, global_batch=bsz, seq_len=seq, seed=0)
+    nparams = sum(t.numel() for t in tree_leaves(params))
+    pred = xlstm_memory_prediction(cfg, nparams, bsz, seq)
+    begin_path()
+    opt = adamw_init(params, ocfg)
+    losses, times = [], []
+    for i in range(workload.XLSTM_TRAIN_STEPS):
+        (params, opt, loss), t = _timed(lambda: train_step(
+            bundle.train_loss, params, opt, batch_to(loader.batch_at(i), DEV), ocfg, warmup=10,
+            total=workload.XLSTM_TRAIN_STEPS + 1))
+        losses.append(float(loss))
+        times.append(t)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"xlstm train: losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"xlstm train: kernels launched: {launches}")
+    gb = {k: round(v / 1e9, 3) for k, v in pred.items()}
+    log(f"full width training ({cfg.name}, {nparams / 1e6:.1f} M params, f32, AdamW 32-bit "
+        f"moments): {len(losses)} steps of {bsz} x {seq} tokens, "
+        f"{[round(t, 3) for t in times]} s; losses {[round(x, 4) for x in losses]}; peak device "
+        f"memory {peak / 1e9:.3f} GB against the prediction (GB, derived) {gb}: states + "
+        f"boundaries + one chunk's recompute = "
+        f"{(pred['states'] + pred['boundaries'] + pred['recompute']) / 1e9:.3f} GB plus the "
+        f"other activations, where C at every step alone would be "
+        f"{pred['every_step'] / 1e9:.3f} GB; launches {launches}")
     return launches
 
 
@@ -2384,6 +2576,12 @@ def full_width():
     free_model()
     wide_launches = walled("wide MoE", wide_moe_path)
     free_model()
+    family_launches = {}
+    for arch in workload.FAMILY_ARCHS:
+        family_launches[f"{arch} decoding"] = walled(arch, lambda a=arch: family_path(a))
+        free_model()
+    family_launches["xlstm-350m training"] = walled("xlstm train", xlstm_train)
+    free_model()
     train_launches = walled("train", train_path)
     free_model()
     if ORACLE_FAULTS:
@@ -2398,7 +2596,7 @@ def full_width():
             "OTP training": otp_train_launches, "OTP-trained serving": otp_launches,
             "dense training": train_launches,
             "vlm serving": vlm_launches, "windowed serving": windowed_launches,
-            "wide MoE serving": wide_launches}
+            "wide MoE serving": wide_launches, **family_launches}
 
 
 def main() -> int:
@@ -2451,6 +2649,7 @@ def main() -> int:
     tiny_otp_training()
     tiny_adamw8()
     tiny_ffn_backend()
+    tiny_families()
     WALLS["phases 1-4"] = round(time.perf_counter() - t_phases, 1)
     paths = full_width()
     log(f"wall by phase (s, host clock): {WALLS}")

@@ -1,8 +1,8 @@
 """Config registry of the port: ``get_config("<arch-id>")``.
 
-Holds the transformer architectures of the reference (the ``dense``,
-``moe`` and ``vlm`` families); each entry mirrors the reference config of
-the same name field for field."""
+Holds every architecture of the reference (the ``dense``, ``moe``, ``vlm``,
+``encdec``, ``hybrid`` and ``ssm`` families); each entry mirrors the
+reference config of the same name field for field."""
 from __future__ import annotations
 
 from .base import ModelConfig
@@ -12,10 +12,13 @@ from .kimi_k2_1t_a32b import CONFIG as _kimi
 from .llava_next_mistral_7b import CONFIG as _llava
 from .moonshot_v1_16b_a3b import CONFIG as _moonshot
 from .qwen3_14b import CONFIG as _qwen3
+from .recurrentgemma_2b import CONFIG as _rgemma
 from .tinyllama_1_1b import CONFIG as _tinyllama
+from .whisper_small import CONFIG as _whisper
+from .xlstm_350m import CONFIG as _xlstm
 
-CONFIGS = {c.name: c for c in [_qwen3, _gemma3, _commandr, _tinyllama, _moonshot, _kimi,
-                               _llava]}
+CONFIGS = {c.name: c for c in [_qwen3, _gemma3, _commandr, _tinyllama, _whisper, _moonshot,
+                               _kimi, _rgemma, _llava, _xlstm]}
 
 ARCH_IDS = tuple(sorted(CONFIGS))
 

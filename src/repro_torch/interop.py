@@ -22,6 +22,13 @@ bf16 arrays may arrive as numpy's ``bfloat16`` extension dtype, or as the
 2-byte void arrays numpy reads such an array back from a checkpoint as;
 their bits are reinterpreted, never converted.
 
+The ``encdec``, ``hybrid`` and ``ssm`` families (a tree without
+``blocks/``; ``meta`` unused) take their plain tree: leaves under
+``enc_blocks/``, ``dec_blocks/`` and ``groups/`` are stacked over blocks on
+axis 0 and become lists of per-block dicts (``groups/<rg1|rg2|attn|m|s>/
+...``); a list in the reference's tree (recurrentgemma's ``tail/<i>/...``)
+stays a list, and an empty one, which leaves no key, comes back as ``[]``.
+
 :func:`params_from_checkpoint` carries the ``params`` of a checkpoint the
 reference's trainer wrote (``repro.launch.train``, the examples) through the
 same mapping: that is how a model trained by the reference reaches the port.
@@ -39,6 +46,8 @@ from .core.packing import PackedTensor
 __all__ = ["params_from_checkpoint", "params_from_reference"]
 
 _BLOCKS = "blocks/"
+#: the stacked roots of the non-transformer families' trees
+_STACKED = ("enc_blocks", "dec_blocks", "groups")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -59,6 +68,40 @@ def _nest(flat: Dict[str, object]) -> Dict:
     return tree
 
 
+def _listify(node):
+    """Dicts whose keys are all list indices become lists, bottom up."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _is_family_tree(flat: Dict[str, np.ndarray]) -> bool:
+    """A whisper, recurrentgemma or xlstm tree: stacked roots, no ``blocks/``."""
+    roots = {p.partition("/")[0] for p in flat}
+    return "blocks" not in roots and bool(roots & set(_STACKED))
+
+
+def _family_params(flat: Dict[str, np.ndarray], device) -> Dict:
+    """The plain tree of an ``encdec``, ``hybrid`` or ``ssm`` model, its
+    stacked roots unstacked into lists of per-block dicts."""
+    out = {}
+    for path, a in flat.items():
+        root, _, rest = path.partition("/")
+        if root in _STACKED:
+            for i in range(a.shape[0]):
+                out[f"{root}/{i}/{rest}"] = _tensor(a[i], device)
+        else:
+            out[path] = _tensor(a, device)
+    tree = _listify(_nest(out))
+    if tree.get("groups") and "rg1" in tree["groups"][0]:
+        # a flat tree has no key for recurrentgemma's empty ``tail`` list
+        tree.setdefault("tail", [])
+    return tree
+
+
 def _packed(node: Dict, m: Dict) -> PackedTensor:
     data = (node["hi"], node["lo"]) if m["bits"] == 3 else node["data"]
     return PackedTensor(data=data, scale=node["scale"], zero=node["zero"], bits=m["bits"],
@@ -66,7 +109,10 @@ def _packed(node: Dict, m: Dict) -> PackedTensor:
 
 
 def params_from_reference(flat: Dict[str, np.ndarray], meta: Dict, *, device="cuda") -> Dict:
-    """Build the port's per-layer params (see :mod:`repro_torch.models.transformer`)."""
+    """Build the port's per-layer params (see :mod:`repro_torch.models.transformer`;
+    for the other families the modules named in the module docstring)."""
+    if _is_family_tree(flat):
+        return _family_params(flat, device)
     top = {p: _tensor(a, device) for p, a in flat.items() if not p.startswith(_BLOCKS)}
     params = dict(top, layers=[])
     ce_meta = meta.get("moe_ce")
@@ -101,9 +147,12 @@ def params_from_checkpoint(ckpt, step: int, *, device="cuda") -> Dict:
     """The uncompressed ``params`` of checkpoint ``step`` of ``ckpt`` (a
     :class:`~repro_torch.checkpoint.checkpointer.Checkpointer`) in the port's
     per-layer layout; the checkpoint holds the reference's stacked tree
-    (``params/blocks/...`` with layers on axis 0)."""
+    (``params/blocks/...`` with layers on axis 0, or a ``hybrid`` or ``ssm``
+    model's ``params/groups/...``)."""
     head = "params/"
     flat = {k[len(head):]: a for k, a in ckpt.arrays(step).items() if k.startswith(head)}
+    if _is_family_tree(flat):
+        return _family_params(flat, device)
     layers = {a.shape[0] for k, a in flat.items() if k.startswith(_BLOCKS)}
     if len(layers) != 1:
         raise ValueError(f"checkpoint {step}: no stacked blocks under {head!r}")

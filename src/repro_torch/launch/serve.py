@@ -12,7 +12,11 @@ Like the reference CLI (``repro/launch/serve.py``) it serves
 ``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the
 uncompressed weights of a dense, VLM-backbone (served on tokens alone, as
 the reference's engine serves it) or MoE model are built from seed 0
-(:func:`repro_torch.core.synthetic.build_uncompressed`). ``--pmq`` (MoE only)
+(:func:`repro_torch.core.synthetic.build_uncompressed`); a whisper,
+recurrentgemma or xlstm model is its bundle's ``init`` at seed 0, which the
+paged engine refuses as the reference's does, and ``--legacy`` serves
+(recurrentgemma) or fails on (whisper has no frames, xlstm's cache no
+``k``) as the reference CLI does. ``--pmq`` (MoE only)
 compresses them first with the MC# pipeline
 (:mod:`repro_torch.core.pipeline`), as the reference CLI does: calibration
 on 4 × 64 random tokens (numpy seed 0), Eq. 6 significance, the layer-uniform
@@ -328,8 +332,10 @@ def main(argv: Optional[List[str]] = None):
                          f"{cfg.family}")
     if args.pmq:
         params = _compress_for_serving(cfg, args.device)
-    else:
+    elif cfg.family in ("dense", "moe", "vlm"):
         params = build_uncompressed(cfg, seed=0, device=args.device)
+    else:  # whisper, recurrentgemma, xlstm: the paged engine refuses them (the reference's too)
+        params = get_model(cfg).init(torch.Generator(device=args.device).manual_seed(0))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT_TOKENS).astype(np.int32)
                for _ in range(args.requests)]

@@ -32,8 +32,14 @@ __all__ = ["batch_to", "main", "train_reduced", "train_step"]
 
 
 def batch_to(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """A loader batch (numpy int32) as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device).long() for k, v in batch.items()}
+    """A batch of numpy arrays as tensors on ``device``: integer entries
+    (tokens, labels) as int64, float entries (a whisper batch's ``frames``)
+    in their own dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def train_step(loss_fn: Callable, params, opt_state, batch, ocfg: AdamWConfig, *,

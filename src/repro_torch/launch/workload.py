@@ -44,7 +44,8 @@ PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
   the 64-token context plus the first megastep's 8 writes (5 pages), so two
   requests run at a time; at logical step 16 rid 1's growth finds the pool
   empty and it preempts itself (5 pages to the host; 31,457,280 bytes at
-  full width), rid 2 takes its slot, and rid 1 is swapped back in beside
+  full width and 48 layers, 7,864,320 at ``CUT_LAYERS``), rid 2 takes its
+  slot, and rid 1 is swapped back in beside
   rid 3 at step 47. ``PREEMPT_FAULTS`` corrupts rid 1's payload at swap-in,
   so the CRC trips and rid 1 is re-prefilled from its 80-token context (5
   more prefill chunks). ``PREEMPT_COUNTERS`` are the reference engine's
@@ -111,12 +112,12 @@ with random weights from seed 0:
   local layers mask and the 10 global layers do not; the KV costs 507,904
   bytes a token (derived), 1.14 GB for the pool.
 * ``WIDE_MOE`` (:func:`build_wide_moe`): ``kimi-k2-1t-a32b`` at full width
-  and ``WIDE_MOE_LAYERS`` = 4 of its 61 layers (the depth is the only cut)
+  and ``WIDE_MOE_LAYERS`` = 2 of its 61 layers (the depth is the only cut)
   — d_model 7168, 64 query and 8 KV heads of 128 (G = 8), 384 experts
   top-8, 1 shared expert, expert hidden 2048, vocab 163840, untied
   embeddings — with PMQ + OTP weights from :func:`build_synthetic`
   (``bucket_counts(384)`` = 1 / 363 / 20 experts at 1 / 2 / 3 bits); about
-  26.4 GB (derived). Served on ``ENGINE``'s geometry and :func:`requests`:
+  15.7 GB (derived: 4.7 GB of embeddings, 5.5 GB a layer). Served on ``ENGINE``'s geometry and :func:`requests`:
   the bf16 dequant GEMMs at d_model 7168 walk K in chunks, and drop-free
   capacity gives a prefill chunk a ``[384, 128, 7168]`` dispatch buffer.
 * ``OTP``: routers trained by ``core.otp_train.train_otp`` (``OTP_TRAIN``)
@@ -126,10 +127,42 @@ with random weights from seed 0:
   ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens
   (``HostDataLoader``, seed 0) through ``launch.train.train_step``, then
   checkpointed and resumed.
+
+``TENANT_MIX``, ``PREEMPT``, ``OFFLOAD``, ``COMPRESS``'s sampled runs and
+``OTP`` take the first ``CUT_LAYERS`` = 12 of the compressed model's 48 layers
+(:func:`first_layers`): their checks hold each run to another of the same
+depth (``PREEMPT``'s tokens to an unpressured run at that depth), and
+their schedule counters depend on no weight.
+
+The three non-transformer families, at full width in bf16 with weights
+from their bundle's ``init`` at seed 0 (:func:`build_family`), decoded
+greedily through the dense-cache ``prefill`` and ``decode_step``
+(:func:`greedy_family`; the paged engine refuses these families, as the
+reference's does):
+
+* ``WHISPER``: ``whisper-small`` (12 encoder and 12 decoder layers, d_model
+  768, 12 heads of 64, vocab 51865; 0.589 GB): 4 requests of 64 prompt
+  tokens over frames ``[4, 1500, 768]`` (numpy seed 0, normal),
+  :data:`FAMILY_MAX_NEW` = 32 greedy tokens.
+* ``RECURRENT``: ``recurrentgemma-2b`` (26 layers: 8 × (R, R, A) + 2 R,
+  d_model 2560, RG-LRU width 2560, 10 query heads over one KV head of 256,
+  window 2048, tied vocab 256000; 5.789 GB): 2 requests of 2080 prompt
+  tokens, so decode attends past the window, and 32 greedy tokens.
+* ``XLSTM``: ``xlstm-350m`` (12 × (mLSTM, sLSTM), d_model 1024, 4 heads,
+  mLSTM head width 512, vocab 50304; 0.757 GB): 4 requests of 64 + 32;
+  then :data:`XLSTM_TRAIN_STEPS` = 3 ``train_step``s in f32 at
+  ``XLSTM_TRAIN_BATCH`` × ``XLSTM_TRAIN_SEQ`` = 4 × 256 tokens with 32-bit
+  AdamW (the mLSTM scan's chunked recompute keeps ``C`` at 64-step
+  boundaries only).
+
+Requests and prompt lengths are :data:`FAMILY_ARCHS`'s, prompts from numpy
+seed 7 (:func:`family_batch`); :func:`teacher_forced_logits` is the
+decoded tokens' oracle.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -142,14 +175,19 @@ from ..core.packing import PackedTensor
 from ..core.synthetic import build_synthetic, build_uncompressed
 from ..core.tree import to_device
 from ..data.pipeline import make_calibration_tokens
+from ..models.registry import get_model
+from ..models.transformer import extend_cache
 from ..serving import EngineConfig, FaultPlan, FaultSpec, PagedServingEngine, Request
 
 __all__ = [
     "ARCH",
     "COMPRESS",
+    "CUT_LAYERS",
     "DENSE",
     "DENSE_ARCH",
     "ENGINE",
+    "FAMILY_ARCHS",
+    "FAMILY_MAX_NEW",
     "MAX_NEW",
     "OFFLOAD",
     "OFFLOAD_HOST_BYTES",
@@ -167,13 +205,20 @@ __all__ = [
     "VLM_PATCH_NEW",
     "WIDE_MOE",
     "WINDOWED",
+    "XLSTM_TRAIN_BATCH",
+    "XLSTM_TRAIN_SEQ",
+    "XLSTM_TRAIN_STEPS",
     "build",
     "build_dense",
+    "build_family",
     "build_uncompressed_moe",
     "build_vlm",
     "build_wide_moe",
     "build_windowed",
     "calibration_tokens",
+    "family_batch",
+    "first_layers",
+    "greedy_family",
     "offload_faults",
     "offload_requests",
     "packed_code_bytes",
@@ -182,6 +227,7 @@ __all__ = [
     "requests",
     "serve_tenant_mix",
     "shared_prefix_requests",
+    "teacher_forced_logits",
     "tenant_mix_faults",
     "tenant_mix_requests",
     "tiny_pipeline",
@@ -209,7 +255,7 @@ VLM_PATCH_SEED, VLM_PATCH_NEW = 5, 16
 WINDOWED_PROMPT_LEN, WINDOWED_MAX_NEW, WINDOWED_REQUESTS = 1088, 32, 2
 WINDOWED = EngineConfig(max_slots=2, block_size=16, num_blocks=140, max_blocks_per_slot=70,
                         prefill_chunk=64, decode_horizon=8, reserve_full=True)
-WIDE_MOE_LAYERS = 4
+WIDE_MOE_LAYERS = 2
 #: the compression pipeline's settings (the reference serving CLI's)
 CALIB_BATCHES, CALIB_LEN, CALIB_SEED = 4, 64, 0
 #: OTP router training on the pipeline-compressed model (``OTP``): the
@@ -313,8 +359,95 @@ PREEMPT_COUNTERS = {
 
 
 OFFLOAD = dataclasses.replace(ENGINE, decode_horizon=1, resident_experts=32)
+#: the depth the tenant-mix, preemption, offload, sampled and OTP runs take
+#: of the 48-layer compressed model
+CUT_LAYERS = 12
 OFFLOAD_PROMPT_LEN, OFFLOAD_MAX_NEW = 16, 4
 OFFLOAD_HOST_BYTES = 256 << 20
+
+
+#: the non-transformer families' workloads: arch → (requests, prompt tokens)
+FAMILY_ARCHS = {"whisper-small": (4, 64), "recurrentgemma-2b": (2, 2080), "xlstm-350m": (4, 64)}
+FAMILY_MAX_NEW, FAMILY_SEED, FRAMES_SEED = 32, 7, 0
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 3, 4, 256
+
+
+def first_layers(cfg, params, n: int):
+    """``(cfg, params)`` cut to the first ``n`` layers (the tensors shared,
+    not copied)."""
+    return dataclasses.replace(cfg, num_layers=n), dict(params, layers=params["layers"][:n])
+
+
+def build_family(arch: str, device="cuda", dtype=None) -> Tuple[object, Dict]:
+    """``(cfg, params)`` of a whisper, recurrentgemma or xlstm model at full
+    width (``dtype`` replacing the config's), its bundle's ``init`` at seed
+    0 on ``device``."""
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, get_model(cfg).init(torch.Generator(device=device).manual_seed(0))
+
+
+def family_batch(cfg, n: int, prompt_len: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """``{"tokens" [n, prompt_len]}`` (numpy seed 7), plus whisper's
+    ``"frames" [n, encoder_seq, d_model]`` (numpy seed 0, normal) in the
+    config's dtype."""
+    rng = np.random.default_rng(FAMILY_SEED)
+    toks = rng.integers(0, cfg.vocab_size, (n, prompt_len))
+    batch = {"tokens": torch.as_tensor(toks, device=device)}
+    if cfg.family == "encdec":
+        frames = np.random.default_rng(FRAMES_SEED).normal(
+            size=(n, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        batch["frames"] = torch.as_tensor(frames, device=device).to(dt)
+    return batch
+
+
+def greedy_family(cfg, params, batch, max_new: int):
+    """Greedy decoding through the dense-cache ``prefill`` and
+    ``max_new − 1`` ``decode_step``s (a cache holding ``k`` extended by
+    ``max_new`` rows first, as the reference's wave batcher does), without a
+    graph: ``(tokens [B, max_new] on the host, per-step logits [max_new, B,
+    V] f32 on the host, prefill seconds, decode seconds)``; on a CUDA batch
+    the device is drained before each clock read."""
+    bundle = get_model(cfg)
+
+    def sync():
+        if batch["tokens"].is_cuda:
+            torch.cuda.synchronize(batch["tokens"].device)
+
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        cache, logits = bundle.prefill(params, batch)
+        sync()
+        t1 = time.perf_counter()
+        if "k" in cache:
+            cache = extend_cache(cache, max_new)
+        pos = cache["pos"]
+        steps = [logits[:, -1].float().cpu()]
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks = [cur]
+        for i in range(max_new - 1):
+            cache, logits = bundle.decode_step(params, cache, cur, pos + i)
+            steps.append(logits[:, -1].float().cpu())
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            toks.append(cur)
+        sync()
+        t2 = time.perf_counter()
+    return torch.cat(toks, dim=1).cpu(), torch.stack(steps), t1 - t0, t2 - t1
+
+
+def teacher_forced_logits(cfg, params, batch, tokens: torch.Tensor) -> torch.Tensor:
+    """One full forward over each prompt and its decoded ``tokens [B, N]``
+    (all but the last): the logits ``[B, N, V]`` (f32, on the host) at the
+    N positions that chose them."""
+    prompt = batch["tokens"]
+    s = prompt.shape[1]
+    seq = torch.cat([prompt, tokens[:, :-1].to(prompt.device)], dim=1)
+    with torch.no_grad():
+        hidden = get_model(cfg).hidden(params, dict(batch, tokens=seq))
+        return torch.matmul(hidden[:, s - 1:].float(), params["embed"].float().t()).cpu()
 
 
 def offload_requests(cfg) -> List[Request]:

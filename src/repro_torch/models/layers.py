@@ -29,6 +29,7 @@ __all__ = [
     "linear",
     "mlp",
     "rms_norm",
+    "sinusoidal_positions",
 ]
 
 NEG_INF = -1e30
@@ -92,21 +93,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _q_only(p, x, cfg, positions):
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal embeddings ``[..., d]`` (f32) of ``positions``
+    (whisper): ``sin`` then ``cos`` of ``pos · exp(-log(10000) · i /
+    max(d/2 - 1, 1))``."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    log_base = torch.log(torch.tensor(10000.0, device=positions.device))  # in f32
+    freq = torch.exp(-log_base * i / max(half - 1, 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _q_only(p, x, cfg, positions, rope: bool = True):
     b, s, _ = x.shape
     q = linear(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    return apply_rope(q, positions, cfg.rope_theta)
+    return apply_rope(q, positions, cfg.rope_theta) if rope else q
 
 
-def _qkv(p, x, cfg, positions):
-    q = _q_only(p, x, cfg, positions)
-    k, v = _kv_only(p, x, cfg, positions)
+def _qkv(p, x, cfg, positions, rope: bool = True):
+    q = _q_only(p, x, cfg, positions, rope)
+    k, v = _kv_only(p, x, cfg, positions, rope)
     return q, k, v
 
 
-def _kv_only(p, x, cfg, positions):
+def _kv_only(p, x, cfg, positions, rope: bool = True):
     """K/V projection without the query — paged prefill writes K/V itself
     and lets :func:`attention`'s cross-attention path own q."""
     b, s, _ = x.shape
@@ -115,7 +128,7 @@ def _kv_only(p, x, cfg, positions):
     v = linear(p["wv"], x).reshape(b, s, hkv, dh)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return apply_rope(k, positions, cfg.rope_theta), v
+    return (apply_rope(k, positions, cfg.rope_theta) if rope else k), v
 
 
 def _mask_chunk(q_pos, kv_pos, causal: bool, window: Optional[int]):
@@ -167,20 +180,22 @@ def _pad_rows(x: torch.Tensor, pad: int, dim: int, value=0) -> torch.Tensor:
 
 def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-              causal: bool = True, window: Optional[int] = None):
+              causal: bool = True, window: Optional[int] = None, rope: bool = True):
     """Full-sequence attention (``layers.py:245``): the q-chunk × kv-chunk
     online-softmax sweep. ``kv_override = (k, v, kv_pos)`` (``kv_pos < 0``
     marks padding) makes it cross-attention onto given rows, as paged
-    prefill does; without it ``x`` gives q, k and v at ``positions``.
-    Returns ``(out [B, S, D] after wo, (k, v))`` — k/v for cache builds."""
+    prefill and whisper's decoder do; without it ``x`` gives q, k and v at
+    ``positions``. ``rope=False`` leaves q and k unrotated (whisper's
+    absolute positions). Returns ``(out [B, S, D] after wo, (k, v))`` — k/v
+    for cache builds."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     if kv_override is not None:
-        q = _q_only(p, x, cfg, positions)
+        q = _q_only(p, x, cfg, positions, rope)
         k, v, kv_pos = kv_override
     else:
-        q, k, v = _qkv(p, x, cfg, positions)
+        q, k, v = _qkv(p, x, cfg, positions, rope)
         kv_pos = positions if positions.dim() == 1 else positions[0]
     kv_s = k.shape[1]
     qc = min(cfg.attn_q_chunk, s)
@@ -205,24 +220,33 @@ def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
 
 def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, window: Optional[int] = None):
-    """Single-step self-attention (``layers.py:312``): ``x [B, 1, D]``
-    against the dense cache ``[B, S, Hkv, dh]``. The new k/v are written
+                     v_cache: torch.Tensor, pos: int, window: Optional[int] = None,
+                     rope: bool = True, cross: bool = False, kv_len: Optional[int] = None):
+    """Single-step attention (``layers.py:312``): ``x [B, 1, D]`` against
+    the dense cache ``[B, S, Hkv, dh]``. Self-attention writes the new k/v
     at ``pos`` (in place) before attending over positions ``≤ pos`` (and
-    ``> pos − window``). Returns ``(out [B, 1, D], (k_cache, v_cache))``."""
+    ``> pos − window``). Cross-attention (``cross=True``) reads the cache
+    only, over positions ``≤ kv_len − 1`` (all ``S`` without ``kv_len``),
+    with no window and no rotation of q. Returns ``(out [B, 1, D],
+    (k_cache, v_cache))``."""
     b = x.shape[0]
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     s = k_cache.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(p, x, cfg, positions)
-    k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+    if cross:
+        q = _q_only(p, x, cfg, positions, rope=False)
+        limit = (kv_len if kv_len is not None else s) - 1
+    else:
+        q, k_new, v_new = _qkv(p, x, cfg, positions, rope)
+        k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
+        v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+        limit = pos
     q32 = q.reshape(b, hkv, g, dh).float() * dh**-0.5
     scores = torch.einsum("bhgd,bshd->bhgs", q32, k_cache.float())
     kv_pos = torch.arange(s, device=x.device)
-    valid = kv_pos <= pos
-    if window is not None:
+    valid = kv_pos <= limit
+    if window is not None and not cross:
         valid &= kv_pos > pos - window
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)

@@ -50,6 +50,7 @@ __all__ = [
     "decode_step",
     "extend_cache",
     "forward_hidden",
+    "hidden",
     "init_lm",
     "layer_windows_static",
     "paged_decode_horizon",
@@ -205,6 +206,15 @@ def forward_hidden(params, tokens: torch.Tensor, cfg, *,
     return x, aux, ({"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None)
 
 
+def hidden(params, batch, cfg, **_):
+    """The states ``[B, S, D]`` after the final norm at ``batch["tokens"]``'s
+    positions (a ``vlm`` batch's ``patch_embeds`` run ahead of them and are
+    dropped)."""
+    patch = batch.get("patch_embeds")
+    h, _, _ = forward_hidden(params, batch["tokens"], cfg, patch_embeds=patch)
+    return h if patch is None else h[:, patch.shape[1]:]
+
+
 def train_loss(params, batch, cfg, *, aux_weight: float = 0.01):
     """Streaming next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (−1 ignored; a ``vlm`` batch's ``patch_embeds``
@@ -235,7 +245,9 @@ def prefill(params, batch, cfg, *, ffn_backend: Optional[str] = None):
 def extend_cache(cache, rows: int):
     """The dense cache with ``rows`` zero positions appended to ``k`` and
     ``v`` (a prefill cache covers exactly its inputs; decode steps write
-    past them)."""
+    past them), every other entry carried as it is — recurrent states,
+    ``cross_k``/``cross_v``, ``pos`` — as the reference's wave batcher pads
+    a cache. A cache without ``k`` (xlstm's) raises ``KeyError``, as there."""
     pad = cache["k"].new_zeros((*cache["k"].shape[:2], rows, *cache["k"].shape[3:]))
     return dict(cache, k=torch.cat([cache["k"], pad], dim=2),
                 v=torch.cat([cache["v"], pad], dim=2))

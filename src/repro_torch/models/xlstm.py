@@ -1,0 +1,243 @@
+"""xLSTM, alternating mLSTM and sLSTM blocks (port of
+``repro/models/xlstm.py``; arXiv:2405.04517).
+
+``mLSTM``: a matrix memory ``C [B, H, dh, dh]`` with exponential gates and
+the max-state stabilizer, stepped over time (:func:`_mlstm_scan`); above 64
+steps the sequence runs in 64-step chunks whose inner steps are recomputed
+in the backward pass, so autograd keeps ``C`` at chunk boundaries only.
+``sLSTM``: a scalar memory per channel with exponential gates and a
+normalizer state, then a gated FFN (width 4/3 · D rounded to 64). Both
+blocks carry a width-4 causal conv (:func:`repro_torch.models.recurrent.
+_causal_conv`). ``d_ff = 0`` in the config: every weight is a block's.
+
+Params: ``{"embed": [V, D], "groups": [{"m": <mLSTM>, "s": <sLSTM>}, ...],
+"final_norm": [D]}``. The cache is the reference's: ``"m": (C [G, B, H,
+dh, dh], n [G, B, H, dh], m [G, B, H])``, ``"mconv" [G, B, 3, 2D]``, ``"s":
+(c, n, m)`` each ``[G, B, D]``, ``"sconv" [G, B, 3, D]`` and ``pos``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+from .transformer import _dtype, _logits
+from .recurrent import _causal_conv
+
+__all__ = ["decode_step", "hidden", "init_xlstm", "prefill", "train_loss"]
+
+#: steps per recomputed chunk of the mLSTM scan (taken when S > MLSTM_CHUNK)
+MLSTM_CHUNK = 64
+#: the stabilizer's initial state: finite, so ``f + m − m_new`` is never inf − inf
+M_INIT = -1e30
+
+
+# ------------------------------------------------------------ mLSTM block
+def _init_mlstm(gen: torch.Generator, cfg, dt) -> Dict:
+    d, h, dev = cfg.d_model, cfg.num_heads, gen.device
+    ip = 2 * d  # inner (up-projected) width
+    return {
+        "ln": torch.zeros(d, dtype=dt, device=dev),
+        "proj_in": L.init_linear(gen, d, 2 * ip, dt),  # u ‖ z-gate
+        "conv": torch.randn(4, ip, generator=gen, device=dev, dtype=dt) * 0.1,
+        "wq": L.init_linear(gen, ip, ip, dt),
+        "wk": L.init_linear(gen, ip, ip, dt),
+        "wv": L.init_linear(gen, ip, ip, dt),
+        "w_if": L.init_linear(gen, ip, 2 * h, dt),  # per-head ĩ, f̃
+        "out_norm": torch.zeros(ip, dtype=dt, device=dev),
+        "proj_out": L.init_linear(gen, ip, d, dt),
+    }
+
+
+def _mlstm_steps(c, n, m, q, k, v, ig, fg):
+    """The stabilized recurrence over the time axis of ``q/k/v [T, B, H,
+    dh]``, ``ig/fg [T, B, H]`` (f32) from ``(c, n, m)``: ``(h [T, B, H,
+    dh], c, n, m)``."""
+    hs = []
+    for t in range(q.shape[0]):
+        qt, kt, it, ft = q[t], k[t], ig[t], fg[t]
+        m_new = torch.maximum(ft + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(ft + m - m_new)
+        vk = v[t][..., :, None] * kt[..., None, :]
+        c = f_p[..., None, None] * c + i_p[..., None, None] * vk
+        n = f_p[..., None] * n + i_p[..., None] * kt
+        num = torch.matmul(c, qt[..., None])[..., 0]
+        den = torch.clamp_min(torch.abs((n * qt).sum(dim=-1)), 1.0)
+        hs.append(num / den[..., None])
+        m = m_new
+    return torch.stack(hs), c, n, m
+
+
+def _mlstm_scan(q, k, v, ig, fg, state=None):
+    """The mLSTM over ``q/k/v [B, S, H, dh]``, ``ig/fg [B, S, H]``:
+    ``(h [B, S, H, dh] in q's dtype, (C, n, m))`` from ``state`` (zeros and
+    :data:`M_INIT` if None). Above :data:`MLSTM_CHUNK` steps the sequence is
+    zero-padded to whole chunks — the padded steps update the state, as the
+    reference's do — and each chunk is recomputed in the backward pass."""
+    b, s, h, dh = q.shape
+    xs = [t.float().transpose(0, 1) for t in (q, k, v, ig, fg)]
+    xs[1] = xs[1] / dh**0.5
+    if state is None:
+        c = q.new_zeros((b, h, dh, dh), dtype=torch.float32)
+        n = q.new_zeros((b, h, dh), dtype=torch.float32)
+        m = torch.full((b, h), M_INIT, device=q.device)
+    else:
+        c, n, m = state
+    if s <= MLSTM_CHUNK:
+        hs, c, n, m = _mlstm_steps(c, n, m, *xs)
+        return hs.transpose(0, 1).to(q.dtype), (c, n, m)
+    pad = (-s) % MLSTM_CHUNK
+    if pad:
+        xs = [torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) for t in xs]
+    outs = []
+    for c0 in range(0, s + pad, MLSTM_CHUNK):
+        hs, c, n, m = L._recomputed(_mlstm_steps, c, n, m,
+                                    *(t[c0:c0 + MLSTM_CHUNK] for t in xs))
+        outs.append(hs)
+    return torch.cat(outs)[:s].transpose(0, 1).to(q.dtype), (c, n, m)
+
+
+def _mlstm_block(p, x: torch.Tensor, cfg, state=None, conv_state=None):
+    """``(x, (state, conv_state))`` over ``x [B, S, D]``."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    uz = L.linear(p["proj_in"], L.rms_norm(x, p["ln"], cfg.norm_eps))
+    ip = uz.shape[-1] // 2
+    u, z = uz[..., :ip], uz[..., ip:]
+    cu, conv_state = _causal_conv(u, p["conv"], conv_state)
+    cu = F.silu(cu)
+    dh = ip // h
+    q = L.linear(p["wq"], cu).reshape(b, s, h, dh)
+    k = L.linear(p["wk"], cu).reshape(b, s, h, dh)
+    v = L.linear(p["wv"], u).reshape(b, s, h, dh)
+    gif = L.linear(p["w_if"], cu).float()
+    hseq, state = _mlstm_scan(q, k, v, gif[..., :h], F.logsigmoid(gif[..., h:]), state)
+    hseq = L.rms_norm(hseq.reshape(b, s, ip), p["out_norm"], cfg.norm_eps) * F.silu(z)
+    return x + L.linear(p["proj_out"], hseq), (state, conv_state)
+
+
+# ------------------------------------------------------------ sLSTM block
+def _init_slstm(gen: torch.Generator, cfg, dt) -> Dict:
+    d, dev = cfg.d_model, gen.device
+    f = int(round(d * 4 / 3 / 64)) * 64  # gated FFN width
+    return {
+        "ln": torch.zeros(d, dtype=dt, device=dev),
+        "conv": torch.randn(4, d, generator=gen, device=dev, dtype=dt) * 0.1,
+        "w_z": L.init_linear(gen, d, d, dt),
+        "w_o": L.init_linear(gen, d, d, dt),
+        "w_if": L.init_linear(gen, d, 2 * d, dt),
+        "ln2": torch.zeros(d, dtype=dt, device=dev),
+        "ffn": {"proj_in": L.init_linear(gen, d, 2 * f, dt),
+                "proj_out": L.init_linear(gen, f, d, dt)},
+    }
+
+
+def _slstm_seq(z, o, ig, fg, state=None):
+    """The scalar-memory recurrence over ``[B, S, D]`` inputs (f32 gates):
+    ``(h [B, S, D] f32, (c, n, m))``."""
+    b, s, d = z.shape
+    if state is None:
+        c = torch.zeros((b, d), device=z.device)
+        n = torch.zeros((b, d), device=z.device)
+        m = torch.full((b, d), M_INIT, device=z.device)
+    else:
+        c, n, m = state
+    z, o, ig, fg = (t.float() for t in (z, o, ig, fg))
+    hs = []
+    for t in range(s):
+        m_new = torch.maximum(fg[:, t] + m, ig[:, t])
+        i_p = torch.exp(ig[:, t] - m_new)
+        f_p = torch.exp(fg[:, t] + m - m_new)
+        c = f_p * c + i_p * z[:, t]
+        n = f_p * n + i_p
+        hs.append(o[:, t] * c / torch.clamp_min(n, 1.0))
+        m = m_new
+    return torch.stack(hs, dim=1), (c, n, m)
+
+
+def _slstm_block(p, x: torch.Tensor, cfg, state=None, conv_state=None):
+    """``(x, (state, conv_state))`` over ``x [B, S, D]``."""
+    hnorm = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    cx, conv_state = _causal_conv(hnorm, p["conv"], conv_state)
+    cx = F.silu(cx)
+    z = torch.tanh(L.linear(p["w_z"], hnorm))
+    o = torch.sigmoid(L.linear(p["w_o"], hnorm))
+    gif = L.linear(p["w_if"], cx).float()
+    d = x.shape[-1]
+    hseq, state = _slstm_seq(z, o, gif[..., :d], F.logsigmoid(gif[..., d:]), state)
+    x = x + hseq.to(x.dtype)
+    uv = L.linear(p["ffn"]["proj_in"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    f = uv.shape[-1] // 2
+    x = x + L.linear(p["ffn"]["proj_out"], F.silu(uv[..., :f]) * uv[..., f:])
+    return x, (state, conv_state)
+
+
+# ------------------------------------------------------------------ model
+def init_xlstm(gen: torch.Generator, cfg) -> Dict:
+    """A model of ``cfg`` drawn from ``gen`` on its device in ``cfg.dtype``
+    (the reference's shapes and scales, not its draws)."""
+    dt, dev = _dtype(cfg), gen.device
+    groups = [{"m": _init_mlstm(gen, cfg, dt), "s": _init_slstm(gen, cfg, dt)}
+              for _ in range(cfg.num_layers // 2)]
+    embed = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen, device=dev, dtype=dt) * 0.02
+    return {"embed": embed, "groups": groups,
+            "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=dev)}
+
+
+def _stack_states(states):
+    """Per-group ``((m-state, mconv), (s-state, sconv))`` → the stacked
+    cache entries (without ``pos``)."""
+    mst, mconv, sst, sconv = zip(*((ms, mc, ss, sc) for (ms, mc), (ss, sc) in states))
+    return {"m": tuple(torch.stack(t) for t in zip(*mst)), "mconv": torch.stack(mconv),
+            "s": tuple(torch.stack(t) for t in zip(*sst)), "sconv": torch.stack(sconv)}
+
+
+def _forward(params, tokens: torch.Tensor, cfg, collect_cache: bool = False):
+    """All blocks over ``tokens [B, S]``: ``(hidden [B, S, D], cache |
+    None)``."""
+    x = L.embed_tokens(params["embed"], tokens)
+    states = []
+    for p_g in params["groups"]:
+        x, mst = _mlstm_block(p_g["m"], x, cfg)
+        x, sst = _slstm_block(p_g["s"], x, cfg)
+        states.append((mst, sst))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, (_stack_states(states) if collect_cache else None)
+
+
+def hidden(params, batch, cfg, **_):
+    """The states ``[B, S, D]`` after the final norm over ``batch["tokens"]``."""
+    return _forward(params, batch["tokens"], cfg)[0]
+
+
+def train_loss(params, batch, cfg, **_):
+    """Streaming next-token cross-entropy: ``(nll, {"nll"})``."""
+    nll = L.chunked_xent(hidden(params, batch, cfg), params["embed"], batch["labels"],
+                         cfg.logits_chunk)
+    return nll, {"nll": nll}
+
+
+def prefill(params, batch, cfg, **_):
+    """``(cache, logits [B, 1, V])`` of ``batch["tokens"] [B, S]``;
+    ``cache["pos"] = S``."""
+    h, cache = _forward(params, batch["tokens"], cfg, collect_cache=True)
+    cache["pos"] = batch["tokens"].shape[1]
+    return cache, _logits(params, h[:, -1:])
+
+
+def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
+    """One token ``token [B, 1]``: ``(cache with every state new and pos +
+    1, logits [B, 1, V])``; the states are O(1) in the context."""
+    x = L.embed_tokens(params["embed"], token)
+    states = []
+    for g, p_g in enumerate(params["groups"]):
+        x, mst = _mlstm_block(p_g["m"], x, cfg, state=tuple(t[g] for t in cache["m"]),
+                              conv_state=cache["mconv"][g])
+        x, sst = _slstm_block(p_g["s"], x, cfg, state=tuple(t[g] for t in cache["s"]),
+                              conv_state=cache["sconv"][g])
+        states.append((mst, sst))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return dict(_stack_states(states), pos=pos + 1), _logits(params, x)

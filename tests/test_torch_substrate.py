@@ -272,9 +272,30 @@ def test_chunked_losses_match_reference():
     _close(g, gj, 1e-5)
 
 
+def test_hidden_gives_the_reference_prefill_logits(model):
+    """The bundle's ``hidden`` at the last position, through the output
+    embedding, is the reference's prefill logits."""
+    tokens = model["batch"]["tokens"]
+    _, logits_j = jget_model(model["jcfg"]).prefill(model["params_j"],
+                                                    {"tokens": jnp.asarray(tokens)})
+    params_t = model["params_t"]
+    with torch.no_grad():
+        hidden = tget_model(model["tcfg"]).hidden(params_t,
+                                                  {"tokens": torch.as_tensor(tokens).long()})
+    assert tuple(hidden.shape) == (*tokens.shape, model["tcfg"].d_model)
+    out = params_t.get("unembed", params_t["embed"])
+    _close(hidden[:, -1:] @ out.t(), logits_j, 1e-4)
+
+
 def test_model_bundle_refuses_other_families():
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        tget_model(TModelConfig(**dict(MODELS["dense"], family="encdec")))
+    """An unknown family is refused; the whisper, recurrentgemma and xlstm
+    families build bundles (their parity: ``test_torch_arch_families.py``)."""
+    with pytest.raises(ValueError, match="unknown family"):
+        tget_model(TModelConfig(**dict(MODELS["dense"], family="diffusion")))
+    for arch in ("whisper-small", "recurrentgemma-2b", "xlstm-350m"):
+        bundle = tget_model(tget_config(arch).reduced())
+        assert all(callable(f) for f in (bundle.init, bundle.train_loss, bundle.prefill,
+                                         bundle.decode_step, bundle.hidden))
 
 
 # ------------------------------------------------------------------- data
