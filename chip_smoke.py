@@ -40,7 +40,10 @@ Phases (each failure exits non-zero):
    plain backward) against autograd through their plain versions at the
    full-width OTP training's shapes (``grad_parity``: ``x``'s gradient
    within ``TOL``, dead row blocks' exactly zero, each side's time and
-   peak memory printed);
+   peak memory printed); then ``quant_matmul`` at the ``scan`` expert
+   FFN's shapes (``SCAN_QMM``: bits 1/2/3, M = 8 and 32, K = 2048 → N =
+   1408 and K = 1408 → N = 2048) against its plain version, with one
+   timing (``scan``);
 4. tiny end-to-end parity: reduced configs (f32, one seed) served on the
    card and on the CPU — ``moonshot-v1-16b-a3b`` PMQ + OTP with fp KV and
    with int8 KV plus the prefix cache, ``qwen3-14b`` (dense) and
@@ -69,9 +72,11 @@ Phases (each failure exits non-zero):
    relative); 3 AdamW steps with 8-bit moments on the reduced
    ``tinyllama-1.1b``, the card applying the CPU's gradients (codes,
    scales and params apart in at most 1e-4 of their elements); and the
-   reduced PMQ + OTP model served with ``ffn_backend="ref"`` and
-   ``"grouped"`` on the card (the same greedy tokens; the grouped kernels
-   launch only in the second); then the reduced whisper, recurrentgemma
+   reduced PMQ + OTP model served with ``ffn_backend="ref"``, ``"grouped"``
+   and ``"scan"`` on the card and ``"scan"`` on the CPU (the same greedy
+   tokens; the grouped kernels launch only under ``grouped``, ``scan``
+   launches ``quant_matmul`` alone) and a ``scan`` decode megastep under
+   ``set_sync_debug_mode("error")``; then the reduced whisper, recurrentgemma
    (also at 5 layers, so its trailing recurrent blocks run) and xlstm
    (also on 72-token prompts, so the mLSTM's chunked scan runs), f32, seed
    0, prefilled and decoded 8 greedy steps on the card and on the CPU:
@@ -123,10 +128,28 @@ Phases (each failure exits non-zero):
    than all-resident, its trace valid; (b) fetches from disk, retries the
    corrupted uploads, degrades nothing, and stages uploads where its plans
    held any; in each of (a) and (b), counted apart from (c) and from each
-   other, the fp path's kernels launched and no other; each path's (and
-   each offload run's) engines are collected before the next starts, so
-   each peak is its own;
-   then, the compressed model freed, ``qwen3-14b`` (dense, 40 layers) and
+   other, the fp path's kernels launched and no other; then ``SCAN`` (on
+   the first 12 of the 48 layers: the fp workload with
+   ``ffn_backend="scan"``: ``quant_matmul`` and ``paged_attention``
+   launch and no grouped GEMM, a second engine's tokens identical, the
+   first drift from a ``grouped`` engine's tokens on the same layers at a
+   near-tie of ``ORACLE_GAP_ULPS`` (the teacher-forced dense-cache
+   oracle's gap between the two tokens, or a routing margin up to there);
+   tokens/s, TTFT and launches printed); each path's (and each offload
+   run's) engines are collected before the next starts, so each peak is its
+   own; then, the model freed, ``EP``: the first 12 layers built with
+   ``ep=4`` (buckets 4 / 60 / 4) and driven by 4 ranks on this card over
+   gloo (``repro_torch.launch.ep_ranks``; the kernels built by phase 2,
+   the weights shared with the ranks): layer 0's compressed MoE at decode
+   (4 × 1) and prefill (4 × 64) on ``data=1 × model=4`` and ``data=2 ×
+   model=2`` with ``grouped`` and ``scan``, each rank within ``TOL`` of the
+   single-process layer on its data shard's tokens, ``mask_l1`` equal, its
+   kernels launched on every rank, each rank's expert bytes its bucket rows
+   and summing to the layer's; then the dense-cache prefill of the fp
+   prompts and 16 greedy tokens on ``data=1 × model=4``, held to the
+   single-process run (a first drift only at a near-tie), with each rank's
+   tokens/s, peak memory and wall and the route each collective took;
+   then, that model freed, ``qwen3-14b`` (dense, 40 layers) and
    ``moonshot-v1-16b-a3b`` without compression (48 layers, ~57.8 GB), each
    built on the card, served on the fp geometry (``paged_attention`` must
    launch and no other kernel; a second engine must emit the same tokens;
@@ -257,7 +280,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_quant,
 )
 from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
-from repro_torch.launch import probe_attention, profile_decode, workload  # noqa: E402
+from repro_torch.launch import ep_ranks, probe_attention, profile_decode, workload  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import linear  # noqa: E402
 from repro_torch.models.moe import dispatch_capacity, moe_layer  # noqa: E402
@@ -449,6 +472,37 @@ def parity_quant_matmul(gen, results):
     r = _time_quant_matmul("quant_matmul prefill", 16, 2048, 2816, 4, gen)
     results["quant_matmul"]["prefill"] = r
     log_extra("quant_matmul", "prefill", r)
+
+
+#: the ``scan`` expert FFN's GEMMs on moonshot-v1-16b-a3b: one expert's
+#: capacity rows (M = 8 at decode, 32 at a 4 × 64 prefill) through gate and
+#: up (K = 2048 → N = 1408) and down (K = 1408 → N = 2048), at the buckets'
+#: bits 1/2/3
+SCAN_QMM = [(bits, m, k, n) for bits in (1, 2, 3) for m in (8, 32)
+            for k, n in ((2048, 1408), (1408, 2048))]
+
+
+def parity_scan_shapes(gen, results):
+    """``quant_matmul`` at every :data:`SCAN_QMM` shape against its plain
+    version (bf16), and one timing at the decode shape (2-bit, M = 8, K =
+    2048 → N = 1408) beside the plain version, the library call and its
+    bound."""
+    errs = []
+    for bits, m, k, n in SCAN_QMM:
+        (data, s, z) = rand_weights(gen, 1, k, n, bits)
+        data = tuple(t[0] for t in data) if bits == 3 else data[0]
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        errs.append(compare(f"quant_matmul scan b{bits} {m}x{k}x{n}",
+                            quant_matmul(x, data, s[0], z[0], bits=bits),
+                            ref.quant_matmul_ref(x, data, s[0], z[0], bits=bits), torch.bfloat16))
+    r = _time_quant_matmul("quant_matmul scan", 8, 2048, 1408, 2, gen)
+    r["max_abs_err"] = max(errs + [r["max_abs_err"]])
+    results["quant_matmul"]["scan"] = r
+    results["quant_matmul"]["max_abs_err"] = max(results["quant_matmul"]["max_abs_err"],
+                                                 r["max_abs_err"])
+    log_extra("quant_matmul", "scan", r)
+    log(f"quant_matmul at the scan path's {len(SCAN_QMM)} shapes (bits 1/2/3, M = 8 / 32, "
+        f"K = 2048 -> N = 1408 and K = 1408 -> N = 2048, bf16): max|err| {max(errs):.3e}")
 
 
 def invariance_quant_matmul(gen):
@@ -1060,12 +1114,12 @@ def greedy_logits(cfg, params, prompt, max_new, device, kv_bits=None):
     return toks, steps
 
 
-def sync_free_megastep(cfg, params, kv_bits=None, temperature=0.0):
+def sync_free_megastep(cfg, params, kv_bits=None, temperature=0.0, ffn_backend=None):
     """One decode megastep on the card under ``set_sync_debug_mode("error")``:
     anything inside the horizon that waits on the device (an ``.item()``, a
     ``bincount``, a blocking copy) raises. Sampled (``temperature > 0``), its
     generator is made and seeded inside the checked region, as the engine
-    makes one per run."""
+    makes one per run. ``ffn_backend`` picks the PMQ expert FFN's path."""
     mcfg = (dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
             if cfg.is_moe else cfg)
     cache = PagedKVCache(cfg, num_blocks=8, block_size=16, max_slots=2,
@@ -1079,7 +1133,7 @@ def sync_free_megastep(cfg, params, kv_bits=None, temperature=0.0):
             torch.ones(2, dtype=torch.bool, device=DEV), mcfg)
     kw = dict(block_size=16, horizon=4, budgets=torch.tensor([4, 2], **i32),
               eos_ids=torch.full((2,), -1, **i32), qs=cache.quant_tables,
-              temperature=temperature)
+              temperature=temperature, ffn_backend=ffn_backend)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1090,6 +1144,8 @@ def sync_free_megastep(cfg, params, kv_bits=None, temperature=0.0):
     if emits.sum(dim=0).tolist() != [4, 2]:
         raise AssertionError(f"sync-free megastep emitted {emits.sum(dim=0).tolist()}")
     kind = f"sampled (T = {temperature})" if temperature > 0 else "greedy"
+    if ffn_backend:
+        kind += f" ffn_backend={ffn_backend!r}"
     log(f"{cfg.name} {'int8' if kv_bits else 'fp'} {kind} decode megastep (after a page grow) "
         f"under sync debug mode 'error': no host sync inside the horizon")
 
@@ -1382,28 +1438,39 @@ def tiny_adamw8():
 
 
 def tiny_ffn_backend():
-    """The reduced PMQ + OTP model (f32) served on the card with
-    ``ffn_backend="ref"`` (the plain grouped GEMMs) and ``"grouped"`` (the
-    kernels): the same greedy tokens; the grouped kernels launch only in the
-    second."""
+    """The reduced PMQ + OTP model (f32) served with ``ffn_backend="ref"``
+    (the plain grouped GEMMs), ``"grouped"`` (the kernels) and ``"scan"``
+    (``quant_matmul`` per expert matrix) on the card, and with ``"scan"`` on
+    the CPU: the same greedy tokens in all four; the grouped kernels launch
+    only under ``grouped``, and ``scan`` launches ``quant_matmul`` and no
+    grouped GEMM; then a ``scan`` decode megastep under
+    ``set_sync_debug_mode("error")``."""
     cfg = get_config(workload.ARCH).reduced()
     params = build_synthetic(cfg, seed=0, device=DEV)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (20, 33, 7)]
-    outs, gmm = {}, {}
-    for backend in ("ref", "grouped"):
+    outs, launches = {}, {}
+    for backend, dev in (("ref", DEV), ("grouped", DEV), ("scan", DEV), ("scan", "cpu")):
         ecfg = EngineConfig(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
                             prefill_chunk=16, decode_horizon=4, reserve_full=True,
                             ffn_backend=backend)
         build.reset_launches()
-        outs[backend] = PagedServingEngine(cfg, params, ecfg, device=DEV).serve(
+        key = f"{backend} {'card' if dev == DEV else 'cpu'}"
+        outs[key] = PagedServingEngine(cfg, to_device(params, dev), ecfg, device=dev).serve(
             Request(rid=i, prompt=p, max_new=12) for i, p in enumerate(prompts))
-        gmm[backend] = build.LAUNCHES["moe_gmm"] + build.LAUNCHES["moe_gmm_swiglu"]
-    if outs["ref"] != outs["grouped"] or gmm["ref"] or not gmm["grouped"]:
-        raise AssertionError(f"ffn_backend: tokens equal {outs['ref'] == outs['grouped']}, "
-                             f"grouped GEMM launches {gmm}")
-    log(f"ffn_backend ({cfg.name} reduced, f32, on the card): 'ref' and 'grouped' serve the "
-        f"same greedy tokens ({len(prompts)} requests x 12); grouped GEMM launches {gmm}")
+        launches[key] = dict(build.LAUNCHES)
+    gmm = {k: v["moe_gmm"] + v["moe_gmm_swiglu"] for k, v in launches.items()}
+    if (len({json.dumps(o, sort_keys=True) for o in outs.values()}) != 1
+            or gmm["ref card"] or not gmm["grouped card"] or gmm["scan card"]
+            or not launches["scan card"]["quant_matmul"] or any(launches["scan cpu"].values())):
+        raise AssertionError(f"ffn_backend: tokens equal "
+                             f"{ {k: o == outs['grouped card'] for k, o in outs.items()} }, "
+                             f"launches {launches}")
+    log(f"ffn_backend ({cfg.name} reduced, f32): 'ref', 'grouped' and 'scan' on the card and "
+        f"'scan' on the CPU serve the same greedy tokens ({len(prompts)} requests x 12); "
+        f"grouped GEMM launches {gmm}; scan quant_matmul launches "
+        f"{launches['scan card']['quant_matmul']}")
+    sync_free_megastep(cfg, params, ffn_backend="scan")
 
 
 #: phase 4's reduced non-transformer models: (arch, layers or None for the
@@ -1451,6 +1518,8 @@ FP_PATH = WIDE_MOE_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_a
 INT8_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention_quant")
 # every linear is a bf16 matmul
 DENSE_PATH = UNCOMPRESSED_MOE_PATH = VLM_PATH = WINDOWED_PATH = ("paged_attention",)
+# the per-expert scan runs every expert matrix through quant_matmul
+SCAN_PATH = ("quant_matmul", "paged_attention")
 
 
 def _serve(cfg, params, ecfg, reqs):
@@ -1517,7 +1586,9 @@ def compressed_paths():
     mix_launches = tenant_mix_path(*cut)
     preempt_launches = preemption_path(*cut)
     offload_launches = offload_path(*cut)
-    return fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, experts
+    scan_launches = walled("scan", lambda: scan_path(*cut))
+    return (fp_launches, q_launches, mix_launches, preempt_launches, offload_launches,
+            scan_launches, experts)
 
 
 def fp_path(cfg, params):
@@ -1860,6 +1931,189 @@ def offload_path(cfg, params):
         f"{cb['uploads_dropped_stale']}; the peaks include the all-resident model's buckets, "
         f"which stay allocated beside each engine's partitions")
     return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
+def teacher_forced_gap(cfg, params, prompt, prefix, tok_a: int, tok_b: int):
+    """The dense-cache oracle's logits after ``prompt`` and ``prefix``: the
+    gap between ``tok_a`` and ``tok_b`` in bf16 ulps of that step's
+    max|logit|, and the least routing margins of the same run (top-k router,
+    OTP or None)."""
+    seq = np.concatenate([prompt, np.asarray(prefix, np.int32)]).astype(np.int32)
+    _, steps = dense_greedy_reference(cfg, params, seq, 1, device=DEV)
+    v = steps[0]
+    gap = abs(float(bf16_ulps(v[tok_a] - v[tok_b], np.abs(v).max())))
+    return (gap, *routing_margins(cfg, params, seq, 0))
+
+
+def first_drift(name, cfg, params, prompts, got, want) -> str:
+    """Each row's agreement of ``got`` with ``want`` (token lists by row)
+    and, at its first differing step, :func:`teacher_forced_gap` between the
+    two tokens; a drift that no near-tie within :data:`ORACLE_GAP_ULPS`
+    explains goes to :data:`ORACLE_FAULTS`."""
+    parts = []
+    for i, (prompt, g, w) in enumerate(zip(prompts, got, want)):
+        part = f"row {i} {sum(a == b for a, b in zip(g, w))}/{len(w)}"
+        first = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if first is not None:
+            gap, router, otp = teacher_forced_gap(cfg, params, prompt, w[:first], w[first],
+                                                  g[first])
+            near = min(m for m in (gap, router, otp) if m is not None) <= ORACLE_GAP_ULPS
+            part += (f" (first difference at {first}: gap {gap:.3f} ulps, least routing margin "
+                     f"{router:.3f}" + (f", OTP {otp:.3f}" if otp is not None else "") + " ulps; "
+                     + ("near-tie)" if near else f"no near-tie within {ORACLE_GAP_ULPS} ulps)"))
+            if not near:
+                ORACLE_FAULTS.append(f"{name} row {i} step {first}")
+        parts.append(part)
+    return "; ".join(parts)
+
+
+def scan_path(cfg, params):
+    """``SCAN``: the fp workload with ``ffn_backend="scan"`` on the cut model
+    — ``quant_matmul`` and ``paged_attention`` launch and no grouped GEMM; a
+    second engine's tokens identical; the drift from a ``grouped`` engine's
+    tokens of the same layers held to :func:`first_drift`. Returns the first
+    run's launches."""
+    ecfg = dataclasses.replace(workload.ENGINE, ffn_backend="scan")
+    reqs = workload.requests
+    eng, out, launches, peak = _drive("scan path", cfg, params, ecfg, reqs(cfg), SCAN_PATH)
+    _, out2 = _serve(cfg, params, ecfg, reqs(cfg))
+    if out2 != out:
+        raise AssertionError("scan path: a second engine served different tokens")
+    _, grouped = _serve(cfg, params, workload.ENGINE, reqs(cfg))
+    s = eng.summary()
+    log(f"full width serving (scan, {cfg.name}, first {cfg.num_layers} layers): {len(out)} "
+        f"requests x {workload.MAX_NEW} tokens; peak device memory {peak / 1e9:.3f} GB; TTFT mean "
+        f"{s['ttft_mean_s']:.3f} s max {s['ttft_max_s']:.3f} s; decode {s['decode_tokens']} "
+        f"tokens in {s['decode_s']:.3f} s = {s['decode_tokens_per_s']:.1f} tokens/s; launches "
+        f"{launches}; second engine tokens identical")
+    rids = sorted(out)
+    log("scan path: tokens against a grouped engine's on the same layers: " + first_drift(
+        "scan path", cfg, params, [r.prompt for r in reqs(cfg)], [out[r] for r in rids],
+        [grouped[r] for r in rids]))
+    return launches
+
+
+#: ``EP``: ranks on the one card, the meshes of the layer check, the greedy
+#: tokens decoded on ``data=1 × model=EP_WORLD``
+EP_WORLD, EP_MESHES, EP_STEPS = 4, ((1, 4), (2, 2)), 16
+#: kernels each rank launches: the layer check by backend (the shared
+#: experts' linears are 4-bit), the dense-cache decode (no paged attention)
+EP_LAYER_PATH = {"grouped": ("quant_matmul", "moe_gmm_swiglu", "moe_gmm"),
+                 "scan": ("quant_matmul",)}
+EP_DECODE_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm")
+
+
+def ep_path():
+    """``EP``: the first ``workload.CUT_LAYERS`` layers of the fp model built
+    with ``ep=EP_WORLD`` (buckets 4 / 60 / 4, 17 slots a rank), driven by
+    :data:`EP_WORLD` ranks on this card over gloo
+    (:func:`repro_torch.launch.ep_ranks.run`). Layer 0's compressed MoE at
+    decode (4 × 1) and prefill (4 × 64) on each mesh of :data:`EP_MESHES`
+    with ``grouped`` and ``scan``, each rank held to the single-process layer
+    on its data shard's tokens within the bf16 tolerance, ``mask_l1`` equal,
+    its path's kernels launched on every rank; each rank's expert bytes its
+    bucket rows, summing to the layer's; then :data:`EP_STEPS` greedy tokens
+    of the dense-cache prefill of the fp prompts on ``data=1 × model=4``,
+    held to the single-process run (a first drift only at a near-tie).
+    Returns the launches of the layer checks and of the decode, summed over
+    the ranks."""
+    cfg = dataclasses.replace(get_config(workload.ARCH), num_layers=workload.CUT_LAYERS)
+    begin_path()
+    t0 = time.perf_counter()
+    params = build_synthetic(cfg, seed=0, device=DEV, ep=EP_WORLD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    p0 = params["layers"][0]
+    ce0 = p0["moe_ce"]
+    counts = [m.count for m in ce0.meta]
+    if any(c % EP_WORLD for c in counts):
+        raise AssertionError(f"EP: buckets {counts} built with ep={EP_WORLD}")
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    inputs = {name: torch.randn((4, s, cfg.d_model), generator=gen, device=DEV).to(torch.bfloat16)
+              for name, s in (("decode", 1), ("prefill", workload.PROMPT_LEN))}
+    prompts = [r.prompt for r in workload.requests(cfg)]
+    batch = {"tokens": torch.as_tensor(np.stack(prompts)).long().to(DEV)}
+    backends = ("grouped", "scan")
+    oracle = {}
+    with torch.no_grad():
+        for data in sorted({d for d, _ in EP_MESHES}):
+            for name, x in inputs.items():
+                b = x.shape[0] // data
+                for backend in backends:
+                    for d in range(data):
+                        y, info = compressed_moe_layer(p0["moe"], ce0, x[d * b:(d + 1) * b], cfg,
+                                                       otp_params=p0["otp"], ffn_backend=backend)
+                        oracle[(data, name, backend, d)] = (y.float().cpu().numpy(),
+                                                            float(info["mask_l1"]))
+    toks_ref, logits_ref, _, _ = workload.greedy_family(cfg, params, batch, EP_STEPS)
+    t1, t1_wall = time.perf_counter(), time.time()
+    res = ep_ranks.run(cfg, params, world=EP_WORLD, inputs=inputs, meshes=EP_MESHES,
+                       backends=backends, batch=batch, steps=EP_STEPS)
+    ranks_s = time.perf_counter() - t1
+    layer_launches = {k: 0 for k in build.LAUNCHES}
+    worst = {}
+    for r, o in enumerate(res):
+        for (data, model, name, backend), (coord, y, ml1, la) in o["layer"].items():
+            want, want_l1 = oracle[(data, name, backend, coord["data"])]
+            err, scale = float(np.abs(y - want).max()), float(np.abs(want).max())
+            case = f"rank {r} {data}x{model} {name} {backend}"
+            if not (np.isfinite(y).all() and err <= TOL[torch.bfloat16] * scale):
+                raise AssertionError(f"EP {case}: max|rank - single process| {err:.3e} of "
+                                     f"max|single process| {scale:.3e}")
+            if ml1 != want_l1:
+                raise AssertionError(f"EP {case}: mask_l1 {ml1} against {want_l1}")
+            needed = EP_LAYER_PATH[backend]
+            if any(la[k] == 0 for k in needed) or any(v and k not in needed
+                                                       for k, v in la.items()):
+                raise AssertionError(f"EP {case}: launches {la}")
+            worst[(data, model, name, backend)] = max(worst.get((data, model, name, backend), 0),
+                                                      err / scale)
+            for k, v in la.items():
+                layer_launches[k] += v
+    whole = ce0.weight_bytes
+    for data, model in EP_MESHES:
+        held = [o["layer_bytes"][(data, model)] for o in res]
+        for d in range(data):
+            line = [b for coord, b in held if coord["data"] == d]
+            if sum(line) != whole or any(b != whole // model for b in line):
+                raise AssertionError(f"EP {data}x{model}: layer 0 expert bytes {held} of {whole}")
+    all_layers = sum(p["moe_ce"].weight_bytes for p in params["layers"])
+    if sum(o["expert_bytes"] for o in res) != all_layers:
+        raise AssertionError(f"EP: expert bytes {[o['expert_bytes'] for o in res]} of "
+                             f"{all_layers}")
+    decode_launches = {k: sum(o["greedy_launches"][k] for o in res) for k in build.LAUNCHES}
+    for r, o in enumerate(res):
+        la = o["greedy_launches"]
+        if any(la[k] == 0 for k in EP_DECODE_PATH) or any(v and k not in EP_DECODE_PATH
+                                                           for k, v in la.items()):
+            raise AssertionError(f"EP decode rank {r}: launches {la}")
+        if not np.array_equal(o["greedy"][0], res[0]["greedy"][0]):
+            raise AssertionError(f"EP decode: rank {r}'s tokens differ from rank 0's")
+    toks = res[0]["greedy"][0]
+    ranks_logits = res[0]["greedy"][1]
+    drift = first_drift("EP decode", cfg, params, prompts, toks.tolist(), toks_ref.tolist())
+    step_err = float(np.abs(ranks_logits - logits_ref.numpy()).max())
+    log(f"EP ({cfg.name}, first {cfg.num_layers} layers, {EP_WORLD} ranks on one card over "
+        f"gloo): built with ep={EP_WORLD} in {build_s:.1f} s, the single-process oracles in "
+        f"{t1 - t0 - build_s:.1f} s, buckets {counts} "
+        f"({ce0.num_slots // EP_WORLD} slots a rank); layer 0 against the single-process layer "
+        f"(its data shard's tokens), max|err| / max|single| by case "
+        f"{ {f'{d}x{m} {n} {b}': round(v, 6) for (d, m, n, b), v in worst.items()} } "
+        f"(limit {TOL[torch.bfloat16]}), mask_l1 equal; layer 0 expert bytes by rank "
+        f"{ {f'{d}x{m}': [o['layer_bytes'][(d, m)][1] for o in res] for d, m in EP_MESHES} } "
+        f"of {whole}; all layers {[o['expert_bytes'] for o in res]} of {all_layers}")
+    log(f"EP decode (data=1 x model={EP_WORLD}, dense-cache prefill of {len(prompts)} x "
+        f"{workload.PROMPT_LEN} + {EP_STEPS} greedy tokens): against the single-process run: "
+        f"{drift}; rank 0's logits max|diff| {step_err:.4g}; prefill / decode s by rank "
+        f"{[(round(o['greedy'][2], 3), round(o['greedy'][3], 3)) for o in res]} = "
+        f"{[round(len(prompts) * (EP_STEPS - 1) / o['greedy'][3], 1) for o in res]} tokens/s; "
+        f"peak device memory by rank (GB) "
+        f"{[round((o['peak_bytes'] or 0) / 1e9, 3) for o in res]}; walls by rank (s) "
+        f"{[round(o['wall_s'], 1) for o in res]}; ranks started (payload open) after "
+        f"{[round(o['started_at'] - t1_wall, 1) for o in res]} s; spawn to results "
+        f"{ranks_s:.1f} s; "
+        f"collective routes {res[0]['routes']}; decode launches (all ranks) {decode_launches}")
+    return layer_launches, decode_launches
 
 
 def build_logged(make):
@@ -2548,8 +2802,10 @@ def full_width():
     same weights, the pipeline's, then the VLM's, the sliding-window
     model's and the 384-expert model's, each model freed before the next is
     built. Returns each path's launches."""
-    fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, \
+    fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, scan_launches, \
         (fp_step, fp_all) = walled("compressed paths", compressed_paths)
+    free_model()
+    ep_layer_launches, ep_launches = walled("EP", ep_path)
     free_model()
     dense_launches, _, _, _ = walled("dense", lambda: plain_path(
         "dense path", *build_logged(workload.build_dense), workload.DENSE, DENSE_PATH))
@@ -2589,7 +2845,9 @@ def full_width():
                              f"{ORACLE_GAP_ULPS} bf16 ulps: {ORACLE_FAULTS}")
     return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
             "tenant mix serving": mix_launches, "preemption serving": preempt_launches,
-            "offload serving": offload_launches,
+            "offload serving": offload_launches, "scan serving": scan_launches,
+            "expert-parallel layer check (4 ranks)": ep_layer_launches,
+            "expert-parallel decoding (4 ranks)": ep_launches,
             "dense serving": dense_launches,
             "uncompressed MoE serving": moe_launches,
             "compressed (pipeline) serving": compress_launches,
@@ -2630,6 +2888,7 @@ def main() -> int:
     invariance_attention(gen)
     invariance_binary_matmul(gen, cfg)
     grad_parity(gen)
+    parity_scan_shapes(gen, results)
     build.reset_launches()
     parity_binary_matmul(gen, results, cfg)
     binary_launches = build.LAUNCHES["binary_matmul"]
@@ -2667,7 +2926,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "long", "decode_g5",
-                                     "window_g2", "decode_g8", "k7168", "k8192", "k17408",
+                                     "window_g2", "decode_g8", "k7168", "k8192", "k17408", "scan",
                                      "split_k_max_abs_err") if key in r}}
         for name, r in results.items()
     ]

@@ -8,7 +8,10 @@
 * ``manifest.json`` is written last inside the directory; a checkpoint
   without one is invisible to :meth:`Checkpointer.latest_step`.
 * ``restore(step, like)`` rebuilds the tree of ``like`` (its shapes,
-  dtypes and devices).
+  dtypes and devices); with ``shardings=`` (a matching tree of
+  :class:`~repro_torch.parallel.sharding.NamedSharding`, on a mesh other
+  than the one that saved, as after :func:`~repro_torch.runtime.elastic.shrink_mesh`)
+  each rank gets its slices of the arrays.
 * ``keep`` bounds disk use (keep-last-k).
 
 Arrays are keyed by ``/``-joined tree paths, as the reference keys them:
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.tree import tree_paths
+from ..parallel.sharding import shard_tensor
 
 __all__ = ["Checkpointer", "flatten_with_paths"]
 
@@ -150,11 +154,19 @@ class Checkpointer:
         with np.load(os.path.join(self.dir, f"step_{step:08d}", "arrays.npz")) as data:
             return {k: data[k] for k in data.files}
 
-    def restore(self, step: int, like: Any) -> Any:
-        """The tree of ``like`` (shape, dtype and device template) with the
-        values of checkpoint ``step``."""
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
+        """The tree of ``like`` (shape, dtype and device template of the
+        whole arrays) with the values of checkpoint ``step``; a leaf with a
+        sharding in ``shardings`` comes back as this rank's slice of it."""
         path = os.path.join(self.dir, f"step_{step:08d}", "arrays.npz")
         named = flatten_with_paths(like)
+        shard_named = {} if shardings is None else flatten_with_paths(shardings)
+        values = {}
         with np.load(path) as data:
-            values = {k: _from_numpy(data[k], leaf) for k, leaf in named.items()}
+            for k, leaf in named.items():
+                v = _from_numpy(data[k], leaf)
+                if k in shard_named and isinstance(v, torch.Tensor):
+                    sh = shard_named[k]
+                    v = shard_tensor(v, sh.spec, sh.mesh).clone()
+                values[k] = v
         return _rebuild(like, values)

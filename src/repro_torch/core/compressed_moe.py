@@ -1,8 +1,8 @@
 """PMQ-compressed MoE experts: bit-bucketed storage + grouped-GEMM compute.
 
-Port of ``repro/core/compressed_moe.py`` (one expert-parallel shard).
-Experts are permuted so that equal-width experts are contiguous and
-stacked into ≤ 3 buckets, one per bit width.
+Port of ``repro/core/compressed_moe.py``. Experts are permuted so that
+equal-width experts are contiguous and stacked into ≤ 3 buckets, one per
+bit width.
 The capacity-dispatch layout is already expert-major and each slot's
 occupied rows are a prefix, so :func:`grouped_bucket_ffn` compacts the
 prefixes into back-to-back ``bm``-aligned groups and runs the bucket's
@@ -23,21 +23,37 @@ that).
 
 **Backend knob** (``ffn_backend=``, the reference's ``FFN_BACKENDS``):
 ``"grouped"`` (the default) runs the Hopper kernels on a CUDA tensor and
-their plain versions on a CPU one; ``"ref"`` runs the plain versions on
-either device, chosen by the caller, never as a fallback.
+their plain versions on a CPU one; ``"ref"`` runs the plain grouped GEMMs
+on either device, chosen by the caller, never as a fallback; ``"scan"`` is
+the reference's per-expert scan, kept as the A/B baseline: each expert's
+``cap`` capacity rows go through three ``ops.quant_matmul_parts`` calls
+(the ``quant_matmul`` kernel on the card), occupied or not, and a
+host-offloaded bucket is gathered back to its full layout first.
 ``REPRO_FFN_BACKEND`` sets the process default. The reference's
-``"scan"`` (the per-expert scan of its expert-parallel shards) and
-``"interpret"`` (the Pallas interpreter) are refused by name.
+``"interpret"`` (the Pallas interpreter) is refused by name.
+
+**Expert parallelism.** ``build_compressed_experts(ep=)`` pads each bucket
+to a multiple of ``ep`` with copies of its last expert (the dummy slots are
+never routed to). Under a mesh (:func:`repro_torch.parallel.sharding.sharding_rules`)
+:func:`compressed_moe_layer` runs the shard_map region of
+:mod:`repro_torch.parallel.ep_shardmap`; where the reference would leave
+the region for GSPMD's global path, the port raises
+:class:`~repro_torch.parallel.sharding.EPRegionError` naming the failed
+condition (a rank holding only its share of the experts cannot compute the
+global layout). :func:`compressed_expert_ffn` called directly under a mesh
+splits each bucket over the model axis, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
+import warnings
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops, ref
 from ..models.layers import mlp
@@ -49,6 +65,7 @@ from ..models.moe import (
     route_topk,
     slot_fill_counts,
 )
+from ..parallel.sharding import EPRegionError, current_mesh, model_axis_size
 from . import otp as otp_mod
 from .quantizers import pack_codes, quantize_parts
 
@@ -63,23 +80,22 @@ __all__ = [
     "gmm_block_rows",
     "grouped_bucket_ffn",
     "resolve_ffn_backend",
+    "scan_bucket_ffn",
 ]
 
 _NAMES = ("w_gate", "w_up", "w_down")
 
-FFN_BACKENDS = ("grouped", "ref")
-#: the reference's backends the port refuses, and why
+FFN_BACKENDS = ("grouped", "scan", "ref")
+#: the reference's backend the port refuses, and why
 _REFUSED = {
-    "scan": "the per-expert scan of the expert-parallel shards; it comes with expert "
-            "parallelism (ROADMAP queue 1 item 5)",
     "interpret": "the Pallas interpreter, which has no torch counterpart; 'ref' runs the "
                  "plain versions",
 }
 
 
 def resolve_ffn_backend(backend: Optional[str]) -> str:
-    """``backend`` (or the process default) checked: ``"grouped"`` or
-    ``"ref"``; a ValueError names the reference's other two."""
+    """``backend`` (or the process default) checked against
+    :data:`FFN_BACKENDS`; a ValueError names the refused ``"interpret"``."""
     b = backend or default_ffn_backend()
     if b in _REFUSED:
         raise ValueError(f"ffn backend {b!r} is not ported: {_REFUSED[b]}")
@@ -97,7 +113,7 @@ def default_ffn_backend() -> str:
 class BucketMeta:
     bits: int
     start: int  # first permuted slot
-    count: int  # expert count of the bucket
+    count: int  # padded expert count (a multiple of ep)
 
 
 @dataclasses.dataclass
@@ -117,6 +133,10 @@ class CompressedExperts:
     d_model: int
     d_ff: int
     resident_map: Optional[Dict] = None
+    #: ``(model, data)`` extents of the mesh whose share of the buckets
+    #: ``arrays`` holds (:func:`repro_torch.parallel.ep_shardmap.shard_experts`),
+    #: or None for the whole buckets
+    ep_cut: Optional[Tuple[int, int]] = None
 
     @property
     def resident_rows(self) -> Optional[Tuple[int, ...]]:
@@ -195,7 +215,7 @@ def _pack_gptq(results: Sequence, bits: int) -> Dict:
 
 def build_compressed_experts(experts: Dict[str, Callable[[], torch.Tensor]],
                              bits_per_expert: Sequence[int], *, group: int = 128,
-                             refine: bool = True,
+                             ep: int = 1, refine: bool = True,
                              gptq_results: Optional[Dict] = None) -> CompressedExperts:
     """Quantize + bucket one layer's experts. ``experts`` maps each of
     "w_gate", "w_up", "w_down" to a function that makes its matrix (``[E,
@@ -205,27 +225,31 @@ def build_compressed_experts(experts: Dict[str, Callable[[], torch.Tensor]],
     11.3 GB in bf16). Each bucket is quantized from f32 in slices of the
     expert axis (:func:`_pack_sliced`), or, with ``gptq_results[(expert,
     name)]`` (:class:`~.gptq.GPTQResult`), the GPTQ codes, scales and zeros
-    of each expert are packed as they are."""
+    of each expert are packed as they are. ``ep`` = expert-parallel shard
+    count: each bucket is padded to a multiple of it with copies of its
+    last expert (slots no expert id maps to)."""
     e = len(bits_per_expert)
     bits_arr = np.asarray(bits_per_expert)
     order = np.argsort(bits_arr, kind="stable")  # ascending bit groups
     slot_of_expert = np.full(e, -1, np.int64)
-    buckets = [(bits, [int(i) for i in order if bits_arr[i] == bits])
-               for bits in sorted(set(bits_arr.tolist()))]
+    buckets = []
     meta, slot = [], 0
-    for bits, ids in buckets:
+    for bits in sorted(set(bits_arr.tolist())):
+        ids = [int(i) for i in order if bits_arr[i] == bits]
         slot_of_expert[ids] = slot + np.arange(len(ids))
-        meta.append(BucketMeta(bits=bits, start=slot, count=len(ids)))
-        slot += len(ids)
+        pick = ids + [ids[-1]] * ((-len(ids)) % ep)  # dummy slots clone the last expert
+        buckets.append((bits, pick))
+        meta.append(BucketMeta(bits=bits, start=slot, count=len(pick)))
+        slot += len(pick)
     arrays = {f"b{i}": {} for i in range(len(buckets))}
     for name in _NAMES:
         w = experts[name]()
         if name == "w_gate":
             d, f, device = w.shape[1], w.shape[2], w.device
-        for i, (bits, ids) in enumerate(buckets):
+        for i, (bits, pick) in enumerate(buckets):
             arrays[f"b{i}"][name] = (
-                _pack_sliced(w, ids, bits, group, refine) if gptq_results is None else
-                _pack_gptq([gptq_results[(j, name)] for j in ids], bits))
+                _pack_sliced(w, pick, bits, group, refine) if gptq_results is None else
+                _pack_gptq([gptq_results[(j, name)] for j in pick], bits))
         del w
     return CompressedExperts(
         meta=tuple(meta), slot_of_expert=torch.as_tensor(slot_of_expert, device=device),
@@ -306,20 +330,99 @@ def grouped_bucket_ffn(xb: torch.Tensor, wdict: Dict, fill: torch.Tensor, *, bit
     return torch.cat([yg, yg.new_zeros(1, d)], dim=0)[gdest]
 
 
+def _ep_fallback(count: int, ep: int) -> None:
+    """A bucket whose padded expert count the model-axis extent does not
+    divide loses expert parallelism (every expert runs on every shard); that
+    happens only when it was built with another ``ep`` than the mesh it runs
+    under — a warning, fatal under ``REPRO_STRICT_EP=1`` (the reference's
+    message and switch)."""
+    msg = (
+        f"compressed_expert_ffn: bucket of {count} padded experts is not "
+        f"divisible by the model-axis size {ep}; falling back to ep=1 "
+        f"(expert parallelism disabled for this bucket). Rebuild the "
+        f"buckets with build_compressed_experts(..., ep={ep}) to restore "
+        f"EP, or set REPRO_STRICT_EP=1 to make this fatal."
+    )
+    strict = os.environ.get("REPRO_STRICT_EP", "0").strip().lower()
+    if strict not in ("", "0", "false", "off", "no"):
+        raise AssertionError(msg)
+    warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _rows(wdict: Dict, rows: torch.Tensor) -> Dict:
+    """The bucket leaves at expert rows ``rows`` (a resident map gathered
+    back to the bucket's full layout)."""
+    return {n: {key: t.index_select(0, rows.long()) for key, t in w.items()}
+            for n, w in wdict.items()}
+
+
+def _narrow(wdict: Dict, start: int, count: int) -> Dict:
+    return {n: {key: t.narrow(0, start, count) for key, t in w.items()}
+            for n, w in wdict.items()}
+
+
+def scan_bucket_ffn(xb: torch.Tensor, wdict: Dict, *, bits: int, group: int, count: int,
+                    cap: int) -> torch.Tensor:
+    """The reference's per-expert scan over one bucket's capacity slice
+    ``xb [count·cap, D]``: each expert's ``cap`` rows through
+    ``silu(x @ Wg) * (x @ Wu) @ Wd``, one ``ops.quant_matmul_parts`` (the
+    ``quant_matmul`` kernel on the card) per matrix, empty rows included."""
+
+    def mm(x2, w, s):
+        pk = (w["hi"][s], w["lo"][s]) if bits == 3 else w["data"][s]
+        return ops.quant_matmul_parts(x2, pk, w["scale"][s], w["zero"][s], bits=bits,
+                                      group=group)
+
+    ys = []
+    for s in range(count):
+        x2 = xb[s * cap:(s + 1) * cap]
+        h = F.silu(mm(x2, wdict["w_gate"], s)) * mm(x2, wdict["w_up"], s)
+        ys.append(mm(h, wdict["w_down"], s))
+    return torch.cat(ys, dim=0)
+
+
 def compressed_expert_ffn(ce: CompressedExperts, xp: torch.Tensor, cap: int,
                           slot_fill: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
     """SwiGLU over the permuted capacity layout ``xp [num_slots·cap, D]``,
-    bucket by bucket through :func:`grouped_bucket_ffn` (with each bucket's
-    resident map when the buckets are host-offloaded), on the expert-FFN
-    ``backend`` (:data:`FFN_BACKENDS`; None = the process default)."""
+    bucket by bucket, on the expert-FFN ``backend`` (:data:`FFN_BACKENDS`;
+    None = the process default): :func:`grouped_bucket_ffn` (with each
+    bucket's resident map when host-offloaded) or :func:`scan_bucket_ffn`
+    (resident rows gathered back to the full bucket first).
+
+    Under a mesh each bucket splits over the model axis (ep =
+    :func:`~repro_torch.parallel.sharding.model_axis_size`, baked into the
+    bucket padding at build time): the grouped path runs each shard's
+    ``count / ep`` experts as a bucket of its own, as the reference's vmap
+    over the shard axis does; a bucket that ep does not divide falls back
+    to ep = 1 (:func:`_ep_fallback`)."""
     backend = resolve_ffn_backend(backend)
     ys = []
     for i, m in enumerate(ce.meta):
+        b = ce.arrays[f"b{i}"]
+        rmap = None if ce.resident_map is None else ce.resident_map[f"b{i}"]
+        ep = model_axis_size()
+        if m.count % ep:
+            _ep_fallback(m.count, ep)
+            ep = 1
         xb = xp[m.start * cap:(m.start + m.count) * cap]
         fill = slot_fill[m.start:m.start + m.count]
-        rmap = None if ce.resident_map is None else ce.resident_map[f"b{i}"]
-        ys.append(grouped_bucket_ffn(xb, ce.arrays[f"b{i}"], fill, bits=m.bits, group=ce.group,
-                                     count=m.count, cap=cap, rmap=rmap, ffn_backend=backend))
+        if backend == "scan" or ep > 1:
+            if rmap is not None:
+                b, rmap = _rows(b, rmap), None
+        if backend == "scan":
+            ys.append(scan_bucket_ffn(xb, b, bits=m.bits, group=ce.group, count=m.count,
+                                      cap=cap))
+            continue
+        if ep == 1:
+            ys.append(grouped_bucket_ffn(xb, b, fill, bits=m.bits, group=ce.group,
+                                         count=m.count, cap=cap, rmap=rmap, ffn_backend=backend))
+            continue
+        local = m.count // ep
+        ys.extend(
+            grouped_bucket_ffn(xb[e * local * cap:(e + 1) * local * cap], _narrow(b, e * local, local),
+                               fill[e * local:(e + 1) * local], bits=m.bits, group=ce.group,
+                               count=local, cap=cap, ffn_backend=backend)
+            for e in range(ep))
     return torch.cat(ys, dim=0)
 
 
@@ -329,15 +432,47 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
                          capacity_factor: Optional[float] = None,
                          count_weight: Optional[torch.Tensor] = None,
                          ffn_backend: Optional[str] = None):
-    """MoE block with PMQ experts and optional OTP pruning (the reference's
-    local path). ``p`` carries the router and the shared experts. Returns
-    ``(y [B, S, D], info)``; ``info["mask"]`` is the OTP mask ``[T, k]`` (or
-    None), ``info["mask_l1"]`` its mean (the Eq. 14 ℓ1 term, or None) and
-    ``info["slot_counts"]`` the per-slot count of dispatched (token, choice)
-    pairs after masking, with tokens where ``count_weight`` is false left
-    out. ``otp_rng`` (uniforms ``[T, k]`` or a generator) samples the mask by
-    Gumbel-Softmax at temperature ``otp_tau`` (training); without it the
-    mask is the argmax. ``ffn_backend`` as in :func:`compressed_expert_ffn`."""
+    """MoE block with PMQ experts and optional OTP pruning. ``p`` carries
+    the router and the shared experts. Returns ``(y [B, S, D], info)``;
+    ``info["mask"]`` is the OTP mask ``[T, k]`` (or None), ``info["mask_l1"]``
+    its mean (the Eq. 14 ℓ1 term, or None) and ``info["slot_counts"]`` the
+    per-slot count of dispatched (token, choice) pairs after masking, with
+    tokens where ``count_weight`` is false left out. ``otp_rng`` (uniforms
+    ``[T, k]`` or a generator) samples the mask by Gumbel-Softmax at
+    temperature ``otp_tau`` (training); without it the mask is the argmax.
+    ``ffn_backend`` as in :func:`compressed_expert_ffn`.
+
+    Under a mesh the routed experts run the shard_map EP region
+    (:func:`repro_torch.parallel.ep_shardmap.compressed_moe_region_sharded`;
+    ``x`` is this rank's block of the batch, ``ce`` the whole buckets or
+    this rank's share of them) and ``info`` holds only ``mask_l1``, as the
+    reference's. An offloaded ``ce``, a slot count or a bucket that the
+    model axis does not divide raise :class:`EPRegionError`."""
+    mesh = current_mesh()
+    if mesh is not None:
+        from ..models.moe import ep_shardmap_ok
+        from ..parallel.ep_shardmap import compressed_moe_region_sharded
+
+        model = mesh.shape.get("model", 1)
+        if ce.resident_map is not None:
+            raise EPRegionError("compressed_moe_layer under a mesh: host-offloaded buckets "
+                                "(resident_map) leave the EP region")
+        if not ep_shardmap_ok(cfg, mesh, x, ce.num_slots):
+            raise EPRegionError(f"compressed_moe_layer under a mesh: ep_shardmap_ok is false "
+                                f"({ce.num_slots} slots over model={model})")
+        bad = [m.count for m in ce.meta if m.count % model]
+        if bad:
+            raise EPRegionError(f"compressed_moe_layer under a mesh: bucket counts {bad} are "
+                                f"not multiples of model={model} (build with ep={model})")
+        y, mask_l1 = compressed_moe_region_sharded(
+            p, ce, x, cfg, mesh, otp_params=otp_params, otp_rng=otp_rng, otp_tau=otp_tau,
+            capacity_factor=capacity_factor, ffn_backend=ffn_backend)
+        if "shared" in p:
+            b, s, d = x.shape
+            y = y + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
+        info = {"probs": None, "idx": None, "gates": None, "mask": None,
+                "mask_l1": mask_l1 if otp_params is not None else None, "slot_counts": None}
+        return y, info
     b, s, d = x.shape
     t = b * s
     x2 = x.reshape(t, d)

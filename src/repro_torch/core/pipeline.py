@@ -185,14 +185,15 @@ def _gptq_expert(ew: Dict, x: torch.Tensor, bits: int, group: int) -> Dict:
 
 @torch.no_grad()
 def compress_model(params, calib: CalibrationResult, plan: pmq.PMQPlan, cfg,
-                   use_gptq: bool = True, consume: bool = False):
+                   use_gptq: bool = True, consume: bool = False, ep: int = 1):
     """The compressed blocks, layer by layer: ``(blocks_c, top)`` where
     ``blocks_c[l]`` holds ``{"ln1", "attn", "ln2", "moe" (router, 4-bit
     shared), "moe_ce"}`` and ``top`` the embeddings and final norm (16-bit,
     as in the paper's average-bit accounting). Layer ``l`` reads
     ``calib.moe_inputs[l]`` and ``plan.bits[l]``. ``consume=True`` drops each
     layer from ``params["layers"]`` once it is compressed, so a full-width
-    model never holds a layer's float and packed weights past that layer."""
+    model never holds a layer's float and packed weights past that layer.
+    ``ep`` pads each bucket to a multiple of it (``build_compressed_experts``)."""
     q = cfg.quant
     blocks_c = []
     for l in range(len(params["layers"])):
@@ -218,7 +219,7 @@ def compress_model(params, calib: CalibrationResult, plan: pmq.PMQPlan, cfg,
             "ln2": p_l["ln2"],
             "moe": moe_p,
             "moe_ce": build_compressed_experts({k: (lambda k=k: experts[k]) for k in _NAMES},
-                                               plan.bits[l], group=q.group,
+                                               plan.bits[l], group=q.group, ep=ep,
                                                gptq_results=gptq_results),
         })
         if consume:
@@ -232,7 +233,7 @@ def compress_model(params, calib: CalibrationResult, plan: pmq.PMQPlan, cfg,
 
 def compress_for_serving(params, calib: CalibrationResult, cfg, *,
                          eps: Optional[np.ndarray] = None,
-                         consume: bool = False) -> Tuple[Dict, float]:
+                         consume: bool = False, ep: int = 1) -> Tuple[Dict, float]:
     """Layer-uniform PMQ compression in the serving layout, at
     :data:`TARGET_AVG_BITS` over an Eq. 6 table on :data:`EPS_TOKENS` tokens.
 
@@ -242,12 +243,13 @@ def compress_for_serving(params, calib: CalibrationResult, cfg, *,
     with ``params_compressed`` in the engine's layout (``{"embed",
     "final_norm", ["unembed"], "layers"}``, no OTP routers). ``eps`` reuses
     that table if the caller has it (else it is computed here); ``consume``
-    as in :func:`compress_model`."""
+    and ``ep`` as in :func:`compress_model`."""
     if eps is None:
         eps = compute_eps(params, calib, cfg)
     plan = run_pmq(calib, eps, cfg, TARGET_AVG_BITS)
     plan.bits = [plan.bits[0]] * cfg.num_layers
-    blocks_c, top = compress_model(params, calib, plan, cfg, use_gptq=False, consume=consume)
+    blocks_c, top = compress_model(params, calib, plan, cfg, use_gptq=False, consume=consume,
+                                   ep=ep)
     return dict(top, layers=blocks_c), plan.avg_bits
 
 

@@ -65,9 +65,12 @@ def _normal(gen, shape, scale, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype) * scale
 
 
-def build_synthetic(cfg, *, seed: int = 0, device="cuda") -> Dict:
+def build_synthetic(cfg, *, seed: int = 0, device="cuda", ep: int = 1) -> Dict:
     """Params of ``cfg`` (all ``cfg.num_layers`` layers) in the layout of
-    :mod:`repro_torch.models.transformer`, built on ``device``."""
+    :mod:`repro_torch.models.transformer`, built on ``device``; buckets
+    padded to multiples of ``ep`` (``build_compressed_experts``). The draws
+    do not depend on ``ep`` or on the depth: a cut build is the first layers
+    of a deeper one."""
     if cfg.family != "moe" or cfg.num_experts < 3:
         raise ValueError("build_synthetic makes PMQ MoE decoders (≥ 3 experts)")
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -111,7 +114,7 @@ def build_synthetic(cfg, *, seed: int = 0, device="cuda") -> Dict:
             "w_up": lambda: _normal(gen, (e, d, f), d**-0.5, dt, device),
             "w_down": lambda: _normal(gen, (e, f, d), f**-0.5, dt, device),
         }
-        layer["moe_ce"] = build_compressed_experts(experts, bits.tolist(), group=q.group)
+        layer["moe_ce"] = build_compressed_experts(experts, bits.tolist(), group=q.group, ep=ep)
         layer["otp"] = {
             "fc1": _normal(gen, (d, k), d**-0.5, torch.float32, device),
             "fc2": _normal(gen, (2 * k, k), (2 * k) ** -0.5, torch.float32, device),

@@ -37,6 +37,7 @@ __all__ = [
     "LAUNCHES",
     "build",
     "check",
+    "library_path",
     "load_library",
     "reset_launches",
     "stream_ptr",
@@ -120,14 +121,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """The shared library of the current sources and flags (built or not)."""
+    return BUILD_DIR / f"librepro_kernels-{_digest()}.so"
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library (cached by content).
 
     Objects and logs go to a directory of this process's own, and only the
     finished library and logs are moved into :data:`BUILD_DIR`, so two
     processes that build at once never see each other's partial files."""
-    digest = _digest()
-    lib = BUILD_DIR / f"librepro_kernels-{digest}.so"
+    lib = library_path()
+    digest = lib.stem.split("-")[-1]
     if lib.exists():
         return lib
     nvcc = _nvcc()

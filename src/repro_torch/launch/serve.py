@@ -6,7 +6,7 @@
         [--ttft-budget-ms MS] [--trace-level spans --trace-out F] \
         [--resident-experts N [--async-offload] [--offload-dir DIR [--host-expert-bytes B]]] \
         [--temperature T [--sample-seed S]] [--chaos-seed SEED] [--deadline-steps N] \
-        [--ffn-backend grouped|ref] [--legacy] [--device cpu]
+        [--ffn-backend grouped|ref|scan] [--legacy] [--device cpu]
 
 Like the reference CLI (``repro/launch/serve.py``) it serves
 ``cfg.reduced()`` of ``--arch`` on random prompts of 24 tokens; the
@@ -60,8 +60,9 @@ ends with a typed error.
 
 ``--ffn-backend`` picks the PMQ expert FFN's path for the engine and the
 wave batcher alike: ``grouped`` (the default: the Hopper kernels on the card,
-their plain versions on the CPU) or ``ref`` (the plain versions on either
-device); the reference's ``scan`` and ``interpret`` are refused by name.
+their plain versions on the CPU), ``ref`` (the plain versions on either
+device) or ``scan`` (the reference's per-expert scan: ``quant_matmul`` per
+expert matrix); the reference's ``interpret`` is refused by name.
 
 ``--legacy`` serves with :class:`BatchedServer` instead, the static wave
 batcher the paged engine replaced, kept for comparison: it refuses the
@@ -289,8 +290,8 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--ffn-backend", choices=["grouped", "ref", "scan", "interpret"],
                    default=None,
                    help="PMQ expert-FFN path: grouped (default; the Hopper kernels on the "
-                        "card) or ref (the plain versions); scan and interpret are not "
-                        "ported")
+                        "card), ref (the plain versions) or scan (per-expert quant_matmul); "
+                        "interpret is not ported")
     p.add_argument("--legacy", action="store_true",
                    help="serve with the static wave batcher instead of the paged engine")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -6,14 +6,18 @@ straggler monitoring.
 
 :func:`train_step` is the one step (loss, gradients, ``warmup_cosine``,
 ``adamw_update``) that :func:`train_reduced`, the examples and
-``chip_smoke.py``'s full-width training all run. The reference's
-``--coordinator`` (multi-host ``jax.distributed``) is refused: multi-device
-training comes with expert parallelism (ROADMAP queue 1 item 5).
+``chip_smoke.py``'s full-width training all run. ``--coordinator
+HOST:PORT`` joins a multi-process job first, as the reference's joins
+``jax.distributed``: ``torch.distributed.init_process_group`` at
+``tcp://HOST:PORT`` with the rank and world size ``torchrun`` sets
+(``RANK``, ``WORLD_SIZE``; 0 and 1 when unset), the ``nccl`` backend on
+the card and ``gloo`` on the CPU; everything else runs as without it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -111,15 +115,23 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--coordinator", default=None,
-                   help="multi-host training: not ported (expert parallelism, "
-                        "ROADMAP queue 1 item 5)")
+                   help="HOST:PORT -> torch.distributed.init_process_group (multi-process; "
+                        "RANK and WORLD_SIZE as torchrun sets them)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.coordinator:
-        p.error("--coordinator: multi-host training is not ported yet (it comes with "
-                "expert parallelism, ROADMAP queue 1 item 5)")
-    _, hist = train_reduced(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
-                            lr=args.lr, ckpt_dir=args.ckpt_dir, device=args.device)
+        import torch.distributed as dist
+
+        dist.init_process_group(
+            backend="nccl" if str(args.device).startswith("cuda") else "gloo",
+            init_method=f"tcp://{args.coordinator}", rank=int(os.environ.get("RANK", 0)),
+            world_size=int(os.environ.get("WORLD_SIZE", 1)))
+    try:
+        _, hist = train_reduced(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+                                lr=args.lr, ckpt_dir=args.ckpt_dir, device=args.device)
+    finally:
+        if args.coordinator:
+            dist.destroy_process_group()
     if hist:
         print(json.dumps({"first_loss": hist[0], "last_loss": hist[-1]}))
     return hist

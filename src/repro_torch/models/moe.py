@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import EPRegionError, current_mesh
 from .layers import init_linear, init_mlp, linear, mlp
 
 __all__ = [
@@ -21,6 +22,7 @@ __all__ = [
     "combine",
     "count_ids",
     "dispatch_capacity",
+    "ep_shardmap_ok",
     "expert_ffn",
     "init_moe",
     "load_balance_loss",
@@ -170,19 +172,53 @@ class MoEOut(NamedTuple):
     topk_gates: torch.Tensor  # [T, k]
 
 
-def moe_layer(p, x: torch.Tensor, cfg) -> MoEOut:
-    """The uncompressed MoE block on one device (``moe.py:212``), ``x [B, S,
-    D]``. Its shard_map expert-parallel region is not ported, nor its OTP
-    and expert-compute hooks: the compressed path has its own layer
-    (``core/compressed_moe.py``)."""
+def ep_shardmap_ok(cfg, mesh, x, num_units: int) -> bool:
+    """Divisibility guard for the shard_map EP region: the model axis
+    divides the dispatch units. ``x`` is this rank's block of the batch
+    axes, so the reference's other condition — that they divide the global
+    batch — holds by construction."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    return num_units % mesh.shape["model"] == 0
+
+
+def moe_layer(p, x: torch.Tensor, cfg, *, gate_mask_fn=None, expert_ffn_fn=None) -> MoEOut:
+    """The uncompressed MoE block (``moe.py:212``), ``x [B, S, D]``.
+    ``gate_mask_fn(x2, idx, gates) -> mask [T, k]`` is the OTP hook;
+    ``expert_ffn_fn(xp) -> yp`` overrides the expert compute.
+
+    Under a mesh the routed experts run the shard_map EP region
+    (:func:`repro_torch.parallel.ep_shardmap.moe_region_sharded`, no
+    all-to-all; ``x`` is this rank's batch block) and the router outputs are
+    None, as in the reference. Where the reference falls back to its GSPMD
+    path — an ``expert_ffn_fn``, or an expert count the model axis does not
+    divide — the port raises :class:`EPRegionError`."""
+    mesh = current_mesh()
+    if mesh is not None:
+        from ..parallel.ep_shardmap import moe_region_sharded
+
+        if expert_ffn_fn is not None:
+            raise EPRegionError("moe_layer under a mesh: expert_ffn_fn overrides the expert "
+                                "compute, which leaves the EP region")
+        if not ep_shardmap_ok(cfg, mesh, x, cfg.num_experts):
+            raise EPRegionError(f"moe_layer under a mesh: ep_shardmap_ok is false "
+                                f"({cfg.num_experts} experts over model="
+                                f"{mesh.shape.get('model')})")
+        y, aux = moe_region_sharded(p, x, cfg, mesh, gate_mask_fn=gate_mask_fn)
+        if "shared" in p:
+            b, s, d = x.shape
+            y = y + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
+        return MoEOut(y, aux, None, None, None)
     b, s, d = x.shape
     t = b * s
     x2 = x.reshape(t, d)
     e, k = cfg.num_experts, cfg.top_k
     probs, idx, gates = route_topk(p["router"], x2, k)
+    gate_mask = gate_mask_fn(x2, idx, gates) if gate_mask_fn is not None else None
     cap = dispatch_capacity(cfg, t)
-    xp, dest, valid, gflat = capacity_dispatch(x2, idx, gates, e, cap)
-    y = combine(expert_ffn(p["experts"], xp, e), dest, valid, gflat, t, k)
+    xp, dest, valid, gflat = capacity_dispatch(x2, idx, gates, e, cap, gate_mask)
+    yp = expert_ffn_fn(xp) if expert_ffn_fn is not None else expert_ffn(p["experts"], xp, e)
+    y = combine(yp, dest, valid, gflat, t, k)
     if "shared" in p:
         y = y + mlp(p["shared"], x2)
     return MoEOut(y.reshape(b, s, d), load_balance_loss(probs, idx, e), probs, idx, gates)

@@ -1,0 +1,427 @@
+"""Sharding rules and the mesh of ranks (port of ``repro/parallel/sharding.py``).
+
+JAX runs a mesh as SPMD in one process; the port runs one process per rank.
+A :class:`Mesh` holds the axis names (``("data", "model")`` or ``("pod",
+"data", "model")``), their extents, this rank's coordinate on each axis and
+one process group per axis (and one over the batch axes together). Inside a
+mesh:
+
+* activations are this rank's block of the batch axes (what the reference's
+  shard_map regions receive through ``in_specs=P(batch_axes, ...)``),
+  replicated over ``model``;
+* each rank holds the non-expert parameters whole and, of the expert
+  buckets, only its rows (:func:`repro_torch.parallel.ep_shardmap.shard_params`);
+* :func:`shard` is an identity: torch has no GSPMD to pass a constraint to.
+  The rules (:func:`activation_rules`, :data:`_PARAM_RULES`) are kept as
+  data. A spec is a tuple with one entry per dim — an axis name, a tuple of
+  names or None, normalized as ``PartitionSpec`` does (a lone name for a
+  one-name tuple) — and compares equal to ``tuple(PartitionSpec(...))``.
+
+:func:`all_reduce` (the reference's ``psum``) and :func:`all_gather` (its
+tiled ``all_gather``) run over the group of the named axes. A collective
+that the group's backend does not take on CUDA tensors (:data:`DEVICE_COLLECTIVES`)
+goes through host memory, chosen by the backend before the call and never
+on a failure; :data:`ROUTES` records each route taken.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import re
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.packing import PackedTensor
+
+__all__ = [
+    "DEVICE_COLLECTIVES",
+    "EPRegionError",
+    "Mesh",
+    "NamedSharding",
+    "ROUTES",
+    "activation_rules",
+    "all_gather",
+    "all_reduce",
+    "batch_axes",
+    "build_mesh",
+    "cache_pspec",
+    "current_mesh",
+    "make_param_shardings",
+    "manual_region",
+    "model_axis_size",
+    "param_spec_for_path",
+    "shard",
+    "shard_tensor",
+    "shard_tree",
+    "sharding_rules",
+]
+
+class EPRegionError(ValueError):
+    """An MoE layer under a mesh that the expert-parallel region cannot
+    take. The reference leaves the region for GSPMD's global path there; a
+    rank of the port holds only its share of the experts and cannot compute
+    the global layout, so it raises, naming the condition that failed."""
+
+
+_CTX: contextvars.ContextVar = contextvars.ContextVar("sharding_ctx", default=None)
+
+Spec = Tuple
+
+
+class Mesh:
+    """Axis names and extents, the global ranks in row-major order over the
+    axes (``ranks``, the reference mesh's ``devices``), this rank's
+    coordinate (``coord``, None on a rank outside the mesh or on a mesh made
+    for its shape only) and the process groups (:meth:`group`)."""
+
+    def __init__(self, axis_names: Sequence[str], axis_sizes: Sequence[int], *,
+                 ranks: Optional[np.ndarray] = None, coord: Optional[Sequence[int]] = None,
+                 groups: Optional[Dict] = None):
+        self.axis_names = tuple(axis_names)
+        sizes = tuple(int(s) for s in axis_sizes)
+        self.shape = dict(zip(self.axis_names, sizes))
+        self.ranks = (np.arange(int(np.prod(sizes))) if ranks is None
+                      else np.asarray(ranks)).reshape(sizes)
+        self.coord = None if coord is None else dict(zip(self.axis_names, map(int, coord)))
+        self._groups = groups or {}
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, coord={self.coord})"
+
+    def index(self, names) -> int:
+        """This rank's coordinate over ``names`` (a name or a tuple of
+        names, the first the most significant), as a shard index."""
+        idx = 0
+        for n in _names(names):
+            idx = idx * self.shape[n] + self.coord[n]
+        return idx
+
+    def extent(self, names) -> int:
+        return int(np.prod([self.shape[n] for n in _names(names)]))
+
+    def group(self, names):
+        """The process group of this rank's line along ``names``."""
+        key = _names(names)
+        if key not in self._groups:
+            raise KeyError(f"mesh {self.shape}: no process group over {key}")
+        return self._groups[key]
+
+
+def _names(names) -> Tuple[str, ...]:
+    return (names,) if isinstance(names, str) else tuple(names)
+
+
+def build_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int],
+               blocks: Optional[Sequence[np.ndarray]] = None) -> Mesh:
+    """A mesh over the initialised default process group. ``blocks`` are
+    the global ranks of each mesh of this shape (default: one mesh over
+    ranks ``0 .. prod(sizes) - 1``); the caller gets the one holding its
+    rank, or, outside all of them, a mesh with ``coord`` None. Every rank of
+    the default group calls this, in the same order (``new_group`` is
+    collective), and gets groups over each axis and over the batch axes."""
+    import torch.distributed as dist
+
+    sizes = tuple(int(s) for s in axis_sizes)
+    names = tuple(axis_names)
+    if blocks is None:
+        blocks = [np.arange(int(np.prod(sizes)))]
+    blocks = [np.asarray(b).reshape(sizes) for b in blocks]
+    if any(b.max() >= dist.get_world_size() for b in blocks):
+        raise ValueError(f"mesh {dict(zip(names, sizes))}: ranks beyond the world size "
+                         f"{dist.get_world_size()}")
+    me = dist.get_rank()
+    axis_sets = [(n,) for n in names]
+    ba = batch_axes_of(names)
+    if len(ba) > 1:
+        axis_sets.append(ba)
+    mine, groups, coord = None, {}, None
+    for b in blocks:
+        for axes in axis_sets:
+            pos = [names.index(n) for n in axes]
+            rest = [i for i in range(len(names)) if i not in pos]
+            lines = np.transpose(b, rest + pos).reshape(-1, int(np.prod([sizes[i] for i in pos])))
+            for line in lines:
+                g = dist.new_group(ranks=[int(r) for r in line])
+                if me in line:
+                    groups[axes] = g
+        if me in b:
+            mine = b
+            coord = [int(c[0]) for c in np.nonzero(b == me)]
+    return Mesh(names, sizes, ranks=mine if mine is not None else blocks[0], coord=coord,
+                groups=groups if mine is not None else None)
+
+
+def batch_axes_of(axis_names) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in axis_names else ("data",)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return batch_axes_of(mesh.axis_names)
+
+
+def _entry(names):
+    """A spec entry as ``PartitionSpec`` normalizes it: one name alone."""
+    return names[0] if isinstance(names, tuple) and len(names) == 1 else names
+
+
+def activation_rules(mesh, sequence_parallel: bool = True) -> Dict[str, Spec]:
+    """The reference's Megatron-SP activation specs (kept as data: the port
+    places no activation by them)."""
+    ba = _entry(batch_axes(mesh))
+    seq = "model" if sequence_parallel else None
+    return {
+        "act_btd": (ba, seq, None),
+        "act_full": (ba, None, None),
+        "moe_ed": ("model", None),
+        "moe_ecd": ("model", "data", None),
+        "moe_elcd": ("model", None, "data", None),
+        "moe_tke": (ba, None),
+        "logits_btv": (ba, None, "model"),
+    }
+
+
+@contextlib.contextmanager
+def sharding_rules(mesh: Mesh, rules: Optional[Dict[str, Spec]] = None):
+    """Make ``mesh`` the current mesh: the MoE layers route into the
+    expert-parallel regions while it is set."""
+    token = _CTX.set({"mesh": mesh, "rules": rules or activation_rules(mesh)})
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+@contextlib.contextmanager
+def manual_region():
+    """Inside a region's body: no current mesh (the body's tensors are
+    this rank's own)."""
+    token = _CTX.set(None)
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+def _divides(shape, spec: Spec, mesh) -> bool:
+    for dim, names in zip(shape, spec):
+        if names is None:
+            continue
+        size = int(np.prod([mesh.shape[n] for n in _names(names)]))
+        if dim % size != 0:
+            return False
+    return True
+
+
+def model_axis_size() -> int:
+    """Model-axis extent of the current mesh (1 outside one)."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return 1
+    return int(ctx["mesh"].shape.get("model", 1))
+
+
+def current_mesh() -> Optional[Mesh]:
+    ctx = _CTX.get()
+    return None if ctx is None else ctx["mesh"]
+
+
+def shard(x, name: str):
+    """The reference's sharding constraint: an identity in the port."""
+    return x
+
+
+# ------------------------------------------------------------ param specs
+_IDX = r"(?:/\d+)*$"
+_PARAM_RULES = [
+    (r"attn/w[qkv]/w" + _IDX, (None, "model")),
+    (r"attn/wo/w" + _IDX, ("model", None)),
+    (r"cross/w[qkv]/w" + _IDX, (None, "model")),
+    (r"cross/wo/w" + _IDX, ("model", None)),
+    (r"(mlp|shared|ffn)/w_(gate|up)/w" + _IDX, (None, "model")),
+    (r"(mlp|shared|ffn)/w_down/w" + _IDX, ("model", None)),
+    (r"experts/w_(gate|up|down)$", ("model", None, None)),
+    (r"moe_ce/.*", ("model", None, None)),
+    (r"router/w$", (None, None)),
+    (r"^(embed|unembed)$", ("model", None)),
+    (r"(proj_in|gate_in|wq|wk|wv|wa|wx|w_z|w_o|w_if)/w" + _IDX, (None, "model")),
+    (r"(proj_out|out)/w" + _IDX, ("model", None)),
+    (r"ffn/proj_in/w" + _IDX, (None, "model")),
+    (r"ffn/proj_out/w" + _IDX, ("model", None)),
+]
+
+
+def param_spec_for_path(path: str, ndim: int, stacked: bool) -> Spec:
+    """The spec of the leaf at ``path`` (``/``-joined; packed children end
+    in ``/<index>``), a leading None for a stacked layer dim, padded or cut
+    to ``ndim``; replicated where no rule matches."""
+    for pat, spec in _PARAM_RULES:
+        if re.search(pat, path):
+            parts = list(spec)
+            if stacked:
+                parts = [None] + parts
+            while len(parts) < ndim:
+                parts.append(None)
+            return tuple(parts[:ndim])
+    return (None,) * ndim
+
+
+STACKED_PREFIXES = ("blocks", "groups", "enc_blocks", "dec_blocks")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``)."""
+
+    mesh: Mesh
+    spec: Spec
+
+
+def _children(node):
+    """``(key, child)`` pairs of an inner node of a parameter tree, in the
+    reference's child order (a PackedTensor's ``data, scale, zero``, a
+    CompressedExperts' ``slot_of_expert, arrays[, resident_map]``), or None
+    for a leaf."""
+    from ..core.compressed_moe import CompressedExperts  # it imports this module
+
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    if isinstance(node, PackedTensor):
+        return list(enumerate((node.data, node.scale, node.zero)))
+    if isinstance(node, CompressedExperts):
+        kids = [node.slot_of_expert, node.arrays]
+        if node.resident_map is not None:
+            kids.append(node.resident_map)
+        return list(enumerate(kids))
+    return None
+
+
+def make_param_shardings(mesh, params, stacked_prefixes=STACKED_PREFIXES):
+    """The tree of :class:`NamedSharding` of ``params`` (dicts, lists and
+    tuples as they are; a PackedTensor or CompressedExperts becomes the
+    tuple of its children's): each leaf's :func:`param_spec_for_path`,
+    replicated where a spec does not divide the dim. The port's per-layer
+    trees (``layers/<l>/...``) have no stacked dim: pass
+    ``stacked_prefixes=()``."""
+
+    def one(node, path):
+        kids = _children(node)
+        if kids is not None:
+            out = [one(v, f"{path}/{k}" if path else str(k)) for k, v in kids]
+            if isinstance(node, dict):
+                return dict(zip([k for k, _ in kids], out))
+            return list(out) if isinstance(node, list) else tuple(out)
+        stacked = any(path.startswith(pref) for pref in stacked_prefixes)
+        shape = tuple(getattr(node, "shape", ()))
+        nd = len(shape)
+        spec = param_spec_for_path(path, nd, stacked)
+        if not _divides(shape, spec, mesh):
+            spec = (None,) * nd
+        return NamedSharding(mesh, spec)
+
+    return one(params, "")
+
+
+def cache_pspec(mesh, cache_shape, prefer: str = "batch") -> Spec:
+    """KV cache ``[L, B, S, Hkv, dh]`` spec: (batch → data, heads → model),
+    heads that do not divide fall back to (batch → data, seq → model);
+    long context (or a batch that does not divide) puts the sequence first."""
+    bsz = int(np.prod([mesh.shape[a] for a in batch_axes(mesh)]))
+    ba = _entry(batch_axes(mesh))
+    model = mesh.shape.get("model", 1)
+    data = mesh.shape.get("data", 1)
+    l, b, s, h = cache_shape[:4]
+    if prefer == "batch" and b % bsz == 0:
+        if h % model == 0:
+            return (None, ba, None, "model", None)
+        if s % model == 0:
+            return (None, ba, "model", None, None)
+        return (None, ba, None, None, None)
+    if s % data == 0 and h % model == 0:
+        return (None, None, "data", "model", None)
+    if s % (data * model) == 0:
+        return (None, None, ("data", "model"), None, None)
+    if s % data == 0:
+        return (None, None, "data", None, None)
+    return (None,) * len(cache_shape)
+
+
+# ------------------------------------------------------ this rank's slices
+def shard_tensor(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` (a view;
+    a dim whose axes do not divide it raises)."""
+    for dim, names in enumerate(spec):
+        if names is None:
+            continue
+        n = mesh.extent(names)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {names} ({n})")
+        step = x.shape[dim] // n
+        x = x.narrow(dim, mesh.index(names) * step, step)
+    return x
+
+
+def shard_tree(tree, shardings):
+    """This rank's blocks of a tree of whole tensors, cut by the matching
+    tree of :class:`NamedSharding` (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s) for v, s in zip(tree, shardings))
+    return shard_tensor(tree, shardings.spec, shardings.mesh)
+
+
+# ------------------------------------------------------------ collectives
+#: the collectives each backend takes on CUDA tensors; any other goes
+#: through host memory
+DEVICE_COLLECTIVES = {"gloo": ("all_reduce",), "nccl": ("all_reduce", "all_gather")}
+#: ``{(collective, backend, tensor device type): "direct" | "host"}`` of
+#: every call so far
+ROUTES: Dict[Tuple[str, str, str], str] = {}
+
+
+def _route(op: str, x: torch.Tensor, group) -> str:
+    import torch.distributed as dist
+
+    backend = str(dist.get_backend(group))
+    route = "host" if x.is_cuda and op not in DEVICE_COLLECTIVES.get(backend, ()) else "direct"
+    ROUTES[(op, backend, x.device.type)] = route
+    return route
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of this rank's line along ``axes``
+    (a new tensor; ``x`` is left as it is)."""
+    import torch.distributed as dist
+
+    if mesh.extent(axes) == 1:
+        return x
+    group = mesh.group(axes)
+    if _route("all_reduce", x, group) == "host":
+        y = x.detach().to("cpu", copy=True)
+        dist.all_reduce(y, group=group)
+        return y.to(x.device)
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` of the ranks along ``axes``, concatenated along
+    ``dim`` in their order on the axis."""
+    import torch.distributed as dist
+
+    n = mesh.extent(axes)
+    if n == 1:
+        return x
+    group = mesh.group(axes)
+    src = x.detach().contiguous()
+    if _route("all_gather", x, group) == "host":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)

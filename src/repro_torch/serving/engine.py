@@ -129,8 +129,9 @@ class EngineConfig:
     prefill_chunk: int = 16
     use_otp: bool = True  # OTP decode masks when the model carries them
     # PMQ expert-FFN path: "grouped" (the Hopper kernels on the card, their
-    # plain versions on the CPU) or "ref" (the plain versions on either);
-    # None takes REPRO_FFN_BACKEND, else "grouped"
+    # plain versions on the CPU), "ref" (the plain versions on either) or
+    # "scan" (per-expert quant_matmul); None takes REPRO_FFN_BACKEND, else
+    # "grouped"
     ffn_backend: Optional[str] = None
     # raise expert capacity to the drop-free bound inside every step
     drop_free_capacity: bool = True

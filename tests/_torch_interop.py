@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.compressed_moe import CompressedExperts
+from repro.core.compressed_moe import BucketMeta, CompressedExperts
 from repro.core.otp import init_otp_router
 from repro.core.packing import PackedTensor
 
@@ -83,12 +83,13 @@ def compressed_reference(cfg, seed: int = 0):
     return _with_otp(params_c, cfg)
 
 
-def planned_blocks(cfg, bits, seed: int = 0):
+def planned_blocks(cfg, bits, seed: int = 0, ep: int = 1):
     """``(params, blocks_c, top)``: ``cfg`` initialized from ``seed`` and its
     per-layer compressed blocks from the reference ``compress_model`` with
     the fixed layer-uniform PMQ plan ``bits`` (one width per expert; RTN +
     HQQ, no GPTQ, so no calibration pass), 4-bit attention and shared
-    experts — the layout ``compressed_forward`` and ``train_otp`` take."""
+    experts — the layout ``compressed_forward`` and ``train_otp`` take.
+    ``ep`` pads the buckets to its multiples (expert parallelism)."""
     import types
 
     from repro.core import pipeline, pmq
@@ -100,17 +101,17 @@ def planned_blocks(cfg, bits, seed: int = 0):
                        objective=0.0, layer_budgets=np.zeros(cfg.num_layers))
     no_calib = types.SimpleNamespace(
         moe_inputs=[np.zeros((1, cfg.d_model), np.float32)] * cfg.num_layers)
-    blocks_c, top = pipeline.compress_model(params, no_calib, plan, cfg, use_gptq=False)
+    blocks_c, top = pipeline.compress_model(params, no_calib, plan, cfg, use_gptq=False, ep=ep)
     return params, blocks_c, top
 
 
-def planned_reference(cfg, bits, seed: int = 0):
+def planned_reference(cfg, bits, seed: int = 0, ep: int = 1):
     """The blocks of :func:`planned_blocks` in the stacked serving layout with
     OTP routers — the serving tree of :func:`compressed_reference` without
     its calibration and LP, at a third of the cost."""
     from repro.models import transformer as tf
 
-    _, blocks_c, top = planned_blocks(cfg, bits, seed)
+    _, blocks_c, top = planned_blocks(cfg, bits, seed, ep)
     params_c = dict(top, blocks=tf.restack_blocks(blocks_c))
     return _with_otp(params_c, cfg)
 
@@ -121,3 +122,15 @@ def _with_otp(params_c, cfg):
             for l in range(cfg.num_layers)]
     params_c["blocks"]["otp"] = jax.tree.map(lambda *xs: jnp.stack(xs), *otps)
     return params_c
+
+
+def reference_experts(ce):
+    """The reference's ``CompressedExperts`` over the packed bytes of the
+    port's ``ce`` (all-resident; the two builders are held byte for byte in
+    ``tests/test_torch_ep.py``)."""
+    return CompressedExperts(
+        meta=tuple(BucketMeta(m.bits, m.start, m.count) for m in ce.meta),
+        slot_of_expert=jnp.asarray(ce.slot_of_expert.numpy().astype(np.int32)),
+        arrays={b: {n: {k: jnp.asarray(t.numpy()) for k, t in w.items()} for n, w in bw.items()}
+                for b, bw in ce.arrays.items()},
+        num_slots=ce.num_slots, group=ce.group, d_model=ce.d_model, d_ff=ce.d_ff)

@@ -147,10 +147,11 @@ def test_legacy_refusals_match_reference(extra, monkeypatch):
 
 
 def test_ffn_backend_flag():
-    for backend in ("grouped", "ref"):
+    results = {}
+    for backend in ("grouped", "ref", "scan"):
         engine = tserve.main(CHAOS + ["--ffn-backend", backend])
         assert engine.ecfg.ffn_backend == backend and len(engine.results) == 4
-    with pytest.raises(SystemExit, match="'scan' is not ported.*item 5"):
-        tserve.main(CHAOS + ["--ffn-backend", "scan"])
+        results[backend] = engine.results
+    assert results["scan"] == results["grouped"]
     with pytest.raises(SystemExit, match="'interpret' is not ported.*Pallas interpreter"):
         tserve.main(CHAOS + ["--ffn-backend", "interpret"])

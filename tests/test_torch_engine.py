@@ -189,11 +189,11 @@ def test_engine_greedy_tokens_match_reference(served_model, horizon):
     assert 0.0 < eng.summary()["expert_activation"] < 1.0  # OTP pruned some experts
 
 
-@pytest.mark.parametrize("ffn_backend", ["grouped", "ref"])
+@pytest.mark.parametrize("ffn_backend", ["grouped", "ref", "scan"])
 def test_engine_ffn_backend_tokens_match_reference(served_model, ffn_backend):
     """``EngineConfig(ffn_backend=)`` on both sides: the port's ``grouped``
-    (plain versions on the CPU) and ``ref`` serve the reference engine's
-    tokens under the same backend."""
+    (plain versions on the CPU), ``ref`` and ``scan`` serve the reference
+    engine's tokens under the same backend."""
     cfg, params_j, params_t = served_model
     geo = dict(max_slots=2, block_size=16, num_blocks=16, max_blocks_per_slot=4,
                prefill_chunk=16, decode_horizon=4, reserve_full=True, use_otp=True,
@@ -208,8 +208,8 @@ def test_engine_ffn_backend_tokens_match_reference(served_model, ffn_backend):
 
 def test_ffn_backend_env_sets_the_process_default(served_model, monkeypatch):
     """``REPRO_FFN_BACKEND`` is the default of an engine left at
-    ``ffn_backend=None``, read as the reference reads it; a refused backend
-    named there fails where it is resolved."""
+    ``ffn_backend=None``, read as the reference reads it (``scan`` too); the
+    refused ``interpret`` named there fails where it is resolved."""
     from repro.core.compressed_moe import default_ffn_backend as jdefault
     from repro_torch.core.compressed_moe import default_ffn_backend, resolve_ffn_backend
 
@@ -225,7 +225,9 @@ def test_ffn_backend_env_sets_the_process_default(served_model, monkeypatch):
                              EngineConfig(**geo), device="cpu")
     assert eng.serve(Request(rid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)) == want
     monkeypatch.setenv("REPRO_FFN_BACKEND", "scan")
-    with pytest.raises(ValueError, match="queue 1 item 5"):
+    assert default_ffn_backend() == jdefault() == resolve_ffn_backend(None) == "scan"
+    monkeypatch.setenv("REPRO_FFN_BACKEND", "interpret")
+    with pytest.raises(ValueError, match="interpret.*not ported"):
         resolve_ffn_backend(None)
 
 
@@ -254,7 +256,9 @@ def test_import_leaves_jax_and_repro_out():
         "assert not bad, bad\n"
         "for m in ('models.registry', 'models.moe', 'configs.qwen3_14b', 'launch.fp_tokens',\n"
         "          'serving.offload', 'serving.tierstore', 'core.pipeline', 'core.gptq',\n"
-        "          'core.pmq', 'core.significance'):\n"
+        "          'core.pmq', 'core.significance', 'parallel.sharding',\n"
+        "          'parallel.ep_shardmap', 'launch.mesh', 'runtime.elastic',\n"
+        "          'optim.grad_compress'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
@@ -276,12 +280,10 @@ def test_engine_refuses_later_slice_settings(served_model):
         PagedServingEngine(cfg, params_t, EngineConfig(decode_horizon=0), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         PagedServingEngine(dataclasses.replace(cfg, num_layers=3), params_t, device="cpu")
-    # the reference's FFN backend knob: grouped and ref are ported, scan (expert
-    # parallelism) and interpret (the Pallas interpreter) are refused by name
-    for backend in ("grouped", "ref"):
+    # the reference's FFN backend knob: grouped, ref and scan are ported,
+    # interpret (the Pallas interpreter) is refused by name
+    for backend in ("grouped", "ref", "scan"):
         assert EngineConfig(ffn_backend=backend).ffn_backend == backend
-    with pytest.raises(ValueError, match="queue 1 item 5"):
-        EngineConfig(ffn_backend="scan")
     with pytest.raises(ValueError, match="interpret.*not ported"):
         EngineConfig(ffn_backend="interpret")
     with pytest.raises(ValueError, match="policy"):

@@ -1083,7 +1083,7 @@ def test_gemm_x_gradients_match_plain(dev, bits, dtype):
 def test_ffn_backend_ref_runs_the_plain_versions_on_the_card(dev):
     """``ffn_backend="ref"`` on CUDA tensors runs the plain grouped GEMMs
     (no grouped kernel launches) and agrees with ``grouped``; ``scan`` is
-    refused."""
+    accepted and ``interpret`` refused."""
     from repro_torch.configs import get_config
     from repro_torch.core.compressed_moe import compressed_moe_layer
     from repro_torch.core.synthetic import build_synthetic
@@ -1101,5 +1101,33 @@ def test_ffn_backend_ref_runs_the_plain_versions_on_the_card(dev):
         gmm = build.LAUNCHES["moe_gmm"] + build.LAUNCHES["moe_gmm_swiglu"]
         assert (gmm > 0) == (backend == "grouped")
     _close(out["grouped"], out["ref"], torch.float32)
-    with pytest.raises(ValueError, match="item 5"):
-        compressed_moe_layer(p["moe"], p["moe_ce"], x, cfg, ffn_backend="scan")
+    compressed_moe_layer(p["moe"], p["moe_ce"], x, cfg, ffn_backend="scan")
+    with pytest.raises(ValueError, match="interpret.*not ported"):
+        compressed_moe_layer(p["moe"], p["moe_ce"], x, cfg, ffn_backend="interpret")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_backend_scan_launches_quant_matmul_on_the_card(dev, dtype):
+    """``ffn_backend="scan"`` on the card: three ``quant_matmul`` launches
+    per expert slot (gate, up, down) and no grouped GEMM; the layer agrees
+    with ``grouped``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressed_moe import compressed_moe_layer
+    from repro_torch.core.synthetic import build_synthetic
+    from repro_torch.kernels import build
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    params = build_synthetic(cfg, seed=0, device=dev)
+    p = params["layers"][0]
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    out = {}
+    for backend in ("grouped", "scan"):
+        build.reset_launches()
+        out[backend], _ = compressed_moe_layer(p["moe"], p["moe_ce"], x, cfg,
+                                               otp_params=p.get("otp"), ffn_backend=backend)
+        launches = dict(build.LAUNCHES)
+    assert launches["moe_gmm"] == launches["moe_gmm_swiglu"] == 0
+    # three per slot, plus the shared experts' three 4-bit linears
+    assert launches["quant_matmul"] == 3 * p["moe_ce"].num_slots + 3
+    _close(out["scan"], out["grouped"], dtype)

@@ -427,7 +427,7 @@ def test_resilient_loop_gives_up():
 
 
 # ------------------------------------------------------------------ train
-def test_train_reduced_trains_checkpoints_and_resumes(tmp_path, capsys):
+def test_train_reduced_trains_checkpoints_and_resumes(tmp_path, capsys, monkeypatch):
     """A few ``train_reduced`` steps of the reduced ``tinyllama-1.1b`` on the
     CPU: the loss falls, the last step is checkpointed, and a second call
     resumes there and stops at once with the same params."""
@@ -444,5 +444,17 @@ def test_train_reduced_trains_checkpoints_and_resumes(tmp_path, capsys):
                     params)
     assert "step     4 loss" in capsys.readouterr().out
     assert time.perf_counter() - t0 < 60
-    with pytest.raises(SystemExit):
-        ttrain.main(["--arch", "tinyllama-1.1b", "--coordinator", "h:1", "--device", "cpu"])
+    # --coordinator joins a process group of one (RANK / WORLD_SIZE unset:
+    # 0 and 1) at a local address, trains, and leaves the group
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    hist3 = ttrain.main(["--arch", "tinyllama-1.1b", "--steps", "1", "--batch", "2", "--seq",
+                         "16", "--device", "cpu", "--coordinator", f"127.0.0.1:{port}"])
+    assert len(hist3) == 1 and np.isfinite(hist3[0]) and not dist.is_initialized()
