@@ -201,10 +201,11 @@ Phases (each failure exits non-zero):
    the two runs' tokens identical, each held to a teacher-forced forward
    over prompt and tokens (a first drift must start at a near-tie within
    ``ORACLE_GAP_ULPS``), no kernel launched, weight bytes, peak, prefill
-   wall and tokens/s printed; then ``xlstm-350m`` in f32 trained 3 steps of
-   4 × 256 tokens through ``launch.train.train_step`` (finite losses, the
-   peak beside its prediction); and last ``TRAIN``:
-   ``tinyllama-1.1b`` at full width in f32 trained for 20 steps of 8 × 128
+   wall and tokens/s printed; then ``xlstm-350m`` in f32 (its first 12
+   layers) trained 3 steps of 4 × 256 tokens through
+   ``launch.train.train_step`` (finite losses, the peak beside its
+   prediction); and last ``TRAIN``: ``tinyllama-1.1b`` at full width in
+   f32 (its first 11 layers) trained for 20 steps of 8 × 128
    tokens through ``launch.train.train_step`` (AdamW, 32-bit moments)
    under ``torch.use_deterministic_algorithms``: the loss falls; the state
    is checkpointed and restored into a fresh trainer whose next step's loss
@@ -472,8 +473,22 @@ def parity_quant_matmul(gen, results):
     r = _time_quant_matmul("quant_matmul prefill", 16, 2048, 2816, 4, gen)
     results["quant_matmul"]["prefill"] = r
     log_extra("quant_matmul", "prefill", r)
+    # STEPS' tensor-parallel shapes at model = 4: wq/wk/wv's four heads
+    # (K 2048 -> N 512) and wo's rows (K 512 -> N 2048), at a decode batch and
+    # the OTP step's 4 x 64 tokens
+    results["quant_matmul"]["tp"] = {}
+    for m, k, n in TP_QMM:
+        r = _time_quant_matmul(f"quant_matmul tp M={m} K={k} N={n}", m, k, n, 4, gen)
+        results["quant_matmul"]["tp"][f"M={m} K={k} N={n}"] = r
+        results["quant_matmul"]["max_abs_err"] = max(results["quant_matmul"]["max_abs_err"],
+                                                     r["max_abs_err"])
+        log_extra("quant_matmul", f"tp M={m} K={k} N={n}", r)
 
 
+#: ``quant_matmul``'s (M, K, N) under STEPS' tensor parallelism (moonshot's
+#: 16 heads of 128 over model = 4): the column-parallel q/k/v and the
+#: row-parallel o, 4-bit group 128
+TP_QMM = [(m, k, n) for m in (4, 256) for k, n in ((2048, 512), (512, 2048))]
 #: the ``scan`` expert FFN's GEMMs on moonshot-v1-16b-a3b: one expert's
 #: capacity rows (M = 8 at decode, 32 at a 4 × 64 prefill) through gate and
 #: up (K = 2048 → N = 1408) and down (K = 1408 → N = 2048), at the buckets'
@@ -2116,6 +2131,208 @@ def ep_path():
     return layer_launches, decode_launches
 
 
+#: STEPS: the ranks sharing the card, the OTP step's kernels on every rank,
+#: the full-training model's depth and steps
+STEPS_WORLD = 4
+#: (a)'s router gradients, max|rank − single| / max|single|, a fixed limit
+#: between two readings: sound ranks read 0.0352 on the card (bf16 GEMMs in
+#: other partitions; the same gradients through the per-expert scan against
+#: the grouped GEMMs read 0.0212 in one process), and the EP region with its
+#: ``enter`` on the OTP mask dropped reads 0.77-1.18 on the CPU ranks of
+#: ``tests/test_torch_steps_ranks.py`` (each rank keeps its own experts' share)
+STEPS_OTP_GRAD_TOL = 0.1
+STEPS_OTP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm")
+STEPS_TRAIN_ARCH, STEPS_TRAIN_STEPS, STEPS_ACCUM = "tinyllama-1.1b", 2, 2
+#: (b)'s depth: 22 layers left four ranks and the single process's
+#: parameters, gradients and two steps' results no room on the card
+STEPS_TRAIN_LAYERS = 11
+STEPS_TRAIN_BATCH, STEPS_TRAIN_SEQ = 8, 128
+
+
+def _rel_l2(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over lists of ``{name: array}`` (numpy)."""
+    num = sum(float(((x[k] - y[k]) ** 2).sum()) for x, y in zip(a, b) for k in y)
+    return (num / max(sum(float((y[k] ** 2).sum()) for y in b for k in y), 1e-30)) ** 0.5
+
+
+def _rel(a, b) -> float:
+    """max|a − b| / max|b| over lists of ``{name: array}`` (numpy)."""
+    err = max(float(np.abs(x[k] - y[k]).max()) for x, y in zip(a, b) for k in y)
+    return err / max(max(float(np.abs(y[k]).max()) for y in b for k in y), 1e-30)
+
+
+def steps_path(otp_cfg=None, train_cfg=None):
+    """``STEPS``: the step builders across :data:`STEPS_WORLD` ranks on this
+    card over gloo (``repro_torch.launch.step_ranks``). (a) One OTP step of
+    the first ``workload.CUT_LAYERS`` layers of the PMQ model built with
+    ``ep=4`` on ``data=1 × model=4`` — expert parallelism, attention split 4
+    heads a rank, the shared experts' pair whole (its row half does not
+    divide into 128-groups) — on 4 × 64 tokens and fixed Gumbel draws,
+    against the single process's step: each rank's router gradients within
+    :data:`STEPS_OTP_GRAD_TOL` × their max, loss and KL within ``TOL`` (bf16)
+    × the loss, the sharded update fed the single process's gradients equal
+    to its updated routers bit for bit, the step's routers moved the other
+    way than the single process's only where its gradient lies within the
+    gradient limit of 0; ``STEPS_OTP_PATH``'s kernels launched on every rank
+    and no other, counted over the step alone. (b) ``tinyllama-1.1b`` in f32
+    (no TF32; its first :data:`STEPS_TRAIN_LAYERS` layers),
+    :data:`STEPS_TRAIN_STEPS` steps of ``build_step``'s train step
+    (``accum=2``, ZeRO-1, 32-bit moments) on ``data=2 × model=2`` against
+    the single process's same steps (run first; its state freed): each
+    step's loss within 1e-4 relative, the first step's gradients on each
+    rank's state blocks within 1e-4 × max, the sharded update fed the single
+    process's gradients equal to its first step bit for bit, the parameters
+    after the steps within 2 · lr · steps (their count more than 1e-4 × max
+    apart printed), each rank's optimizer state a quarter of the whole but
+    the norms' half. Returns the launches of (a), summed over the ranks."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import step_ranks, steps
+
+    begin_path()
+    t0 = time.perf_counter()
+    cfg = otp_cfg or dataclasses.replace(get_config(workload.ARCH),
+                                         num_layers=workload.CUT_LAYERS)
+    frozen = build_synthetic(cfg, seed=0, device=DEV, ep=STEPS_WORLD)
+    otp = [p.pop("otp") for p in frozen["layers"]]
+    opt = adamw_init({k: torch.stack([o[k] for o in otp]) for k in ("fc1", "fc2")},
+                     steps.OTP_ADAMW)
+    gen = torch.Generator().manual_seed(21)
+    seq = workload.PROMPT_LEN if otp_cfg is None else 16
+    shape = ShapeConfig("train_4k", seq, 4, "train")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq), generator=gen).to(DEV)}
+    draws = otp_mod.gumbel_uniforms(gen, (4 * seq, cfg.top_k), DEV)
+    art = steps.build_step(cfg, shape, None, train_mode="otp")
+    _, _, grads1_t = steps.otp_gradients(cfg, None, otp, frozen, batch, draws)
+    new1_t, _, loss1, kl1 = art.fn(steps._own(otp), steps._own(opt), frozen, batch, draws)
+    # copies: the tensors go to the ranks, whose transfer may move their storage
+    grads1 = [{k: v.float().cpu().numpy().copy() for k, v in g.items()} for g in grads1_t]
+    new1 = [{k: v.float().cpu().numpy().copy() for k, v in o.items()} for o in new1_t]
+    old = [{k: v.float().cpu().numpy().copy() for k, v in o.items()} for o in otp]
+    otp_s = time.perf_counter() - t0
+    log(f"STEPS: the OTP model built and its single-process step in {otp_s:.1f} s")
+
+    tcfg = train_cfg or dataclasses.replace(get_config(STEPS_TRAIN_ARCH), dtype="float32",
+                                            num_layers=STEPS_TRAIN_LAYERS)
+    bundle = get_model(tcfg)
+    tshape = ShapeConfig("train_4k", STEPS_TRAIN_SEQ if train_cfg is None else 16,
+                         STEPS_TRAIN_BATCH, "train")
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(0))
+    loader = HostDataLoader(vocab=tcfg.vocab_size, global_batch=STEPS_TRAIN_BATCH,
+                            seq_len=tshape.seq_len, seed=0)
+    tbatch = batch_to(loader.batch_at(0), DEV)
+    tart = steps.build_step(tcfg, tshape, None, accum=STEPS_ACCUM)
+    t1 = time.perf_counter()
+    _, tgrads = tart.grads(params, tbatch)
+    tgrads = {p: g.detach() for p, g in tgrads.items()}
+    final, topt, losses1, params1 = steps._own(params), steps.init_opt_blocks(tart, DEV), [], None
+    for _ in range(STEPS_TRAIN_STEPS):  # the step writes into its donated params and state
+        final, topt, loss = tart.fn(final, topt, tbatch)
+        losses1.append(float(loss))
+        params1 = params1 or steps._own(final)
+    whole_state = {p: v.numel() * v.element_size()
+                   for p, v in tree_paths(topt["per_param"])}
+    del topt
+    train1_s = time.perf_counter() - t1
+    log(f"STEPS: {tcfg.name}'s single-process steps in {train1_s:.1f} s")
+    if DEV.type == "cuda":
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    payload = {"otp": {"cfg": cfg, "shape": shape, "otp": otp, "opt": opt, "frozen": frozen,
+                       "batch": batch, "draws": draws, "grads": grads1_t, "otp1": new1_t},
+               "train": {"cfg": tcfg, "shape": tshape, "accum": STEPS_ACCUM,
+                         "steps": STEPS_TRAIN_STEPS, "params": params, "grads": tgrads,
+                         "params1": params1, "final": final, "batch": tbatch}}
+    t2 = time.perf_counter()
+    res = step_ranks.run(payload, world=STEPS_WORLD)
+    ranks_s = time.perf_counter() - t2
+
+    launches = {k: sum(o["otp"]["launches"][k] for o in res) for k in build.LAUNCHES}
+    worst, faults = {}, []
+    for r, o in enumerate(res):
+        a = o["otp"]
+        la = a["launches"]
+        if any(la[k] == 0 for k in STEPS_OTP_PATH) or any(v and k not in STEPS_OTP_PATH
+                                                           for k, v in la.items()):
+            faults.append(f"STEPS OTP rank {r}: launches {la}")
+        # the gradients against their max within STEPS_OTP_GRAD_TOL; loss and
+        # KL against the loss (the KL is a small difference of two
+        # distributions); the sharded update fed the single process's
+        # gradients equal to its routers bit for bit; AdamW's first update is
+        # lr · sign(g) but where |g| ~ eps, so the step's routers may move the
+        # other way than the single process's only where its gradient lies
+        # within the gradient limit of 0
+        g_max = max(float(np.abs(y[k]).max()) for y in grads1 for k in y)
+        flips = [np.sign(x[k] - o0[k]) != np.sign(y[k] - o0[k])
+                 for x, y, o0 in zip(a["otp"], new1, old) for k in y]
+        near0 = [np.abs(g[k]) <= STEPS_OTP_GRAD_TOL * g_max for g in grads1 for k in g]
+        errs = {"grads": _rel(a["grads"], grads1),
+                "flips_off_band": sum(int((f & ~z).sum()) for f, z in zip(flips, near0)),
+                "loss": abs(a["loss"] - float(loss1)) / abs(float(loss1)),
+                "kl": abs(a["kl"] - float(kl1)) / abs(float(loss1))}
+        limits = {"grads": STEPS_OTP_GRAD_TOL, "flips_off_band": 0,
+                  "loss": TOL[torch.bfloat16], "kl": TOL[torch.bfloat16]}
+        bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+        if not a["update_bitwise"]:
+            bad["update_bitwise"] = False
+        if bad:
+            faults.append(f"STEPS OTP rank {r}: errors {bad} above {limits}")
+        errs["flips"] = sum(int(f.sum()) for f in flips) / sum(f.size for f in flips)
+        errs["routers_rel"] = _rel(a["otp"], new1)
+        errs["grads_l2"] = _rel_l2(a["grads"], grads1)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in errs.items()}
+        t = o["train"]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(t["losses"], losses1))
+        if not (loss_err <= 1e-4 and t["grad_err"] <= 1e-4 * t["grad_scale"]
+                and t["update_bitwise"] and t["max_err"] <= t["update_bound"]):
+            faults.append(f"STEPS train rank {r}: losses {t['losses']} against "
+                                 f"{losses1}; first step's gradients max|diff| "
+                                 f"{t['grad_err']:.3e} of max {t['grad_scale']:.3e}; sharded "
+                                 f"update bitwise {t['update_bitwise']}; parameters max|diff| "
+                                 f"{t['max_err']:.3e} (bound {t['update_bound']:.1e})")
+        want = sum(b // (2 if any(n in str(p) for n in ("ln1", "ln2", "final_norm")) else 4)
+                   for p, b in whole_state.items())
+        if t["state_bytes"] != want:
+            faults.append(f"STEPS train rank {r}: optimizer state {t['state_bytes']} B, "
+                          f"expected {want} B of {sum(whole_state.values())}")
+    plan = res[0]["otp"]["plan"]
+    log(f"STEPS ({STEPS_WORLD} ranks on one card over gloo) OTP step ({cfg.name}, first "
+        f"{cfg.num_layers} layers, built with ep={STEPS_WORLD}, data=1 x model={STEPS_WORLD}, "
+        f"tensor-parallel pairs {plan} — a pair false stays whole on every rank; 4 x {seq} "
+        f"tokens, fixed Gumbel draws): single process (build, oracle) {otp_s:.1f} s; each rank "
+        f"against it, worst error by quantity { {k: round(v, 6) for k, v in worst.items()} } "
+        f"(grads / max|grads| — grads_l2 in the L2 norm —, flips_off_band: router elements "
+        f"updated the other way with |g| above the gradient limit — flips: the share updated "
+        f"the other way —, routers_rel / max|routers|, loss and kl / loss; limits {limits}); "
+        f"the sharded update on the single process's gradients bitwise by rank "
+        f"{[o['otp']['update_bitwise'] for o in res]}; loss {float(loss1):.6f}, kl "
+        f"{float(kl1):.6f}; step s (the step alone) by "
+        f"rank {[round(o['otp']['step_s'], 3) for o in res]}; peak device memory by rank (GB) "
+        f"{[round((o['otp_peak'] or 0) / 1e9, 3) for o in res]}; launches (all ranks) {launches}")
+    log(f"STEPS train ({tcfg.name}, {tcfg.num_layers} layers, f32, data=2 x model="
+        f"{STEPS_WORLD // 2}, accum={STEPS_ACCUM}, ZeRO-1, 32-bit moments, {STEPS_TRAIN_STEPS} "
+        f"steps of {STEPS_TRAIN_BATCH} x {tshape.seq_len} tokens): single process "
+        f"{train1_s:.1f} s, losses {losses1}; ranks' losses "
+        f"{[o['train']['losses'] for o in res]} (limit 1e-4 relative); first step's gradients "
+        f"max|diff| / max by rank "
+        f"{[round(o['train']['grad_err'] / o['train']['grad_scale'], 9) for o in res]} (limit "
+        f"1e-4); the sharded update on the single process's gradients bitwise by rank "
+        f"{[o['train']['update_bitwise'] for o in res]}; after {STEPS_TRAIN_STEPS} steps "
+        f"parameters max|diff| by rank {[o['train']['max_err'] for o in res]} of max "
+        f"{res[0]['train']['scale']:.4g} (bound 2 x lr x steps = "
+        f"{res[0]['train']['update_bound']:.1e}: Adam's update of a gradient near eps moves "
+        f"by up to lr under reordered sums), elements more than 1e-4 x max apart by rank "
+        f"{[o['train']['beyond'] for o in res]}; "
+        f"optimizer state bytes by rank {[o['train']['state_bytes'] for o in res]} of "
+        f"{sum(whole_state.values())}; step s by rank "
+        f"{[[round(x, 3) for x in o['train']['step_s']] for o in res]}; peak device memory by "
+        f"rank (GB) {[round((o['train_peak'] or 0) / 1e9, 3) for o in res]}; spawn to results "
+        f"{ranks_s:.1f} s; collective routes {res[0]['routes']}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches
+
+
 def build_logged(make):
     """``(cfg, params)`` of a full-width dense or uncompressed-MoE model built
     on the card by ``make``, with its build line (time, weights and the
@@ -2629,7 +2846,8 @@ def xlstm_train():
     (``HostDataLoader``, seed 0) through ``launch.train.train_step`` (AdamW,
     32-bit moments): finite losses, the peak beside its prediction, no kernel
     launched. Returns the launches."""
-    cfg, params = build_logged(lambda dev: workload.build_family("xlstm-350m", dev, "float32"))
+    cfg, params = build_logged(lambda dev: workload.build_family(
+        "xlstm-350m", dev, "float32", num_layers=workload.XLSTM_TRAIN_LAYERS))
     bundle = get_model(cfg)
     ocfg = AdamWConfig(lr=workload.TRAIN_LR)
     bsz, seq = workload.XLSTM_TRAIN_BATCH, workload.XLSTM_TRAIN_SEQ
@@ -2676,7 +2894,8 @@ def train_path():
     a ``tempfile`` directory) and restored into a fresh trainer, whose next
     step's loss and params equal the uninterrupted run's bit for bit.
     Returns the launches (the dense path runs no kernel of the port)."""
-    cfg = dataclasses.replace(get_config(workload.TRAIN_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(workload.TRAIN_ARCH), dtype="float32",
+                              num_layers=workload.TRAIN_LAYERS)
     bundle = get_model(cfg)
     ocfg = AdamWConfig(lr=workload.TRAIN_LR)
     n = workload.TRAIN_STEPS
@@ -2807,6 +3026,8 @@ def full_width():
     free_model()
     ep_layer_launches, ep_launches = walled("EP", ep_path)
     free_model()
+    steps_launches = walled("STEPS", steps_path)
+    free_model()
     dense_launches, _, _, _ = walled("dense", lambda: plain_path(
         "dense path", *build_logged(workload.build_dense), workload.DENSE, DENSE_PATH))
     free_model()
@@ -2848,6 +3069,7 @@ def full_width():
             "offload serving": offload_launches, "scan serving": scan_launches,
             "expert-parallel layer check (4 ranks)": ep_layer_launches,
             "expert-parallel decoding (4 ranks)": ep_launches,
+            "OTP step across ranks (4 ranks)": steps_launches,
             "dense serving": dense_launches,
             "uncompressed MoE serving": moe_launches,
             "compressed (pipeline) serving": compress_launches,
@@ -2925,7 +3147,8 @@ def main() -> int:
          "launches_by_path": {path: n[name] for path, n in paths.items() if n[name]},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "long", "decode_g5",
+         **{key: r[key] for key in ("ms_min", "ms_max", "sm_clock", "prefill", "tp", "long",
+                                     "decode_g5",
                                      "window_g2", "decode_g8", "k7168", "k8192", "k17408", "scan",
                                      "split_k_max_abs_err") if key in r}}
         for name, r in results.items()

@@ -1,4 +1,5 @@
-from .base import ModelConfig, QuantConfig
-from .registry import ARCH_IDS, CONFIGS, get_config
+from .base import SHAPES, ModelConfig, QuantConfig, ShapeConfig, supported_shapes
+from .registry import ARCH_IDS, CONFIGS, all_cells, get_config
 
-__all__ = ["ARCH_IDS", "CONFIGS", "ModelConfig", "QuantConfig", "get_config"]
+__all__ = ["ARCH_IDS", "CONFIGS", "SHAPES", "ModelConfig", "QuantConfig", "ShapeConfig",
+           "all_cells", "get_config", "supported_shapes"]

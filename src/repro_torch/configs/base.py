@@ -1,13 +1,14 @@
 """Model configuration for the port: its own copy of the reference
-``ModelConfig`` and ``QuantConfig`` (``repro/configs/base.py``), so the port
-imports nothing of the JAX package. ``reduced()`` gives the CPU-sized
-config of the same family (small dims, few experts, tiny vocab)."""
+``ModelConfig``, ``QuantConfig``, ``ShapeConfig``, ``SHAPES`` and
+``supported_shapes`` (``repro/configs/base.py``), so the port imports
+nothing of the JAX package. ``reduced()`` gives the CPU-sized config of the
+same family (small dims, few experts, tiny vocab)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
-__all__ = ["ModelConfig", "QuantConfig"]
+__all__ = ["ModelConfig", "QuantConfig", "SHAPES", "ShapeConfig", "supported_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,3 +144,28 @@ class ModelConfig:
         all_experts = l * self.num_experts * 3 * d * self.d_ff_expert
         active = l * self.top_k * 3 * d * self.d_ff_expert
         return total - all_experts + active
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def supported_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The shape cells of an arch: train, prefill and decode, and
+    ``long_500k`` for the sub-quadratic ones."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        names.append("long_500k")
+    return tuple(names)

@@ -5,7 +5,7 @@ Holds every architecture of the reference (the ``dense``, ``moe``, ``vlm``,
 reference config of the same name field for field."""
 from __future__ import annotations
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, supported_shapes  # noqa: F401
 from .command_r_35b import CONFIG as _commandr
 from .gemma3_27b import CONFIG as _gemma3
 from .kimi_k2_1t_a32b import CONFIG as _kimi
@@ -27,3 +27,10 @@ def get_config(name: str) -> ModelConfig:
     if name not in CONFIGS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return CONFIGS[name]
+
+
+def all_cells():
+    """Every ``(arch, shape)`` cell, with each arch's supported shapes."""
+    for name in ARCH_IDS:
+        for shape_name in supported_shapes(CONFIGS[name]):
+            yield name, shape_name

@@ -63,6 +63,7 @@ from ..models.moe import (
     count_ids,
     dispatch_capacity,
     route_topk,
+    shared_d_ff,
     slot_fill_counts,
 )
 from ..parallel.sharding import EPRegionError, current_mesh, model_axis_size
@@ -469,7 +470,7 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
             capacity_factor=capacity_factor, ffn_backend=ffn_backend)
         if "shared" in p:
             b, s, d = x.shape
-            y = y + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
+            y = y + mlp(p["shared"], x.reshape(b * s, d), shared_d_ff(cfg)).reshape(b, s, d)
         info = {"probs": None, "idx": None, "gates": None, "mask": None,
                 "mask_l1": mask_l1 if otp_params is not None else None, "slot_counts": None}
         return y, info
@@ -495,7 +496,7 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
     yp = compressed_expert_ffn(ce, xp, cap, slot_fill, backend=ffn_backend)
     y = combine(yp, dest, valid, gflat, t, k)
     if "shared" in p:
-        y = y + mlp(p["shared"], x2)
+        y = y + mlp(p["shared"], x2, shared_d_ff(cfg))
     info = {"probs": probs, "idx": idx, "gates": gates, "mask": mask,
             "mask_l1": mask.mean() if mask is not None else None, "slot_counts": slot_counts}
     return y.reshape(b, s, d), info

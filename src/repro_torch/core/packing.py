@@ -115,6 +115,40 @@ class PackedTensor:
         codes = unpack_bits(self.data, self.bits, axis=0)[:self.shape[0]]
         return dequantize_affine(codes, self.scale, self.zero, self.group, dtype)
 
+    @property
+    def pack_rows(self) -> int:
+        """Logical rows per packed row (the 3-bit planes' least common
+        multiple: 8)."""
+        return 8 if self.bits == 3 else 8 // self.bits
+
+    def slice_cols(self, n0: int, n1: int) -> "PackedTensor":
+        """Columns ``[n0, n1)`` of the logical weight: the same bytes as
+        packing that slice of it."""
+        cut = lambda t: t[:, n0:n1].contiguous()  # noqa: E731
+        data = tuple(map(cut, self.data)) if self.bits == 3 else cut(self.data)
+        return dataclasses.replace(self, data=data, scale=cut(self.scale), zero=cut(self.zero),
+                                   shape=(self.shape[0], n1 - n0))
+
+    def slice_rows(self, k0: int, k1: int) -> "PackedTensor":
+        """Rows ``[k0, k1)`` of the logical weight, both ends on quant-group
+        and packed-byte boundaries (or ``k1`` the last row): the same bytes
+        as packing that slice of it."""
+        for k in (k0, k1):
+            if k != self.shape[0] and (k % self.group or k % self.pack_rows):
+                raise ValueError(f"row {k} of a {self.bits}-bit PackedTensor (group "
+                                 f"{self.group}) is not on a group and byte boundary")
+
+        def rows(t, per):
+            return t[k0 // per:-(-k1 // per)].contiguous()
+
+        if self.bits == 3:
+            data = (rows(self.data[0], 4), rows(self.data[1], 8))
+        else:
+            data = rows(self.data, 8 // self.bits)
+        return dataclasses.replace(self, data=data, scale=rows(self.scale, self.group),
+                                   zero=rows(self.zero, self.group), shape=(k1 - k0,
+                                                                            self.shape[1]))
+
     def to(self, device) -> "PackedTensor":
         data = tuple(t.to(device) for t in self.data) if self.bits == 3 else self.data.to(device)
         return dataclasses.replace(

@@ -29,14 +29,15 @@ behaviour:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
-from .compressed_moe import build_compressed_experts
+from .compressed_moe import BucketMeta, CompressedExperts, build_compressed_experts
 from .quantizers import quantize_to_packed
 
-__all__ = ["TARGET_AVG_BITS", "bucket_counts", "build_synthetic", "build_uncompressed"]
+__all__ = ["TARGET_AVG_BITS", "bucket_counts", "build_synthetic", "build_uncompressed",
+           "synthetic_compressed_experts"]
 
 #: average expert bits of the plan (``compress_for_serving``'s default)
 TARGET_AVG_BITS = 2.05
@@ -174,3 +175,53 @@ def build_uncompressed(cfg, *, seed: int = 0, device="cuda") -> Dict:
             layer["mlp"] = mlp(cfg.d_ff)
         params["layers"].append(layer)
     return params
+
+
+def synthetic_compressed_experts(cfg, target_avg_bits: float = 2.25, ep: int = 16,
+                                 device="meta") -> List[CompressedExperts]:
+    """One zero-filled :class:`CompressedExperts` per layer, the same bucket
+    structure in each: the port's counterpart of the reference's stacked
+    ``synthetic_stacked_compressed`` (``repro/core/pipeline.py:314``), on
+    ``device`` (``meta``: shapes only). Bucket counts are multiples of
+    ``ep`` (1 where it does not divide the experts), the sizes on that grid
+    whose average bits come closest to ``target_avg_bits``; scales and
+    zeros bf16, ``slot_of_expert`` the identity."""
+    e = cfg.num_experts
+    if e % ep:
+        ep = 1
+    best, best_err = None, float("inf")
+    for n1 in range(ep, e - ep + 1, ep):
+        for n3 in range(ep, e - n1 - ep + 1, ep):
+            n2 = e - n1 - n3
+            err = abs((n1 + 2 * n2 + 3 * n3) / e - target_avg_bits)
+            if err < best_err:
+                best, best_err = (n1, n2, n3), err
+    d, f, group = cfg.d_model, cfg.d_ff_expert, cfg.quant.group
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def layer() -> CompressedExperts:
+        meta, arrays, start = [], {}, 0
+        for bits, cnt in zip((1, 2, 3), best):
+            if cnt == 0:
+                continue
+            bucket = {}
+            for name, (k, n) in (("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
+                ng = -(-k // group)
+                entry = {"scale": zeros((cnt, ng, n), torch.bfloat16),
+                         "zero": zeros((cnt, ng, n), torch.bfloat16)}
+                if bits == 3:
+                    entry["hi"] = zeros((cnt, k // 4, n), torch.uint8)
+                    entry["lo"] = zeros((cnt, k // 8, n), torch.uint8)
+                else:
+                    entry["data"] = zeros((cnt, k // (8 // bits), n), torch.uint8)
+                bucket[name] = entry
+            arrays[f"b{len(meta)}"] = bucket
+            meta.append(BucketMeta(bits=bits, start=start, count=cnt))
+            start += cnt
+        return CompressedExperts(meta=tuple(meta),
+                                 slot_of_expert=torch.arange(e, dtype=torch.int32, device=device),
+                                 arrays=arrays, num_slots=start, group=group, d_model=d, d_ff=f)
+
+    return [layer() for _ in range(cfg.num_layers)]

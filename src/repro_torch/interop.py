@@ -32,6 +32,13 @@ stays a list, and an empty one, which leaves no key, comes back as ``[]``.
 :func:`params_from_checkpoint` carries the ``params`` of a checkpoint the
 reference's trainer wrote (``repro.launch.train``, the examples) through the
 same mapping: that is how a model trained by the reference reaches the port.
+
+The step builders' other arguments (``repro_torch.launch.steps``): the
+stacked OTP routers ``{"fc1": [L, D, k], "fc2": [L, 2k, k]}`` become one
+router per layer (:func:`otp_from_reference`), and an ``adamw_init`` /
+``adamw_update`` state keeps the reference's stacked tree, which the port's
+steps use too (:func:`opt_state_from_reference`; an 8-bit moment's ``q`` and
+``scale`` become a :class:`~repro_torch.optim.adamw.Q8`).
 """
 from __future__ import annotations
 
@@ -42,8 +49,10 @@ import torch
 
 from .core.compressed_moe import BucketMeta, CompressedExperts
 from .core.packing import PackedTensor
+from .optim.adamw import Q8
 
-__all__ = ["params_from_checkpoint", "params_from_reference"]
+__all__ = ["opt_state_from_reference", "otp_from_reference", "params_from_checkpoint",
+           "params_from_reference"]
 
 _BLOCKS = "blocks/"
 #: the stacked roots of the non-transformer families' trees
@@ -158,3 +167,24 @@ def params_from_checkpoint(ckpt, step: int, *, device="cuda") -> Dict:
         raise ValueError(f"checkpoint {step}: no stacked blocks under {head!r}")
     return params_from_reference(flat, {"num_layers": layers.pop(), "packed": {}},
                                  device=device)
+
+
+def otp_from_reference(flat: Dict[str, np.ndarray], *, device="cuda"):
+    """The reference's stacked OTP routers (``{"fc1": [L, D, k], "fc2":
+    [L, 2k, k]}`` as numpy) as one ``{"fc1", "fc2"}`` per layer."""
+    return [{k: _tensor(a[l], device) for k, a in flat.items()}
+            for l in range(flat["fc1"].shape[0])]
+
+
+def opt_state_from_reference(flat: Dict[str, np.ndarray], *, device="cuda") -> Dict:
+    """An AdamW state of the reference (``step`` and ``per_param/<path>/<m
+    | v | master>``, an 8-bit moment's ``/q`` and ``/scale``; stacked leaves
+    stay stacked) as the port's steps hold it."""
+    def q8(node):
+        if not isinstance(node, dict):
+            return node
+        if set(node) == {"q", "scale"}:
+            return Q8(q=node["q"], scale=node["scale"])
+        return {k: q8(v) for k, v in node.items()}
+
+    return q8(_nest({k: _tensor(a, device) for k, a in flat.items()}))

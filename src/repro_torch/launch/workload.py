@@ -123,10 +123,10 @@ with random weights from seed 0:
 * ``OTP``: routers trained by ``core.otp_train.train_otp`` (``OTP_TRAIN``)
   on the ``COMPRESS`` tree, on :func:`otp_tokens`, then served on ``ENGINE``'s
   geometry and :func:`requests`.
-* ``TRAIN``: ``tinyllama-1.1b`` at full width in f32 trained for
-  ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens
-  (``HostDataLoader``, seed 0) through ``launch.train.train_step``, then
-  checkpointed and resumed.
+* ``TRAIN``: ``tinyllama-1.1b`` at full width in f32, its first
+  ``TRAIN_LAYERS`` = 11 of 22 layers, trained for ``TRAIN_STEPS`` steps of
+  ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens (``HostDataLoader``, seed 0)
+  through ``launch.train.train_step``, then checkpointed and resumed.
 
 ``TENANT_MIX``, ``PREEMPT``, ``OFFLOAD``, ``COMPRESS``'s sampled runs and
 ``OTP`` take the first ``CUT_LAYERS`` = 12 of the compressed model's 48 layers
@@ -150,7 +150,8 @@ reference's does):
   tokens, so decode attends past the window, and 32 greedy tokens.
 * ``XLSTM``: ``xlstm-350m`` (12 × (mLSTM, sLSTM), d_model 1024, 4 heads,
   mLSTM head width 512, vocab 50304; 0.757 GB): 4 requests of 64 + 32;
-  then :data:`XLSTM_TRAIN_STEPS` = 3 ``train_step``s in f32 at
+  then, on its first :data:`XLSTM_TRAIN_LAYERS` = 12 layers,
+  :data:`XLSTM_TRAIN_STEPS` = 3 ``train_step``s in f32 at
   ``XLSTM_TRAIN_BATCH`` × ``XLSTM_TRAIN_SEQ`` = 4 × 256 tokens with 32-bit
   AdamW (the mLSTM scan's chunked recompute keeps ``C`` at 64-step
   boundaries only).
@@ -163,7 +164,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,7 +206,9 @@ __all__ = [
     "VLM_PATCH_NEW",
     "WIDE_MOE",
     "WINDOWED",
+    "TRAIN_LAYERS",
     "XLSTM_TRAIN_BATCH",
+    "XLSTM_TRAIN_LAYERS",
     "XLSTM_TRAIN_SEQ",
     "XLSTM_TRAIN_STEPS",
     "build",
@@ -272,6 +275,9 @@ OTP_SAMPLES, OTP_SEQ, OTP_SEED = 32, 64, 3
 #: small ``v`` rounds to 0 and the row's gradient is 0 (as the reference's
 #: does), reported beside the 32-bit losses
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = "tinyllama-1.1b", 20, 8, 128, 3e-4
+#: ``TRAIN``'s depth: the first 11 of tinyllama-1.1b's 22 layers (cut in PR 25
+#: for ``chip_smoke.py``'s time; its 13.2 GB checkpoint round trip dominated)
+TRAIN_LAYERS = 11
 #: (tenant, requests, prompt tokens, new tokens, priority, arrival boundaries)
 TENANTS = (("batch", 2, 64, 32, 0, (0, 0)),
            ("chat", 3, 32, 16, 1, (0, 0, 0)),
@@ -370,6 +376,9 @@ OFFLOAD_HOST_BYTES = 256 << 20
 FAMILY_ARCHS = {"whisper-small": (4, 64), "recurrentgemma-2b": (2, 2080), "xlstm-350m": (4, 64)}
 FAMILY_MAX_NEW, FAMILY_SEED, FRAMES_SEED = 32, 7, 0
 XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 3, 4, 256
+#: the xlstm training's depth: 12 of xlstm-350m's 24 layers (cut in PR 25 for
+#: ``chip_smoke.py``'s time)
+XLSTM_TRAIN_LAYERS = 12
 
 
 def first_layers(cfg, params, n: int):
@@ -378,13 +387,16 @@ def first_layers(cfg, params, n: int):
     return dataclasses.replace(cfg, num_layers=n), dict(params, layers=params["layers"][:n])
 
 
-def build_family(arch: str, device="cuda", dtype=None) -> Tuple[object, Dict]:
+def build_family(arch: str, device="cuda", dtype=None,
+                 num_layers: Optional[int] = None) -> Tuple[object, Dict]:
     """``(cfg, params)`` of a whisper, recurrentgemma or xlstm model at full
-    width (``dtype`` replacing the config's), its bundle's ``init`` at seed
-    0 on ``device``."""
+    width (``dtype`` and ``num_layers`` replacing the config's), its
+    bundle's ``init`` at seed 0 on ``device``."""
     cfg = get_config(arch)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     return cfg, get_model(cfg).init(torch.Generator(device=device).manual_seed(0))
 
 

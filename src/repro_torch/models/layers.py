@@ -4,9 +4,20 @@ Weights are ``[K_in, N_out]`` (``y = x @ W``), so a :class:`PackedTensor`
 leaf substitutes 1:1 and routes through ``ops.quant_matmul``. Activations
 are ``[B, S, D]``, attention heads ``[B, S, H, dh]``. Every ``init_*``
 draws from an explicit ``torch.Generator`` on the generator's device.
+
+Under a mesh (``parallel.sharding.sharding_rules``) a rank that holds its
+share of a tensor-parallel pair (cut by ``parallel.ep_shardmap.shard_params``
+under ``parallel.sharding.tp_split``, found by ``tp_share``) runs that
+share — its heads, its columns of ``w_gate``/``w_up`` — enters it through
+``enter`` (its input's gradient summed over
+``model``) and ``all_reduce``s the partial product of ``wo`` / ``w_down``
+over ``model``. A whole pair runs whole, as without a mesh. The streaming
+losses sum over the batch axes, so under a mesh they are the global
+batch's, as the reference's are.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -15,6 +26,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..core.packing import PackedTensor
 from ..kernels import ops
+from ..parallel.sharding import all_reduce, batch_axes, current_mesh, enter, tp_share
 
 __all__ = [
     "apply_rope",
@@ -178,6 +190,20 @@ def _pad_rows(x: torch.Tensor, pad: int, dim: int, value=0) -> torch.Tensor:
     return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
 
 
+def _tp_attention(p, cfg):
+    """``(mesh, p, cfg)`` for a rank holding its heads of a split attention
+    under a mesh (:func:`~repro_torch.parallel.sharding.tp_share`) — ``p``'s
+    shared norms entered, ``cfg``'s head counts this rank's — or None for a
+    whole one."""
+    mesh = tp_share(p, cfg)
+    if mesh is None:
+        return None
+    model = mesh.shape["model"]
+    p = dict(p, **{n: enter(p[n], mesh, "model") for n in ("q_norm", "k_norm") if n in p})
+    return mesh, p, dataclasses.replace(cfg, num_heads=cfg.num_heads // model,
+                                        num_kv_heads=cfg.num_kv_heads // model)
+
+
 def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
               causal: bool = True, window: Optional[int] = None, rope: bool = True):
@@ -187,7 +213,13 @@ def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     prefill and whisper's decoder do; without it ``x`` gives q, k and v at
     ``positions``. ``rope=False`` leaves q and k unrotated (whisper's
     absolute positions). Returns ``(out [B, S, D] after wo, (k, v))`` — k/v
-    for cache builds."""
+    for cache builds (this rank's KV heads under tensor parallelism)."""
+    tp = _tp_attention(p, cfg)
+    if tp is not None:
+        mesh, p, cfg = tp
+        out, kv = attention(p, enter(x, mesh, "model"), cfg, positions=positions,
+                            kv_override=kv_override, causal=causal, window=window, rope=rope)
+        return all_reduce(out, mesh, "model"), kv
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -198,6 +230,8 @@ def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         q, k, v = _qkv(p, x, cfg, positions, rope)
         kv_pos = positions if positions.dim() == 1 else positions[0]
     kv_s = k.shape[1]
+    if q.is_meta:  # shapes only: the chunk sweep computes nothing on meta tensors
+        return linear(p["wo"], q.new_empty((b, s, hq * dh))), (k, v)
     qc = min(cfg.attn_q_chunk, s)
     kvc = min(cfg.attn_kv_chunk, k.shape[1])
     q_pos = positions if positions.dim() == 1 else positions[0]
@@ -228,7 +262,15 @@ def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
     ``> pos − window``). Cross-attention (``cross=True``) reads the cache
     only, over positions ``≤ kv_len − 1`` (all ``S`` without ``kv_len``),
     with no window and no rotation of q. Returns ``(out [B, 1, D],
-    (k_cache, v_cache))``."""
+    (k_cache, v_cache))``; under tensor parallelism the caches hold this
+    rank's KV heads."""
+    tp = _tp_attention(p, cfg)
+    if tp is not None:
+        mesh, p, cfg = tp
+        out, kv = decode_attention(p, enter(x, mesh, "model"), cfg, k_cache=k_cache,
+                                   v_cache=v_cache, pos=pos, window=window, rope=rope,
+                                   cross=cross, kv_len=kv_len)
+        return all_reduce(out, mesh, "model"), kv
     b = x.shape[0]
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -255,8 +297,15 @@ def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
     return linear(p["wo"], out), (k_cache, v_cache)
 
 
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU feed-forward."""
+def mlp(p, x: torch.Tensor, d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU feed-forward. Under a mesh, a rank holding its share of the
+    layer's ``d_ff`` columns (:func:`~repro_torch.parallel.sharding.tp_share`)
+    runs it and sums the partial products over ``model``."""
+    mesh = tp_share(p, d_ff=d_ff) if d_ff is not None else None
+    if mesh is not None:
+        xe = enter(x, mesh, "model")
+        h = F.silu(linear(p["w_gate"], xe)) * linear(p["w_up"], xe)
+        return all_reduce(linear(p["w_down"], h), mesh, "model")
     return linear(p["w_down"], F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
 
 
@@ -304,6 +353,9 @@ def chunked_xent(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     for c0 in range(0, s, chunk):
         t, c = _recomputed(_xent_chunk, hidden[:, c0:c0 + chunk], emb, labels[:, c0:c0 + chunk])
         tot, cnt = tot + t, cnt + c
+    mesh = current_mesh()
+    if mesh is not None:
+        tot, cnt = all_reduce(tot, mesh, batch_axes(mesh)), all_reduce(cnt, mesh, batch_axes(mesh))
     return tot / torch.clamp_min(cnt, 1.0)
 
 
@@ -324,4 +376,8 @@ def chunked_kl(hidden_s: torch.Tensor, hidden_t: torch.Tensor, emb: torch.Tensor
     for c0 in range(0, s, chunk):
         tot = tot + _recomputed(_kl_chunk, hidden_s[:, c0:c0 + chunk],
                                 hidden_t[:, c0:c0 + chunk], emb)
+    mesh = current_mesh()
+    if mesh is not None:
+        tot = all_reduce(tot, mesh, batch_axes(mesh))
+        b = b * mesh.extent(batch_axes(mesh))
     return tot / (b * s)

@@ -28,6 +28,7 @@ __all__ = [
     "load_balance_loss",
     "moe_layer",
     "route_topk",
+    "shared_d_ff",
     "slot_fill_counts",
 ]
 
@@ -38,6 +39,12 @@ def dispatch_capacity(cfg, t: int, capacity_factor=None) -> int:
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity_factor
     cap = int(cf * t * cfg.top_k / cfg.num_experts)
     return max(8, ((cap + 7) // 8) * 8)
+
+
+def shared_d_ff(cfg) -> int:
+    """The shared experts' MLP width (one MLP of ``num_shared_experts``
+    experts' columns)."""
+    return cfg.d_ff_expert * cfg.num_shared_experts
 
 
 def init_moe(gen: torch.Generator, cfg, dtype=torch.float32):
@@ -53,7 +60,7 @@ def init_moe(gen: torch.Generator, cfg, dtype=torch.float32):
          "experts": {"w_gate": normal(e, d, f) * scale, "w_up": normal(e, d, f) * scale,
                      "w_down": normal(e, f, d) * (1.0 / f ** 0.5)}}
     if cfg.num_shared_experts:
-        p["shared"] = init_mlp(gen, d, f * cfg.num_shared_experts, dtype)
+        p["shared"] = init_mlp(gen, d, shared_d_ff(cfg), dtype)
     return p
 
 
@@ -207,7 +214,7 @@ def moe_layer(p, x: torch.Tensor, cfg, *, gate_mask_fn=None, expert_ffn_fn=None)
         y, aux = moe_region_sharded(p, x, cfg, mesh, gate_mask_fn=gate_mask_fn)
         if "shared" in p:
             b, s, d = x.shape
-            y = y + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
+            y = y + mlp(p["shared"], x.reshape(b * s, d), shared_d_ff(cfg)).reshape(b, s, d)
         return MoEOut(y, aux, None, None, None)
     b, s, d = x.shape
     t = b * s
@@ -220,5 +227,5 @@ def moe_layer(p, x: torch.Tensor, cfg, *, gate_mask_fn=None, expert_ffn_fn=None)
     yp = expert_ffn_fn(xp) if expert_ffn_fn is not None else expert_ffn(p["experts"], xp, e)
     y = combine(yp, dest, valid, gflat, t, k)
     if "shared" in p:
-        y = y + mlp(p["shared"], x2)
+        y = y + mlp(p["shared"], x2, shared_d_ff(cfg))
     return MoEOut(y.reshape(b, s, d), load_balance_loss(probs, idx, e), probs, idx, gates)

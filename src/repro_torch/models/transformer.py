@@ -129,7 +129,8 @@ def init_lm(gen: torch.Generator, cfg):
     return params
 
 
-def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backend=None):
+def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backend=None,
+               otp_rng=None, otp_tau: float = 1.0):
     """FFN half of a block: ``(Δx, expert_activation [B, S], slot_counts,
     aux)``, for the dense ``mlp``, the PMQ-compressed MoE or the
     uncompressed :func:`moe_layer`; shared by the dense-cache and paged
@@ -140,16 +141,19 @@ def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backen
     ``slot_counts`` is the compressed layer's per-slot dispatch count, and
     empty (``[0]``) on the other two branches. ``aux`` is the MoE
     load-balance loss (uncompressed MoE), the Gumbel mask's mean (PMQ +
-    OTP training, Eq. 14's ℓ1 term) or 0.
+    OTP training, Eq. 14's ℓ1 term) or 0. ``otp_rng`` (uniforms ``[T, k]``
+    or a generator) samples the OTP mask by Gumbel-Softmax at ``otp_tau``,
+    the reference's ``moe_hooks``.
     """
     ones = torch.ones(h.shape[:2], device=h.device)
     no_counts = torch.zeros(0, dtype=torch.long, device=h.device)
     zero = torch.zeros((), device=h.device)
     if not cfg.is_moe:
-        return L.mlp(p["mlp"], h), ones, no_counts, zero
+        return L.mlp(p["mlp"], h, cfg.d_ff), ones, no_counts, zero
     if "moe_ce" in p:
         otp = p.get("otp") if use_otp else None
         y, info = compressed_moe_layer(p["moe"], p["moe_ce"], h, cfg, otp_params=otp,
+                                       otp_rng=otp_rng, otp_tau=otp_tau,
                                        count_weight=count_weight, ffn_backend=ffn_backend)
         act = ones
         if info["mask"] is not None:
@@ -161,15 +165,15 @@ def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backen
 
 
 # ------------------------------------------------------- dense-cache path
-def _block(p, x, cfg, *, positions, window: int, ffn_backend=None):
+def _block(p, x, cfg, *, positions, window: int, ffn_backend=None, **hooks):
     """One transformer block over a whole sequence: ``(x, aux, (k, v))``
-    with ``aux`` :func:`_ffn_delta`'s."""
+    with ``aux`` :func:`_ffn_delta`'s (``hooks``: its OTP options)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, kv = L.attention(p["attn"], h, cfg, positions=positions, causal=True,
                                window=window)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    delta, _, _, aux = _ffn_delta(p, h, cfg, ffn_backend=ffn_backend)
+    delta, _, _, aux = _ffn_delta(p, h, cfg, ffn_backend=ffn_backend, **hooks)
     return x + delta, aux, kv
 
 
@@ -184,11 +188,14 @@ def _embed_inputs(params, cfg, tokens, patch_embeds=None):
 
 def forward_hidden(params, tokens: torch.Tensor, cfg, *,
                    patch_embeds: Optional[torch.Tensor] = None, collect_cache: bool = False,
-                   ffn_backend: Optional[str] = None):
+                   ffn_backend: Optional[str] = None, use_otp: bool = True, otp_rng=None,
+                   otp_tau: float = 1.0):
     """Run all blocks over ``tokens [B, S]`` (after ``patch_embeds [B, P,
     D]`` for a ``vlm`` model): ``(hidden [B, P + S, D], aux, cache | None)``
     with ``aux`` the layers' summed aux terms (f32) and the cache ``{"k",
-    "v"}`` ``[L, B, P + S, Hkv, dh]``."""
+    "v"}`` ``[L, B, P + S, Hkv, dh]``. ``use_otp``, ``otp_rng`` and
+    ``otp_tau`` are the reference's ``moe_hooks`` for the compressed layers
+    (every layer samples its mask from the same ``otp_rng``)."""
     x = _embed_inputs(params, cfg, tokens, patch_embeds)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -197,7 +204,8 @@ def forward_hidden(params, tokens: torch.Tensor, cfg, *,
     aux = torch.zeros((), device=x.device)
     for p_l, win in zip(params["layers"], windows):
         x, a, (k, v) = _block(p_l, x, cfg, positions=positions, window=int(win),
-                              ffn_backend=ffn_backend)
+                              ffn_backend=ffn_backend, use_otp=use_otp, otp_rng=otp_rng,
+                              otp_tau=otp_tau)
         aux = aux + a
         if collect_cache:
             ks.append(k)

@@ -86,6 +86,8 @@ def _mlstm_scan(q, k, v, ig, fg, state=None):
         m = torch.full((b, h), M_INIT, device=q.device)
     else:
         c, n, m = state
+    if q.is_meta:  # shapes only: no steps to run on meta tensors
+        return q.new_empty(q.shape), (c, n, m)
     if s <= MLSTM_CHUNK:
         hs, c, n, m = _mlstm_steps(c, n, m, *xs)
         return hs.transpose(0, 1).to(q.dtype), (c, n, m)
@@ -146,6 +148,8 @@ def _slstm_seq(z, o, ig, fg, state=None):
     else:
         c, n, m = state
     z, o, ig, fg = (t.float() for t in (z, o, ig, fg))
+    if z.is_meta:  # shapes only: no steps to run on meta tensors
+        return z.new_empty(z.shape), (c, n, m)
     hs = []
     for t in range(s):
         m_new = torch.maximum(fg[:, t] + m, ig[:, t])

@@ -24,11 +24,25 @@ tokens over data (all-gathered here, as GSPMD would for the reference's
 all-gather the layer's F shards. ``REPRO_ETP_REPLICATE_MAX`` sets the
 switch, as in the reference.
 
-Only the forward (serving) path: the collectives detach.
+Gradients flow through both regions (the reference's ``jax.grad`` through
+its ``shard_map``): the routing runs on every rank of a model line alike,
+so the router and ``x`` take their gradients whole there, while the
+dispatch and combine — each rank's share of the experts — enter through
+:func:`~repro_torch.parallel.sharding.enter`, which sums their partial
+gradients over ``model``. ``aux`` and ``mask_l1`` are replicated over the
+line; their gradients average over the batch axes, as the reference's
+``pmean`` and its unmapped ``P()`` output do.
+
+:func:`shard_params` also splits attention and the dense / shared-expert
+MLPs over ``model`` (the reference's ``_PARAM_RULES``) where
+:func:`~repro_torch.parallel.sharding.tp_split` allows it (whole heads and
+quant groups); the layers then run their share and ``all_reduce`` after
+``wo`` and ``w_down``.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Dict, Optional, Tuple
 
@@ -37,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import otp as otp_mod
+from ..core.packing import PackedTensor
 from ..core.compressed_moe import (
     CompressedExperts,
     grouped_bucket_ffn,
@@ -45,13 +60,17 @@ from ..core.compressed_moe import (
 )
 from ..models import moe as moe_mod
 from .sharding import (
+    TP_FAMILIES,
+    TP_PAIRS,
     EPRegionError,
     Mesh,
     all_gather,
     all_reduce,
     batch_axes,
+    enter,
     manual_region,
     shard_tensor,
+    tp_split,
 )
 
 __all__ = [
@@ -61,7 +80,28 @@ __all__ = [
     "moe_region_sharded",
     "shard_experts",
     "shard_params",
+    "tp_plan",
 ]
+
+class _GradScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _batch_mean_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` as it is, its gradient divided by the batch axes' extent: a
+    statistic each data shard computes for itself (or all of them alike)
+    whose gradient is the mean over the shards — the reference's unmapped
+    ``P()`` output, whose cotangent is split over the axes it leaves out."""
+    n = mesh.extent(batch_axes(mesh))
+    return x if n == 1 else _GradScale.apply(x, 1.0 / n)
+
 
 def _local_experts(w: torch.Tensor, e: int, mesh: Mesh) -> torch.Tensor:
     """This rank's rows of a stacked bf16 expert weight ``[E, ·, ·]``, whole
@@ -87,11 +127,12 @@ def moe_region_sharded(p: Dict, x: torch.Tensor, cfg, mesh: Mesh, gate_mask_fn=N
         lo = mesh.coord["model"] * eploc
         sel = ((idx >= lo) & (idx < lo + eploc)).to(gates.dtype)
         if mask is not None:
-            sel = sel * mask
+            sel = sel * enter(mask, mesh, "model")
         local_idx = torch.clamp(idx - lo, 0, eploc - 1)
         cap = moe_mod.dispatch_capacity(cfg, t)
-        xp, dest, valid, gflat = moe_mod.capacity_dispatch(x2, local_idx, gates, eploc, cap,
-                                                           gate_mask=sel)
+        xp, dest, valid, gflat = moe_mod.capacity_dispatch(
+            enter(x2, mesh, "model"), local_idx, enter(gates, mesh, "model"), eploc, cap,
+            gate_mask=sel)
         x3 = xp.reshape(eploc, cap, d)
         h = F.silu(torch.bmm(x3, wg.to(x3.dtype))) * torch.bmm(x3, wu.to(x3.dtype))
         yp = torch.bmm(h, wd.to(x3.dtype)).reshape(eploc * cap, d)
@@ -162,11 +203,77 @@ def shard_experts(ce: CompressedExperts, mesh: Mesh) -> CompressedExperts:
     return dataclasses.replace(ce, arrays=arrays, ep_cut=_extents(mesh))
 
 
-def shard_params(params: Dict, mesh: Mesh) -> Dict:
-    """The port's per-layer serving tree as one rank of ``mesh`` holds it:
-    every non-expert parameter whole (shared with ``params``), each layer's
-    PMQ buckets cut by :func:`shard_experts` and bf16 experts to this rank's
-    rows."""
+_log = logging.getLogger(__name__)
+
+
+def _node(layer: Dict, path: str) -> Optional[Dict]:
+    for key in path.split("/"):
+        if not isinstance(layer, dict) or key not in layer:
+            return None
+        layer = layer[key]
+    return layer
+
+
+def tp_plan(layer: Dict, mesh: Mesh, cfg) -> Dict[str, bool]:
+    """Which tensor-parallel pairs of a whole layer split over ``model``
+    (:func:`~repro_torch.parallel.sharding.tp_split`; none outside
+    :data:`~repro_torch.parallel.sharding.TP_FAMILIES`). A pair that does
+    not split stays whole on every rank."""
+    model = mesh.shape.get("model", 1)
+    plan = {}
+    for path, _, _ in TP_PAIRS:
+        node = _node(layer, path)
+        if node is None:
+            continue
+        d_ff = None if path == "attn" else cfg.d_ff if path == "mlp" else moe_mod.shared_d_ff(cfg)
+        plan[path] = cfg.family in TP_FAMILIES and tp_split(node, model, cfg, d_ff)
+    return plan
+
+
+def _cut_cols(w, mesh: Mesh):
+    n = w.shape[1] // mesh.shape["model"]
+    n0 = mesh.coord["model"] * n
+    if isinstance(w, PackedTensor):
+        return w.slice_cols(n0, n0 + n)
+    return w[:, n0:n0 + n].clone()
+
+
+def _cut_rows(w, mesh: Mesh):
+    k = w.shape[0] // mesh.shape["model"]
+    k0 = mesh.coord["model"] * k
+    if isinstance(w, PackedTensor):
+        return w.slice_rows(k0, k0 + k)
+    return w[k0:k0 + k].clone()
+
+
+def _tp_layer(p: Dict, mesh: Mesh, plan: Dict[str, bool]) -> Dict:
+    for path, cols, row in TP_PAIRS:
+        if not plan.get(path):
+            continue
+        node = dict(_node(p, path))
+        for name in cols:
+            node[name] = dict(node[name], w=_cut_cols(node[name]["w"], mesh))
+        node[row] = dict(node[row], w=_cut_rows(node[row]["w"], mesh))
+        if path == "moe/shared":
+            p["moe"] = dict(p["moe"], shared=node)
+        else:
+            p[path] = node
+    return p
+
+
+def shard_params(params: Dict, mesh: Mesh, cfg) -> Dict:
+    """The port's per-layer tree of ``cfg`` as one rank of ``mesh`` holds
+    it: each layer's PMQ buckets cut by :func:`shard_experts` and bf16
+    experts to this rank's rows, and the pairs of :func:`tp_plan` that
+    split — ``wq``/``wk``/``wv`` by this rank's heads, ``wo`` by their rows,
+    ``w_gate``/``w_up`` by columns and ``w_down`` by rows, float or
+    PackedTensor alike (copies). Every other parameter stays whole (shared
+    with ``params``); a pair that does not split is logged."""
+    plan = tp_plan(params["layers"][0], mesh, cfg) if params["layers"] else {}
+    whole = sorted(k for k, ok in plan.items() if not ok)
+    if whole:
+        _log.info("tensor parallelism over model=%d keeps whole: %s", mesh.shape["model"],
+                  ", ".join(whole))
     layers = []
     for p in params["layers"]:
         p = dict(p)
@@ -176,7 +283,7 @@ def shard_params(params: Dict, mesh: Mesh) -> Dict:
             e = p["moe"]["experts"]["w_gate"].shape[0]
             p["moe"] = dict(p["moe"], experts={
                 n: _local_experts(w, e, mesh).clone() for n, w in p["moe"]["experts"].items()})
-        layers.append(p)
+        layers.append(_tp_layer(p, mesh, plan))
     return dict(params, layers=layers)
 
 
@@ -199,7 +306,8 @@ def compressed_moe_region_sharded(p: Dict, ce: CompressedExperts, x: torch.Tenso
     (the two grouped GEMMs, dead blocks skipped) or, under
     ``ffn_backend="scan"``, :func:`~repro_torch.core.compressed_moe.scan_bucket_ffn`.
     Bucket counts must be multiples of the model extent (build with
-    ``ep=model``)."""
+    ``ep=model``). Uniforms in ``otp_rng`` are this rank's tokens' rows, as
+    ``x`` is (all-gathered with it under ``replicate_tokens``)."""
     backend = resolve_ffn_backend(ffn_backend)
     ba = batch_axes(mesh)
     model = mesh.shape["model"]
@@ -224,6 +332,9 @@ def compressed_moe_region_sharded(p: Dict, ce: CompressedExperts, x: torch.Tenso
                       for wn, entry in bucket.items()}
                  for bn, bucket in local.items()}
     xl = all_gather(x, mesh, ba, 0) if etp_mode == "replicate_tokens" else x
+    if isinstance(otp_rng, torch.Tensor) and etp_mode == "replicate_tokens":
+        otp_rng = all_gather(otp_rng.reshape(x.shape[0], -1, otp_rng.shape[-1]).detach(), mesh,
+                             ba, 0).reshape(-1, otp_rng.shape[-1])
     slot_map = ce.slot_of_expert
     if slot_map.dim() > 1:
         slot_map = slot_map[0]
@@ -238,11 +349,12 @@ def compressed_moe_region_sharded(p: Dict, ce: CompressedExperts, x: torch.Tenso
         sidx = slot_map.long()[idx]  # original expert id → permuted slot
         sel = (shard_of[sidx] == mesh.coord["model"]).to(gates.dtype)
         if mask is not None:
-            sel = sel * mask
+            sel = sel * enter(mask, mesh, "model")
         local_idx = local_of[sidx]
         cap = moe_mod.dispatch_capacity(cfg, t, cf)
-        xp, dest, valid, gflat = moe_mod.capacity_dispatch(x2, local_idx, gates, eploc, cap,
-                                                           gate_mask=sel)
+        xp, dest, valid, gflat = moe_mod.capacity_dispatch(
+            enter(x2, mesh, "model"), local_idx, enter(gates, mesh, "model"), eploc, cap,
+            gate_mask=sel)
         local_fill = moe_mod.slot_fill_counts(dest, valid, eploc, cap)
         ys = []
         for i, m in enumerate(ce.meta):
@@ -258,9 +370,12 @@ def compressed_moe_region_sharded(p: Dict, ce: CompressedExperts, x: torch.Tenso
                                              cap=cap, ffn_backend=backend))
         yp = torch.cat(ys, dim=0)
         if etp_mode == "replicate_tokens":
-            yp = all_reduce(yp, mesh, "data")  # F partials of replicated tokens
+            # F partials of replicated tokens; each data rank's cotangent
+            # covers its own tokens only, so the backward sums them
+            yp = all_reduce(yp, mesh, "data", backward="all_reduce")
         y = all_reduce(moe_mod.combine(yp, dest, valid, gflat, t, k), mesh, "model")
-        m_l1 = mask.mean() if mask is not None else torch.zeros((), device=x.device)
+        m_l1 = (_batch_mean_grad(mask.mean(), mesh) if mask is not None
+                else torch.zeros((), device=x.device))
     y = y.reshape(b, s, d)
     if etp_mode == "replicate_tokens":
         y = y.narrow(0, mesh.index(ba) * x.shape[0], x.shape[0])

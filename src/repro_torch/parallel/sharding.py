@@ -9,19 +9,29 @@ mesh:
 * activations are this rank's block of the batch axes (what the reference's
   shard_map regions receive through ``in_specs=P(batch_axes, ...)``),
   replicated over ``model``;
-* each rank holds the non-expert parameters whole and, of the expert
-  buckets, only its rows (:func:`repro_torch.parallel.ep_shardmap.shard_params`);
+* each rank holds, of the expert buckets, only its rows and, where
+  :func:`tp_split` splits them, its heads of attention and its columns /
+  rows of the dense and shared-expert MLPs
+  (:func:`repro_torch.parallel.ep_shardmap.shard_params`); every other
+  parameter whole;
 * :func:`shard` is an identity: torch has no GSPMD to pass a constraint to.
   The rules (:func:`activation_rules`, :data:`_PARAM_RULES`) are kept as
   data. A spec is a tuple with one entry per dim — an axis name, a tuple of
   names or None, normalized as ``PartitionSpec`` does (a lone name for a
   one-name tuple) — and compares equal to ``tuple(PartitionSpec(...))``.
 
-:func:`all_reduce` (the reference's ``psum``) and :func:`all_gather` (its
-tiled ``all_gather``) run over the group of the named axes. A collective
-that the group's backend does not take on CUDA tensors (:data:`DEVICE_COLLECTIVES`)
-goes through host memory, chosen by the backend before the call and never
-on a failure; :data:`ROUTES` records each route taken.
+:func:`all_reduce` (the reference's ``psum``), :func:`all_gather` (its
+tiled ``all_gather``) and :func:`reduce_scatter` (its ``psum_scatter``) run
+over the group of the named axes, and differentiate with Megatron's
+pairing: an ``all_reduce`` at a region's exit passes its gradient through,
+:func:`enter` (an identity) sums the gradients of a replicated tensor that
+feeds rank-partial work, ``all_gather`` and ``reduce_scatter`` are each
+other's backward. A collective the group's backend lacks
+(:data:`COLLECTIVES`) is composed of those it has; one it does not take on
+CUDA tensors (:data:`DEVICE_COLLECTIVES`) goes through host memory — both
+chosen by the backend before the call, never on a failure; :data:`ROUTES`
+records each route taken. Under ``torch.no_grad`` nothing is recorded and
+the forward values are those of the plain collectives.
 """
 from __future__ import annotations
 
@@ -43,20 +53,27 @@ __all__ = [
     "NamedSharding",
     "ROUTES",
     "activation_rules",
+    "COLLECTIVES",
     "all_gather",
     "all_reduce",
     "batch_axes",
     "build_mesh",
     "cache_pspec",
     "current_mesh",
+    "enter",
     "make_param_shardings",
     "manual_region",
     "model_axis_size",
     "param_spec_for_path",
+    "reduce_scatter",
     "shard",
     "shard_tensor",
     "shard_tree",
     "sharding_rules",
+    "TP_FAMILIES",
+    "TP_PAIRS",
+    "tp_share",
+    "tp_split",
 ]
 
 class EPRegionError(ValueError):
@@ -121,7 +138,8 @@ def build_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int],
     ranks ``0 .. prod(sizes) - 1``); the caller gets the one holding its
     rank, or, outside all of them, a mesh with ``coord`` None. Every rank of
     the default group calls this, in the same order (``new_group`` is
-    collective), and gets groups over each axis and over the batch axes."""
+    collective), and gets groups over each axis, over the batch axes and
+    over ``(data, model)``."""
     import torch.distributed as dist
 
     sizes = tuple(int(s) for s in axis_sizes)
@@ -137,6 +155,8 @@ def build_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int],
     ba = batch_axes_of(names)
     if len(ba) > 1:
         axis_sets.append(ba)
+    if "data" in names and "model" in names:  # ZeRO-1's 8-bit state chunks
+        axis_sets.append(("data", "model"))
     mine, groups, coord = None, {}, None
     for b in blocks:
         for axes in axis_sets:
@@ -271,6 +291,63 @@ def param_spec_for_path(path: str, ndim: int, stacked: bool) -> Spec:
 STACKED_PREFIXES = ("blocks", "groups", "enc_blocks", "dec_blocks")
 
 
+# ------------------------------------------------------ tensor parallelism
+#: the tensor-parallel pairs of a transformer layer, split over ``model`` by
+#: :data:`_PARAM_RULES`: (path in the layer, column-parallel leaves,
+#: row-parallel leaf)
+TP_PAIRS = (("attn", ("wq", "wk", "wv"), "wo"),
+            ("mlp", ("w_gate", "w_up"), "w_down"),
+            ("moe/shared", ("w_gate", "w_up"), "w_down"))
+#: the families whose layers hold :data:`TP_PAIRS`; embeddings, ``cross/*``
+#: and the recurrent, xlstm and whisper projections stay whole
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def tp_split(node: Dict, model: int, cfg=None, d_ff: Optional[int] = None) -> bool:
+    """Whether a tensor-parallel pair splits over ``model`` ranks: the one
+    rule that :func:`~repro_torch.parallel.ep_shardmap.shard_params` cuts
+    by, the step builders' specs follow and the layers hold their shares
+    to. An MLP of ``d_ff`` columns splits by F; attention (``d_ff`` None)
+    by whole heads of ``cfg`` (query and KV heads both divide). Either only
+    where its row-parallel half's share falls on a PackedTensor's
+    quant-group and packed-byte boundaries. ``node`` may be whole or a
+    rank's share: the rule reads the widths from ``cfg`` / ``d_ff``."""
+    if model <= 1:
+        return False
+    if d_ff is None:
+        if cfg.num_heads % model or cfg.num_kv_heads % model:
+            return False
+        n, row = cfg.num_heads * cfg.head_dim, node["wo"]["w"]
+    else:
+        if d_ff % model:
+            return False
+        n, row = d_ff, node["w_down"]["w"]
+    if isinstance(row, PackedTensor):
+        return (n // model) % row.group == 0 and (n // model) % row.pack_rows == 0
+    return True
+
+
+def tp_share(node: Dict, cfg=None, d_ff: Optional[int] = None) -> Optional[Mesh]:
+    """The current mesh where ``node`` (attention of ``cfg``, or an MLP of
+    ``d_ff`` columns) holds this rank's share of a pair that
+    :func:`tp_split` splits — 1/model of its columns, as ``shard_params``
+    cuts it —; None where it runs whole: no mesh, or whole weights (a pair
+    that does not split, or one ``shard_params`` leaves whole, such as
+    ``cross``). Raises for any other cut."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    model = mesh.shape.get("model", 1)
+    n = cfg.num_heads * cfg.head_dim if d_ff is None else d_ff
+    cols = node["wq" if d_ff is None else "w_gate"]["w"].shape[1]
+    if cols == n:
+        return None
+    if cols * model != n or not tp_split(node, model, cfg, d_ff):
+        raise ValueError(f"a tensor-parallel node holds {cols} of {n} columns on model={model}, "
+                         f"not the share shard_params cuts")
+    return mesh
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh (the reference's ``NamedSharding``)."""
@@ -376,11 +453,16 @@ def shard_tree(tree, shardings):
 
 
 # ------------------------------------------------------------ collectives
+#: the collectives each backend has; any other is composed of those it has
+#: (``reduce_scatter`` as an ``all_reduce`` and the rank's block of the sum)
+COLLECTIVES = {"gloo": ("all_reduce", "all_gather"),
+               "nccl": ("all_reduce", "all_gather", "reduce_scatter")}
 #: the collectives each backend takes on CUDA tensors; any other goes
 #: through host memory
-DEVICE_COLLECTIVES = {"gloo": ("all_reduce",), "nccl": ("all_reduce", "all_gather")}
-#: ``{(collective, backend, tensor device type): "direct" | "host"}`` of
-#: every call so far
+DEVICE_COLLECTIVES = {"gloo": ("all_reduce",),
+                      "nccl": ("all_reduce", "all_gather", "reduce_scatter")}
+#: ``{(collective, backend, tensor device type): "direct" | "host" |
+#: "composed"}`` of every call so far
 ROUTES: Dict[Tuple[str, str, str], str] = {}
 
 
@@ -388,18 +470,19 @@ def _route(op: str, x: torch.Tensor, group) -> str:
     import torch.distributed as dist
 
     backend = str(dist.get_backend(group))
-    route = "host" if x.is_cuda and op not in DEVICE_COLLECTIVES.get(backend, ()) else "direct"
+    if op not in COLLECTIVES.get(backend, ()):
+        route = "composed"
+    elif x.is_cuda and op not in DEVICE_COLLECTIVES.get(backend, ()):
+        route = "host"
+    else:
+        route = "direct"
     ROUTES[(op, backend, x.device.type)] = route
     return route
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of this rank's line along ``axes``
-    (a new tensor; ``x`` is left as it is)."""
+def _sum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     import torch.distributed as dist
 
-    if mesh.extent(axes) == 1:
-        return x
     group = mesh.group(axes)
     if _route("all_reduce", x, group) == "host":
         y = x.detach().to("cpu", copy=True)
@@ -410,18 +493,120 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     return y
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
-    """The blocks of ``x`` of the ranks along ``axes``, concatenated along
-    ``dim`` in their order on the axis."""
+def _gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
-    n = mesh.extent(axes)
-    if n == 1:
-        return x
     group = mesh.group(axes)
     src = x.detach().contiguous()
     if _route("all_gather", x, group) == "host":
         src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(n)]
+    parts = [torch.empty_like(src) for _ in range(mesh.extent(axes))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = mesh.extent(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide over "
+                         f"{axes} ({n})")
+    step = x.shape[dim] // n
+    group = mesh.group(axes)
+    route = _route("reduce_scatter", x, group)
+    if route == "composed":
+        return _sum(x, mesh, axes).narrow(dim, mesh.index(axes) * step, step).contiguous()
+    src = x.detach().movedim(dim, 0).contiguous()
+    if route == "host":
+        src = src.cpu()
+    out = src.new_empty((step,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous().to(x.device)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, backward):
+        ctx.mesh, ctx.axes, ctx.backward = mesh, axes, backward
+        return _sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.backward == "all_reduce":
+            return _sum(g, ctx.mesh, ctx.axes), None, None, None
+        return g, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes, *, backward: str = "identity") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of this rank's line along ``axes``
+    (a new tensor; ``x`` is left as it is). Where a graph is recorded, its
+    backward is Megatron's for a region's exit: the identity, the cotangent
+    being the same on every rank of the line; ``backward="all_reduce"``
+    sums the cotangents instead (jax's transpose of ``psum``), for a sum
+    whose consumers differ by rank."""
+    if mesh.extent(axes) == 1:
+        return x
+    if backward not in ("identity", "all_reduce"):
+        raise ValueError(f"all_reduce backward {backward!r}")
+    return _AllReduce.apply(x, mesh, axes, backward)
+
+
+def enter(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """``x`` as it is, where a tensor replicated over ``axes`` feeds work
+    that each rank does a part of: the backward sums the ranks' partial
+    gradients over ``axes`` (Megatron's ``f``)."""
+    if mesh.extent(axes) == 1:
+        return x
+    return _Enter.apply(x, mesh, axes)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` of the ranks along ``axes``, concatenated along
+    ``dim`` in their order on the axis. The backward gives this rank its
+    block of the summed gradient (a reduce-scatter)."""
+    if mesh.extent(axes) == 1:
+        return x
+    return _AllGather.apply(x, mesh, axes, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    along ``axes`` (ZeRO-1's gradient reduction). The backward all-gathers
+    the blocks' gradients."""
+    if mesh.extent(axes) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axes, dim)

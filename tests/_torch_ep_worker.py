@@ -74,12 +74,17 @@ def _cases(rank: int, d: str) -> dict:
     xl = x[mesh.coord["data"] * b_loc:(mesh.coord["data"] + 1) * b_loc]
     ce4_local = shard_experts(ce4, mesh)
     out["expert_bytes"] = ce4_local.weight_bytes
-    p_local = shard_params({"layers": [{"moe": p}]}, mesh)["layers"][0]["moe"]
+    # the experts alone cut (the shared MLP whole), then the whole layer as
+    # shard_params cuts it: the shared MLP too, by columns
+    p_tp = shard_params({"layers": [{"moe": p}]}, mesh, cfg)["layers"][0]["moe"]
+    p_local = dict(p, experts=p_tp["experts"])
     out["bf16_rows"] = p_local["experts"]["w_gate"].shape[0]
+    out["bf16_tp_cols"] = p_tp["shared"]["w_gate"]["w"].shape[1]
     with sharding_rules(mesh):
         mo = moe_layer(p, xl, cfg)
         out["bf16"], out["bf16_aux"] = mo.y, mo.aux_loss
         out["bf16_cut"] = moe_layer(p_local, xl, cfg).y
+        out["bf16_tp"] = moe_layer(p_tp, xl, cfg).y
         y, info = compressed_moe_layer(p, ce4_local, xl, cfg, otp_params=otp)
         out["pmq"], out["pmq_mask_l1"] = y, info["mask_l1"]
         y2, _ = compressed_moe_layer(p, ce4_local, xl, cfg, otp_params=otp)
@@ -108,7 +113,7 @@ def _cases(rank: int, d: str) -> dict:
     sub = make_test_mesh(data=1, model=4)
     m = inp["model"]
     mcfg = m["cfg"]
-    local = shard_params(m["params"], sub)
+    local = shard_params(m["params"], sub, mcfg)
     with sharding_rules(sub):
         cache, logits = ttf.prefill(local, {"tokens": m["prompts"]}, mcfg)
         cache = ttf.extend_cache(cache, m["steps"])

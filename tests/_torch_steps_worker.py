@@ -1,0 +1,201 @@
+"""One rank of the training spawn of ``tests/test_torch_steps_ranks.py``.
+
+    python tests/_torch_steps_worker.py RANK WORLD DIR
+
+Joins a gloo group of ``WORLD`` ranks through a ``FileStore`` in ``DIR``,
+reads ``DIR/inputs.pt`` (the port's tensors, written by the test process),
+runs every case on its mesh and writes its results to ``DIR/out_<RANK>.pt``:
+gradients through both expert-parallel regions, tensor-parallel
+``train_loss`` gradients, ``build_step`` train and OTP steps, the ZeRO-1
+update on given gradients. It imports torch and the port only.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+
+def _leaves(tree, prefix=""):
+    """``{path: tensor}`` of the float tensors of a tree of dicts."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_leaves(v, path))
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            out[path] = v
+    return out
+
+
+def _with_grad(tree):
+    return {k: _with_grad(v) if isinstance(v, dict) else
+            (v.detach().clone().requires_grad_() if isinstance(v, torch.Tensor)
+             and v.is_floating_point() else v) for k, v in tree.items()}
+
+
+def _specs(tree):
+    """A tree of shardings as their specs (a mesh holds process groups,
+    which do not pickle)."""
+    from repro_torch.optim.adamw import Q8
+    from repro_torch.parallel.sharding import NamedSharding
+
+    if isinstance(tree, NamedSharding):
+        return tree.spec
+    if isinstance(tree, dict):
+        return {k: _specs(v) for k, v in tree.items()}
+    if isinstance(tree, Q8):
+        return Q8(*map(_specs, tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map(_specs, tree))
+    return tree
+
+
+def _grads(loss, named):
+    names = list(named)
+    gs = torch.autograd.grad(loss, [named[n] for n in names], allow_unused=True)
+    return {n: (torch.zeros_like(named[n]) if g is None else g) for n, g in zip(names, gs)}
+
+
+def _block(t, mesh, b):
+    d = mesh.coord["data"]
+    return t[d * b:(d + 1) * b]
+
+
+def _regions(inp, mesh):
+    """Gradients of ``sum(y · w) + aux`` (bf16 region) and ``sum(y · w) +
+    mask_l1`` (compressed region, ``replicate_tokens`` and
+    ``gather_weights``) on this rank's batch block."""
+    from repro_torch.core.compressed_moe import compressed_moe_layer
+    from repro_torch.models.moe import moe_layer
+    from repro_torch.parallel.ep_shardmap import shard_experts
+    from repro_torch.parallel.sharding import sharding_rules
+
+    ep = inp["ep"]
+    cfg, x, w = ep["cfg"], ep["x"], ep["w"]
+    b = x.shape[0] // mesh.shape["data"]
+    out = {}
+    xl = _block(x, mesh, b).clone().requires_grad_()
+    wl = _block(w, mesh, b)
+    p = _with_grad(ep["p"])
+    with sharding_rules(mesh):
+        mo = moe_layer(p, xl, cfg)
+        loss = (mo.y * wl).sum() + mo.aux_loss
+    out["bf16"] = _grads(loss, {"x": xl, **_leaves(p)})
+    ce = shard_experts(ep["ce4"], mesh)
+    for mode in ("replicate", "gather"):
+        p = _with_grad({k: v for k, v in ep["p"].items() if k != "experts"})
+        otp = _with_grad(ep["otp"])
+        xl = _block(x, mesh, b).clone().requires_grad_()
+        if mode == "gather":
+            os.environ["REPRO_ETP_REPLICATE_MAX"] = "1"
+            u = ep["u_gather"]
+        else:
+            u = _block(ep["u_replicate"].reshape(x.shape[0], -1, 2), mesh, b).reshape(-1, 2)
+        try:
+            with sharding_rules(mesh):
+                y, info = compressed_moe_layer(p, ce, xl, cfg, otp_params=otp, otp_rng=u)
+                loss = (y * wl).sum() + info["mask_l1"]
+        finally:
+            os.environ.pop("REPRO_ETP_REPLICATE_MAX", None)
+        out[mode] = _grads(loss, {"x": xl, **_leaves(p), **_leaves(otp, "otp")})
+        out[f"{mode}_mask_l1"] = float(info["mask_l1"])
+    return out
+
+
+def _tp_loss(case, mesh):
+    """``train_loss`` and its gradients (this rank's blocks, by the
+    reference's stacked path) on the rank's batch block, the parameters cut
+    by ``shard_params`` with the config."""
+    from repro_torch.launch.steps import stack_tree
+    from repro_torch.models.transformer import train_loss
+    from repro_torch.parallel.ep_shardmap import shard_params, tp_plan
+    from repro_torch.parallel.sharding import sharding_rules
+
+    cfg, params, batch = case["cfg"], case["params"], case["batch"]
+    local = shard_params(params, mesh, cfg)
+    local = dict(_with_grad({k: v for k, v in local.items() if k != "layers"}),
+                 layers=[_with_grad(p) for p in local["layers"]])
+    b = batch["tokens"].shape[0] // mesh.shape["data"]
+    with sharding_rules(mesh):
+        loss, _ = train_loss(local, {k: _block(v, mesh, b) for k, v in batch.items()}, cfg)
+    flat = stack_tree(local)
+    leaves = [t for v in flat.values() for t in v]
+    gs = iter(torch.autograd.grad(loss, leaves))
+    grads = {p: torch.stack([next(gs) for _ in v]) if p.startswith("blocks/") else next(gs)
+             for p, v in flat.items()}
+    return {"loss": float(loss), "grads": grads, "plan": tp_plan(params["layers"][0], mesh, cfg)}
+
+
+def _steps(inp, mesh):
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamWConfig
+
+    out = {}
+    tr = inp["train"]
+    for bits in (32, 8):
+        art = steps.build_step(tr["cfg"], tr["shape"], mesh, accum=2, state_bits=bits)
+        whole = (tr["params"], tr[f"opt{bits}"], tr["batch"])
+        params, opt, loss = art.fn(*steps.shard_args(art, whole, mesh, tr["cfg"]))
+        out[f"train{bits}"] = {"params": steps.stack_tree(params), "opt": opt,
+                               "loss": float(loss)}
+        # the sharded update alone, fed the same gradients as one process
+        args = steps.shard_args(art, whole, mesh, tr["cfg"])
+        plans, _ = steps._train_layout(art.arg_specs[0], mesh, tr["cfg"], bits)
+        grads = {}
+        for path, plan in plans.items():
+            g = tr["grads"][path]
+            grads[path] = (steps._chunk(g.reshape(-1), plan, mesh) if plan.flat is not None
+                           else steps.shd.shard_tensor(g, plan.state_spec, mesh))
+        new, nst = steps._zero1_update(plans, steps.stack_tree(args[0]), grads, args[1],
+                                       AdamWConfig(state_bits=bits), mesh)
+        out[f"zero1_{bits}"] = {"params": new, "opt": nst}
+        out[f"specs{bits}"] = _specs(art.in_shardings[:2])
+    ot = inp["otp"]
+    art = steps.build_step(ot["cfg"], ot["shape"], mesh, train_mode="otp", accum=2)
+    args = steps.shard_args(art, (ot["otp"], ot["opt"], ot["frozen"], ot["batch"], ot["u"]),
+                            mesh, ot["cfg"])
+    otp, opt, loss, kl = art.fn(*args)
+    out["otp"] = {"otp": otp, "opt": opt, "loss": float(loss), "kl": float(kl),
+                  "specs": _specs(art.in_shardings[1])}
+    return out
+
+
+def _cases(rank: int, d: str) -> dict:
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import ROUTES
+
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    mesh = make_test_mesh(data=2, model=4)
+    sub = make_test_mesh(data=1, model=4)
+    out = {"coord": dict(mesh.coord), "sub": dict(sub.coord)}
+    out.update(_regions(inp, mesh))
+    out["tp_dense"] = _tp_loss(inp["tp"]["dense"], mesh)
+    out["tp_moe"] = _tp_loss(inp["tp"]["moe"], mesh)
+    out["tp_moe_sub"] = _tp_loss(inp["tp"]["moe"], sub)
+    build.reset_launches()
+    out.update(_steps(inp, mesh))
+    out["routes"] = dict(ROUTES)
+    return out
+
+
+def main() -> int:
+    rank, world, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        out = _cases(rank, d)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -258,7 +258,8 @@ def test_import_leaves_jax_and_repro_out():
         "          'serving.offload', 'serving.tierstore', 'core.pipeline', 'core.gptq',\n"
         "          'core.pmq', 'core.significance', 'parallel.sharding',\n"
         "          'parallel.ep_shardmap', 'launch.mesh', 'runtime.elastic',\n"
-        "          'optim.grad_compress'):\n"
+        "          'optim.grad_compress', 'launch.steps', 'launch.specs',\n"
+        "          'launch.step_ranks'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )

@@ -159,6 +159,17 @@ def test_bf16_region_matches_reference(spawn):
         assert o["bf16_rows"] == 2 and torch.equal(o["bf16_cut"], o["bf16"])
 
 
+def test_bf16_region_with_tensor_parallel_shared_mlp_matches_reference(spawn):
+    """The layer as ``shard_params`` cuts it on ``2 × 4``: the experts to the
+    rank's 2 rows and the shared MLP to its 32 of 128 columns (run by
+    ``mlp``'s tensor-parallel branch): the reference's result within 2e-4."""
+    ref, outs = spawn
+    for o in outs:
+        assert o["bf16_tp_cols"] == 32
+        np.testing.assert_allclose(o["bf16_tp"].numpy(), _block(ref["bf16"], o), rtol=2e-4,
+                                   atol=2e-4)
+
+
 @pytest.mark.parametrize("key", ["pmq", "pmq_scan"])
 def test_pmq_otp_region_matches_reference(spawn, key):
     """The PMQ + OTP region (ETP ``replicate_tokens``: 32 tokens) through
