@@ -112,11 +112,10 @@ Phases (each failure exits non-zero):
    the unpressured run's; (b) with ``PREEMPT_FAULTS`` corrupting rid 1's
    payload at swap-in, at trace level ``full``: one swap fallback, no
    swap-in bytes, 21 prefill chunks, a valid trace with the reference's
-   event count on this schedule, rids 0, 2 and 3 byte-identical to the
-   unpressured run's, and rid 1's agreement after its re-prefill printed,
-   not gated
-   (the re-prefill rewrites its KV through the prefill's attention, the
-   original rows came from the decode kernel); the fp path's kernels
+   event count on this schedule, every rid's tokens byte-identical to the
+   unpressured run's, rid 1's after its re-prefill too (the resume rewrites
+   the decode-era rows through the decode kernel, none of them dropped by
+   the chunk's capacity, so bit for bit); the fp path's kernels
    launched and no other; then the expert-offload path (``OFFLOAD``, on
    the first 12 of the 48 layers: one request of 16 + 4 tokens at H = 1
    under ``resident_experts=32`` of 64 slots) served three times — (c)
@@ -228,6 +227,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1794,12 +1794,10 @@ def preemption_path(cfg, params):
     if events != want_events:
         raise AssertionError(f"preemption (b): {events} trace events, the reference's schedule "
                              f"gives {want_events}")
-    others = [r for r in fp_out if r != victim and out_b[r] != fp_out[r]]
-    if others:
-        raise AssertionError(f"preemption (b): rids {others} differ from the unpressured "
-                             f"run's tokens")
-    same = [x == y for x, y in zip(out_b[victim], fp_out[victim])]
-    first = same.index(False) if not all(same) else None
+    differ = [r for r in fp_out if out_b[r] != fp_out[r]]
+    if differ:
+        raise AssertionError(f"preemption (b): rids {differ} differ from the unpressured "
+                             f"run's tokens (rid {victim} re-prefilled)")
     missing = [k for k in FP_PATH if launches[k] == 0]
     stray = [k for k, v in launches.items() if v and k not in FP_PATH]
     if missing or stray:
@@ -1821,10 +1819,9 @@ def preemption_path(cfg, params):
         f"(host wall, device copies included); schedule "
         f"counters = reference's, {grows} page grows, rid {victim} swapped out and in "
         f"({swap_bytes} bytes), every rid's tokens = the unpressured run's; (b) trace events "
-        f"{events}, rids {[r for r in fp_out if r != victim]} = the unpressured run's; rid "
-        f"{victim} after its re-prefill: {sum(same)}/{len(same)} tokens = the unpressured "
-        f"run's, first differing position {first} "
-        f"(reported, not gated); peak device memory {peak / 1e9:.3f} GB; launches {launches}")
+        f"{events}, every rid's tokens = the unpressured run's, rid {victim}'s "
+        f"{len(out_b[victim])} after its re-prefill among them; peak device memory "
+        f"{peak / 1e9:.3f} GB; launches {launches}")
     log("full width serving summary (preemption, swap): " + json.dumps(a.summary()))
     return launches
 
@@ -2147,6 +2144,16 @@ STEPS_TRAIN_ARCH, STEPS_TRAIN_STEPS, STEPS_ACCUM = "tinyllama-1.1b", 2, 2
 #: parameters, gradients and two steps' results no room on the card
 STEPS_TRAIN_LAYERS = 11
 STEPS_TRAIN_BATCH, STEPS_TRAIN_SEQ = 8, 128
+#: (c): the other families at full width in f32, one training step on
+#: ``data=1 × model=4``, each cut to the depth named for the script's time
+#: (arch, layers, encoder layers); a batch of 2 × 64 tokens (whisper: over
+#: its 1500 frames)
+STEPS_FAMILIES = (("whisper-small", 2, 2), ("recurrentgemma-2b", 5, 0), ("xlstm-350m", 2, 0))
+STEPS_FAMILY_BATCH, STEPS_FAMILY_SEQ = 2, 64
+#: the leaves the reference's specs cut that the port keeps whole on every
+#: rank (``ROADMAP.md`` §3): recurrentgemma's attention, whose one KV head
+#: ``P(None, "model")`` would cut inside the head
+STEPS_KEPT_WHOLE = re.compile(r"^groups/\d+/attn/attn/w[qkvo]/w$")
 
 
 def _rel_l2(a, b) -> float:
@@ -2161,7 +2168,7 @@ def _rel(a, b) -> float:
     return err / max(max(float(np.abs(y[k]).max()) for y in b for k in y), 1e-30)
 
 
-def steps_path(otp_cfg=None, train_cfg=None):
+def steps_path(otp_cfg=None, train_cfg=None, families_cfgs=None):
     """``STEPS``: the step builders across :data:`STEPS_WORLD` ranks on this
     card over gloo (``repro_torch.launch.step_ranks``). (a) One OTP step of
     the first ``workload.CUT_LAYERS`` layers of the PMQ model built with
@@ -2184,7 +2191,8 @@ def steps_path(otp_cfg=None, train_cfg=None):
     process's gradients equal to its first step bit for bit, the parameters
     after the steps within 2 · lr · steps (their count more than 1e-4 × max
     apart printed), each rank's optimizer state a quarter of the whole but
-    the norms' half. Returns the launches of (a), summed over the ranks."""
+    the norms' half. (c) :func:`steps_families` (``families_cfgs``: its
+    models). Returns the launches of (a), summed over the ranks."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import step_ranks, steps
 
@@ -2328,9 +2336,74 @@ def steps_path(otp_cfg=None, train_cfg=None):
         f"{[[round(x, 3) for x in o['train']['step_s']] for o in res]}; peak device memory by "
         f"rank (GB) {[round((o['train_peak'] or 0) / 1e9, 3) for o in res]}; spawn to results "
         f"{ranks_s:.1f} s; collective routes {res[0]['routes']}")
+    del payload, res, params, final, frozen, otp, opt, params1, tgrads
+    faults += steps_families(families_cfgs)
     if faults:
         raise AssertionError("; ".join(faults))
     return launches
+
+
+def steps_families(cfgs=None):
+    """``STEPS`` (c): one f32 training step (no TF32) of each model of
+    :data:`STEPS_FAMILIES` (or ``cfgs``) across :data:`STEPS_WORLD` ranks on
+    ``data=1 × model=4``, against the single process's (run first): whisper's
+    ``cross`` and ``attn`` 3 heads a rank, its MLPs by F, its vocabulary of
+    51865 whole (it does not divide); recurrentgemma's RG-LRU and MLPs a
+    quarter a rank, its attention whole (:data:`STEPS_KEPT_WHOLE`), its
+    vocabulary of 256000 split; xlstm one head a rank, its vocabulary of
+    50304 split. Each rank's loss within 1e-5 relative, its gradients within
+    1e-4 × max of its share of the single process's, its parameter bytes the
+    reference's specs' share but for the leaves kept whole. Returns the
+    faults found."""
+    from repro_torch.launch import step_ranks, steps
+
+    if DEV.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cases = []
+    for cfg in cfgs or [dataclasses.replace(get_config(a), dtype="float32", num_layers=n,
+                                            encoder_layers=e) for a, n, e in STEPS_FAMILIES]:
+        params = get_model(cfg).init(torch.Generator(device=DEV).manual_seed(0))
+        batch = workload.family_batch(cfg, STEPS_FAMILY_BATCH, STEPS_FAMILY_SEQ, DEV)
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+        loss, grads = steps.tree_gradients(cfg, params, batch)
+        cases.append({"name": cfg.name, "cfg": cfg, "params": params, "batch": batch,
+                      "grads": grads, "loss": float(loss)})
+    single_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    res = step_ranks.run_families({"families": cases}, world=STEPS_WORLD)
+    ranks_s = time.perf_counter() - t1
+    faults = []
+    for case in cases:
+        name = case["name"]
+        for r, o in enumerate(res):
+            got = o["families"][name]
+            kept = [p for p in got["differ"] if not STEPS_KEPT_WHOLE.search(p)]
+            if not (abs(got["loss"] - case["loss"]) <= 1e-5 * abs(case["loss"])
+                    and got["grad_err"] <= 1e-4 * got["grad_scale"] and not kept):
+                faults.append(f"STEPS (c) {name} rank {r}: loss {got['loss']} against "
+                              f"{case['loss']}, gradients max|diff| {got['grad_err']:.3e} of max "
+                              f"{got['grad_scale']:.3e}, bytes off the reference's share at "
+                              f"{kept}")
+        o = res[0]["families"][name]
+        cfg = case["cfg"]
+        log(f"STEPS (c) {name} (f32, {cfg.num_layers} layers"
+            f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, "
+            f"{STEPS_FAMILY_BATCH} x {STEPS_FAMILY_SEQ} tokens, data=1 x model={STEPS_WORLD}, "
+            f"pairs of the first block {o['plan']}, vocabulary {cfg.vocab_size} "
+            f"{'split' if cfg.vocab_size % STEPS_WORLD == 0 else 'whole'}): loss "
+            f"{case['loss']:.6f}, ranks' {[round(x['families'][name]['loss'], 6) for x in res]} "
+            f"(limit 1e-5 relative); gradients max|diff| / max by rank "
+            f"{[x['families'][name]['grad_err'] / x['families'][name]['grad_scale'] for x in res]}"
+            f" (limit 1e-4); parameter bytes a rank {o['bytes']} of {o['whole']} whole, the "
+            f"reference's specs' share {o['reference']}, leaves kept whole {len(o['differ'])} "
+            f"({o['differ'][:4]}{' ...' if len(o['differ']) > 4 else ''}); step s by rank "
+            f"{[round(x['families'][name]['step_s'], 3) for x in res]}")
+    log(f"STEPS (c): single process {single_s:.1f} s, spawn to results {ranks_s:.1f} s; peak "
+        f"device memory by rank (GB) {[round((o['peak'] or 0) / 1e9, 3) for o in res]}; "
+        f"collective routes {res[0]['routes']}")
+    return faults
 
 
 def build_logged(make):

@@ -432,7 +432,9 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
                          otp_tau: float = 1.0,
                          capacity_factor: Optional[float] = None,
                          count_weight: Optional[torch.Tensor] = None,
-                         ffn_backend: Optional[str] = None):
+                         ffn_backend: Optional[str] = None,
+                         rows: Optional[torch.Tensor] = None,
+                         capacity: Optional[int] = None):
     """MoE block with PMQ experts and optional OTP pruning. ``p`` carries
     the router and the shared experts. Returns ``(y [B, S, D], info)``;
     ``info["mask"]`` is the OTP mask ``[T, k]`` (or None), ``info["mask_l1"]``
@@ -441,7 +443,11 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
     tokens where ``count_weight`` is false left out. ``otp_rng`` (uniforms
     ``[T, k]`` or a generator) samples the mask by Gumbel-Softmax at
     temperature ``otp_tau`` (training); without it the mask is the argmax.
-    ``ffn_backend`` as in :func:`compressed_expert_ffn`.
+    ``ffn_backend`` as in :func:`compressed_expert_ffn`. ``rows`` (``[B,
+    S]`` bool) dispatches only those tokens to the routed experts: the
+    others' (token, choice) pairs go to the drop bucket, so they take no
+    capacity (and their rows of ``y`` hold only the shared experts);
+    ``capacity`` replaces the per-slot capacity the token count gives.
 
     Under a mesh the routed experts run the shard_map EP region
     (:func:`repro_torch.parallel.ep_shardmap.compressed_moe_region_sharded`;
@@ -490,8 +496,12 @@ def compressed_moe_layer(p: Dict, ce: CompressedExperts, x: torch.Tensor, cfg, *
         cw = count_weight.reshape(-1).bool().repeat_interleave(k)
         eff = torch.where(cw, eff, ce.num_slots)
     slot_counts = count_ids(eff, ce.num_slots)
-    cap = dispatch_capacity(cfg, t, capacity_factor)
-    xp, dest, valid, gflat = capacity_dispatch(x2, slots, gates, ce.num_slots, cap, mask)
+    cap = capacity or dispatch_capacity(cfg, t, capacity_factor)
+    dmask = mask
+    if rows is not None:
+        keep = rows.reshape(t, 1).to(gates.dtype).expand(t, k)
+        dmask = keep if mask is None else mask * keep
+    xp, dest, valid, gflat = capacity_dispatch(x2, slots, gates, ce.num_slots, cap, dmask)
     slot_fill = slot_fill_counts(dest, valid, ce.num_slots, cap)
     yp = compressed_expert_ffn(ce, xp, cap, slot_fill, backend=ffn_backend)
     y = combine(yp, dest, valid, gflat, t, k)

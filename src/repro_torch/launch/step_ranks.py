@@ -28,6 +28,15 @@ plain values:
   parameter blocks from those of ``final`` (the single process's after the
   same steps), the largest ``|final|``, the count of elements more than
   1e-4 of it apart, and the rank's optimizer-state bytes;
+* :func:`run_families`, for each model of its list (the ``encdec``,
+  ``hybrid`` and ``ssm`` families, f32) one training step's loss and gradients
+  (``steps.tree_gradients``) on a ``data=1 × model=W`` mesh, the
+  parameters cut by ``shard_params`` with the config: the loss, the
+  largest difference of the rank's gradients from its share of the single
+  process's (``grads``, cut by the same ``shard_params``) and the largest
+  ``|grads|``, the seconds of the step, and the rank's parameter bytes
+  beside the whole's and the share the reference's specs give
+  (``make_param_shardings``), with the leaves where the two differ;
 * each rank's peak device memory, the route each collective took and its
   coordinates.
 
@@ -38,12 +47,13 @@ this with four ranks sharing one card.
 from __future__ import annotations
 
 import gc
+import math
 import time
 from typing import Dict, List
 
 import torch
 
-__all__ = ["run"]
+__all__ = ["run", "run_families"]
 
 
 def _bytes(node) -> int:
@@ -152,6 +162,55 @@ def _train(payload: Dict, mesh, sync) -> Dict:
             "state_bytes": _bytes(opt["per_param"]), "coord": dict(mesh.coord)}
 
 
+def _share_bytes(params, mesh) -> Dict[str, tuple]:
+    """``{path: (whole bytes, the reference's share)}`` of every tensor of a
+    whole per-layer tree under the reference's specs (``_PARAM_RULES``,
+    replicated where a spec does not divide)."""
+    from ..core.tree import tree_paths
+    from ..parallel import sharding as shd
+
+    specs = dict(tree_paths(shd.make_param_shardings(mesh, params, stacked_prefixes=())))
+    out = {}
+    for path, t in tree_paths(params):
+        n = t.numel() * t.element_size()
+        ext = math.prod(mesh.extent(e) for e in specs[path].spec if e is not None)
+        out["/".join(map(str, path))] = (n, n // ext)
+    return out
+
+
+def _families(payload: Dict, mesh, sync) -> Dict:
+    from ..core.tree import tree_leaves, tree_paths
+    from ..parallel.ep_shardmap import shard_params, tp_plan
+    from . import steps
+
+    out = {}
+    for case in payload["families"]:
+        cfg = case["cfg"]
+        local = shard_params(case["params"], mesh, cfg)
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = steps.tree_gradients(cfg, local, case["batch"], mesh)
+        sync()
+        step_s = time.perf_counter() - t0
+        want = shard_params(case["grads"], mesh, cfg)
+        err = max(float((g - w).abs().max()) for g, w in zip(tree_leaves(grads),
+                                                              tree_leaves(want)) if g.numel())
+        scale = max(float(w.abs().max()) for w in tree_leaves(case["grads"]) if w.numel())
+        shares = _share_bytes(case["params"], mesh)
+        mine = {"/".join(map(str, p)): t.numel() * t.element_size()
+                for p, t in tree_paths(local)}
+        block = case["params"].get("layers") or case["params"].get("dec_blocks") or \
+            case["params"]["groups"]
+        out[case["name"]] = {
+            "loss": float(loss), "grad_err": err, "grad_scale": scale, "step_s": step_s,
+            "bytes": sum(mine.values()), "whole": sum(b for b, _ in shares.values()),
+            "reference": sum(r for _, r in shares.values()),
+            "differ": sorted(p for p, b in mine.items() if b != shares[p][1]),
+            "plan": tp_plan(block[0], mesh, cfg)}
+        del local, grads, want
+    return out
+
+
 def _cases(rank: int, world: int, payload: Dict) -> Dict:
     from ..parallel.sharding import ROUTES
     from .mesh import load_rank_kernels, make_test_mesh
@@ -179,6 +238,34 @@ def _cases(rank: int, world: int, payload: Dict) -> Dict:
     out["train_peak"] = peak()
     out["routes"] = dict(ROUTES)
     return out
+
+
+def _family_cases(rank: int, world: int, payload: Dict) -> Dict:
+    from ..parallel.sharding import ROUTES
+    from .mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = payload["families"][0]["batch"]["tokens"].device
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = {"families": _families(payload, make_test_mesh(data=1, model=world), sync),
+           "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
+    out["routes"] = dict(ROUTES)
+    return out
+
+
+def run_families(payload: Dict, *, world: int) -> List[Dict]:
+    """Spawn ``world`` ranks over ``{"families": [{name, cfg, params, batch,
+    grads}, ...]}`` (whole tensors; ``grads`` the single process's, a tree
+    like ``params``) and return each rank's ``families`` results, its peak
+    device memory and its routes, by rank."""
+    from .mesh import spawn_ranks
+
+    return spawn_ranks(_family_cases, payload, world=world, name="family step")
 
 
 def run(payload: Dict, *, world: int) -> List[Dict]:

@@ -63,12 +63,12 @@ from ..core.packing import PackedTensor
 from ..models.registry import get_model, on_meta
 from ..optim.adamw import Q8, AdamWConfig, adamw_init, adamw_update
 from ..parallel import sharding as shd
-from ..parallel.ep_shardmap import etp_ok, expert_spec, shard_params, tp_plan
+from ..parallel.ep_shardmap import BLOCK_LISTS, etp_ok, expert_spec, shard_params, tp_plan
 from ..parallel.sharding import NamedSharding, batch_axes
 from . import specs as spec_mod
 
 __all__ = ["ACCUM", "OTP_ADAMW", "StepArtifacts", "build_step", "init_opt_blocks", "otp_gradients",
-           "shard_args", "stack_tree", "stacked_paths", "unstack_tree"]
+           "shard_args", "stack_tree", "stacked_paths", "tree_gradients", "unstack_tree"]
 
 _log = logging.getLogger(__name__)
 
@@ -209,16 +209,36 @@ def _stacked_meta(flat: Dict[str, List], stacked: set) -> Dict:
 
 
 # ------------------------------------------------------------- shardings
-def _leaf_spec(path: str, shape, plan: Dict[str, bool]) -> Tuple:
-    """The port's spec of one tensor of a per-layer tree (``layers/<l>/...``
-    or a top-level key): the leaves of a pair of ``shd.TP_PAIRS`` that
-    ``plan`` splits by ``_PARAM_RULES``, all else replicated."""
+def _split_leaves(params, mesh, cfg) -> set:
+    """The ``/``-joined paths (to the ``{"w"}`` node) of every leaf that
+    :func:`~repro_torch.parallel.ep_shardmap.shard_params` cuts: each
+    block's pairs that :func:`~repro_torch.parallel.ep_shardmap.tp_plan`
+    splits, and ``embed``/``unembed`` where the vocabulary splits."""
+    out = set()
+    for key in BLOCK_LISTS:
+        for i, block in enumerate(params.get(key, [])):
+            plan = tp_plan(block, mesh, cfg)
+            for path, kind, _ in shd.tp_pairs(block):
+                if plan[path]:
+                    pair = shd.TP_PAIRS[kind]
+                    for leaf in pair.cols + ((pair.row,) if pair.row else ()):
+                        out.add("/".join(p for p in (key, str(i), path, leaf) if p))
+    if shd.vocab_split(cfg.vocab_size, mesh.shape.get("model", 1)):
+        out.update(k for k in ("embed", "unembed") if k in params)
+    return out
+
+
+def _leaf_spec(path: str, shape, split: set) -> Tuple:
+    """The port's spec of one tensor of a per-layer tree (``<blocks>/<i>/...``
+    or a top-level key): a leaf of :func:`_split_leaves` by ``_PARAM_RULES``
+    (a halves leaf's share has the same extent as the spec's block), all
+    else replicated."""
     nd = len(shape)
-    m = re.match(r"layers/\d+/(.+)/(\w+)/w(/\d+)*$", path)
-    if m and plan.get(m.group(1)) and any(m.group(1) == pair and m.group(2) in (*cols, row)
-                                          for pair, cols, row in shd.TP_PAIRS):
-        core = path.split("/", 2)[2]
-        return shd.param_spec_for_path(core, nd, False)
+    if path in split:
+        return shd.param_spec_for_path(path, nd, False)
+    m = re.match(r"(.+)/w(/\d+)*$", path)
+    if m and m.group(1) in split:
+        return shd.param_spec_for_path(path.split("/", 2)[2], nd, False)
     return (None,) * nd
 
 
@@ -226,7 +246,7 @@ def _param_shardings(params, mesh, cfg):
     """The tree of :class:`NamedSharding` of a per-layer parameter tree as
     :func:`~repro_torch.parallel.ep_shardmap.shard_params` cuts it (a
     PackedTensor or CompressedExperts node as the tuple of its children's)."""
-    plan = tp_plan(params["layers"][0], mesh, cfg) if params.get("layers") else {}
+    split = _split_leaves(params, mesh, cfg)
 
     def one(node, path):
         if isinstance(node, CompressedExperts):
@@ -244,7 +264,7 @@ def _param_shardings(params, mesh, cfg):
             return {k: one(v, f"{path}/{k}" if path else k) for k, v in node.items()}
         if isinstance(node, list):
             return [one(v, f"{path}/{i}") for i, v in enumerate(node)]
-        return NamedSharding(mesh, _leaf_spec(path, tuple(node.shape), plan))
+        return NamedSharding(mesh, _leaf_spec(path, tuple(node.shape), split))
 
     return one(params, "")
 
@@ -275,28 +295,57 @@ def _batch_shardings(mesh, batch_spec):
     return {k: one(v) for k, v in batch_spec.items()}
 
 
-def _cache_shardings(mesh, cache_spec, heads_split: bool):
-    """The dense cache: ``[L, B, S, Hkv, dh]`` leaves batch over the batch
-    axes and, where attention splits by heads, heads over ``model``; other
-    ``[L, B, ...]`` states batch on dim 1; scalars replicated. (The
+def _cache_model_axes(params, mesh, cfg) -> Dict[str, int]:
+    """The axis over ``model`` of each dense-cache entry whose layer splits
+    (:func:`~repro_torch.parallel.ep_shardmap.tp_plan` of each block list's
+    first block): K/V ``[L, B, S, Hkv, dh]`` by heads where the attention
+    (whisper's ``cross`` for ``cross_k``/``cross_v``) splits; the RG-LRU's
+    convolution tails and states by width; the mLSTM's states by heads and
+    its convolution tail by width, the sLSTM's states by channel."""
+    def plan(key):
+        return tp_plan(params[key][0], mesh, cfg) if params.get(key) else {}
+
+    def on(split, axis, *keys):
+        return {k: axis for k in keys} if split else {}
+
+    if cfg.family == "hybrid":
+        g, t = plan("groups"), plan("tail")
+        return {**on(g.get("attn/attn"), 3, "k", "v"), **on(g.get("rg1"), -1, "conv1", "h1"),
+                **on(g.get("rg2"), -1, "conv2", "h2"), **on(t.get(""), -1, "tail_conv",
+                                                             "tail_h")}
+    if cfg.family == "ssm":
+        g = plan("groups")
+        return {**on(g.get("m"), 2, "m"), **on(g.get("m"), -1, "mconv"),
+                **on(g.get("s"), 2, "s")}
+    if cfg.family == "encdec":
+        d = plan("dec_blocks")
+        return {**on(d.get("attn"), 3, "k", "v"), **on(d.get("cross"), 3, "cross_k", "cross_v")}
+    return on(plan("layers").get("attn"), 3, "k", "v")
+
+
+def _cache_shardings(mesh, cache_spec, model_axes: Dict[str, int]):
+    """The dense cache: every ``[L, B, ...]`` leaf batch over the batch axes
+    and, where :func:`_cache_model_axes` names its entry, that axis over
+    ``model`` (a tuple entry's leaves alike); scalars replicated. (The
     reference's ``cache_pspec`` may put the sequence over ``model`` instead;
-    the port's attention keeps whole heads or splits them, never the
-    sequence.)"""
+    the port's layers keep their cache at their share of heads or width,
+    never the sequence.)"""
     ba = shd._entry(batch_axes(mesh))
 
-    def one(leaf):
+    def one(leaf, axis):
         nd = leaf.dim() if isinstance(leaf, torch.Tensor) else 0
-        if nd == 5:
-            spec = (None, ba, None, "model" if heads_split else None, None)
-        elif nd >= 2:
-            spec = (None, ba) + (None,) * (nd - 2)
-        else:
-            spec = (None,) * nd
+        if nd < 2:
+            return NamedSharding(mesh, (None,) * nd)
+        spec = [None, ba] + [None] * (nd - 2)
+        if axis is not None:
+            spec[axis] = "model"
+        spec = tuple(spec)
         if not shd._divides(tuple(leaf.shape), spec, mesh):
             spec = (None,) * nd
         return NamedSharding(mesh, spec)
 
-    return {k: (tuple(one(t) for t in v) if isinstance(v, tuple) else one(v))
+    return {k: (tuple(one(t, model_axes.get(k)) for t in v) if isinstance(v, tuple)
+                else one(v, model_axes.get(k)))
             for k, v in cache_spec.items()}
 
 
@@ -566,6 +615,29 @@ def _grad_step(loss_fn: Callable, params_flat: Dict[str, List], plans: Dict[str,
             {k: v / n for k, v in extra.items()})
 
 
+def tree_gradients(cfg, params, batch: Dict, mesh=None):
+    """``(loss, grads)``: the bundle's ``train_loss`` of ``batch`` at
+    ``params`` (any family's tree; under ``mesh`` this rank's blocks of both)
+    and its gradients in ``params``' structure — under a mesh this rank's
+    contributions to the global loss's, each parameter's on the rank's
+    share of it."""
+    from ..core.tree import tree_leaves, tree_map, tree_unflatten
+
+    def trained(t):
+        return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+    live = tree_map(lambda t: t.detach().requires_grad_() if trained(t) else t, params)
+    with _rules(mesh):
+        loss, _ = get_model(cfg).train_loss(live, batch)
+    leaves = tree_leaves(live)
+    gs = iter(torch.autograd.grad(loss, [t for t in leaves if trained(t)], allow_unused=True))
+    grads = []
+    for t in leaves:
+        g = next(gs) if trained(t) else t
+        grads.append(torch.zeros_like(t) if g is None else g)
+    return loss.detach(), tree_unflatten(live, grads)
+
+
 def _requires_grad(flat: Dict[str, List]) -> Dict[str, List]:
     return {p: [t.detach().requires_grad_() for t in leaves] for p, leaves in flat.items()}
 
@@ -666,7 +738,7 @@ def _otp_loss_fn(cfg, mesh, student, frozen, draws, lam: float = 1.0) -> Callabl
                                                otp_tau=1.0)
             with torch.no_grad():
                 ht, _, _ = tf.forward_hidden(frozen, tokens["tokens"], cfg, use_otp=False)
-            kl = L.chunked_kl(hs, ht, emb, cfg.logits_chunk)
+            kl = L.chunked_kl(hs, ht, emb, cfg.logits_chunk, cfg.vocab_size)
         loss = kl + lam * mask_l1 / cfg.num_layers
         return loss, {"kl": kl.detach(), "mask_l1": mask_l1.detach()}
 
@@ -729,11 +801,6 @@ def _serve_params_spec(cfg, bundle, precision, avg_bits):
     return spec_mod.quantize_dense_param_tree(bundle.param_shapes(), cfg)
 
 
-def _heads_split(params_spec, mesh, cfg) -> bool:
-    layers = params_spec.get("layers")
-    return bool(layers) and bool(tp_plan(layers[0], mesh, cfg).get("attn"))
-
-
 def _build_prefill(cfg, mesh, bundle, kwargs, meta, precision, avg_bits):
     params_spec = _serve_params_spec(cfg, bundle, precision, avg_bits)
     batch_spec = kwargs["batch"]
@@ -744,7 +811,8 @@ def _build_prefill(cfg, mesh, bundle, kwargs, meta, precision, avg_bits):
 
     with torch.no_grad():
         cache_spec, logits_spec = bundle.prefill(bundle.param_shapes(), batch_spec)
-    cache_sh = _cache_shardings(mesh, on_meta(cache_spec), _heads_split(params_spec, mesh, cfg))
+    cache_sh = _cache_shardings(mesh, on_meta(cache_spec),
+                                _cache_model_axes(params_spec, mesh, cfg))
     return StepArtifacts(name="prefill_step", fn=prefill_step,
                          arg_specs=(params_spec, batch_spec),
                          in_shardings=(_param_shardings(params_spec, mesh, cfg),
@@ -763,7 +831,7 @@ def _build_decode(cfg, mesh, bundle, kwargs, meta, precision, avg_bits):
             return bundle.decode_step(params, dict(cache, pos=int(cache["pos"])), token,
                                       int(pos))
 
-    c_sh = _cache_shardings(mesh, cache_spec, _heads_split(params_spec, mesh, cfg))
+    c_sh = _cache_shardings(mesh, cache_spec, _cache_model_axes(params_spec, mesh, cfg))
     return StepArtifacts(name="decode_step", fn=decode_fn,
                          arg_specs=(params_spec, cache_spec, token_spec, pos_spec),
                          in_shardings=(_param_shardings(params_spec, mesh, cfg), c_sh,

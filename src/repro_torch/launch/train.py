@@ -114,6 +114,8 @@ def main(argv=None):
     p.add_argument("--seq", type=int, default=128)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--reduced", action="store_true", default=True,
+                   help="train the reduced config (always on, as the reference's flag)")
     p.add_argument("--coordinator", default=None,
                    help="HOST:PORT -> torch.distributed.init_process_group (multi-process; "
                         "RANK and WORLD_SIZE as torchrun sets them)")

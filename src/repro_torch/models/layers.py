@@ -26,10 +26,12 @@ import torch.utils.checkpoint as ckpt
 
 from ..core.packing import PackedTensor
 from ..kernels import ops
-from ..parallel.sharding import all_reduce, batch_axes, current_mesh, enter, tp_share
+from ..parallel.sharding import (all_gather, all_reduce, batch_axes, current_mesh, enter,
+                                 tp_share, vocab_share)
 
 __all__ = [
     "apply_rope",
+    "attend",
     "attention",
     "chunked_kl",
     "chunked_xent",
@@ -39,6 +41,7 @@ __all__ = [
     "init_linear",
     "init_mlp",
     "linear",
+    "logits",
     "mlp",
     "rms_norm",
     "sinusoidal_positions",
@@ -77,8 +80,31 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """``embed[tokens]``. Under a mesh, an ``embed`` holding this rank's
+    rows of a ``vocab``-row table (:func:`~repro_torch.parallel.sharding.vocab_share`)
+    looks up the tokens it holds, zeroes the others and sums the ranks'
+    rows over ``model``: each token's gradient lands on its owner's rows."""
+    mesh = vocab_share(embed, vocab)
+    if mesh is None:
+        return embed[tokens]
+    rows = embed.shape[0]
+    local = tokens - mesh.index("model") * rows
+    mine = (local >= 0) & (local < rows)
+    out = embed[torch.where(mine, local, 0)] * mine[..., None].to(embed.dtype)
+    return all_reduce(out, mesh, "model")
+
+
+def logits(x: torch.Tensor, emb: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
+    """``x @ embᵀ`` in f32 (``[..., V]``). Under a mesh, an ``emb`` holding
+    this rank's vocabulary rows gives its columns, gathered over ``model``
+    into the whole vocabulary in the single process's order."""
+    mesh = vocab_share(emb, vocab)
+    if mesh is None:
+        return torch.matmul(x.float(), emb.float().t())
+    part = torch.matmul(enter(x, mesh, "model").float(), emb.float().t())
+    return all_gather(part, mesh, "model", part.dim() - 1, backward="split")
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -195,7 +221,7 @@ def _tp_attention(p, cfg):
     under a mesh (:func:`~repro_torch.parallel.sharding.tp_share`) — ``p``'s
     shared norms entered, ``cfg``'s head counts this rank's — or None for a
     whole one."""
-    mesh = tp_share(p, cfg)
+    mesh = tp_share(p, "attn", cfg.num_heads * cfg.head_dim, cfg)
     if mesh is None:
         return None
     model = mesh.shape["model"]
@@ -220,21 +246,32 @@ def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out, kv = attention(p, enter(x, mesh, "model"), cfg, positions=positions,
                             kv_override=kv_override, causal=causal, window=window, rope=rope)
         return all_reduce(out, mesh, "model"), kv
-    b, s, _ = x.shape
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = hq // hkv
     if kv_override is not None:
         q = _q_only(p, x, cfg, positions, rope)
         k, v, kv_pos = kv_override
     else:
         q, k, v = _qkv(p, x, cfg, positions, rope)
         kv_pos = positions if positions.dim() == 1 else positions[0]
-    kv_s = k.shape[1]
+    q_pos = positions if positions.dim() == 1 else positions[0]
+    out = attend(q, k, v, q_pos, kv_pos, cfg, causal=causal, window=window, dtype=x.dtype)
+    return linear(p["wo"], out), (k, v)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+           kv_pos: torch.Tensor, cfg, *, causal: bool, window: Optional[int],
+           dtype: torch.dtype) -> torch.Tensor:
+    """:func:`attention` between its projections: ``q [B, S, Hq, dh]``
+    against ``k``/``v`` ``[B, Skv, Hkv, dh]`` at positions ``q_pos [S]`` and
+    ``kv_pos [Skv]`` (``< 0`` padding), swept in q chunks × kv chunks with an
+    online softmax. Returns the heads ``[B, S, Hq·dh]`` in ``dtype``, before
+    ``wo``."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
     if q.is_meta:  # shapes only: the chunk sweep computes nothing on meta tensors
-        return linear(p["wo"], q.new_empty((b, s, hq * dh))), (k, v)
+        return q.new_empty((b, s, hq * dh), dtype=dtype)
     qc = min(cfg.attn_q_chunk, s)
     kvc = min(cfg.attn_kv_chunk, k.shape[1])
-    q_pos = positions if positions.dim() == 1 else positions[0]
     s_pad = (-s) % qc
     q = _pad_rows(q, s_pad, 1)
     q_pos = _pad_rows(q_pos, s_pad, 0, value=-1)
@@ -246,11 +283,10 @@ def attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     q5 = q.reshape(b, sq, hkv, g, dh)
     outs = [
         _online_attn(q5[:, i:i + qc], k, v, q_pos[i:i + qc], kv_pos, causal=causal,
-                     window=window, kv_chunk=kvc).to(x.dtype)
+                     window=window, kv_chunk=kvc).to(dtype)
         for i in range(0, sq, qc)
     ]
-    out = torch.cat(outs, dim=1).reshape(b, sq, hq * dh)[:, :s]
-    return linear(p["wo"], out), (k[:, :kv_s], v[:, :kv_s])
+    return torch.cat(outs, dim=1).reshape(b, sq, hq * dh)[:, :s]
 
 
 def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
@@ -301,7 +337,7 @@ def mlp(p, x: torch.Tensor, d_ff: Optional[int] = None) -> torch.Tensor:
     """SwiGLU feed-forward. Under a mesh, a rank holding its share of the
     layer's ``d_ff`` columns (:func:`~repro_torch.parallel.sharding.tp_share`)
     runs it and sums the partial products over ``model``."""
-    mesh = tp_share(p, d_ff=d_ff) if d_ff is not None else None
+    mesh = tp_share(p, "mlp", d_ff) if d_ff is not None else None
     if mesh is not None:
         xe = enter(x, mesh, "model")
         h = F.silu(linear(p["w_gate"], xe)) * linear(p["w_up"], xe)
@@ -340,18 +376,52 @@ def _xent_chunk(h, w, y):
     return ((lse - picked) * valid).sum(), valid.sum()
 
 
+def _xent_shard_chunk(h, w, y):
+    """This rank's vocabulary columns of a chunk: their log-sum-exp and the
+    label's logit where this rank holds the label (``y`` counted from the
+    rank's first row), else 0."""
+    logits = _chunk_logits(h, w)
+    mine = (y >= 0) & (y < w.shape[0])
+    picked = torch.gather(logits, -1, torch.where(mine, y, 0).long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1), picked * mine.to(picked.dtype)
+
+
+def _global_lse(lse: torch.Tensor, mesh, backward: str) -> torch.Tensor:
+    """The log-sum-exp over the whole vocabulary from the ranks' shards'
+    (``backward`` the gather's: ``"split"`` where what it feeds is the same
+    on every rank, ``"reduce_scatter"`` where each rank's share of the
+    vocabulary reads it)."""
+    parts = all_gather(lse[..., None], mesh, "model", lse.dim(), backward=backward)
+    return torch.logsumexp(parts, dim=-1)
+
+
 def chunked_xent(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512, vocab: Optional[int] = None) -> torch.Tensor:
     """Streaming softmax cross-entropy over sequence chunks, never holding
     ``[B, S, V]``: ``hidden [B, S, D]``, ``emb [V, D]`` (output projection
     ``embᵀ``), ``labels [B, S]`` (−1 = ignore). Mean NLL over the valid
-    positions; each chunk's logits are recomputed in the backward pass."""
+    positions; each chunk's logits are recomputed in the backward pass.
+    Under a mesh, an ``emb`` holding this rank's rows of a ``vocab``-row
+    table computes over its shard: the log-sum-exp from the ranks' shards'
+    (gathered over ``model``), the label's logit from the rank that holds
+    it (summed over ``model``)."""
     s = hidden.shape[1]
     chunk = _divisor_chunk(s, chunk)
     tot = torch.zeros((), device=hidden.device)
     cnt = torch.zeros((), device=hidden.device)
+    vmesh = vocab_share(emb, vocab)
+    if vmesh is not None:
+        hidden = enter(hidden, vmesh, "model")
     for c0 in range(0, s, chunk):
-        t, c = _recomputed(_xent_chunk, hidden[:, c0:c0 + chunk], emb, labels[:, c0:c0 + chunk])
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if vmesh is None:
+            t, c = _recomputed(_xent_chunk, h, emb, y)
+        else:
+            v0 = vmesh.index("model") * emb.shape[0]
+            lse, picked = _recomputed(_xent_shard_chunk, h, emb, torch.where(y >= 0, y - v0, -1))
+            nll = _global_lse(lse, vmesh, "split") - all_reduce(picked, vmesh, "model")
+            valid = (y >= 0).float()
+            t, c = (nll * valid).sum(), valid.sum()
         tot, cnt = tot + t, cnt + c
     mesh = current_mesh()
     if mesh is not None:
@@ -365,17 +435,41 @@ def _kl_chunk(a, t, w):
     return torch.sum(torch.exp(lt) * (lt - ls))
 
 
+def _lse_pair(a, t, w):
+    return (torch.logsumexp(_chunk_logits(a, w), dim=-1),
+            torch.logsumexp(_chunk_logits(t, w), dim=-1))
+
+
+def _kl_shard_chunk(a, t, w, lse_s, lse_t):
+    """This rank's vocabulary columns' terms of the chunk's KL, given the
+    whole vocabulary's log-sum-exps."""
+    ls = _chunk_logits(a, w) - lse_s[..., None]
+    lt = _chunk_logits(t, w) - lse_t[..., None]
+    return torch.sum(torch.exp(lt) * (lt - ls))
+
+
 def chunked_kl(hidden_s: torch.Tensor, hidden_t: torch.Tensor, emb: torch.Tensor,
-               chunk: int = 512) -> torch.Tensor:
+               chunk: int = 512, vocab: Optional[int] = None) -> torch.Tensor:
     """Streaming ``KL(teacher ‖ student)`` over the vocabulary, mean over
     positions, never holding ``[B, S, V]`` (the OTP distillation loss,
-    Eq. 14's first term, from hidden states)."""
+    Eq. 14's first term, from hidden states). Under a mesh, an ``emb``
+    holding this rank's rows of a ``vocab``-row table takes the log-sum-exps
+    from the ranks' shards' and sums its columns' terms over ``model``."""
     b, s, _ = hidden_s.shape
     chunk = _divisor_chunk(s, chunk)
     tot = torch.zeros((), device=hidden_s.device)
+    vmesh = vocab_share(emb, vocab)
+    if vmesh is not None:
+        hidden_s, hidden_t = enter(hidden_s, vmesh, "model"), enter(hidden_t, vmesh, "model")
     for c0 in range(0, s, chunk):
-        tot = tot + _recomputed(_kl_chunk, hidden_s[:, c0:c0 + chunk],
-                                hidden_t[:, c0:c0 + chunk], emb)
+        hs, ht = hidden_s[:, c0:c0 + chunk], hidden_t[:, c0:c0 + chunk]
+        if vmesh is None:
+            tot = tot + _recomputed(_kl_chunk, hs, ht, emb)
+            continue
+        lse_s, lse_t = (_global_lse(v, vmesh, "reduce_scatter")
+                        for v in _recomputed(_lse_pair, hs, ht, emb))
+        tot = tot + all_reduce(_recomputed(_kl_shard_chunk, hs, ht, emb, lse_s, lse_t), vmesh,
+                               "model")
     mesh = current_mesh()
     if mesh is not None:
         tot = all_reduce(tot, mesh, batch_axes(mesh))

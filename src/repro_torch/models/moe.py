@@ -189,10 +189,12 @@ def ep_shardmap_ok(cfg, mesh, x, num_units: int) -> bool:
     return num_units % mesh.shape["model"] == 0
 
 
-def moe_layer(p, x: torch.Tensor, cfg, *, gate_mask_fn=None, expert_ffn_fn=None) -> MoEOut:
+def moe_layer(p, x: torch.Tensor, cfg, *, gate_mask_fn=None, expert_ffn_fn=None,
+              capacity: Optional[int] = None) -> MoEOut:
     """The uncompressed MoE block (``moe.py:212``), ``x [B, S, D]``.
     ``gate_mask_fn(x2, idx, gates) -> mask [T, k]`` is the OTP hook;
-    ``expert_ffn_fn(xp) -> yp`` overrides the expert compute.
+    ``expert_ffn_fn(xp) -> yp`` overrides the expert compute; ``capacity``
+    replaces the per-expert capacity the token count gives.
 
     Under a mesh the routed experts run the shard_map EP region
     (:func:`repro_torch.parallel.ep_shardmap.moe_region_sharded`, no
@@ -222,7 +224,7 @@ def moe_layer(p, x: torch.Tensor, cfg, *, gate_mask_fn=None, expert_ffn_fn=None)
     e, k = cfg.num_experts, cfg.top_k
     probs, idx, gates = route_topk(p["router"], x2, k)
     gate_mask = gate_mask_fn(x2, idx, gates) if gate_mask_fn is not None else None
-    cap = dispatch_capacity(cfg, t)
+    cap = capacity or dispatch_capacity(cfg, t)
     xp, dest, valid, gflat = capacity_dispatch(x2, idx, gates, e, cap, gate_mask)
     yp = expert_ffn_fn(xp) if expert_ffn_fn is not None else expert_ffn(p["experts"], xp, e)
     y = combine(yp, dest, valid, gflat, t, k)

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import all_gather, all_reduce, enter, tp_share
 from . import layers as L
 from .transformer import _dtype, _logits
 
@@ -78,18 +79,21 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _gates(p, u: torch.Tensor):
-    """``(a, sqrt(1 − a²), i)`` in f32 for ``u [B, S, W]``."""
-    r = torch.sigmoid(L.linear(p["wa"], u).float())
-    i = torch.sigmoid(L.linear(p["wx"], u).float())
+def _gates(p, u: torch.Tensor, u_in: Optional[torch.Tensor] = None):
+    """``(a, sqrt(1 − a²), i)`` in f32 for ``u [B, S, W]``; ``u_in`` (the
+    whole width, under tensor parallelism) feeds the gates' projections."""
+    u_in = u if u_in is None else u_in
+    r = torch.sigmoid(L.linear(p["wa"], u_in).float())
+    i = torch.sigmoid(L.linear(p["wx"], u_in).float())
     a = torch.exp(RGLRU_C * r * F.logsigmoid(p["lam"].float()))  # per-step decay ≤ 1
     return a, torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)), i
 
 
-def _rglru(p, u: torch.Tensor, h0: Optional[torch.Tensor] = None):
+def _rglru(p, u: torch.Tensor, h0: Optional[torch.Tensor] = None,
+           u_in: Optional[torch.Tensor] = None):
     """RG-LRU over ``u [B, S, W]`` from ``h0`` (f32; zeros if None):
     ``(h in u's dtype, h_last [B, W] f32)``."""
-    a, norm, i = _gates(p, u)
+    a, norm, i = _gates(p, u, u_in)
     gated = norm * (i * u.float())
     if h0 is not None:  # fold h0 into step 0
         gated = torch.cat([gated[:, :1] + (a[:, 0] * h0.float())[:, None], gated[:, 1:]], dim=1)
@@ -97,14 +101,44 @@ def _rglru(p, u: torch.Tensor, h0: Optional[torch.Tensor] = None):
     return h.to(u.dtype), h[:, -1]
 
 
-def _rg_block(p, x: torch.Tensor, cfg, conv_state=None, h0=None):
-    """One recurrent block over a sequence: ``(x, (conv_state, h_last))``."""
+def _tp_rg(p, cfg):
+    """``(mesh, p)`` for a rank holding its share of a split RG-LRU
+    (:func:`~repro_torch.parallel.sharding.tp_share`): its ``conv`` and
+    ``lam`` columns (whole on every rank, entered so their gradients sum
+    over ``model``); ``(None, p)`` for a whole one."""
+    mesh = tp_share(p, "rglru", cfg.rglru_width, cfg)
+    if mesh is None:
+        return None, p
+    w = p["proj_out"]["w"].shape[0]
+    c0 = mesh.index("model") * w
+    return mesh, dict(p, conv=enter(p["conv"], mesh, "model")[:, c0:c0 + w],
+                      lam=enter(p["lam"], mesh, "model")[c0:c0 + w])
+
+
+def _rg_mix(p, x: torch.Tensor, cfg, conv_state, step):
+    """The recurrent half of a block: ``x`` plus the RG-LRU branch, and the
+    new states. ``step(p, u, u_in)`` runs the recurrence over ``u`` (the
+    rank's columns) with the gates' input ``u_in`` (the whole width). Under
+    tensor parallelism the rank runs its columns of both branches, gathers
+    ``u`` for the gates and sums ``proj_out``'s partial product over
+    ``model``."""
+    mesh, p = _tp_rg(p, cfg)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mesh is not None:
+        h = enter(h, mesh, "model")
     gate = F.gelu(L.linear(p["gate_in"], h), approximate="tanh")
     u, conv_state = _causal_conv(L.linear(p["proj_in"], h), p["conv"], conv_state)
-    y, h_last = _rglru(p, u, h0)
-    x = x + L.linear(p["proj_out"], y * gate)
-    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    u_in = u if mesh is None else all_gather(u, mesh, "model", u.dim() - 1)
+    y, state = step(p, u, u_in)
+    out = L.linear(p["proj_out"], y.to(x.dtype) * gate)
+    return x + (out if mesh is None else all_reduce(out, mesh, "model")), conv_state, state
+
+
+def _rg_block(p, x: torch.Tensor, cfg, conv_state=None, h0=None):
+    """One recurrent block over a sequence: ``(x, (conv_state, h_last))``."""
+    x, conv_state, h_last = _rg_mix(p, x, cfg, conv_state,
+                                    lambda q, u, u_in: _rglru(q, u, h0, u_in))
+    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.d_ff)
     return x, (conv_state, h_last)
 
 
@@ -122,7 +156,7 @@ def _attn_block(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     a, kv = L.attention(p["attn"], h, cfg, positions=positions, causal=True,
                         window=cfg.local_window)
     x = x + a
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps)), kv
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.d_ff), kv
 
 
 # ---------------------------------------------------------------- model
@@ -150,7 +184,7 @@ def init_recurrent(gen: torch.Generator, cfg) -> Dict:
 def _forward(params, tokens: torch.Tensor, cfg, collect_cache: bool = False):
     """All blocks over ``tokens [B, S]``: ``(hidden [B, S, D], cache |
     None)``; the cache (without ``pos``) as the module docstring lays out."""
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)
     states = []
@@ -186,7 +220,7 @@ def hidden(params, batch, cfg, **_):
 def train_loss(params, batch, cfg, **_):
     """Streaming next-token cross-entropy: ``(nll, {"nll"})``."""
     nll = L.chunked_xent(hidden(params, batch, cfg), params["embed"], batch["labels"],
-                         cfg.logits_chunk)
+                         cfg.logits_chunk, cfg.vocab_size)
     return nll, {"nll": nll}
 
 
@@ -195,19 +229,19 @@ def prefill(params, batch, cfg, **_):
     ``cache["pos"] = S``."""
     h, cache = _forward(params, batch["tokens"], cfg, collect_cache=True)
     cache["pos"] = batch["tokens"].shape[1]
-    return cache, _logits(params, h[:, -1:])
+    return cache, _logits(params, h[:, -1:], cfg)
 
 
 def _rg_decode(p, x: torch.Tensor, cfg, conv_state: torch.Tensor, h_prev: torch.Tensor):
     """One token through a recurrent block: ``x [B, 1, D]`` →
     ``(x, (conv_state, h_new f32))``."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    gate = F.gelu(L.linear(p["gate_in"], h), approximate="tanh")
-    u, conv_state = _causal_conv(L.linear(p["proj_in"], h), p["conv"], conv_state)
-    a, norm, i = _gates(p, u)
-    h_new = a[:, 0] * h_prev.float() + norm[:, 0] * (i[:, 0] * u[:, 0].float())
-    x = x + L.linear(p["proj_out"], h_new[:, None].to(x.dtype) * gate)
-    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    def step(q, u, u_in):
+        a, norm, i = _gates(q, u, u_in)
+        h_new = a[:, 0] * h_prev.float() + norm[:, 0] * (i[:, 0] * u[:, 0].float())
+        return h_new[:, None], h_new
+
+    x, conv_state, h_new = _rg_mix(p, x, cfg, conv_state, step)
+    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.d_ff)
     return x, (conv_state, h_new)
 
 
@@ -216,7 +250,7 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
     logits [B, 1, V])``. The attention blocks write their K/V row into
     ``cache["k"]``/``cache["v"]`` in place (``pos`` must lie inside them);
     the recurrent states come back as new tensors."""
-    x = L.embed_tokens(params["embed"], token)
+    x = L.embed_tokens(params["embed"], token, cfg.vocab_size)
     states = []
     for g, p_g in enumerate(params["groups"]):
         x, st1 = _rg_decode(p_g["rg1"], x, cfg, cache["conv1"][g], cache["h1"][g])
@@ -226,7 +260,7 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
                                   k_cache=cache["k"][g], v_cache=cache["v"][g], pos=pos,
                                   window=cfg.local_window)
         x = x + a
-        x = x + L.mlp(pa["mlp"], L.rms_norm(x, pa["ln2"], cfg.norm_eps))
+        x = x + L.mlp(pa["mlp"], L.rms_norm(x, pa["ln2"], cfg.norm_eps), cfg.d_ff)
         states.append((*st1, *st2))
     tail = [None] * len(params["tail"])
     for i, p_rg in enumerate(params["tail"]):
@@ -236,4 +270,4 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
     new.update(k=cache["k"], v=cache["v"], pos=pos + 1,
                tail_conv=torch.stack([t[0] for t in tail]) if tail else cache["tail_conv"],
                tail_h=torch.stack([t[1] for t in tail]) if tail else cache["tail_h"])
-    return new, _logits(params, x)
+    return new, _logits(params, x, cfg)

@@ -43,7 +43,7 @@ from ..core.compressed_moe import compressed_moe_layer
 from ..core.quantizers import dequantize_kv_rows, quantize_kv_rows
 from ..kernels import ops
 from . import layers as L
-from .moe import init_moe, moe_layer
+from .moe import dispatch_capacity, init_moe, moe_layer
 
 __all__ = [
     "KV_QUANT_BITS",
@@ -95,8 +95,10 @@ def _out_embedding(params):
     return params.get("unembed", params["embed"])
 
 
-def _logits(params, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x.float(), _out_embedding(params).float().t())
+def _logits(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits ``[..., V]`` in f32 (the whole vocabulary under a mesh too:
+    :func:`~repro_torch.models.layers.logits`)."""
+    return L.logits(x, _out_embedding(params), cfg.vocab_size)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -130,7 +132,7 @@ def init_lm(gen: torch.Generator, cfg):
 
 
 def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backend=None,
-               otp_rng=None, otp_tau: float = 1.0):
+               otp_rng=None, otp_tau: float = 1.0, rows=None, capacity=None):
     """FFN half of a block: ``(Δx, expert_activation [B, S], slot_counts,
     aux)``, for the dense ``mlp``, the PMQ-compressed MoE or the
     uncompressed :func:`moe_layer`; shared by the dense-cache and paged
@@ -143,7 +145,9 @@ def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backen
     load-balance loss (uncompressed MoE), the Gumbel mask's mean (PMQ +
     OTP training, Eq. 14's ℓ1 term) or 0. ``otp_rng`` (uniforms ``[T, k]``
     or a generator) samples the OTP mask by Gumbel-Softmax at ``otp_tau``,
-    the reference's ``moe_hooks``.
+    the reference's ``moe_hooks``. ``rows`` (``[B, S]`` bool) dispatches only
+    those tokens to the routed experts (:func:`compressed_moe_layer`), at
+    ``capacity`` rows a slot where given.
     """
     ones = torch.ones(h.shape[:2], device=h.device)
     no_counts = torch.zeros(0, dtype=torch.long, device=h.device)
@@ -154,13 +158,18 @@ def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backen
         otp = p.get("otp") if use_otp else None
         y, info = compressed_moe_layer(p["moe"], p["moe_ce"], h, cfg, otp_params=otp,
                                        otp_rng=otp_rng, otp_tau=otp_tau,
-                                       count_weight=count_weight, ffn_backend=ffn_backend)
+                                       count_weight=count_weight, ffn_backend=ffn_backend,
+                                       rows=rows, capacity=capacity)
         act = ones
         if info["mask"] is not None:
             act = info["mask"].mean(dim=-1).reshape(h.shape[:2])
         aux = info["mask_l1"] if info["mask_l1"] is not None else zero
         return y, act, info["slot_counts"], aux
-    out = moe_layer(p["moe"], h, cfg)
+    def keep(x2, idx, gates):
+        return rows.reshape(-1, 1).to(gates.dtype).expand_as(gates)
+
+    out = moe_layer(p["moe"], h, cfg, gate_mask_fn=keep if rows is not None else None,
+                    capacity=capacity)
     return out.y, ones, no_counts, out.aux_loss
 
 
@@ -180,7 +189,7 @@ def _block(p, x, cfg, *, positions, window: int, ffn_backend=None, **hooks):
 def _embed_inputs(params, cfg, tokens, patch_embeds=None):
     """Token embeddings ``[B, S, D]``; a ``vlm`` model's ``patch_embeds
     [B, P, D]`` go ahead of them (``[B, P + S, D]``)."""
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x
@@ -232,7 +241,8 @@ def train_loss(params, batch, cfg, *, aux_weight: float = 0.01):
     hidden, aux, _ = forward_hidden(params, batch["tokens"], cfg, patch_embeds=patch)
     if patch is not None:
         hidden = hidden[:, patch.shape[1]:]
-    nll = L.chunked_xent(hidden, _out_embedding(params), batch["labels"], cfg.logits_chunk)
+    nll = L.chunked_xent(hidden, _out_embedding(params), batch["labels"], cfg.logits_chunk,
+                         cfg.vocab_size)
     loss = nll + aux_weight * aux / max(cfg.num_layers, 1)
     return loss, {"nll": nll, "aux": aux}
 
@@ -247,7 +257,7 @@ def prefill(params, batch, cfg, *, ffn_backend: Optional[str] = None):
     hidden, _, cache = forward_hidden(params, tokens, cfg, patch_embeds=patch,
                                       collect_cache=True, ffn_backend=ffn_backend)
     cache["pos"] = tokens.shape[1] + (patch.shape[1] if patch is not None else 0)
-    return cache, _logits(params, hidden[:, -1:])
+    return cache, _logits(params, hidden[:, -1:], cfg)
 
 
 def extend_cache(cache, rows: int):
@@ -277,14 +287,14 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, *,
     ``pos`` (a host int). Each layer's new K/V row is written into
     ``cache["k"]``/``cache["v"]`` in place, as the reference's donated
     carry is. Returns ``(cache, logits [B, 1, V])``."""
-    x = L.embed_tokens(params["embed"], token)
+    x = L.embed_tokens(params["embed"], token, cfg.vocab_size)
     kf, vf = cache["k"], cache["v"]
     windows = layer_windows_static(cfg, kf.shape[2])
     for l, p_l in enumerate(params["layers"]):
         x, _ = _decode_block(p_l, x, cfg, k_cache=kf[l], v_cache=vf[l], pos=pos,
                              window=int(windows[l]), ffn_backend=ffn_backend)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return {"k": kf, "v": vf, "pos": pos + 1}, _logits(params, x)
+    return {"k": kf, "v": vf, "pos": pos + 1}, _logits(params, x, cfg)
 
 
 # ------------------------------------------------------------ paged path
@@ -295,7 +305,7 @@ def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb
     ``tables [B, MB]`` int32, ``token [B, 1]``, ``positions [B]``, ``active
     [B]`` bool. Returns ``(logits [B, 1, V], per_slot_act [B], slot_counts
     [L, num_slots])``."""
-    x = L.embed_tokens(params["embed"], token)
+    x = L.embed_tokens(params["embed"], token, cfg.vocab_size)
     b = token.shape[0]
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
@@ -326,7 +336,7 @@ def _paged_decode_core(params, kf, vf, tables, token, positions, active, cfg, nb
         counts.append(cnt)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     per_slot = torch.stack(acts).mean(dim=(0, 2))  # [B]
-    return _logits(params, x), per_slot, torch.stack(counts)
+    return _logits(params, x, cfg), per_slot, torch.stack(counts)
 
 
 def _masked_activation(per_slot, active):
@@ -393,9 +403,35 @@ def paged_decode_horizon(params, kf, vf, tables, token, positions, active, cfg, 
     return torch.stack(toks), torch.stack(emits), torch.stack(acts), torch.stack(counts)
 
 
+def _resumed_ffn(p, h2, cfg, chunk, d0: int, valid_len: int, decode_batch: int, **kw):
+    """The MoE half of a resumed chunk's layer: ``(Δx, slot_counts)``. The
+    prompt's rows ``[0, d0)`` take the chunk's dispatch as the first prefill
+    gave it (a token's capacity rank counts only the tokens before it). The
+    decode-era rows ``[d0, valid_len)`` are dispatched at the capacity of
+    the decode megastep's ``decode_batch`` tokens, that many rows at a time
+    with the chunk's other tokens out of the dispatch: as in the decode, no
+    token of theirs is dropped and the grouped GEMMs run the decode's row
+    blocks. Every call sees the whole chunk (the router's and the OTP's
+    shapes as the first prefill's) and counts the rows it owns, so the
+    counts are the one dispatch's."""
+    cap = dispatch_capacity(cfg, decode_batch)
+    spans = ([(0, d0)] if d0 else []) + [(r, min(r + cap, valid_len))
+                                         for r in range(d0, valid_len, cap)]
+    delta, counts = torch.zeros_like(h2), None
+    for lo, hi in spans:
+        own = ((chunk >= lo) & (chunk < hi))[None]
+        dec = lo >= d0
+        d, _, cnt, _ = _ffn_delta(p, h2, cfg, count_weight=own, rows=own if dec else None,
+                                  capacity=cap if dec else None, **kw)
+        delta = torch.where(own[..., None], d, delta)
+        counts = cnt if counts is None else counts + cnt
+    return delta, counts
+
+
 def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len: int,
                         cfg, *, block_size: int, use_otp: bool = True, qs=(),
-                        ffn_backend: Optional[str] = None):
+                        ffn_backend: Optional[str] = None, decode_from: Optional[int] = None,
+                        decode_batch: int = 1):
     """Chunked prefill of ONE request into its pages.
 
     ``tokens [1, C]`` is one fixed-size chunk (the tail right-padded);
@@ -405,11 +441,20 @@ def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len
     pools (``qs``) the gathered rows are dequantized with
     :func:`dequantize_kv_rows`, the decode kernel's epilogue, so attention
     over a shared prefix page reads the floats every later decode reads.
+
+    ``decode_from`` (a recompute resume; None otherwise) is the position
+    where the rows a decode step wrote begin, ``decode_batch`` the decode
+    megastep's batch (the engine's slots). Each query row at or past it
+    attends through ``ops.paged_attention`` — one query, that row's length,
+    over the pages this chunk has just written — and takes the MoE as the
+    decode step did (:func:`_resumed_ffn`), so the resume rewrites those
+    rows bit for bit. Earlier rows run as any prefill's.
+
     Returns ``(logits [1, 1, V] of the last valid token, slot_counts [L,
     num_slots])``.
     """
     bs = block_size
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     c = tokens.shape[1]
     nb = (kf.shape[1] - 1) // bs
     dev = tokens.device
@@ -426,6 +471,8 @@ def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len
     kv_pos = torch.where(logical < start + valid_len, logical, -1)
     phys = row[torch.div(logical, bs, rounding_mode="floor")] * bs + logical % bs
     count_weight = chunk < valid_len
+    d0 = valid_len if decode_from is None else min(max(decode_from - start, 0), valid_len)
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     counts = []
     for l, p_l in enumerate(params["layers"]):
         h = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
@@ -437,15 +484,31 @@ def paged_prefill_chunk(params, kf, vf, table_row, tokens, start: int, valid_len
             v_log = dequantize_kv_rows(vf[l][phys], vs, vz)
         else:
             k_log, v_log = kf[l][phys], vf[l][phys]
-        attn_out, _ = L.attention(
-            p_l["attn"], h, cfg, positions=pos2d, causal=True, window=int(windows[l]),
-            kv_override=(k_log[None], v_log[None], kv_pos),
-        )
-        x = x + attn_out
+        q = L._q_only(p_l["attn"], h, cfg, pos2d)
+        heads = L.attend(q, k_log[None], v_log[None], posf, kv_pos, cfg, causal=True,
+                         window=int(windows[l]), dtype=h.dtype)
+        if d0 < valid_len:  # the decode-era rows, as the decode step attends
+            n = valid_len - d0
+            dec = ops.paged_attention(
+                q[0, d0:valid_len].reshape(n, hkv, hq // hkv, dh),
+                kf[l, : nb * bs].view(nb, bs, hkv, dh),
+                vf[l, : nb * bs].view(nb, bs, hkv, dh),
+                table_row.to(torch.int32).expand(n, -1).contiguous(),
+                (posf[d0:valid_len] + 1).to(torch.int32),
+                window=int(windows[l]),
+                quant=tuple(t[l, : nb * bs].view(nb, bs, hkv) for t in qs) if qs else None,
+            )
+            heads = torch.cat([heads[:, :d0], dec.reshape(1, n, hq * dh).to(heads.dtype),
+                               heads[:, valid_len:]], dim=1)
+        x = x + L.linear(p_l["attn"]["wo"], heads)
         h2 = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        delta, _, cnt, _ = _ffn_delta(p_l, h2, cfg, use_otp=use_otp,
-                                      count_weight=count_weight, ffn_backend=ffn_backend)
+        if d0 < valid_len and cfg.is_moe:
+            delta, cnt = _resumed_ffn(p_l, h2, cfg, chunk, d0, valid_len, decode_batch,
+                                      use_otp=use_otp, ffn_backend=ffn_backend)
+        else:
+            delta, _, cnt, _ = _ffn_delta(p_l, h2, cfg, use_otp=use_otp,
+                                          count_weight=count_weight, ffn_backend=ffn_backend)
         x = x + delta
         counts.append(cnt)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x[:, valid_len - 1:valid_len]), torch.stack(counts)
+    return _logits(params, x[:, valid_len - 1:valid_len], cfg), torch.stack(counts)

@@ -19,6 +19,7 @@ from typing import Dict
 
 import torch
 
+from ..parallel.sharding import enter, tp_share
 from . import layers as L
 from .transformer import _dtype, _logits
 
@@ -60,20 +61,24 @@ def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
         a, _ = L.attention(p_l["attn"], L.rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
                            positions=pos, causal=False, rope=False)
         x = x + a
-        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _cross_kv(p_cross, enc_out: torch.Tensor, cfg):
-    """The cross-attention K/V ``[B, S_enc, Hkv, dh]`` of the encoder's states."""
+    """The cross-attention K/V ``[B, S_enc, Hkv, dh]`` of the encoder's
+    states (this rank's KV heads where ``cross`` is split by heads: the
+    encoder's states enter the rank's share there)."""
     b, s, _ = enc_out.shape
-    hkv, dh = cfg.num_kv_heads, cfg.head_dim
-    return (L.linear(p_cross["wk"], enc_out).reshape(b, s, hkv, dh),
-            L.linear(p_cross["wv"], enc_out).reshape(b, s, hkv, dh))
+    mesh = tp_share(p_cross, "attn", cfg.num_heads * cfg.head_dim, cfg)
+    if mesh is not None:
+        enc_out = enter(enc_out, mesh, "model")
+    return (L.linear(p_cross["wk"], enc_out).reshape(b, s, -1, cfg.head_dim),
+            L.linear(p_cross["wv"], enc_out).reshape(b, s, -1, cfg.head_dim))
 
 
 def _embed(params, tokens: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     return x + L.sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
 
 
@@ -93,7 +98,7 @@ def _dec_stack(params, x: torch.Tensor, cfg, enc_out: torch.Tensor, positions: t
                            positions=positions, causal=False, rope=False,
                            kv_override=(ck, cv, enc_pos))
         x = x + a
-        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff)
         if collect_cache:
             ys.append((*kv, ck, cv))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -119,7 +124,7 @@ def train_loss(params, batch, cfg, **_):
     """Streaming next-token cross-entropy of ``batch["tokens"]`` given
     ``batch["frames"]``: ``(nll, {"nll"})``."""
     nll = L.chunked_xent(hidden(params, batch, cfg), params["embed"], batch["labels"],
-                         cfg.logits_chunk)
+                         cfg.logits_chunk, cfg.vocab_size)
     return nll, {"nll": nll}
 
 
@@ -128,7 +133,7 @@ def prefill(params, batch, cfg, **_):
     [B, S]``: ``(cache, logits [B, 1, V])``, ``cache["pos"] = S``."""
     h, (k, v, ck, cv) = _forward(params, batch, cfg, collect_cache=True)
     cache = {"k": k, "v": v, "cross_k": ck, "cross_v": cv, "pos": batch["tokens"].shape[1]}
-    return cache, _logits(params, h[:, -1:])
+    return cache, _logits(params, h[:, -1:], cfg)
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
@@ -146,6 +151,6 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
                                   k_cache=cache["cross_k"][l], v_cache=cache["cross_v"][l],
                                   pos=pos, cross=True)
         x = x + a
-        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return dict(cache, pos=pos + 1), _logits(params, x)
+    return dict(cache, pos=pos + 1), _logits(params, x, cfg)

@@ -22,6 +22,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import all_gather, all_reduce, enter, tp_share
 from . import layers as L
 from .transformer import _dtype, _logits
 from .recurrent import _causal_conv
@@ -102,29 +103,68 @@ def _mlstm_scan(q, k, v, ig, fg, state=None):
     return torch.cat(outs)[:s].transpose(0, 1).to(q.dtype), (c, n, m)
 
 
+def _columns(t: torch.Tensor, mesh, width: int) -> torch.Tensor:
+    """This rank's ``width`` columns of a whole parameter that the block
+    reads at its columns only (entered: its gradient sums over ``model``)."""
+    c0 = mesh.index("model") * width
+    return enter(t, mesh, "model")[..., c0:c0 + width]
+
+
+def _rms_norm_cols(x: torch.Tensor, w: torch.Tensor, eps: float, mesh) -> torch.Tensor:
+    """:func:`~repro_torch.models.layers.rms_norm` over a width split over
+    ``model``: ``x`` holds this rank's columns; the mean of squares sums the
+    ranks' partial sums."""
+    xf = x.float()
+    sq = all_reduce((xf * xf).sum(dim=-1, keepdim=True), mesh, "model", backward="all_reduce")
+    inv = torch.rsqrt(sq / (x.shape[-1] * mesh.shape["model"]) + eps).to(x.dtype)
+    return x * inv * (1.0 + w.to(x.dtype))
+
+
 def _mlstm_block(p, x: torch.Tensor, cfg, state=None, conv_state=None):
-    """``(x, (state, conv_state))`` over ``x [B, S, D]``."""
+    """``(x, (state, conv_state))`` over ``x [B, S, D]``. Under tensor
+    parallelism (:func:`~repro_torch.parallel.sharding.tp_share`) the rank
+    runs its heads: its columns of ``[u | z]``, of the convolution and of
+    q, k, v and the gates (from ``u`` gathered over ``model``), the output
+    norm over the whole width, and ``proj_out``'s rows, summed over
+    ``model``."""
     b, s, _ = x.shape
-    h = cfg.num_heads
-    uz = L.linear(p["proj_in"], L.rms_norm(x, p["ln"], cfg.norm_eps))
+    mesh = tp_share(p, "mlstm", 2 * cfg.d_model, cfg)
+    hn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    if mesh is not None:
+        hn = enter(hn, mesh, "model")
+    uz = L.linear(p["proj_in"], hn)
     ip = uz.shape[-1] // 2
     u, z = uz[..., :ip], uz[..., ip:]
-    cu, conv_state = _causal_conv(u, p["conv"], conv_state)
+    conv = p["conv"] if mesh is None else _columns(p["conv"], mesh, ip)
+    cu, conv_state = _causal_conv(u, conv, conv_state)
     cu = F.silu(cu)
+    u_in, cu_in = u, cu
+    if mesh is not None:
+        u_in, cu_in = (all_gather(t, mesh, "model", t.dim() - 1) for t in (u, cu))
+    h = p["w_if"]["w"].shape[1] // 2
     dh = ip // h
-    q = L.linear(p["wq"], cu).reshape(b, s, h, dh)
-    k = L.linear(p["wk"], cu).reshape(b, s, h, dh)
-    v = L.linear(p["wv"], u).reshape(b, s, h, dh)
-    gif = L.linear(p["w_if"], cu).float()
+    q = L.linear(p["wq"], cu_in).reshape(b, s, h, dh)
+    k = L.linear(p["wk"], cu_in).reshape(b, s, h, dh)
+    v = L.linear(p["wv"], u_in).reshape(b, s, h, dh)
+    gif = L.linear(p["w_if"], cu_in).float()
     hseq, state = _mlstm_scan(q, k, v, gif[..., :h], F.logsigmoid(gif[..., h:]), state)
-    hseq = L.rms_norm(hseq.reshape(b, s, ip), p["out_norm"], cfg.norm_eps) * F.silu(z)
-    return x + L.linear(p["proj_out"], hseq), (state, conv_state)
+    hseq = hseq.reshape(b, s, ip)
+    if mesh is None:
+        hseq = L.rms_norm(hseq, p["out_norm"], cfg.norm_eps) * F.silu(z)
+        return x + L.linear(p["proj_out"], hseq), (state, conv_state)
+    hseq = _rms_norm_cols(hseq, _columns(p["out_norm"], mesh, ip), cfg.norm_eps, mesh) * F.silu(z)
+    return x + all_reduce(L.linear(p["proj_out"], hseq), mesh, "model"), (state, conv_state)
 
 
 # ------------------------------------------------------------ sLSTM block
+def ffn_width(d: int) -> int:
+    """The sLSTM's gated FFN width: 4/3 · D rounded to 64."""
+    return int(round(d * 4 / 3 / 64)) * 64
+
+
 def _init_slstm(gen: torch.Generator, cfg, dt) -> Dict:
     d, dev = cfg.d_model, gen.device
-    f = int(round(d * 4 / 3 / 64)) * 64  # gated FFN width
+    f = ffn_width(d)
     return {
         "ln": torch.zeros(d, dtype=dt, device=dev),
         "conv": torch.randn(4, d, generator=gen, device=dev, dtype=dt) * 0.1,
@@ -163,20 +203,33 @@ def _slstm_seq(z, o, ig, fg, state=None):
 
 
 def _slstm_block(p, x: torch.Tensor, cfg, state=None, conv_state=None):
-    """``(x, (state, conv_state))`` over ``x [B, S, D]``."""
+    """``(x, (state, conv_state))`` over ``x [B, S, D]``. Under tensor
+    parallelism the rank runs its channels of the recurrence (the
+    convolution whole) and all-gathers them; the FFN its columns of ``[u |
+    v]`` and ``proj_out``'s rows, summed over ``model``."""
+    mesh = tp_share(p, "slstm", cfg.d_model, cfg)
     hnorm = L.rms_norm(x, p["ln"], cfg.norm_eps)
     cx, conv_state = _causal_conv(hnorm, p["conv"], conv_state)
     cx = F.silu(cx)
+    if mesh is not None:
+        hnorm, cx = enter(hnorm, mesh, "model"), enter(cx, mesh, "model")
     z = torch.tanh(L.linear(p["w_z"], hnorm))
     o = torch.sigmoid(L.linear(p["w_o"], hnorm))
     gif = L.linear(p["w_if"], cx).float()
-    d = x.shape[-1]
+    d = z.shape[-1]
     hseq, state = _slstm_seq(z, o, gif[..., :d], F.logsigmoid(gif[..., d:]), state)
+    if mesh is not None:
+        hseq = all_gather(hseq, mesh, "model", hseq.dim() - 1, backward="split")
     x = x + hseq.to(x.dtype)
-    uv = L.linear(p["ffn"]["proj_in"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    ffn = p["ffn"]
+    fmesh = tp_share(ffn, "ffn", ffn_width(cfg.d_model), cfg)
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if fmesh is not None:
+        h2 = enter(h2, fmesh, "model")
+    uv = L.linear(ffn["proj_in"], h2)
     f = uv.shape[-1] // 2
-    x = x + L.linear(p["ffn"]["proj_out"], F.silu(uv[..., :f]) * uv[..., f:])
-    return x, (state, conv_state)
+    out = L.linear(ffn["proj_out"], F.silu(uv[..., :f]) * uv[..., f:])
+    return x + (out if fmesh is None else all_reduce(out, fmesh, "model")), (state, conv_state)
 
 
 # ------------------------------------------------------------------ model
@@ -202,7 +255,7 @@ def _stack_states(states):
 def _forward(params, tokens: torch.Tensor, cfg, collect_cache: bool = False):
     """All blocks over ``tokens [B, S]``: ``(hidden [B, S, D], cache |
     None)``."""
-    x = L.embed_tokens(params["embed"], tokens)
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     states = []
     for p_g in params["groups"]:
         x, mst = _mlstm_block(p_g["m"], x, cfg)
@@ -220,7 +273,7 @@ def hidden(params, batch, cfg, **_):
 def train_loss(params, batch, cfg, **_):
     """Streaming next-token cross-entropy: ``(nll, {"nll"})``."""
     nll = L.chunked_xent(hidden(params, batch, cfg), params["embed"], batch["labels"],
-                         cfg.logits_chunk)
+                         cfg.logits_chunk, cfg.vocab_size)
     return nll, {"nll": nll}
 
 
@@ -229,13 +282,13 @@ def prefill(params, batch, cfg, **_):
     ``cache["pos"] = S``."""
     h, cache = _forward(params, batch["tokens"], cfg, collect_cache=True)
     cache["pos"] = batch["tokens"].shape[1]
-    return cache, _logits(params, h[:, -1:])
+    return cache, _logits(params, h[:, -1:], cfg)
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
     """One token ``token [B, 1]``: ``(cache with every state new and pos +
     1, logits [B, 1, V])``; the states are O(1) in the context."""
-    x = L.embed_tokens(params["embed"], token)
+    x = L.embed_tokens(params["embed"], token, cfg.vocab_size)
     states = []
     for g, p_g in enumerate(params["groups"]):
         x, mst = _mlstm_block(p_g["m"], x, cfg, state=tuple(t[g] for t in cache["m"]),
@@ -244,4 +297,4 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, cfg, **_):
                               conv_state=cache["sconv"][g])
         states.append((mst, sst))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return dict(_stack_states(states), pos=pos + 1), _logits(params, x)
+    return dict(_stack_states(states), pos=pos + 1), _logits(params, x, cfg)

@@ -33,11 +33,14 @@ gradients over ``model``. ``aux`` and ``mask_l1`` are replicated over the
 line; their gradients average over the batch axes, as the reference's
 ``pmean`` and its unmapped ``P()`` output do.
 
-:func:`shard_params` also splits attention and the dense / shared-expert
-MLPs over ``model`` (the reference's ``_PARAM_RULES``) where
+:func:`shard_params` also splits every tensor-parallel pair of every
+family's blocks over ``model`` (the reference's ``_PARAM_RULES``:
+attention and cross-attention by heads, the MLPs by F, the recurrent and
+xLSTM blocks by width or heads) where
 :func:`~repro_torch.parallel.sharding.tp_split` allows it (whole heads and
-quant groups); the layers then run their share and ``all_reduce`` after
-``wo`` and ``w_down``.
+quant groups), and the embeddings by vocabulary rows where
+:func:`~repro_torch.parallel.sharding.vocab_split` does; the layers then
+run their share and ``all_reduce`` after the row-parallel leaf.
 """
 from __future__ import annotations
 
@@ -60,7 +63,6 @@ from ..core.compressed_moe import (
 )
 from ..models import moe as moe_mod
 from .sharding import (
-    TP_FAMILIES,
     TP_PAIRS,
     EPRegionError,
     Mesh,
@@ -70,7 +72,11 @@ from .sharding import (
     enter,
     manual_region,
     shard_tensor,
+    tp_kind,
+    tp_pairs,
     tp_split,
+    tp_width,
+    vocab_split,
 )
 
 __all__ = [
@@ -206,31 +212,21 @@ def shard_experts(ce: CompressedExperts, mesh: Mesh) -> CompressedExperts:
 _log = logging.getLogger(__name__)
 
 
-def _node(layer: Dict, path: str) -> Optional[Dict]:
-    for key in path.split("/"):
-        if not isinstance(layer, dict) or key not in layer:
-            return None
-        layer = layer[key]
-    return layer
-
-
-def tp_plan(layer: Dict, mesh: Mesh, cfg) -> Dict[str, bool]:
-    """Which tensor-parallel pairs of a whole layer split over ``model``
-    (:func:`~repro_torch.parallel.sharding.tp_split`; none outside
-    :data:`~repro_torch.parallel.sharding.TP_FAMILIES`). A pair that does
-    not split stays whole on every rank."""
+def tp_plan(block: Dict, mesh: Mesh, cfg) -> Dict[str, bool]:
+    """Which tensor-parallel pairs of a whole block (a layer, a group, an
+    encoder or decoder block) split over ``model``: ``{path in the block:
+    bool}`` for each pair :func:`~repro_torch.parallel.sharding.tp_pairs`
+    finds, by :func:`~repro_torch.parallel.sharding.tp_split`. A pair that
+    does not split stays whole on every rank."""
     model = mesh.shape.get("model", 1)
-    plan = {}
-    for path, _, _ in TP_PAIRS:
-        node = _node(layer, path)
-        if node is None:
-            continue
-        d_ff = None if path == "attn" else cfg.d_ff if path == "mlp" else moe_mod.shared_d_ff(cfg)
-        plan[path] = cfg.family in TP_FAMILIES and tp_split(node, model, cfg, d_ff)
-    return plan
+    return {path: tp_split(node, kind, model, cfg, tp_width(node, kind))
+            for path, kind, node in tp_pairs(block)}
 
 
-def _cut_cols(w, mesh: Mesh):
+def _cut_cols(w, mesh: Mesh, halves: bool = False):
+    if halves:  # ``[a | b]``: this rank's columns of each half, side by side
+        n = w.shape[1] // 2
+        return torch.cat([_cut_cols(w[:, :n], mesh), _cut_cols(w[:, n:], mesh)], dim=1)
     n = w.shape[1] // mesh.shape["model"]
     n0 = mesh.coord["model"] * n
     if isinstance(w, PackedTensor):
@@ -246,45 +242,73 @@ def _cut_rows(w, mesh: Mesh):
     return w[k0:k0 + k].clone()
 
 
-def _tp_layer(p: Dict, mesh: Mesh, plan: Dict[str, bool]) -> Dict:
-    for path, cols, row in TP_PAIRS:
-        if not plan.get(path):
-            continue
-        node = dict(_node(p, path))
-        for name in cols:
-            node[name] = dict(node[name], w=_cut_cols(node[name]["w"], mesh))
-        node[row] = dict(node[row], w=_cut_rows(node[row]["w"], mesh))
-        if path == "moe/shared":
-            p["moe"] = dict(p["moe"], shared=node)
-        else:
-            p[path] = node
-    return p
+def _tp_block(block: Dict, mesh: Mesh, cfg, whole: set) -> Dict:
+    """A copy of ``block`` (nested dicts copied, tensors shared) with each
+    pair :func:`tp_plan` splits cut to this rank's share; the paths of the
+    pairs it keeps whole are added to ``whole``."""
+    plan = tp_plan(block, mesh, cfg)
+    whole.update(p or "." for p, ok in plan.items() if not ok)
+
+    def cut(node, prefix):
+        node = dict(node)
+        for key, child in node.items():
+            if isinstance(child, dict):
+                node[key] = cut(child, f"{prefix}/{key}" if prefix else key)
+        if plan.get(prefix):
+            pair = TP_PAIRS[tp_kind(node)]
+            for name in pair.cols:
+                node[name] = dict(node[name], w=_cut_cols(node[name]["w"], mesh,
+                                                          name in pair.halves))
+            if pair.row:
+                node[pair.row] = dict(node[pair.row], w=_cut_rows(node[pair.row]["w"], mesh))
+        return node
+
+    return cut(block, "")
+
+
+#: the lists of blocks in each family's tree
+BLOCK_LISTS = ("layers", "enc_blocks", "dec_blocks", "groups", "tail")
 
 
 def shard_params(params: Dict, mesh: Mesh, cfg) -> Dict:
-    """The port's per-layer tree of ``cfg`` as one rank of ``mesh`` holds
-    it: each layer's PMQ buckets cut by :func:`shard_experts` and bf16
-    experts to this rank's rows, and the pairs of :func:`tp_plan` that
-    split — ``wq``/``wk``/``wv`` by this rank's heads, ``wo`` by their rows,
-    ``w_gate``/``w_up`` by columns and ``w_down`` by rows, float or
-    PackedTensor alike (copies). Every other parameter stays whole (shared
-    with ``params``); a pair that does not split is logged."""
-    plan = tp_plan(params["layers"][0], mesh, cfg) if params["layers"] else {}
-    whole = sorted(k for k, ok in plan.items() if not ok)
-    if whole:
-        _log.info("tensor parallelism over model=%d keeps whole: %s", mesh.shape["model"],
-                  ", ".join(whole))
-    layers = []
-    for p in params["layers"]:
-        p = dict(p)
-        if "moe_ce" in p:
-            p["moe_ce"] = shard_experts(p["moe_ce"], mesh)
-        if "experts" in p.get("moe", {}):
-            e = p["moe"]["experts"]["w_gate"].shape[0]
-            p["moe"] = dict(p["moe"], experts={
-                n: _local_experts(w, e, mesh).clone() for n, w in p["moe"]["experts"].items()})
-        layers.append(_tp_layer(p, mesh, plan))
-    return dict(params, layers=layers)
+    """The port's tree of ``cfg`` as one rank of ``mesh`` holds it: each
+    layer's PMQ buckets cut by :func:`shard_experts` and bf16 experts to
+    this rank's rows; in every block the pairs of :func:`tp_plan` that
+    split — attention's ``wq``/``wk``/``wv`` by this rank's heads and ``wo``
+    by their rows, the MLPs' ``w_gate``/``w_up`` by columns and ``w_down`` by
+    rows, the recurrent and xLSTM blocks' column leaves by columns (a
+    halves leaf half by half) and ``proj_out`` by rows, float or
+    PackedTensor alike (copies); and ``embed``/``unembed`` by vocabulary
+    rows where :func:`~repro_torch.parallel.sharding.vocab_split` splits
+    them. Every other parameter stays whole (shared with ``params``); the
+    pairs kept whole are logged."""
+    out = dict(params)
+    whole: set = set()
+    for key in BLOCK_LISTS:
+        if key not in params:
+            continue
+        blocks = []
+        for p in params[key]:
+            p = dict(p)
+            if "moe_ce" in p:
+                p["moe_ce"] = shard_experts(p["moe_ce"], mesh)
+            if "experts" in p.get("moe", {}):
+                e = p["moe"]["experts"]["w_gate"].shape[0]
+                p["moe"] = dict(p["moe"], experts={
+                    n: _local_experts(w, e, mesh).clone()
+                    for n, w in p["moe"]["experts"].items()})
+            blocks.append(_tp_block(p, mesh, cfg, whole))
+        out[key] = blocks
+    model = mesh.shape.get("model", 1)
+    for name in ("embed", "unembed"):
+        if name in params and vocab_split(cfg.vocab_size, model):
+            out[name] = _cut_rows(params[name], mesh)
+        elif name in params and model > 1:
+            whole.add(name)
+    if whole and model > 1:
+        _log.info("tensor parallelism over model=%d keeps whole: %s", model,
+                  ", ".join(sorted(whole)))
+    return out
 
 
 def _local_buckets(ce: CompressedExperts, mesh: Mesh) -> Dict:

@@ -10,8 +10,10 @@ mesh:
   shard_map regions receive through ``in_specs=P(batch_axes, ...)``),
   replicated over ``model``;
 * each rank holds, of the expert buckets, only its rows and, where
-  :func:`tp_split` splits them, its heads of attention and its columns /
-  rows of the dense and shared-expert MLPs
+  :func:`tp_split` splits them, its share of each tensor-parallel pair of
+  :data:`TP_PAIRS` (heads of attention and cross-attention, columns / rows
+  of the MLPs and of the recurrent and xLSTM blocks) and, where
+  :func:`vocab_split` splits them, its vocabulary rows of the embeddings
   (:func:`repro_torch.parallel.ep_shardmap.shard_params`); every other
   parameter whole;
 * :func:`shard` is an identity: torch has no GSPMD to pass a constraint to.
@@ -70,10 +72,15 @@ __all__ = [
     "shard_tensor",
     "shard_tree",
     "sharding_rules",
-    "TP_FAMILIES",
     "TP_PAIRS",
+    "TPPair",
+    "tp_kind",
+    "tp_pairs",
     "tp_share",
     "tp_split",
+    "tp_width",
+    "vocab_share",
+    "vocab_split",
 ]
 
 class EPRegionError(ValueError):
@@ -292,60 +299,143 @@ STACKED_PREFIXES = ("blocks", "groups", "enc_blocks", "dec_blocks")
 
 
 # ------------------------------------------------------ tensor parallelism
-#: the tensor-parallel pairs of a transformer layer, split over ``model`` by
-#: :data:`_PARAM_RULES`: (path in the layer, column-parallel leaves,
-#: row-parallel leaf)
-TP_PAIRS = (("attn", ("wq", "wk", "wv"), "wo"),
-            ("mlp", ("w_gate", "w_up"), "w_down"),
-            ("moe/shared", ("w_gate", "w_up"), "w_down"))
-#: the families whose layers hold :data:`TP_PAIRS`; embeddings, ``cross/*``
-#: and the recurrent, xlstm and whisper projections stay whole
-TP_FAMILIES = ("dense", "moe", "vlm")
+@dataclasses.dataclass(frozen=True)
+class TPPair:
+    """A tensor-parallel pair of a block: its column-parallel leaves, its
+    row-parallel leaf (None: the block gathers its columns itself), the
+    column leaves made of two halves ``[a | b]`` (each half cut alike, so a
+    rank holds its columns of ``a`` and the matching ones of ``b``) and the
+    probe ``(leaf, axis)`` whose extent on a whole node is the pair's
+    width — the dim split over ``model``. ``unit`` says what a share must
+    hold whole: ``"heads"`` (``cfg``'s query and KV heads both divide;
+    ``"query_heads"``: the query heads) or ``"columns"``."""
+
+    cols: Tuple[str, ...]
+    row: Optional[str]
+    probe: Tuple[str, int]
+    unit: str = "columns"
+    halves: Tuple[str, ...] = ()
 
 
-def tp_split(node: Dict, model: int, cfg=None, d_ff: Optional[int] = None) -> bool:
-    """Whether a tensor-parallel pair splits over ``model`` ranks: the one
-    rule that :func:`~repro_torch.parallel.ep_shardmap.shard_params` cuts
-    by, the step builders' specs follow and the layers hold their shares
-    to. An MLP of ``d_ff`` columns splits by F; attention (``d_ff`` None)
-    by whole heads of ``cfg`` (query and KV heads both divide). Either only
-    where its row-parallel half's share falls on a PackedTensor's
-    quant-group and packed-byte boundaries. ``node`` may be whole or a
-    rank's share: the rule reads the widths from ``cfg`` / ``d_ff``."""
-    if model <= 1:
+#: every tensor-parallel pair kind of the port's blocks, in the order a node
+#: is matched (a node holding every column and row leaf of a kind is one):
+#: attention and whisper's ``cross`` by heads; the SwiGLU MLPs (dense,
+#: shared experts) by F; recurrentgemma's RG-LRU by its width (``conv`` and
+#: ``lam`` stay whole, read at the rank's columns); the mLSTM by heads
+#: (``[u | z]`` and ``[ĩ | f̃]`` halves); the sLSTM by channel (``[ĩ | f̃]``
+#: halves; its states all-gathered); xLSTM's gated FFN by F (``[u | v]``)
+TP_PAIRS: Dict[str, TPPair] = {
+    "attn": TPPair(("wq", "wk", "wv"), "wo", ("wq", 1), unit="heads"),
+    "mlp": TPPair(("w_gate", "w_up"), "w_down", ("w_down", 0)),
+    "rglru": TPPair(("gate_in", "proj_in", "wa", "wx"), "proj_out", ("proj_out", 0)),
+    "mlstm": TPPair(("proj_in", "wq", "wk", "wv", "w_if"), "proj_out", ("proj_out", 0),
+                    unit="query_heads", halves=("proj_in", "w_if")),
+    "slstm": TPPair(("w_z", "w_o", "w_if"), None, ("w_z", 1), halves=("w_if",)),
+    "ffn": TPPair(("proj_in",), "proj_out", ("proj_out", 0), halves=("proj_in",)),
+}
+
+
+def tp_kind(node) -> Optional[str]:
+    """The :data:`TP_PAIRS` kind a block's node is (it holds every leaf of
+    the pair, each as ``{"w": ...}``), or None."""
+    if not isinstance(node, dict):
+        return None
+    for kind, pair in TP_PAIRS.items():
+        leaves = pair.cols + ((pair.row,) if pair.row else ())
+        if all(isinstance(node.get(n), dict) and "w" in node[n] for n in leaves):
+            return kind
+    return None
+
+
+def tp_pairs(block, prefix: str = ""):
+    """``(path, kind, node)`` of every tensor-parallel pair in a block (a
+    layer's dict; ``path`` relative to it, ``""`` the block itself), found
+    by :func:`tp_kind` — the same walk for every family's blocks."""
+    out = []
+    if not isinstance(block, dict):
+        return out
+    kind = tp_kind(block)
+    if kind is not None:
+        out.append((prefix, kind, block))
+    pair = TP_PAIRS.get(kind)
+    own = set(pair.cols) | {pair.row} if pair else set()
+    for key, child in block.items():
+        if key not in own and isinstance(child, dict):
+            out += tp_pairs(child, f"{prefix}/{key}" if prefix else key)
+    return out
+
+
+def tp_width(node, kind: str) -> int:
+    """The width of a whole node of ``kind`` (its probe's extent)."""
+    leaf, axis = TP_PAIRS[kind].probe
+    return int(node[leaf]["w"].shape[axis])
+
+
+def tp_split(node: Dict, kind: str, model: int, cfg, width: int) -> bool:
+    """Whether a pair of ``kind`` and ``width`` splits over ``model`` ranks:
+    the one rule that :func:`~repro_torch.parallel.ep_shardmap.shard_params`
+    cuts by, the step builders' specs follow and the layers hold their
+    shares to. The width must divide, and with it ``cfg``'s heads where the
+    unit is heads; a PackedTensor row leaf only where the share falls on its
+    quant-group and packed-byte boundaries; halves only on float leaves.
+    ``node`` may be whole or a rank's share: the rule reads ``width`` and
+    ``cfg``, and of ``node`` only its leaves' types."""
+    pair = TP_PAIRS[kind]
+    if model <= 1 or width % model:
         return False
-    if d_ff is None:
-        if cfg.num_heads % model or cfg.num_kv_heads % model:
-            return False
-        n, row = cfg.num_heads * cfg.head_dim, node["wo"]["w"]
-    else:
-        if d_ff % model:
-            return False
-        n, row = d_ff, node["w_down"]["w"]
+    if pair.unit in ("heads", "query_heads") and cfg.num_heads % model:
+        return False
+    if pair.unit == "heads" and cfg.num_kv_heads % model:
+        return False
+    if any(isinstance(node[n]["w"], PackedTensor) for n in pair.halves):
+        return False
+    row = node[pair.row]["w"] if pair.row else None
     if isinstance(row, PackedTensor):
-        return (n // model) % row.group == 0 and (n // model) % row.pack_rows == 0
+        share = width // model
+        return share % row.group == 0 and share % row.pack_rows == 0
     return True
 
 
-def tp_share(node: Dict, cfg=None, d_ff: Optional[int] = None) -> Optional[Mesh]:
-    """The current mesh where ``node`` (attention of ``cfg``, or an MLP of
-    ``d_ff`` columns) holds this rank's share of a pair that
-    :func:`tp_split` splits — 1/model of its columns, as ``shard_params``
-    cuts it —; None where it runs whole: no mesh, or whole weights (a pair
-    that does not split, or one ``shard_params`` leaves whole, such as
-    ``cross``). Raises for any other cut."""
+def vocab_split(vocab: int, model: int) -> bool:
+    """Whether the embeddings split their vocabulary rows over ``model``
+    (the reference's ``^(embed|unembed)$`` → ``P("model", None)`` where it
+    divides)."""
+    return model > 1 and vocab % model == 0
+
+
+def _share_of(mesh: Optional["Mesh"], have: int, whole: int, what: str) -> Optional["Mesh"]:
+    if mesh is None or have == whole:
+        return None
+    model = mesh.shape.get("model", 1)
+    if have * model != whole:
+        raise ValueError(f"{what} holds {have} of {whole} on model={model}, not the share "
+                         f"shard_params cuts")
+    return mesh
+
+
+def tp_share(node: Dict, kind: str, width: int, cfg=None) -> Optional["Mesh"]:
+    """The current mesh where ``node`` (a pair of ``kind`` whose whole width
+    is ``width``) holds this rank's share under :func:`tp_split` — 1/model
+    of its width, as ``shard_params`` cuts it —; None where it runs whole:
+    no mesh, or whole weights (a pair that does not split). Raises for any
+    other cut."""
     mesh = current_mesh()
     if mesh is None:
         return None
-    model = mesh.shape.get("model", 1)
-    n = cfg.num_heads * cfg.head_dim if d_ff is None else d_ff
-    cols = node["wq" if d_ff is None else "w_gate"]["w"].shape[1]
-    if cols == n:
-        return None
-    if cols * model != n or not tp_split(node, model, cfg, d_ff):
-        raise ValueError(f"a tensor-parallel node holds {cols} of {n} columns on model={model}, "
-                         f"not the share shard_params cuts")
+    leaf, axis = TP_PAIRS[kind].probe
+    mesh = _share_of(mesh, int(node[leaf]["w"].shape[axis]), width, f"a {kind} node")
+    if mesh is not None and not tp_split(node, kind, mesh.shape["model"], cfg, width):
+        raise ValueError(f"a {kind} node is cut on model={mesh.shape['model']} where "
+                         f"tp_split keeps it whole")
     return mesh
+
+
+def vocab_share(emb: torch.Tensor, vocab: Optional[int]) -> Optional["Mesh"]:
+    """The current mesh where ``emb`` holds this rank's rows of a
+    ``vocab``-row embedding (:func:`vocab_split`); None where it is whole."""
+    if vocab is None:
+        return None
+    return _share_of(current_mesh(), int(emb.shape[0]), vocab, "an embedding")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -551,13 +641,17 @@ class _Enter(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
-        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+    def forward(ctx, x, mesh, axes, dim, backward):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.backward = mesh, axes, dim, backward
         return _gather(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+        if ctx.backward == "split":
+            step = g.shape[ctx.dim] // ctx.mesh.extent(ctx.axes)
+            g = g.narrow(ctx.dim, ctx.mesh.index(ctx.axes) * step, step).contiguous()
+            return g, None, None, None, None
+        return _scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -594,13 +688,20 @@ def enter(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     return _Enter.apply(x, mesh, axes)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int, *,
+               backward: str = "reduce_scatter") -> torch.Tensor:
     """The blocks of ``x`` of the ranks along ``axes``, concatenated along
     ``dim`` in their order on the axis. The backward gives this rank its
-    block of the summed gradient (a reduce-scatter)."""
+    block of the summed gradient (a reduce-scatter), the gathered tensor
+    feeding work that each rank does a part of; ``backward="split"`` gives
+    it its block of its own gradient, where what the gathered tensor feeds
+    is replicated over ``axes`` (Megatron's ``g``), so every rank's
+    cotangent is the same."""
     if mesh.extent(axes) == 1:
         return x
-    return _AllGather.apply(x, mesh, axes, dim)
+    if backward not in ("reduce_scatter", "split"):
+        raise ValueError(f"all_gather backward {backward!r}")
+    return _AllGather.apply(x, mesh, axes, dim, backward)
 
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:

@@ -667,7 +667,9 @@ class PagedServingEngine:
                         self.params, self.cache.k, self.cache.v, table_row, chunk, off, n,
                         self.model_cfg, block_size=self.ecfg.block_size,
                         use_otp=self.ecfg.use_otp, qs=self.cache.quant_tables,
-                        ffn_backend=self.ecfg.ffn_backend),
+                        ffn_backend=self.ecfg.ffn_backend,
+                        decode_from=len(req.prompt) if resume else None,
+                        decode_batch=self.ecfg.max_slots),
                     self._fetch_prefill_counts, kind="prefill", track=track)
                 runs = int(self._last_run_stats["runs"])
                 self.metrics.record_prefill_runs(runs)

@@ -6,8 +6,10 @@ Joins a gloo group of ``WORLD`` ranks through a ``FileStore`` in ``DIR``,
 reads ``DIR/inputs.pt`` (the port's tensors, written by the test process),
 runs every case on its mesh and writes its results to ``DIR/out_<RANK>.pt``:
 gradients through both expert-parallel regions, tensor-parallel
-``train_loss`` gradients, ``build_step`` train and OTP steps, the ZeRO-1
-update on given gradients. It imports torch and the port only.
+``train_loss`` gradients (the dense and MoE models, and the ``encdec``,
+``hybrid`` and ``ssm`` families), the vocabulary-parallel ``chunked_kl``,
+a greedy decode with vocabulary-parallel logits, ``build_step`` train and OTP steps, the ZeRO-1 update on given
+gradients. It imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -128,6 +130,70 @@ def _tp_loss(case, mesh):
     return {"loss": float(loss), "grads": grads, "plan": tp_plan(params["layers"][0], mesh, cfg)}
 
 
+def _families(inp, mesh):
+    """Each family's ``train_loss`` and its gradients (a tree like the
+    parameters: the rank's share of each) on the rank's batch block, the
+    parameters cut by ``shard_params`` with the config; the rank's
+    parameter shapes and the plan of its first block."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.steps import tree_gradients
+    from repro_torch.parallel.ep_shardmap import shard_params, tp_plan
+
+    out = {}
+    for name, case in inp["families"].items():
+        cfg, params, batch = case["cfg"], case["params"], case["batch"]
+        local = shard_params(params, mesh, cfg)
+        b = batch["tokens"].shape[0] // mesh.shape["data"]
+        loss, grads = tree_gradients(cfg, local, {k: _block(v, mesh, b)
+                                                  for k, v in batch.items()}, mesh)
+        first = next(params[k][0] for k in ("dec_blocks", "groups", "layers") if k in params)
+        out[name] = {"loss": float(loss), "grads": grads, "plan": tp_plan(first, mesh, cfg),
+                     "bytes": sum(t.numel() * t.element_size() for t in tree_leaves(local))}
+    return out
+
+
+def _kl(inp, mesh):
+    """``chunked_kl`` with the vocabulary split over ``model``: the loss and
+    the gradients of the rank's student states and vocabulary rows."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.ep_shardmap import shard_params
+    from repro_torch.parallel.sharding import sharding_rules
+
+    k = inp["kl"]
+    b = k["hs"].shape[0] // mesh.shape["data"]
+    hs = _block(k["hs"], mesh, b).clone().requires_grad_()
+    emb = shard_params({"embed": k["emb"]}, mesh, _Vocab(k["emb"].shape[0]))["embed"]
+    emb = emb.clone().requires_grad_()
+    with sharding_rules(mesh):
+        loss = L.chunked_kl(hs, _block(k["ht"], mesh, b), emb, 8, k["emb"].shape[0])
+    g_hs, g_emb = torch.autograd.grad(loss, [hs, emb])
+    return {"loss": float(loss), "hs": g_hs, "emb": g_emb}
+
+
+class _Vocab:
+    """The one field of a config :func:`shard_params` reads of a tree that
+    holds only an embedding."""
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+
+def _greedy(inp, mesh):
+    """Greedy tokens of the dense model (a tie planted across a vocabulary
+    shard boundary) decoded on the rank's batch block."""
+    from repro_torch.launch import workload
+    from repro_torch.parallel.ep_shardmap import shard_params
+    from repro_torch.parallel.sharding import sharding_rules
+
+    g = inp["greedy"]
+    local = shard_params(g["params"], mesh, g["cfg"])
+    b = g["batch"]["tokens"].shape[0] // mesh.shape["data"]
+    with sharding_rules(mesh):
+        toks, _, _, _ = workload.greedy_family(
+            g["cfg"], local, {k: _block(v, mesh, b) for k, v in g["batch"].items()}, g["steps"])
+    return toks
+
+
 def _steps(inp, mesh):
     from repro_torch.launch import steps
     from repro_torch.optim.adamw import AdamWConfig
@@ -175,6 +241,9 @@ def _cases(rank: int, d: str) -> dict:
     out["tp_dense"] = _tp_loss(inp["tp"]["dense"], mesh)
     out["tp_moe"] = _tp_loss(inp["tp"]["moe"], mesh)
     out["tp_moe_sub"] = _tp_loss(inp["tp"]["moe"], sub)
+    out["families"] = _families(inp, mesh)
+    out["greedy"] = _greedy(inp, mesh)
+    out["kl"] = _kl(inp, mesh)
     build.reset_launches()
     out.update(_steps(inp, mesh))
     out["routes"] = dict(ROUTES)

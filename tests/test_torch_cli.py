@@ -13,9 +13,11 @@ reference CLI's (``repro/launch/serve.py``), in-process on the CPU.
   ``repro_torch.interop``, and the CLI refuses every option of the paged
   engine with the reference CLI's message;
 * ``--ffn-backend`` takes ``grouped`` and ``ref`` into the engine's config
-  and refuses the reference's ``scan`` and ``interpret`` by name.
+  and refuses the reference's ``scan`` and ``interpret`` by name;
+* ``repro_torch.launch.train`` takes the reference's ``--reduced``.
 """
 import dataclasses
+import re
 import sys
 
 import jax
@@ -155,3 +157,22 @@ def test_ffn_backend_flag():
     assert results["scan"] == results["grouped"]
     with pytest.raises(SystemExit, match="'interpret' is not ported.*Pallas interpreter"):
         tserve.main(CHAOS + ["--ffn-backend", "interpret"])
+
+
+def _train_output(argv, capsys):
+    from repro_torch.launch import train as ttrain
+
+    hist = ttrain.main(argv)
+    out = capsys.readouterr().out
+    return hist, [re.sub(r"\(\d+ ms\)", "(ms)", line) for line in out.splitlines()]
+
+
+def test_train_takes_reduced_as_the_reference_does(capsys):
+    """``--reduced`` parses, as the reference's ``store_true`` flag with
+    default True, and trains the reduced config: the losses and the rest of
+    the output equal the run without the flag (the step times aside)."""
+    argv = ["--arch", ARCH, "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu"]
+    with_flag = _train_output(argv + ["--reduced"], capsys)
+    without = _train_output(argv, capsys)
+    assert len(with_flag[0]) == 2 and with_flag == without
+    assert any(line.startswith("{") and "last_loss" in line for line in with_flag[1])

@@ -821,68 +821,37 @@ def test_preemption_card_matches_cpu(dev, mode, kv_bits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths", ["reduced", "full"])
 def test_reprefilled_kv_rows_against_decode_written(dev, widths):
-    """What a recompute-mode resume rewrites, measured at bf16 on a PMQ
-    model of 4 layers, at reduced widths or at moonshot-v1-16b-a3b's: a
-    64-token prompt prefilled, 16 tokens decoded (the decode writes rows
-    64-79 after attending through ``paged_attention``), then the same
-    80-token context re-prefilled into other pages (rows 64-79 written after
-    the prefill's attention). The prompt's rows come back bitwise; rows
-    64-79 may differ by rounding (the two attentions sum in other orders),
-    within the bf16 kernel tolerance. Prints ``max|Δ|`` per layer."""
+    """What a recompute-mode resume rewrites, at bf16 on a PMQ model of 4
+    layers, at reduced widths or at moonshot-v1-16b-a3b's
+    (``tests/_torch_resume.py``): a 64-token prompt prefilled, 16 tokens
+    decoded by one megastep (rows 64-79 written after ``paged_attention``),
+    then the 80-token context re-prefilled into other pages as the engine's
+    resume does, its decode-era rows through the same kernel. Every row
+    comes back bit for bit, over one decode slot and over ``PREEMPT``'s 4,
+    at the model's capacity factor. Prints, for the first layer, how far
+    apart each op's outputs are at the decode's shape and at the chunk's
+    (the attention: the kernel against the prefill's sweep) and the
+    decode-era pairs the chunk's dispatch drops."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.synthetic import build_synthetic
-    from repro_torch.models.transformer import paged_decode_horizon, paged_prefill_chunk
-    from repro_torch.serving.kvcache import PagedKVCache
+
+    from _torch_resume import compare, op_deltas, reprefilled_rows
 
     cfg = get_config("moonshot-v1-16b-a3b")
     cfg = dataclasses.replace(cfg.reduced() if widths == "reduced" else cfg, dtype="bfloat16",
                               num_layers=4)
-    cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
     params = build_synthetic(cfg, seed=0, device=dev)
-    p_len, h, bs = 64, 16, 16
-    cache = PagedKVCache(cfg, num_blocks=12, block_size=bs, max_slots=2, max_blocks_per_slot=6,
-                         device=dev)
-    gen = torch.Generator().manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (p_len,), generator=gen).to(dev)
-
-    def prefill(slot, seq):
-        table = cache.tables_device()[slot:slot + 1]
-        for off in range(0, len(seq), bs):
-            n = min(bs, len(seq) - off)
-            chunk = torch.zeros((1, bs), dtype=torch.long, device=dev)
-            chunk[0, :n] = seq[off:off + n]
-            logits, _ = paged_prefill_chunk(params, cache.k, cache.v, table, chunk, off, n, cfg,
-                                            block_size=bs)
-        return logits
-
-    def rows(slot):
-        pos = torch.arange(p_len + h)
-        blocks = torch.as_tensor(cache.slot_blocks[slot])
-        idx = (blocks[pos // bs] * bs + pos % bs).to(dev)
-        return cache.k[:, idx].float(), cache.v[:, idx].float()
-
-    first = prefill(cache.acquire_slot(p_len + h), prompt)[0, -1].argmax()
-    i32 = dict(dtype=torch.int32, device=dev)
-    toks, _, _, _ = paged_decode_horizon(
-        params, cache.k, cache.v, cache.tables_device()[:1], first.reshape(1, 1),
-        torch.tensor([p_len], **i32), torch.ones(1, dtype=torch.bool, device=dev), cfg,
-        block_size=bs, horizon=h, budgets=torch.tensor([h + 1], **i32),
-        eos_ids=torch.full((1,), -1, **i32))
-    decoded = rows(0)
-    context = torch.cat([prompt, first.reshape(1), toks[:h - 1, 0]])
-    prefill(cache.acquire_slot(p_len + h), context)
-    again = rows(1)
-    for a, b in zip(decoded, again):
-        assert torch.equal(a[:, :p_len], b[:, :p_len])  # the prompt: same chunks, same code
-        tail_a, tail_b = a[:, p_len:], b[:, p_len:]
-        assert torch.isfinite(tail_b).all()
-        delta = (tail_a - tail_b).abs().amax(dim=(1, 2, 3))
-        scale = tail_a.abs().amax(dim=(1, 2, 3))
-        print(f"re-prefilled rows 64-79 ({widths} widths), max|Δ| per layer:", delta.tolist(),
-              "of max|row|", scale.tolist())
-        assert (delta <= TOL[torch.bfloat16] * scale).all()
+    for slots in (1, 4):
+        decoded, again, context = reprefilled_rows(params, cfg, dev, slots=slots)
+        deltas, scales = compare(decoded, again, 64)
+        print(f"re-prefilled rows 64-79 ({widths} widths, {slots} slots), max|Δ| per layer:",
+              deltas, "of max|row|", scales)
+        print(f"first layer's ops, decode shape against chunk shape ({widths}, {slots} slots):",
+              op_deltas(params, cfg, dev, decoded, context, slots=slots))
+        assert all(torch.isfinite(t.float()).all() for t in again)
+        assert all(torch.equal(a, b) for a, b in zip(decoded, again)), (slots, deltas)
 
 
 # ------------------------------------------------------- expert offload

@@ -20,7 +20,16 @@ the tracer's ``deterministic_jsonl()`` at trace level ``full``. The traces:
   bit-exact or a typed ``PoisonedRequest``), and each swap fault site and
   mode on the lifecycle trace's preemption (one ``swap_fallback``, the
   fault-free tokens);
-* a PMQ + OTP ``planned_reference`` model with an int8 pool in swap mode.
+* a PMQ + OTP ``planned_reference`` model with an int8 pool in swap mode;
+* recompute mode on the PMQ + OTP model in f32 and on the dense model in
+  bf16 (the CPU's plain kernels): tokens, ``counters()`` and the JSONL equal the
+  reference engine's, and the tokens equal the unpressured run's.
+
+A recompute resume rewrites the decode-era KV rows bit for bit: the
+reduced moonshot-v1-16b-a3b (PMQ + OTP, 4 layers) at f32 and bf16, a
+64-token prompt, 16 tokens decoded over 4 slots, the context re-prefilled
+(``tests/_torch_resume.py``), a context whose decode-era tokens one
+capacity dispatch of the chunk would drop in part.
 
 Units: ``SwappedKV`` has the reference's shapes, ``nbytes`` and CRC (the
 port's ``payload_checksum`` equals ``repro.serving.faults.checksum_tree`` of
@@ -51,6 +60,7 @@ from repro_torch.serving.kvcache import PagedKVCache as TCache  # noqa: E402
 from _torch_interop import torch_one_thread  # noqa: E402,F401
 from test_serving_sim import FUZZ_SITES, TINY_DENSE, Trace, _random_trace  # noqa: E402
 import test_torch_serving_control as control  # noqa: E402
+from _torch_resume import compare, op_deltas, reprefilled_rows  # noqa: E402
 
 LIFECYCLE = {"enqueue", "admit", "prefill_chunk", "first_token", "compute", "megastep",
              "decode", "page_grow", "preempt", "kv_swap_out", "swap_in", "kv_swap_in",
@@ -188,6 +198,67 @@ def test_int8_pool_swap_matches_reference(pmq):
     assert c["preemptions"] and c["swap_in_bytes"] == c["swap_out_bytes"] > 0
     routing = sum(e["name"] == "routing" for e in te.tracer.events)
     assert routing == len(c["capacity_utilization"]) > 0
+
+
+@pytest.fixture(scope="module")
+def dense_bf16():
+    """``TINY_DENSE`` in bf16, built by the reference and carried into the
+    port."""
+    from repro.models.registry import get_model as jget_model
+    from repro_torch import interop
+
+    jcfg = dataclasses.replace(TINY_DENSE, dtype="bfloat16")
+    import jax
+
+    params_j = jget_model(jcfg).init(jax.random.PRNGKey(0))
+    flat, meta = control.flatten_reference(params_j)
+    return (jcfg, TModelConfig(**dataclasses.asdict(jcfg)), params_j,
+            interop.params_from_reference(flat, meta, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recompute_resume_matches_reference_and_unpressured(pmq, dense_bf16, dtype):
+    """Recompute mode under pressure — the PMQ + OTP model in f32, the dense
+    model in bf16: the resumed chunks (``resume`` in the trace) run the
+    decode kernel for their decode-era rows and still dispatch, count and
+    trace as the reference engine does, token for token; every request's
+    tokens are those of the same requests on a pool that never preempts.
+    (The bf16 PMQ model's routing gauges differ from the reference's on the
+    CPU in swap mode too, resume or not: ``ROADMAP.md`` §3.)"""
+    m = pmq if dtype == "float32" else dense_bf16
+    rng = np.random.default_rng(11)
+    trace = Trace(tuple(int(x) for x in rng.integers(2, 9, 6)),
+                  tuple(int(x) for x in rng.integers(6, 11, 6)), (0, 0, 0, 1, 1, 2), 0,
+                  "recompute", max_slots=3, horizon=4)
+    trace = dataclasses.replace(trace, pool_blocks=trace.min_pool)
+    te = _both(m, trace)
+    assert te.metrics.counters()["preemptions"]
+    assert any(e["name"] == "prefill_chunk" and e["args"]["resume"] for e in te.tracer.events)
+    calm = _run(T, m, dataclasses.replace(trace, pool_blocks=trace.demand))
+    assert not calm.metrics.counters()["preemptions"]
+    assert te.results == calm.results
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resumed_rows_are_the_decode_written_rows(dtype):
+    """The rows a recompute resume rewrites equal the rows the prefill and
+    the decode wrote, bit for bit, at every layer (the CPU's plain kernels;
+    the card's are ``test_reprefilled_kv_rows_against_decode_written``), on
+    a context (prompt seed 6) whose decode-era tokens one capacity dispatch
+    of the 16-row chunk would drop in part: the resume dispatches them so
+    that none is dropped, as the decode's 4 slots never were."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.synthetic import build_synthetic
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(), dtype=dtype,
+                              num_layers=4)
+    params = build_synthetic(cfg, seed=0, device="cpu")
+    slots = workload.PREEMPT.max_slots
+    decoded, again, context = reprefilled_rows(params, cfg, "cpu", slots=slots, seed=6)
+    assert op_deltas(params, cfg, "cpu", decoded, context, slots=slots)["dropped"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(decoded, again))
+    deltas, scales = compare(decoded, again, 64)
+    assert deltas == [0.0] * cfg.num_layers and min(scales) > 0
 
 
 # ------------------------------------------------------------- units

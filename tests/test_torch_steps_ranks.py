@@ -19,6 +19,22 @@ runs it. Held:
   on 1 × 4 against both and on 2 × 4 against ``jax.grad`` under the
   reference's mesh (its load-balance term is per data shard there), loss
   within 1e-5, gradients 2e-4 × max;
+* the vocabulary split over ``model`` (``embed``, ``unembed``,
+  ``chunked_xent``, the OTP step's ``chunked_kl``) where it divides: a
+  quarter of the rows a rank in the dense and MoE cases;
+* the other families' ``train_loss`` and gradients on 2 × 4 against
+  ``jax.grad`` under the reference's mesh and the single process (loss
+  1e-5, gradients 2e-4 × max): whisper (``cross`` and ``attn`` a head a
+  rank, a vocabulary of 513 that stays whole), recurrentgemma (the RG-LRU
+  and MLPs a quarter a rank, its one-KV-head attention whole) and xlstm (a
+  head a rank, the ``[u | z]`` halves cut half by half); each rank's shapes
+  and parameter bytes, the reference's specs' share but for the leaves kept
+  whole;
+* the OTP loss's vocabulary-parallel ``chunked_kl`` and its gradients
+  against ``jax.grad`` under the reference's mesh;
+* a greedy decode of the dense model on 2 × 4, the logits gathered over
+  the vocabulary shards: the single process's tokens, a tie planted across
+  the first shard boundary taken by the lower index;
 * ``build_step`` train steps (``accum=2``, ZeRO-1, 32- and 8-bit moments) of
   the dense model and one OTP step of a PMQ model (tensor-parallel 4-bit
   attention and shared experts, ETP experts): the ranks' parameters,
@@ -32,6 +48,7 @@ runs it. Held:
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +85,16 @@ CFG_KW = dict(name="eptest", family="moe", num_layers=1, d_model=64, num_heads=2
 #: the reduced models with their KV heads widened so that model = 4 splits them
 DENSE, MOE = "tinyllama-1.1b", "moonshot-v1-16b-a3b"
 WIDE = dict(num_kv_heads=4)
+#: the other families, reduced: whisper with 4 KV heads (``cross`` and
+#: ``attn`` one head a rank) and a vocabulary of 513 that does not divide
+#: (it stays whole, as whisper-small's 51865); recurrentgemma with its one
+#: KV head (its attention stays whole); xlstm as it is
+FAMILIES = {"whisper": ("whisper-small", dict(num_kv_heads=4, vocab_size=513)),
+            "recurrentgemma": ("recurrentgemma-2b", {}),
+            "xlstm": ("xlstm-350m", {})}
+#: the greedy decode's tie: two equal unembedding rows either side of the
+#: first vocabulary shard boundary at model = 4, scaled so they win
+TIE_ROW = 512 // 4 - 1
 
 _SNIPPET = r"""
 import os
@@ -142,6 +169,38 @@ with mesh, sharding_rules(mesh, activation_rules(mesh)):
 res["moe_mesh/loss"] = np.asarray(loss)
 gf, _ = flatten_reference(g)
 res.update({"moe_mesh/" + k: v for k, v in gf.items()})
+
+def flat(tree):
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path): np.asarray(v)
+            for path, v in leaves}
+
+from repro.models import layers as Lx
+krng = np.random.default_rng(13)
+kl_in = {n: (krng.standard_normal(shape) * sc).astype(np.float32)
+         for n, shape, sc in (("hs", (4, 16, 64), 1.0), ("ht", (4, 16, 64), 1.0),
+                              ("emb", (512, 64), 0.3))}
+with mesh, sharding_rules(mesh, activation_rules(mesh)):
+    kl, (g_hs, g_emb) = jax.jit(jax.value_and_grad(
+        lambda h, e: Lx.chunked_kl(h, jnp.asarray(kl_in["ht"]), e, 8), argnums=(0, 1)))(
+        jnp.asarray(kl_in["hs"]), jnp.asarray(kl_in["emb"]))
+res.update({f"kl/{n}": v for n, v in kl_in.items()})
+res.update({"kl/loss": np.asarray(kl), "kl/g_hs": np.asarray(g_hs), "kl/g_emb": np.asarray(g_emb)})
+
+for name, (arch, kw) in json.loads(sys.argv[5]).items():
+    fcfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    fparams = jax.jit(get_model(fcfg).init)(jax.random.PRNGKey(0))
+    frng = np.random.default_rng(7)
+    ftok = frng.integers(0, fcfg.vocab_size, (4, 16)).astype(np.int32)
+    fbatch = {"tokens": jnp.asarray(ftok), "labels": jnp.asarray(np.roll(ftok, -1, 1))}
+    if fcfg.family == "encdec":
+        fbatch["frames"] = jnp.asarray(frng.normal(size=(4, fcfg.encoder_seq, fcfg.d_model))
+                                       .astype(np.float32))
+    with mesh, sharding_rules(mesh, activation_rules(mesh)):
+        loss, g = jax.jit(jax.value_and_grad(
+            lambda q: get_model(fcfg).train_loss(q, fbatch)[0]))(fparams)
+    res[f"fam_{name}/loss"] = np.asarray(loss)
+    res.update({f"fam_{name}/{k}": v for k, v in flat(g).items()})
 np.savez(out, **res)
 print("OK")
 """
@@ -151,8 +210,8 @@ def _jax_mesh_reference(d: Path) -> dict:
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "HOME": os.environ.get("HOME", "/root"), "JAX_PLATFORMS": "cpu"}
     r = subprocess.run([sys.executable, "-c", _SNIPPET, str(d / "ref.npz"), json.dumps(CFG_KW),
-                        MOE, json.dumps(WIDE)], capture_output=True, text=True, timeout=600,
-                       env=env, cwd=ROOT)
+                        MOE, json.dumps(WIDE), json.dumps(FAMILIES)], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=ROOT)
     assert r.returncode == 0, r.stderr[-3000:]
     return dict(np.load(d / "ref.npz"))
 
@@ -222,6 +281,54 @@ def _otp_inputs():
     return inp, art.fn(tsteps._own(otp), tsteps._own(opt), params, inp["batch"], u)
 
 
+def _flat(tree, prefix=""):
+    """``{path: np.ndarray}`` of a tree of dicts, lists and tuples."""
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    if items is None:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _family_inputs():
+    """Each family's reduced model (the reference's init, carried across),
+    its batch and the port's single-process loss and gradients."""
+    out = {}
+    for name, (arch, kw) in FAMILIES.items():
+        jcfg = dataclasses.replace(jget_config(arch).reduced(), **kw)
+        tcfg = TModelConfig(**dataclasses.asdict(jcfg))
+        jparams = jax.jit(jget_model(jcfg).init)(jax.random.PRNGKey(0))
+        params = interop.params_from_reference(_flat(jparams), {}, device="cpu")
+        rng = np.random.default_rng(7)
+        tok = rng.integers(0, jcfg.vocab_size, (4, 16)).astype(np.int32)
+        batch = {"tokens": _t(tok).long(), "labels": _t(np.roll(tok, -1, 1)).long()}
+        if jcfg.family == "encdec":
+            batch["frames"] = _t(rng.normal(size=(4, jcfg.encoder_seq, jcfg.d_model))
+                                 .astype(np.float32))
+        loss, grads = tsteps.tree_gradients(tcfg, params, batch)
+        out[name] = {"cfg": tcfg, "params": params, "batch": batch,
+                     "port": (float(loss), grads)}
+    return out
+
+
+def _greedy_inputs():
+    """The reduced dense model with unembedding rows ``TIE_ROW`` and
+    ``TIE_ROW + 1`` equal and scaled, and its single-process greedy tokens."""
+    from repro_torch.launch import workload
+
+    _, tcfg, _, params, _ = _model(DENSE)
+    unembed = params["unembed"].clone()
+    unembed[TIE_ROW] = unembed[TIE_ROW + 1] = 8 * unembed[TIE_ROW + 1]
+    params = dict(params, unembed=unembed)
+    tok = np.random.default_rng(12).integers(0, tcfg.vocab_size, (4, 8))
+    batch = {"tokens": _t(tok).long()}
+    toks, _, _, _ = workload.greedy_family(tcfg, params, batch, 6)
+    return {"cfg": tcfg, "params": params, "batch": batch, "steps": 6}, toks
+
+
 @pytest.fixture(scope="module")
 def spawn(tmp_path_factory):
     d = tmp_path_factory.mktemp("steps_ranks")
@@ -242,7 +349,12 @@ def spawn(tmp_path_factory):
                      "port": _port_grads(tcfg, params, batch)}
     train, ref["train"] = _train_inputs()
     otp, ref["otp"] = _otp_inputs()
-    torch.save({"ep": ep, "tp": tp, "train": train, "otp": otp}, d / "inputs.pt")
+    families = _family_inputs()
+    greedy, ref["greedy"] = _greedy_inputs()
+    kl = {n: _t(ref["mesh"][f"kl/{n}"]) for n in ("hs", "ht", "emb")}
+    ref["families"] = {name: f.pop("port") for name, f in families.items()}
+    torch.save({"ep": ep, "tp": tp, "train": train, "otp": otp, "families": families,
+                "greedy": greedy, "kl": kl}, d / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_steps_worker.py"),
                                str(r), str(WORLD), str(d)], env=env, stdout=subprocess.PIPE,
@@ -261,6 +373,7 @@ def spawn(tmp_path_factory):
            if proc.returncode != 0]
     assert not bad, bad
     outs = [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(WORLD)]
+    ref["family_inputs"] = families
     return ref, outs, train, otp
 
 
@@ -359,6 +472,137 @@ def test_tp_moe_loss_and_gradients(spawn):
     want = {k[len("moe_mesh/"):]: v for k, v in r.items() if k.startswith("moe_mesh/blocks")
             or k[len("moe_mesh/"):] in ("embed", "unembed", "final_norm")}
     _tp_check(outs, "tp_moe", float(r["moe_mesh/loss"]), want)
+
+
+#: each family's pairs on model = 4 (whisper's decoder blocks, the others'
+#: first group) and a rank's shape of some leaves ([] for a leaf kept whole)
+FAMILY_PLANS = {
+    "whisper": {"attn": True, "cross": True, "mlp": True},
+    "recurrentgemma": {"rg1": True, "rg1/mlp": True, "rg2": True, "rg2/mlp": True,
+                       "attn/attn": False, "attn/mlp": True},
+    "xlstm": {"m": True, "s": True, "s/ffn": True},
+}
+FAMILY_SHAPES = {
+    "whisper": {"embed": (513, 128), "dec_blocks/0/cross/wq/w": (128, 32),
+                "dec_blocks/0/cross/wo/w": (32, 128), "enc_blocks/0/mlp/w_down/w": (64, 128)},
+    "recurrentgemma": {"embed": (128, 128), "groups/0/rg1/proj_in/w": (128, 32),
+                       "groups/0/rg1/wa/w": (128, 32), "groups/0/rg1/proj_out/w": (32, 128),
+                       "groups/0/rg1/conv": (4, 128), "groups/0/attn/attn/wk/w": (128, 32),
+                       "groups/0/attn/attn/wq/w": (128, 128)},
+    "xlstm": {"embed": (128, 128), "groups/0/m/proj_in/w": (128, 128),
+              "groups/0/m/wq/w": (256, 64), "groups/0/m/w_if/w": (256, 2),
+              "groups/0/m/proj_out/w": (64, 128), "groups/0/s/w_if/w": (128, 64),
+              "groups/0/s/ffn/proj_in/w": (128, 96)},
+}
+
+
+#: the leaves the reference's specs cut that the port keeps whole
+#: (``ROADMAP.md`` §3): recurrentgemma's attention, whose one KV head the
+#: reference's ``P(None, "model")`` cuts inside the head
+KEPT_WHOLE = re.compile(r"^groups/\d+/attn/attn/w[qkvo]/w$")
+
+
+def _cut_for(tree, cfg, data, model):
+    """``tree`` (a whole parameter or gradient tree) as rank ``(data,
+    model)`` of the 2 × 4 mesh holds it (``shard_params``)."""
+    from repro_torch.parallel.ep_shardmap import shard_params
+    from repro_torch.parallel.sharding import Mesh
+
+    return shard_params(tree, Mesh(("data", "model"), (2, 4), coord=(data, model)), cfg)
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_tp_family_loss_and_gradients(spawn, name):
+    """whisper (``cross`` and ``attn`` a head a rank, the MLPs by F, the
+    vocabulary of 513 whole), recurrentgemma (the RG-LRU and MLPs a quarter
+    a rank, the attention with its one KV head whole, the vocabulary split)
+    and xlstm (a head a rank, the ``[u | z]`` halves cut half by half, the
+    sLSTM by channel, the vocabulary split) on 2 × 4: each rank's loss
+    within 1e-5 of ``jax.grad``'s under the reference's mesh and of the
+    single process's; each rank's gradients, summed over data, its share of
+    theirs within 2e-4 × max; its shapes those of its share."""
+    from repro_torch.core.tree import tree_leaves, tree_paths
+
+    ref, outs, _, _ = spawn
+    r = ref["mesh"]
+    cfg = ref["family_inputs"][name]["cfg"]
+    flat = {k[len(f"fam_{name}/"):]: v for k, v in r.items() if k.startswith(f"fam_{name}/")}
+    jloss = float(flat.pop("loss"))
+    jgrads = interop.params_from_reference(flat, {}, device="cpu")
+    ploss, pgrads = ref["families"][name]
+    assert outs[0]["families"][name]["plan"] == FAMILY_PLANS[name]
+    for o in outs:
+        got = o["families"][name]
+        assert abs(got["loss"] - jloss) <= 1e-5 and abs(got["loss"] - ploss) <= 1e-5, name
+    for m in range(4):
+        line = [o for o in outs if o["coord"]["model"] == m]
+        total = [sum(ts) for ts in zip(*(tree_leaves(o["families"][name]["grads"])
+                                         for o in line))]
+        shapes = {"/".join(map(str, p)): tuple(t.shape)
+                  for p, t in tree_paths(line[0]["families"][name]["grads"])}
+        for path, shape in FAMILY_SHAPES[name].items():
+            assert shapes[path] == shape, (name, path, shapes[path])
+        for want in (jgrads, pgrads):
+            for got, w, (path, _) in zip(total, tree_leaves(_cut_for(want, cfg, 0, m)),
+                                         tree_paths(pgrads)):
+                _close(got, w.numpy(), 2e-4, f"{name} {path}")
+
+
+def test_vocab_parallel_shares_and_whole_vocabulary(spawn):
+    """The dense and MoE models' vocabularies (512) split a quarter a rank —
+    embed, unembed and their gradients —, whisper's 513 stays whole on every
+    rank; each rank's parameter bytes of a family the whole's share but for
+    the leaves kept whole."""
+    ref, outs, _, _ = spawn
+    assert tuple(outs[0]["tp_dense"]["grads"]["embed"].shape) == (128, 128)
+    assert tuple(outs[0]["tp_dense"]["grads"]["unembed"].shape) == (128, 128)
+    assert tuple(outs[0]["tp_moe"]["grads"]["embed"].shape) == (128, 128)
+    whisper = ref["family_inputs"]["whisper"]["params"]
+    for o in outs:
+        emb = o["families"]["whisper"]["grads"]["embed"]
+        assert tuple(emb.shape) == tuple(whisper["embed"].shape) == (513, 128)
+    from repro_torch.launch.step_ranks import _share_bytes
+    from repro_torch.parallel.sharding import Mesh
+
+    for name, f in ref["family_inputs"].items():
+        shares = _share_bytes(f["params"], Mesh(("data", "model"), (2, 4), coord=(0, 0)))
+        want = sum(whole if KEPT_WHOLE.search(path) else share
+                   for path, (whole, share) in shares.items())
+        for o in outs:
+            assert o["families"][name]["bytes"] == want, (name, o["coord"])
+
+
+def test_vocab_parallel_kl_matches_jax_grad_under_its_mesh(spawn):
+    """The OTP distillation loss's ``chunked_kl`` with the vocabulary split
+    a quarter a rank (512 rows, chunks of 8 positions) on 2 × 4: each rank's
+    loss within 1e-5 of the reference's under its mesh, the gradient of its
+    batch rows' student states, and of its vocabulary rows summed over
+    data, within 2e-4 × max of ``jax.grad``'s."""
+    ref, outs, _, _ = spawn
+    r = ref["mesh"]
+    for o in outs:
+        d, m = o["coord"]["data"], o["coord"]["model"]
+        got = o["kl"]
+        assert abs(got["loss"] - float(r["kl/loss"])) <= 1e-5
+        assert tuple(got["emb"].shape) == (128, 64)
+        _close(got["hs"], r["kl/g_hs"][2 * d:2 * d + 2], 2e-4, "hs")
+    for m in range(4):
+        total = sum(o["kl"]["emb"] for o in outs if o["coord"]["model"] == m)
+        _close(total, r["kl/g_emb"][128 * m:128 * (m + 1)], 2e-4, f"emb rows of rank {m}")
+
+
+def test_greedy_decode_on_the_ranks_matches_one_process(spawn):
+    """Greedy decoding (dense-cache prefill and decode steps) of the dense
+    model on 2 × 4, the logits gathered over the vocabulary shards: each
+    rank's tokens are the single process's for its batch block, with a tie
+    planted across the first shard boundary (rows 127 and 128 equal) taken
+    by the lower index, as one process's argmax takes it."""
+    ref, outs, _, _ = spawn
+    want = ref["greedy"]
+    assert (want == TIE_ROW).any() and not (want == TIE_ROW + 1).any()
+    for o in outs:
+        d = o["coord"]["data"]
+        assert torch.equal(o["greedy"], want[2 * d:2 * d + 2]), (o["coord"], o["greedy"])
 
 
 # ------------------------------------------------------------ the steps
