@@ -82,7 +82,17 @@ Phases (each failure exits non-zero):
    0, prefilled and decoded 8 greedy steps on the card and on the CPU:
    identical tokens, per-step logits within 1e-3·max|logit|, no kernel
    launched;
-5. full-width serving of the two workloads of ``repro_torch.launch.workload``
+5. first ``DRYRUN`` (:func:`dryrun_path`): the dry run of three production
+   cells on ``meta`` on the host (``tinyllama-1.1b`` ``train_4k``,
+   ``moonshot-v1-16b-a3b`` ``decode_32k`` with its kernels counted,
+   ``xlstm-350m`` ``train_4k``; rank 0 of the single-pod 16 × 16 mesh, no
+   process), each printed with its roofline terms, dominant term and bytes
+   a card and gated on FLOPs above 0; then ``build_step``'s quantized
+   ``prefill_step`` of the PMQ + OTP model's first 12 layers, 4 × 64
+   tokens, counted on ``meta`` and run on the card: each kernel's counted
+   launches equal its ``LAUNCHES`` on the card, the counted peak over the
+   card's within ``DRYRUN_PEAK_BAND``, the roofline time printed beside the
+   step's; then full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
    launch counts set to 0 just before it and read just after:
@@ -270,17 +280,22 @@ from repro_torch.core.tree import (  # noqa: E402
     weight_bytes,
 )
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.launch.counting import nbytes  # noqa: E402
 from repro_torch.core.quantizers import quantize_kv_rows  # noqa: E402
 from repro_torch.core.packing import pack_bits, pad_to_multiple, unpack_bits  # noqa: E402
-from repro_torch.kernels.binary_matmul import binary_matmul, binary_plan  # noqa: E402
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu  # noqa: E402
+from repro_torch.kernels.binary_matmul import (  # noqa: E402
+    binary_matmul,
+    binary_matmul_work,
+    binary_plan,
+)
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu, moe_gmm_work  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     POOL_CODES,
     attention_plan,
     paged_attention,
     paged_attention_quant,
 )
-from repro_torch.kernels.quant_matmul import quant_matmul, tile_plan  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_work, tile_plan  # noqa: E402
 from repro_torch.launch import ep_ranks, probe_attention, profile_decode, workload  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import linear  # noqa: E402
@@ -389,17 +404,12 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def bound(nbytes: float, ops: float, dtype):
+    """The least time of a launch in ms: its bytes over HBM's rate or its
+    operations over their dtype's peak, the larger (the kernels' count
+    functions give the three: ``quant_matmul_work`` and the others)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*ts) -> int:
-    out = 0
-    for t in ts:
-        for x in (t if isinstance(t, tuple) else (t,)):
-            out += x.numel() * x.element_size()
-    return out
 
 
 def rand_weights(gen, e, k, n, bits, group=128):
@@ -701,9 +711,7 @@ def _time_gmm(label, kind, c, bits, k, n, live):
                                                        "nlive", "m"))
     experts = (ws[0][0][0] if bits == 3 else ws[0][0]).shape[0]
     used = sorted(set(be[:nlive].tolist()))
-    w_bytes = sum(nbytes(t) // experts * len(used) for w in ws for t in w)
     rows = sum(live)
-    io_bytes = rows * k * 2 + m * n * 2
     x_live = x[: nlive * bm].view(nlive, bm, k)
     if kind == "moe_gmm":
         call = lambda: moe_gmm(x, *ws[0], be, na, bits=bits, bm=bm)
@@ -727,7 +735,7 @@ def _time_gmm(label, kind, c, bits, k, n, live):
               + ("; library: torch.bmm of the gate and up products only, no SwiGLU"
                  if kind == "moe_gmm_swiglu" else ""),
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(w_bytes + io_bytes, 2 * len(ws) * rows * k * n, torch.bfloat16))),
+                   bound(*moe_gmm_work(x, ws, bits=bits, rows=rows, experts=len(used))))),
     )
 
 
@@ -749,7 +757,7 @@ def _time_quant_matmul(label, m, k, n, bits, gen):
         library_ms=time_ms(lambda: torch.matmul(x, w_deq))[0],
         shape=f"M={m} K={k} N={n} {bits}-bit bf16",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes(x, data, s, z) + m * n * 2, 2 * m * k * n, torch.bfloat16))),
+                   bound(*quant_matmul_work(x, data, s, z, bits=bits)))),
     )
 
 
@@ -1091,9 +1099,7 @@ def parity_binary_matmul(gen, results, cfg):
         plain_ms=time_ms(lambda: ref.binary_matmul_ref(x, b_packed, alpha))[0],
         library_ms=time_ms(lambda: torch.matmul(x, w_pm))[0],
         shape=f"M={m} K={k} N={n} 1-bit bf16",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes(x, b_packed, alpha) + m * n * 2, 2 * m * k * n,
-                         torch.bfloat16))),
+        **dict(zip(("bound_ms", "bound_by"), bound(*binary_matmul_work(x, b_packed, alpha)))),
     )
 
 
@@ -3088,12 +3094,107 @@ def free_model() -> None:
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
 
 
+#: ``DRYRUN`` (a): production cells counted on ``meta`` on the host, one
+#: rank of the single-pod 16 × 16 mesh (``python -m repro_torch.launch.dryrun``'s)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("moonshot-v1-16b-a3b", "decode_32k"),
+                ("xlstm-350m", "train_4k"))
+#: (b): the quantized prefill step's kernels, and its batch of prompts
+DRYRUN_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm")
+DRYRUN_BATCH = 4
+#: (b)'s gate: the dry run's peak over the card's, each the bytes the step
+#: allocates above what its arguments hold (``PERF.md`` §6, stated before
+#: the call that first tested it)
+DRYRUN_PEAK_BAND = (0.75, 1.33)
+
+
+def dryrun_path():
+    """``DRYRUN``: the dry run (``repro_torch.launch.dryrun``), on the host
+    and held to the card. (a) :data:`DRYRUN_CELLS` on ``meta`` (rank 0 of
+    the production mesh, no process, no device): each cell's roofline
+    terms, dominant term and bytes a card printed; each must finish with
+    FLOPs above 0. (b) ``build_step``'s quantized ``prefill_step`` (1 × 1) on
+    the PMQ + OTP model's first ``workload.CUT_LAYERS`` layers, 4 prompts
+    of ``workload.PROMPT_LEN`` tokens: counted by the op counter on
+    ``meta`` copies of the same arguments, then run on the card after a
+    warm-up run; each kernel's launches counted on ``meta`` must equal
+    its ``LAUNCHES`` on the card (:data:`DRYRUN_PATH`'s, and no other), the
+    predicted peak over the measured one must lie in
+    :data:`DRYRUN_PEAK_BAND`, and the roofline time is printed beside the
+    step's device time (not gated). Returns (b)'s launches on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.op_analysis import analyze_step
+
+    for arch, shape_name in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape_name, False, accum=0, out_dir=None, quiet=True)
+        if not r["flops_per_dev"] > 0:
+            raise AssertionError(f"DRYRUN: {arch} × {shape_name} counted no FLOPs")
+        mem = r["memory"]
+        log(f"DRYRUN (a) {arch} × {shape_name}: {r['step']}, rank 0 of 16 × 16 counted on meta "
+            f"in {r['trace_s']:.1f} s: {r['flops_per_dev'] / 1e12:.2f} TFLOP, "
+            f"{r['hbm_bytes_per_dev'] / 1e12:.3f} TB of HBM traffic, collectives "
+            f"{r['collective_bytes_per_dev']}; compute {r['compute_term_s'] * 1e3:.2f} ms, "
+            f"memory {r['memory_term_s'] * 1e3:.2f} ms, collective "
+            f"{r['collective_term_s'] * 1e3:.2f} ms → {r['dominant']}; "
+            f"{mem['per_device_total'] / 1e9:.2f} GB a card (arguments "
+            f"{mem['argument'] / 1e9:.2f}, peak {mem['temp'] / 1e9:.2f}; fits 80 GB: "
+            f"{mem['fits_80gb']}); launches {r['launches']}")
+
+    begin_path()
+    cfg = dataclasses.replace(get_config(workload.ARCH), num_layers=workload.CUT_LAYERS)
+    params = build_synthetic(cfg, seed=0, device=DEV)
+    shape = ShapeConfig("prefill_32k", workload.PROMPT_LEN, DRYRUN_BATCH, "prefill")
+    art = steps.build_step(cfg, shape, None, precision="quant")
+    gen = torch.Generator().manual_seed(31)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (DRYRUN_BATCH, workload.PROMPT_LEN),
+                                     generator=gen, dtype=torch.int32).to(DEV)}
+    t0 = time.perf_counter()
+    s = analyze_step(art.fn, (to_device(params, "meta"), to_device(batch, "meta")))
+    count_s = time.perf_counter() - t0
+    terms = dryrun.roofline(s, steps._one_rank())
+    art.fn(params, batch)  # warm-up: handles and the allocator's segments
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = art.fn(params, batch)
+    b.record()
+    b.synchronize()
+    step_ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    del out
+    roof_ms = max(terms.values()) * 1e3
+    log(f"DRYRUN (b) {workload.ARCH} quantized prefill_step, {workload.CUT_LAYERS} layers, "
+        f"{DRYRUN_BATCH} × {workload.PROMPT_LEN} tokens on 1 × 1: counted on meta in "
+        f"{count_s:.1f} s — {s.flops / 1e12:.4f} TFLOP ({s.flops_by_dtype}), "
+        f"{s.hbm_bytes / 1e9:.3f} GB of HBM traffic, launches {s.launches}, peak "
+        f"{s.peak_bytes / 1e9:.4f} GB; on the card: launches {launches}, peak "
+        f"{peak / 1e9:.4f} GB above the arguments (predicted / measured "
+        f"{s.peak_bytes / peak:.3f}), step {step_ms:.3f} ms against the roofline's "
+        f"{roof_ms:.3f} ms (compute {terms['compute_term_s'] * 1e3:.3f}, memory "
+        f"{terms['memory_term_s'] * 1e3:.3f}; measured / roofline {step_ms / roof_ms:.2f})")
+    if launches != s.launches or set(launches) != set(DRYRUN_PATH):
+        raise AssertionError(f"DRYRUN: launches on the card {launches} != counted on meta "
+                             f"{s.launches} (expected {DRYRUN_PATH})")
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= s.peak_bytes / peak <= hi:
+        raise AssertionError(f"DRYRUN: predicted peak {s.peak_bytes} B over the card's {peak} B "
+                             f"= {s.peak_bytes / peak:.3f}, outside {DRYRUN_PEAK_BAND}")
+    return dict(build.LAUNCHES)
+
+
 def full_width():
-    """Phase 5: the compressed model's five paths, then — the compressed
+    """Phase 5: ``DRYRUN`` (:func:`dryrun_path`), then the compressed model's
+    five paths, then — the compressed
     model freed — the dense model's, then the uncompressed MoE's and, on the
     same weights, the pipeline's, then the VLM's, the sliding-window
     model's and the 384-expert model's, each model freed before the next is
     built. Returns each path's launches."""
+    dryrun_launches = walled("DRYRUN", dryrun_path)
+    free_model()
     fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, scan_launches, \
         (fp_step, fp_all) = walled("compressed paths", compressed_paths)
     free_model()
@@ -3137,7 +3238,8 @@ def full_width():
     if ORACLE_FAULTS:
         raise AssertionError(f"divergences from the dense-cache oracle with no near-tie within "
                              f"{ORACLE_GAP_ULPS} bf16 ulps: {ORACLE_FAULTS}")
-    return {"fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
+    return {"DRYRUN prefill step": dryrun_launches,
+            "fp serving": fp_launches, "int8 KV + prefix serving": q_launches,
             "tenant mix serving": mix_launches, "preemption serving": preempt_launches,
             "offload serving": offload_launches, "scan serving": scan_launches,
             "expert-parallel layer check (4 ranks)": ep_layer_launches,

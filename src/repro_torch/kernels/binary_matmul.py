@@ -6,7 +6,8 @@ Eq. 9) — the wrapper of the Hopper kernel in ``csrc/binary_matmul.cu``
 byte ``r`` is row ``8r + i``); ``alpha [1, N]`` f32. No model path calls
 it, in the port as in the reference (1-bit experts ride ``moe_gmm`` in the
 affine form scale = 2α, zero = 0.5). A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises. bf16 x runs a tensor-core
+a CUDA tensor launches the kernel or raises; a ``meta`` tensor is counted
+(:func:`binary_matmul_work`). bf16 x runs a tensor-core
 kernel whose tiling is :func:`binary_plan`; f32 x keeps IEEE f32 products
 on CUDA cores.
 """
@@ -17,10 +18,11 @@ import functools
 import torch
 
 from . import ref
+from ..launch.counting import Work, count_meta, nbytes
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
 from .quant_matmul import COL_TILE, SMEM_OPTIN, WARPS, ptr, require
 
-__all__ = ["binary_matmul", "binary_plan"]
+__all__ = ["binary_matmul", "binary_matmul_work", "binary_plan"]
 
 #: the bf16 kernel's row tile (the MMA's N)
 ROWS = 8
@@ -46,7 +48,18 @@ def binary_plan(k: int, n: int) -> dict:
             "smem_bytes": smem}
 
 
+def binary_matmul_work(x: torch.Tensor, b_packed: torch.Tensor, alpha: torch.Tensor) -> Work:
+    """One launch's work: ``2·M·K·N`` in x's dtype; x, the packed bits and
+    alpha read once, ``y [M, N]`` written once."""
+    m, k = x.shape
+    n = b_packed.shape[-1]
+    return Work(nbytes(x, b_packed, alpha) + m * n * x.element_size(), 2 * m * k * n, x.dtype)
+
+
 def binary_matmul(x: torch.Tensor, b_packed: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "meta":
+        count_meta("binary_matmul", binary_matmul_work(x, b_packed, alpha))
+        return x.new_empty((x.shape[0], b_packed.shape[-1]))
     if x.device.type == "cpu":
         return ref.binary_matmul_ref(x, b_packed, alpha)
     name = "binary_matmul"

@@ -15,7 +15,8 @@ shared memory, spills per kernel) is kept beside the library as
 
 Every kernel wrapper counts its launches here (:data:`LAUNCHES`), one per
 kernel launch and nowhere else, so a run can show that its main path went
-through each kernel.
+through each kernel. On a ``meta`` tensor a wrapper launches nothing and
+counts its work for the dry run instead (:mod:`repro_torch.launch.counting`).
 """
 from __future__ import annotations
 

@@ -66,12 +66,19 @@ class QuantMatmul(torch.autograd.Function):
 
 
 def _live_slices(block_expert: torch.Tensor, num_active: torch.Tensor, k: int, n: int,
-                 operands: int):
+                 operands: int, experts: int):
     """The live row blocks grouped by slices of their experts, at most
     :data:`SLICE_ELEMENTS` dequantized f32 elements per operand and slice:
     ``(ids [experts of the slice], blocks [live blocks whose expert is in
     it], local [each block's expert's position in ids])``, on the tables'
-    device. Reads the tables back to the host once: the backward may sync."""
+    device. Reads the tables back to the host once: the backward may sync.
+    Tables on ``meta`` (the dry run) hold no values: one slice of all
+    ``experts`` and every block, the static capacity the forward is counted
+    at."""
+    if block_expert.device.type == "meta":
+        yield (torch.arange(experts, device="meta"),
+               torch.arange(block_expert.shape[0], device="meta"), block_expert.long())
+        return
     host = torch.cat([num_active.reshape(-1), block_expert]).cpu().long()
     be = host[1:1 + int(host[0])]
     experts = torch.unique(be)
@@ -114,7 +121,7 @@ class MoeGmm(torch.autograd.Function):
         bm, k, n = ctx.bm, ctx.k, gy.shape[1]
         dx = gy.new_zeros((gy.shape[0], k), dtype=ctx.dtype)
         dx3, gy3 = dx.view(-1, bm, k), gy.reshape(-1, bm, n)
-        for ids, blocks, local in _live_slices(block_expert, num_active, k, n, 1):
+        for ids, blocks, local in _live_slices(block_expert, num_active, k, n, 1, p0.shape[0]):
             w = _dequant_experts(ids, p0, p1, scale, zero, ctx.bits, k, ctx.group, cd)[local]
             dx3[blocks] = _bmm(gy3[blocks], w, True).to(cd).to(ctx.dtype)
             del w
@@ -142,7 +149,7 @@ class MoeGmmSwiglu(torch.autograd.Function):
         bm, k, n, bits, group = ctx.bm, x.shape[-1], gy.shape[1], ctx.bits, ctx.group
         dx = torch.zeros_like(x)
         dx3, x3, gy3 = dx.view(-1, bm, k), x.reshape(-1, bm, k), gy.reshape(-1, bm, n)
-        for ids, blocks, local in _live_slices(block_expert, num_active, k, n, 2):
+        for ids, blocks, local in _live_slices(block_expert, num_active, k, n, 2, g0.shape[0]):
             wg = _dequant_experts(ids, g0, g1, gs, gz, bits, k, group, cd)[local]
             wu = _dequant_experts(ids, u0, u1, us, uz, bits, k, group, cd)[local]
             xb = x3[blocks].to(cd)

@@ -6,17 +6,21 @@ PMQ bit bucket — wrappers of the Hopper kernels in ``csrc/moe_gmm.cu``
 Row block ``i`` (``bm`` rows of ``x_sorted``) multiplies expert
 ``block_expert[i]``; blocks at index ≥ ``num_active[0]`` are zero and read
 no weights. ``block_expert`` and ``num_active`` stay on the device. A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or raises.
+tensor takes the plain version; a CUDA tensor launches the kernel or raises;
+a ``meta`` tensor is counted (:func:`moe_gmm_work`) at the static capacity:
+every row block live, every expert read, as the reference's analyzer counts
+a static grid.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
+from ..launch.counting import Work, count_meta, nbytes
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
 from .quant_matmul import check_activations, check_operand, check_plan, ptr, require, tile_plan
 
-__all__ = ["moe_gmm", "moe_gmm_swiglu"]
+__all__ = ["moe_gmm", "moe_gmm_swiglu", "moe_gmm_work"]
 
 
 def _check_tables(name, x, block_expert, num_active, bm):
@@ -35,10 +39,32 @@ def _experts_n(w_packed, bits):
     return p0.shape[0], p0.shape[-1]
 
 
+def moe_gmm_work(x_sorted: torch.Tensor, weights, *, bits: int, rows=None,
+                 experts=None) -> Work:
+    """One launch's work over ``weights`` (one ``(packed, scale, zero)``
+    stack ``[E, ...]`` per operand: ``moe_gmm`` one, ``moe_gmm_swiglu``
+    two): ``2 · operands · rows · K · N`` in x's dtype; bytes: ``rows`` rows
+    of x and each operand's packed rows and group parameters of ``experts``
+    experts read once, ``y [Mp, N]`` written once. ``rows`` and ``experts``
+    default to the static capacity (all ``Mp`` rows, all ``E`` experts); a
+    measurement passes what its data routes."""
+    m, k = x_sorted.shape
+    e, n = _experts_n(weights[0][0], bits)
+    rows = m if rows is None else rows
+    experts = e if experts is None else experts
+    w_bytes = sum(nbytes(t) // e * experts for w in weights for t in w)
+    elt = x_sorted.element_size()
+    return Work(w_bytes + rows * k * elt + m * n * elt, 2 * len(weights) * rows * k * n,
+                x_sorted.dtype)
+
+
 def moe_gmm(x_sorted: torch.Tensor, w_packed, scale, zero, block_expert: torch.Tensor,
             num_active: torch.Tensor, *, bits: int, group: int = 128,
             bm: int = 16) -> torch.Tensor:
     """``x_sorted [Mp, K]``, weights ``[E, K/per, N]`` → ``[Mp, N]``."""
+    if x_sorted.device.type == "meta":
+        count_meta("moe_gmm", moe_gmm_work(x_sorted, [(w_packed, scale, zero)], bits=bits))
+        return x_sorted.new_empty((x_sorted.shape[0], _experts_n(w_packed, bits)[1]))
     if x_sorted.device.type == "cpu":
         return ref.moe_gmm_ref(x_sorted, w_packed, scale, zero, block_expert, num_active,
                                bits=bits, group=group, bm=bm)
@@ -68,6 +94,10 @@ def moe_gmm_swiglu(x_sorted: torch.Tensor, wg_packed, wu_packed, g_scale, g_zero
                    num_active: torch.Tensor, *, bits: int,
                    group: int = 128, bm: int = 16) -> torch.Tensor:
     """``silu(x @ dq(Wg[e])) * (x @ dq(Wu[e]))`` per row block → ``[Mp, N]``."""
+    if x_sorted.device.type == "meta":
+        count_meta("moe_gmm_swiglu", moe_gmm_work(
+            x_sorted, [(wg_packed, g_scale, g_zero), (wu_packed, u_scale, u_zero)], bits=bits))
+        return x_sorted.new_empty((x_sorted.shape[0], _experts_n(wg_packed, bits)[1]))
     if x_sorted.device.type == "cpu":
         return ref.moe_gmm_swiglu_ref(
             x_sorted, wg_packed, wu_packed, g_scale, g_zero, u_scale, u_zero, block_expert,

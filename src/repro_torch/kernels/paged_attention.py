@@ -8,7 +8,9 @@ or uint8 codes with per-row f32 ``k_scale, k_zero, v_scale, v_zero``
 ``[NB, BS, Hkv]``; ``block_tables [B, MB]`` int32; ``lengths [B]`` int32
 (newest token at ``lengths - 1``); ``window`` an int (None = full
 attention). A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises; a ``meta`` tensor is counted
+(:func:`paged_attention_work`) over every page of the block tables (the
+window's rows where one is given): the static shapes' work.
 
 The kernel's work split is :func:`attention_plan`: a grid of (sequence,
 KV head, chunk) blocks, each chunk a fixed run of ``CHUNK_PAGES`` pages
@@ -24,10 +26,12 @@ from typing import Optional
 import torch
 
 from . import ref
+from ..launch.counting import Work, count_meta
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
 from .quant_matmul import SMEM_OPTIN, ptr, require
 
-__all__ = ["POOL_CODES", "attention_plan", "paged_attention", "paged_attention_quant"]
+__all__ = ["POOL_CODES", "attention_plan", "paged_attention", "paged_attention_quant",
+           "paged_attention_work"]
 
 MAX_G = 8
 MAX_HEAD_DIM = 256
@@ -130,9 +134,31 @@ def _partials(q, plan):
                        device=q.device)
 
 
+def paged_attention_work(q: torch.Tensor, k_pool: torch.Tensor, block_tables: torch.Tensor, *,
+                         window: Optional[int] = None, quant: bool = False,
+                         kv_rows: Optional[int] = None) -> Work:
+    """One launch's work over ``kv_rows`` attended rows of all sequences
+    (default: every page of the block tables, or ``window`` rows a sequence
+    where that is fewer): per row and KV head its K and V (an int8 pool: the
+    codes and the four f32 scale / zero entries) read once, q read and the
+    output written once, the tables and lengths read once; ``4 · Hkv · G ·
+    rows · dh`` operations (QKᵀ and PV) in q's dtype."""
+    b, hkv, g, dh = q.shape
+    mb, bs = block_tables.shape[1], k_pool.shape[1]
+    if kv_rows is None:
+        kv_rows = b * (min(mb * bs, window) if window else mb * bs)
+    per_row = 2 * dh + 16 if quant else 2 * dh * k_pool.element_size()
+    io = kv_rows * hkv * per_row + 2 * q.numel() * q.element_size() + (block_tables.numel() + b) * 4
+    return Work(io, 4 * hkv * g * kv_rows * dh, q.dtype)
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     block_tables: torch.Tensor, lengths: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
+    if q.device.type == "meta":
+        count_meta("paged_attention", paged_attention_work(q, k_pool, block_tables,
+                                                           window=window))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, window=window)
     name = "paged_attention"
@@ -161,6 +187,10 @@ def paged_attention_quant(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.T
     """The same attention over uint8 pools, each staged row dequantized as
     ``(code − zero) · scale`` in f32 before the fp math."""
     quant = (k_scale, k_zero, v_scale, v_zero)
+    if q.device.type == "meta":
+        count_meta("paged_attention_quant", paged_attention_work(
+            q, k_pool, block_tables, window=window, quant=True))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, window=window,
                                        quant=quant)

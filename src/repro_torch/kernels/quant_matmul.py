@@ -3,9 +3,11 @@ the Hopper kernel in ``csrc/quant_matmul.cu`` (port of
 ``repro/kernels/quant_matmul.py:99 quant_matmul_pallas``).
 
 A CPU tensor takes the plain version (:func:`ref.quant_matmul_ref`); a
-CUDA tensor launches the kernel or raises. Also home of the operand checks
-the grouped kernels share, and of :func:`tile_plan`, the static tiling of
-their bf16 body (``csrc/dequant_gemm_sm90.cuh``).
+CUDA tensor launches the kernel or raises; a ``meta`` tensor is counted
+(:func:`quant_matmul_work`, :func:`~repro_torch.launch.counting.count_meta`).
+Also home of the operand checks the grouped kernels share, and of
+:func:`tile_plan`, the static tiling of their bf16 body
+(``csrc/dequant_gemm_sm90.cuh``).
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ import functools
 import torch
 
 from . import ref
+from ..launch.counting import Work, count_meta, nbytes
 from .build import DTYPE_CODES, LAUNCHES, check, load_library, stream_ptr
 
-__all__ = ["quant_matmul", "tile_plan"]
+__all__ = ["quant_matmul", "quant_matmul_work", "tile_plan"]
 
 _PER = {1: 8, 2: 4, 4: 2}
 
@@ -157,9 +160,21 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def quant_matmul_work(x: torch.Tensor, w_packed, scale, zero, *, bits: int) -> Work:
+    """One launch's work: ``2·M·K·N`` in x's dtype; x, the packed planes,
+    scale and zero read once, ``y [M, N]`` written once."""
+    m, k = x.shape
+    n = planes(w_packed, bits)[0].shape[-1]
+    return Work(nbytes(x, w_packed, scale, zero) + m * n * x.element_size(), 2 * m * k * n,
+                x.dtype)
+
+
 def quant_matmul(x: torch.Tensor, w_packed, scale, zero, *, bits: int,
                  group: int = 128) -> torch.Tensor:
     """``x [M, K]`` @ dequant of ``w_packed [K/per, N]`` → ``[M, N]`` in x's dtype."""
+    if x.device.type == "meta":
+        count_meta("quant_matmul", quant_matmul_work(x, w_packed, scale, zero, bits=bits))
+        return x.new_empty((x.shape[0], planes(w_packed, bits)[0].shape[-1]))
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, w_packed, scale, zero, bits=bits, group=group)
     require(x.device.type == "cuda", f"quant_matmul: unsupported device {x.device}")

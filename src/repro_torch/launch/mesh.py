@@ -16,7 +16,8 @@ import torch
 
 from ..parallel.sharding import Mesh, build_mesh
 
-__all__ = ["load_rank_kernels", "make_production_mesh", "make_test_mesh", "spawn_ranks"]
+__all__ = ["load_rank_kernels", "make_production_mesh", "make_test_mesh", "production_view",
+           "spawn_ranks"]
 
 #: the reference's pod meshes: 16 × 16 chips, or 2 pods of them
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
@@ -37,6 +38,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
         raise ValueError(f"make_production_mesh(multi_pod={multi_pod}) is {shape} = {need} "
                          f"ranks; the initialised world has {world}")
     return build_mesh(names, shape)
+
+
+def production_view(multi_pod: bool = False, coord=None) -> Mesh:
+    """One rank's view of the production mesh without processes: its shape
+    (``16 × 16``, or ``2 × 16 × 16`` with ``pod``) and the coordinate
+    ``coord`` (default rank 0's), with no process groups. The step builders
+    and :func:`~repro_torch.parallel.sharding.shard_tensor` read its blocks;
+    a collective on it runs only under
+    :func:`~repro_torch.parallel.sharding.counting`, which records it."""
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    return Mesh(names, shape, coord=tuple(coord) if coord is not None else (0,) * len(shape))
 
 
 def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0) -> Mesh:

@@ -72,14 +72,16 @@ def sm_clock() -> str:
 
 
 def load(root: Path) -> SimpleNamespace:
-    """The attention wrappers, plain version and KV quantizer of the
-    ``repro_torch`` under ``root/src``."""
+    """The attention wrappers, their count of a launch's work, plain version
+    and KV quantizer of the ``repro_torch`` under ``root/src`` (a tree with
+    ``paged_attention_work``)."""
     sys.path.insert(0, str(root / "src"))
     pa = importlib.import_module("repro_torch.kernels.paged_attention")
     ref = importlib.import_module("repro_torch.kernels.ref")
     quant = importlib.import_module("repro_torch.core.quantizers")
     return SimpleNamespace(paged_attention=pa.paged_attention,
                            paged_attention_quant=pa.paged_attention_quant,
+                           work=pa.paged_attention_work,
                            ref=ref.paged_attention_ref,
                            quantize_kv_rows=quant.quantize_kv_rows,
                            dequantize_kv_rows=quant.dequantize_kv_rows)
@@ -107,7 +109,7 @@ def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1,
         k_g, v_g = (p.reshape(-1, hkv, DH)[phys] for p in (kp, vp))
         kernel = lambda: mods.paged_attention(q, kp, vp, tables, lens, window=window)  # noqa: E731
         plain = lambda: mods.ref(q, kp, vp, tables, lens, window=window)  # noqa: E731
-        kv_bytes = kv_rows * hkv * DH * 2 * 2
+        work = mods.work(q, kp, tables, kv_rows=kv_rows)
     else:
         (kc, ks, kz), (vc, vs, vz) = (mods.quantize_kv_rows(r * 2) for r in rows)
         quant = (ks, kz, vs, vz)
@@ -120,7 +122,7 @@ def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1,
         plain = lambda: mods.ref(q, kc, vc, tables, lens, window=window,  # noqa: E731
                                  quant=quant)
         # per attended row and KV head: dh code bytes of K and of V, 4 f32 table entries
-        kv_bytes = kv_rows * hkv * (2 * DH + 16)
+        work = mods.work(q, kc, tables, quant=True, kv_rows=kv_rows)
     k_g, v_g = k_g.permute(0, 2, 1, 3), v_g.permute(0, 2, 1, 3)
     pos = torch.arange(mb * BS, device=dev)[None, :]
     mask = pos < lens[:, None].long()
@@ -133,9 +135,7 @@ def attention_case(mods, kind: str, length: int, gen, hkv: int = 16, g: int = 1,
                                attn_mask=mask, enable_gqa=True)
     else:
         library = lambda: sdpa(q, k_g, v_g, attn_mask=mask)  # noqa: E731
-    io_bytes = kv_bytes + 2 * q.numel() * q.element_size() + (tables.numel() + B) * 4
-    return dict(kernel=kernel, plain=plain, library=library, bytes=io_bytes,
-                ops=4 * hkv * g * kv_rows * DH)
+    return dict(kernel=kernel, plain=plain, library=library, bytes=work.bytes, ops=work.flops)
 
 
 def bound_ms(nbytes: float, ops: float):

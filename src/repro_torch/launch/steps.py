@@ -117,19 +117,38 @@ def _rules(mesh):
 
 
 # --------------------------------------------------------- stacked trees
+#: the per-block lists of a port tree that the reference stacks on axis 0,
+#: by the reference's root name for each (``tail`` stays a list of blocks,
+#: ``tail/<i>/...``, as the reference keeps it)
+STACKED_ROOTS = {"layers": "blocks", "enc_blocks": "enc_blocks", "dec_blocks": "dec_blocks",
+                 "groups": "groups"}
+
+
 def _walk(node, prefix: str, out: Dict):
     if isinstance(node, dict):
         for k in sorted(node):
             _walk(node[k], f"{prefix}/{k}" if prefix else k, out)
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            _walk(v, f"{prefix}/{i}" if prefix else str(i), out)
     else:
         out[prefix] = node
 
 
+def _flatten_order(path: str) -> Tuple:
+    """A path's place in the reference's flatten order (dict keys sorted, a
+    list's items by index, level by level)."""
+    return tuple((0, int(k), "") if k.isdigit() else (1, 0, k) for k in path.split("/"))
+
+
 def stack_tree(params) -> Dict[str, List]:
-    """``{reference path: [leaf of each layer]}`` of a port tree — a
-    transformer's (``layers`` become ``blocks/...``, other keys one leaf)
-    or a list of per-layer OTP routers (``fc1``/``fc2``) — in the
-    reference's flatten order. The lists hold the port's leaves (no copy)."""
+    """``{reference path: [leaf of each block]}`` of a port tree — a model's
+    (each list of :data:`STACKED_ROOTS` stacked under the reference's root:
+    a transformer's ``layers`` as ``blocks/...``, ``groups/...``,
+    ``enc_blocks/...``, ``dec_blocks/...``; every other key, ``tail/<i>/...``
+    too, one leaf) or a list of per-layer OTP routers (``fc1``/``fc2``) — in
+    the reference's flatten order. The lists hold the port's leaves (no
+    copy)."""
     out: Dict[str, List] = {}
     if isinstance(params, list):
         for layer in params:
@@ -138,25 +157,27 @@ def stack_tree(params) -> Dict[str, List]:
             for path, leaf in flat.items():
                 out.setdefault(path, []).append(leaf)
         return out
-    for key in sorted(params):
-        if key == "layers":
-            for layer in params["layers"]:
+    for key in params:
+        flat = {}
+        if key in STACKED_ROOTS:
+            for layer in params[key]:
                 flat = {}
-                _walk(layer, "blocks", flat)
+                _walk(layer, STACKED_ROOTS[key], flat)
                 for path, leaf in flat.items():
                     out.setdefault(path, []).append(leaf)
         else:
-            flat = {}
             _walk(params[key], key, flat)
             out.update({p: [leaf] for p, leaf in flat.items()})
-    return {p: out[p] for p in sorted(out)}
+    return {p: out[p] for p in sorted(out, key=_flatten_order)}
 
 
 def stacked_paths(params) -> set:
-    """The paths of :func:`stack_tree` that stack layers (all of a list of
-    routers; ``blocks/...`` of a transformer)."""
+    """The paths of :func:`stack_tree` that stack blocks (all of a list of
+    routers; those under a root of :data:`STACKED_ROOTS` of a model)."""
     flat = stack_tree(params)
-    return set(flat) if isinstance(params, list) else {p for p in flat if p.startswith("blocks/")}
+    if isinstance(params, list):
+        return set(flat)
+    return {p for p in flat if p.split("/")[0] in STACKED_ROOTS.values()}
 
 
 def unstack_tree(template, flat: Dict[str, List]):
@@ -167,14 +188,16 @@ def unstack_tree(template, flat: Dict[str, List]):
     def rebuild(node, prefix):
         if isinstance(node, dict):
             return {k: rebuild(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rebuild(v, f"{prefix}/{i}" if prefix else str(i)) for i, v in enumerate(node)]
         return next(it[prefix])
 
     if isinstance(template, list):
         return [rebuild(layer, "") for layer in template]
     out = {}
     for key, node in template.items():
-        if key == "layers":
-            out[key] = [rebuild(layer, "blocks") for layer in node]
+        if key in STACKED_ROOTS:
+            out[key] = [rebuild(layer, STACKED_ROOTS[key]) for layer in node]
         else:
             out[key] = rebuild(node, key)
     return out
@@ -209,12 +232,13 @@ def _stacked_meta(flat: Dict[str, List], stacked: set) -> Dict:
 
 
 # ------------------------------------------------------------- shardings
-def _split_leaves(params, mesh, cfg) -> set:
+def _split_leaves(params, mesh, cfg) -> Dict[str, int]:
     """The ``/``-joined paths (to the ``{"w"}`` node) of every leaf that
-    :func:`~repro_torch.parallel.ep_shardmap.shard_params` cuts: each
+    :func:`~repro_torch.parallel.ep_shardmap.shard_params` cuts — each
     block's pairs that :func:`~repro_torch.parallel.ep_shardmap.tp_plan`
-    splits, and ``embed``/``unembed`` where the vocabulary splits."""
-    out = set()
+    splits, and ``embed``/``unembed`` where the vocabulary splits — with the
+    number of parts its columns are cut in (2 for a halves leaf, else 1)."""
+    out: Dict[str, int] = {}
     for key in BLOCK_LISTS:
         for i, block in enumerate(params.get(key, [])):
             plan = tp_plan(block, mesh, cfg)
@@ -222,24 +246,29 @@ def _split_leaves(params, mesh, cfg) -> set:
                 if plan[path]:
                     pair = shd.TP_PAIRS[kind]
                     for leaf in pair.cols + ((pair.row,) if pair.row else ()):
-                        out.add("/".join(p for p in (key, str(i), path, leaf) if p))
+                        out["/".join(p for p in (key, str(i), path, leaf) if p)] = \
+                            2 if leaf in pair.halves else 1
     if shd.vocab_split(cfg.vocab_size, mesh.shape.get("model", 1)):
-        out.update(k for k in ("embed", "unembed") if k in params)
+        out.update({k: 1 for k in ("embed", "unembed") if k in params})
     return out
 
 
-def _leaf_spec(path: str, shape, split: set) -> Tuple:
-    """The port's spec of one tensor of a per-layer tree (``<blocks>/<i>/...``
-    or a top-level key): a leaf of :func:`_split_leaves` by ``_PARAM_RULES``
-    (a halves leaf's share has the same extent as the spec's block), all
-    else replicated."""
+def _leaf_sharding(mesh, path: str, shape, split: Dict[str, int]) -> NamedSharding:
+    """The port's sharding of one tensor of a per-layer tree
+    (``<blocks>/<i>/...`` or a top-level key): a leaf of :func:`_split_leaves`
+    by ``_PARAM_RULES`` (a halves leaf's share has the same extent as the
+    spec's block, cut part by part), bf16 experts by their rows over
+    ``model`` (expert parallelism), all else replicated."""
     nd = len(shape)
     if path in split:
-        return shd.param_spec_for_path(path, nd, False)
+        return NamedSharding(mesh, shd.param_spec_for_path(path, nd, False), split[path])
+    if mesh.shape.get("model", 1) > 1 and re.search(r"/moe/experts/w_(gate|up|down)$", path):
+        return NamedSharding(mesh, ("model", None, None))  # bf16 experts: the rank's rows
     m = re.match(r"(.+)/w(/\d+)*$", path)
     if m and m.group(1) in split:
-        return shd.param_spec_for_path(path.split("/", 2)[2], nd, False)
-    return (None,) * nd
+        return NamedSharding(mesh, shd.param_spec_for_path(path.split("/", 2)[2], nd, False),
+                             split[m.group(1)])
+    return NamedSharding(mesh, (None,) * nd)
 
 
 def _param_shardings(params, mesh, cfg):
@@ -264,7 +293,7 @@ def _param_shardings(params, mesh, cfg):
             return {k: one(v, f"{path}/{k}" if path else k) for k, v in node.items()}
         if isinstance(node, list):
             return [one(v, f"{path}/{i}") for i, v in enumerate(node)]
-        return NamedSharding(mesh, _leaf_spec(path, tuple(node.shape), split))
+        return _leaf_sharding(mesh, path, tuple(node.shape), split)
 
     return one(params, "")
 
@@ -280,15 +309,18 @@ def _replicated(mesh, tree):
     return one(tree)
 
 
-def _batch_shardings(mesh, batch_spec):
+def _batch_shardings(mesh, batch_spec, accum: int = 1):
     """Each batch leaf over the batch axes on dim 0, replicated where they
-    do not divide it."""
+    do not divide it (with ``accum > 1``: its microbatch)."""
     ba = shd._entry(batch_axes(mesh))
 
     def one(leaf):
         nd = leaf.dim()
         spec = (ba,) + (None,) * (nd - 1) if nd >= 1 else ()
-        if not shd._divides(tuple(leaf.shape), spec, mesh):
+        shape = tuple(leaf.shape)
+        if accum > 1 and nd >= 1:
+            shape = (shape[0] // accum,) + shape[1:]
+        if not shd._divides(shape, spec, mesh):
             spec = (None,) * nd
         return NamedSharding(mesh, spec)
 
@@ -339,6 +371,8 @@ def _cache_shardings(mesh, cache_spec, model_axes: Dict[str, int]):
         spec = [None, ba] + [None] * (nd - 2)
         if axis is not None:
             spec[axis] = "model"
+        if not shd._divides(tuple(leaf.shape), tuple(spec), mesh):
+            spec[1] = None  # a batch that does not divide: whole, the heads still split
         spec = tuple(spec)
         if not shd._divides(tuple(leaf.shape), spec, mesh):
             spec = (None,) * nd
@@ -359,6 +393,7 @@ class _Leaf:
     param_spec: Tuple  # the rank's parameter block, stacked form
     state_spec: Tuple  # its 32-bit state (and gradient) block
     flat: Optional[Tuple[str, ...]]  # 8-bit: the axes of its blocks' chunk, () whole
+    halves: int = 1  # the parts of its model-split dim, each cut alike (NamedSharding)
 
 
 def _zero1_spec(shape, spec, mesh) -> Tuple:
@@ -376,22 +411,24 @@ def _zero1_spec(shape, spec, mesh) -> Tuple:
 
 
 def _leaf_plans(param_flat_meta: Dict[str, List], stacked_set: set,
-                port_specs: Dict[str, Tuple], mesh, state_bits: int) -> Dict[str, _Leaf]:
-    """Per stacked leaf: the rank's parameter block (the port's spec) and
-    the reference's optimizer layout (``_opt_shardings``): the reference's
-    parameter spec where it divides, plus ZeRO-1's ``data``; 8-bit moments
-    in whole blocks over the first of ``(data, model)``, ``data``,
-    ``model`` that divides them, where the rank holds the whole leaf."""
+                port_sh: Dict[str, NamedSharding], mesh, state_bits: int) -> Dict[str, _Leaf]:
+    """Per stacked leaf: the rank's parameter block (the port's sharding)
+    and the reference's optimizer layout (``_opt_shardings``): the
+    reference's parameter spec where it divides, plus ZeRO-1's ``data``
+    (a halves leaf's 32-bit state follows its parameter's block, part by
+    part); 8-bit moments in whole blocks over the first of ``(data,
+    model)``, ``data``, ``model`` that divides them, where the rank holds
+    the whole leaf, else whole on every rank."""
     plans = {}
     whole8 = []
     for path, leaves in param_flat_meta.items():
         stacked = path in stacked_set
         shape = ((len(leaves),) if stacked else ()) + tuple(leaves[0].shape)
         nd = len(shape)
-        ref = shd.param_spec_for_path(path, nd, stacked and path.startswith("blocks/"))
+        ref = shd.param_spec_for_path(path, nd, stacked and path.split("/")[0] in shd.STACKED_PREFIXES)
         if not shd._divides(shape, ref, mesh):
             ref = (None,) * nd
-        mine = port_specs[path]
+        mine = port_sh[path].spec
         mine = ((None,) + tuple(mine)) if stacked else tuple(mine)
         state = _zero1_spec(shape, ref, mesh)
         flat = None
@@ -406,7 +443,7 @@ def _leaf_plans(param_flat_meta: Dict[str, List], stacked_set: set,
                         break
             if not flat and _ranks(mesh) > 1:
                 whole8.append(path)
-        plans[path] = _Leaf(path, stacked, shape, mine, state, flat)
+        plans[path] = _Leaf(path, stacked, shape, mine, state, flat, port_sh[path].halves)
     if whole8:
         _log.info("8-bit AdamW state kept whole on every rank: %s", ", ".join(whole8))
     return plans
@@ -428,7 +465,7 @@ def _opt_shardings(mesh, opt_spec, plans: Dict[str, _Leaf]):
             elif plan.flat is not None:  # the 8-bit path's f32 master: whole
                 node[key] = NamedSharding(mesh, (None,) * len(plan.shape))
             else:
-                node[key] = NamedSharding(mesh, plan.state_spec)
+                node[key] = NamedSharding(mesh, plan.state_spec, plan.halves)
         _set_path(per, path, node)
     out["per_param"] = per
     return out
@@ -458,15 +495,35 @@ def _cut_axis(plan: _Leaf) -> Optional[int]:
     return axes[0] if axes else None
 
 
+def _gather_model(t: torch.Tensor, plan: _Leaf, mesh) -> torch.Tensor:
+    """The whole leaf from the ranks' parameter blocks over ``model`` (a
+    halves leaf's parts put back in order: ``[a_0 .. a_m | b_0 .. b_m]``)."""
+    cut = _cut_axis(plan)
+    if cut is None:
+        return t
+    t = shd.all_gather(t, mesh, "model", cut)
+    if plan.halves > 1:
+        m, n = mesh.extent("model"), t.shape[cut]
+        t = t.unflatten(cut, (m, plan.halves, n // (m * plan.halves))).transpose(cut, cut + 1)
+        t = t.flatten(cut, cut + 2)
+    return t
+
+
+def _narrow_model(t: torch.Tensor, plan: _Leaf, mesh) -> torch.Tensor:
+    """The rank's parameter block over ``model`` of the whole leaf ``t``."""
+    cut = _cut_axis(plan)
+    if cut is None:
+        return t
+    return shd.shard_tensor(t, tuple("model" if ax == cut else None for ax in range(t.dim())),
+                            mesh, plan.halves).contiguous()
+
+
 def _reduce(g: torch.Tensor, plan: _Leaf, mesh) -> torch.Tensor:
     """The sum over the batch axes of the rank's gradient block, on the
     optimizer state's layout."""
     ba = batch_axes(mesh)
     if plan.flat is not None:  # 8-bit: the whole leaf's sum, then its chunk
-        g = shd.all_reduce(g, mesh, ba)
-        cut = _cut_axis(plan)
-        if cut is not None:
-            g = shd.all_gather(g, mesh, "model", cut)
+        g = _gather_model(shd.all_reduce(g, mesh, ba), plan, mesh)
         return _chunk(g.reshape(-1), plan, mesh)
     for ax in _model_only(plan):
         g = _narrow(g, ax, mesh, "model")
@@ -498,10 +555,7 @@ def _state_block(leaves: List[torch.Tensor], plan: _Leaf, mesh) -> torch.Tensor:
     """The rank's optimizer-state block of the stacked leaf of ``leaves``
     (its parameter block), copying no more than that block."""
     if plan.flat is not None:
-        p = _stack(leaves, plan.stacked)
-        cut = _cut_axis(plan)
-        if cut is not None:
-            p = shd.all_gather(p, mesh, "model", cut)
+        p = _gather_model(_stack(leaves, plan.stacked), plan, mesh)
         return _chunk(p.reshape(-1), plan, mesh)
     data_ax = _data_axis(plan)
     if plan.stacked and data_ax == 0:  # ZeRO-1 over layers: this rank's layers alone
@@ -530,9 +584,7 @@ def _whole(u: torch.Tensor, plan: _Leaf, mesh) -> torch.Tensor:
 def _param_block(u: torch.Tensor, plan: _Leaf, mesh) -> torch.Tensor:
     """The rank's parameter block again from its updated state block."""
     if plan.flat is not None:
-        whole = _whole(u, plan, mesh)
-        cut = _cut_axis(plan)
-        return whole if cut is None else _narrow(whole, cut, mesh, "model").contiguous()
+        return _narrow_model(_whole(u, plan, mesh), plan, mesh)
     ax = _data_axis(plan)
     if ax is not None:
         u = shd.all_gather(u, mesh, "data", ax)
@@ -673,8 +725,8 @@ def _train_layout(params_spec, mesh, cfg, state_bits: int):
     """``(plans, param shardings)`` of a trained tree."""
     p_sh = _param_shardings(params_spec, mesh, cfg) if isinstance(params_spec, dict) else \
         _replicated(mesh, params_spec)
-    port_specs = {path: specs[0].spec for path, specs in stack_tree(p_sh).items()}
-    return _leaf_plans(stack_tree(params_spec), stacked_paths(params_spec), port_specs, mesh,
+    port_sh = {path: specs[0] for path, specs in stack_tree(p_sh).items()}
+    return _leaf_plans(stack_tree(params_spec), stacked_paths(params_spec), port_sh, mesh,
                        state_bits), p_sh
 
 
@@ -711,7 +763,7 @@ def _build_full_train(cfg, mesh, bundle, kwargs, meta, accum, state_bits):
     return StepArtifacts(name="train_step", fn=train_step,
                          arg_specs=(params_spec, opt_spec, batch_spec),
                          in_shardings=(p_sh, _opt_shardings(mesh, opt_spec, plans),
-                                       _batch_shardings(mesh, batch_spec)),
+                                       _batch_shardings(mesh, batch_spec, accum)),
                          donate_argnums=(0, 1), meta=meta,
                          grads=lambda params, batch: gradients(params, batch)[:2])
 
@@ -788,7 +840,7 @@ def _build_otp_train(cfg, mesh, bundle, kwargs, meta, avg_bits, accum=1):
                                                  * batch_spec["tokens"].shape[1], cfg.top_k),
                                                 device="meta")),
                          in_shardings=(p_sh, _opt_shardings(mesh, opt_spec, plans), f_sh,
-                                       _batch_shardings(mesh, batch_spec),
+                                       _batch_shardings(mesh, batch_spec, accum),
                                        NamedSharding(mesh, (None, None))),
                          donate_argnums=(0, 1), meta=meta)
 
@@ -821,6 +873,16 @@ def _build_prefill(cfg, mesh, bundle, kwargs, meta, precision, avg_bits):
                          out_shardings=(cache_sh, NamedSharding(mesh, (None,) * logits_spec.dim())))
 
 
+def _position(pos, cache) -> int:
+    """A decode position as the host int the port's layers index with: the
+    tensor's value, or, on ``meta`` (the dry run: shapes, no values), the
+    cache's last row — the reference's spec is a traced scalar that its
+    step writes at, so the work does not depend on it."""
+    if isinstance(pos, torch.Tensor) and pos.device.type == "meta":
+        return int(cache["k"].shape[2]) - 1 if "k" in cache else 0
+    return int(pos)
+
+
 def _build_decode(cfg, mesh, bundle, kwargs, meta, precision, avg_bits):
     params_spec = _serve_params_spec(cfg, bundle, precision, avg_bits)
     cache_spec = kwargs["cache"]  # its shapes do not depend on the precision
@@ -828,8 +890,8 @@ def _build_decode(cfg, mesh, bundle, kwargs, meta, precision, avg_bits):
 
     def decode_fn(params, cache, token, pos):
         with torch.no_grad(), _rules(mesh):
-            return bundle.decode_step(params, dict(cache, pos=int(cache["pos"])), token,
-                                      int(pos))
+            return bundle.decode_step(params, dict(cache, pos=_position(cache["pos"], cache)),
+                                      token, _position(pos, cache))
 
     c_sh = _cache_shardings(mesh, cache_spec, _cache_model_axes(params_spec, mesh, cfg))
     return StepArtifacts(name="decode_step", fn=decode_fn,
@@ -847,7 +909,7 @@ def _cut(node, sh):
     if isinstance(sh, NamedSharding):
         if not isinstance(node, torch.Tensor):
             return node
-        return shd.shard_tensor(node, sh.spec, sh.mesh).contiguous()
+        return shd.shard_tensor(node, sh.spec, sh.mesh, sh.halves).contiguous()
     if isinstance(node, dict):
         return {k: _cut(v, sh[k]) for k, v in node.items()}
     if isinstance(node, Q8):

@@ -26,6 +26,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..core.packing import PackedTensor
 from ..kernels import ops
+from ..launch.counting import repeated
 from ..parallel.sharding import (all_gather, all_reduce, batch_axes, current_mesh, enter,
                                  tp_share, vocab_share)
 
@@ -181,31 +182,60 @@ def _mask_chunk(q_pos, kv_pos, causal: bool, window: Optional[int]):
     return m
 
 
-def _online_attn(q, k, v, q_pos, kv_pos, *, causal, window, kv_chunk):
+def _sweep_start(q):
+    """A q chunk's online-softmax state: ``(q32, m, l, acc)``."""
+    b, qc, hkv, g, dh = q.shape
+    return (q.float() * dh**-0.5, torch.full((b, hkv, g, qc), NEG_INF, device=q.device),
+            torch.zeros((b, hkv, g, qc), device=q.device),
+            torch.zeros((b, hkv, g, qc, dh), device=q.device))
+
+
+def _sweep_chunk(q32, m, l, acc, k, v, q_pos, kv_pos, *, causal, window):
+    """The state after one kv chunk ``k/v [B, kc, Hkv, dh]``."""
+    kc, vc = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc)
+    mask = _mask_chunk(q_pos, kv_pos, causal, window)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
+    return q32, m_new, l, acc
+
+
+def _sweep_end(l, acc, dtype):
+    """The chunk's output ``[B, qc, Hkv, G, dh]`` in ``dtype``."""
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(dtype)
+
+
+def _online_attn(q, k, v, q_pos, kv_pos, *, causal, window, kv_chunk, dtype):
     """One q chunk against kv chunks with an online softmax (f32).
 
     ``q [B, qc, Hkv, G, dh]``; ``k/v [B, Skv, Hkv, dh]``. Returns
-    ``[B, qc, Hkv, G, dh]``.
+    ``[B, qc, Hkv, G, dh]`` in ``dtype``.
     """
-    b, qc, hkv, g, dh = q.shape
-    q32 = q.float() * dh**-0.5
-    m = torch.full((b, hkv, g, qc), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, g, qc), device=q.device)
-    acc = torch.zeros((b, hkv, g, qc, dh), device=q.device)
+    q32, m, l, acc = _sweep_start(q)
     for c0 in range(0, k.shape[1], kv_chunk):
-        kc = k[:, c0:c0 + kv_chunk].float()
-        vc = v[:, c0:c0 + kv_chunk].float()
-        s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc)
-        mask = _mask_chunk(q_pos, kv_pos[c0:c0 + kv_chunk], causal, window)
-        s = torch.where(mask[None, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
-        m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.permute(0, 3, 1, 2, 4)
+        q32, m, l, acc = _sweep_chunk(q32, m, l, acc, k[:, c0:c0 + kv_chunk],
+                                      v[:, c0:c0 + kv_chunk], q_pos,
+                                      kv_pos[c0:c0 + kv_chunk], causal=causal, window=window)
+    return _sweep_end(l, acc, dtype)
+
+
+def _counted_sweep(q5, k, v, q_pos, kv_pos, *, qc, kvc, causal, window, dtype):
+    """The sweep on ``meta`` tensors: one q chunk's start and end and one
+    chunk pair, each slicing its inputs as the loop does, counted for all of
+    them (:func:`~repro_torch.launch.counting.repeated`); the chunks' outputs
+    allocated as the sweep keeps them."""
+    nq, nk = q5.shape[1] // qc, k.shape[1] // kvc
+    st = repeated(nq, lambda q5: _sweep_start(q5[:, :qc]), q5)
+    st = repeated(nq * nk, lambda q32, m, l, acc, k, v: _sweep_chunk(
+        q32, m, l, acc, k[:, :kvc], v[:, :kvc], q_pos[:qc], kv_pos[:kvc], causal=causal,
+        window=window), *st, k, v)
+    out, = repeated(nq, lambda l, acc: (_sweep_end(l, acc, dtype),), st[2], st[3])
+    return [out] + [torch.empty_like(out) for _ in range(nq - 1)]
 
 
 def _pad_rows(x: torch.Tensor, pad: int, dim: int, value=0) -> torch.Tensor:
@@ -268,8 +298,6 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    if q.is_meta:  # shapes only: the chunk sweep computes nothing on meta tensors
-        return q.new_empty((b, s, hq * dh), dtype=dtype)
     qc = min(cfg.attn_q_chunk, s)
     kvc = min(cfg.attn_kv_chunk, k.shape[1])
     s_pad = (-s) % qc
@@ -281,11 +309,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
     kv_pos = _pad_rows(kv_pos, kv_pad, 0, value=-1)
     sq = s + s_pad
     q5 = q.reshape(b, sq, hkv, g, dh)
-    outs = [
-        _online_attn(q5[:, i:i + qc], k, v, q_pos[i:i + qc], kv_pos, causal=causal,
-                     window=window, kv_chunk=kvc).to(dtype)
-        for i in range(0, sq, qc)
-    ]
+    if q.is_meta:  # the dry run: one chunk pair counted for all
+        outs = _counted_sweep(q5, k, v, q_pos, kv_pos, qc=qc, kvc=kvc, causal=causal,
+                              window=window, dtype=dtype)
+    else:
+        outs = [_online_attn(q5[:, i:i + qc], k, v, q_pos[i:i + qc], kv_pos, causal=causal,
+                             window=window, kv_chunk=kvc, dtype=dtype)
+                for i in range(0, sq, qc)]
     return torch.cat(outs, dim=1).reshape(b, sq, hq * dh)[:, :s]
 
 

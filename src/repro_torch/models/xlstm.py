@@ -22,6 +22,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..launch.counting import repeated
 from ..parallel.sharding import all_gather, all_reduce, enter, tp_share
 from . import layers as L
 from .transformer import _dtype, _logits
@@ -87,8 +88,21 @@ def _mlstm_scan(q, k, v, ig, fg, state=None):
         m = torch.full((b, h), M_INIT, device=q.device)
     else:
         c, n, m = state
-    if q.is_meta:  # shapes only: no steps to run on meta tensors
-        return q.new_empty(q.shape), (c, n, m)
+    if q.is_meta:  # the dry run: one step counted for all (one chunk slice for all chunks)
+        def step(c, n, m, *xs):  # the first step, its inputs selected as the loop does
+            xs = [t[:1] for t in xs]
+            if s <= MLSTM_CHUNK:
+                return _mlstm_steps(c, n, m, *xs)
+            return L._recomputed(_mlstm_steps, c, n, m, *xs)
+
+        n_steps = s
+        if s > MLSTM_CHUNK:
+            xs = [torch.cat([t, t.new_zeros(((-s) % MLSTM_CHUNK, *t.shape[1:]))]) for t in xs]
+            n_steps = xs[0].shape[0]
+            xs = repeated(n_steps // MLSTM_CHUNK, lambda *a: tuple(t[:MLSTM_CHUNK] for t in a),
+                          *xs)
+        hs, c, n, m = repeated(n_steps, step, c, n, m, *xs)
+        return hs.expand(s, *hs.shape[1:]).transpose(0, 1).to(q.dtype), (c, n, m)
     if s <= MLSTM_CHUNK:
         hs, c, n, m = _mlstm_steps(c, n, m, *xs)
         return hs.transpose(0, 1).to(q.dtype), (c, n, m)
@@ -188,18 +202,25 @@ def _slstm_seq(z, o, ig, fg, state=None):
     else:
         c, n, m = state
     z, o, ig, fg = (t.float() for t in (z, o, ig, fg))
-    if z.is_meta:  # shapes only: no steps to run on meta tensors
-        return z.new_empty(z.shape), (c, n, m)
+    if z.is_meta:  # the dry run: one step counted for all
+        h, c, n, m = repeated(s, lambda c, n, m, *xs: _slstm_step(c, n, m, *(t[:, 0] for t in xs)),
+                              c, n, m, z, o, ig, fg)
+        return h[:, None].expand(b, s, d).contiguous(), (c, n, m)
     hs = []
     for t in range(s):
-        m_new = torch.maximum(fg[:, t] + m, ig[:, t])
-        i_p = torch.exp(ig[:, t] - m_new)
-        f_p = torch.exp(fg[:, t] + m - m_new)
-        c = f_p * c + i_p * z[:, t]
-        n = f_p * n + i_p
-        hs.append(o[:, t] * c / torch.clamp_min(n, 1.0))
-        m = m_new
+        h, c, n, m = _slstm_step(c, n, m, z[:, t], o[:, t], ig[:, t], fg[:, t])
+        hs.append(h)
     return torch.stack(hs, dim=1), (c, n, m)
+
+
+def _slstm_step(c, n, m, z, o, ig, fg):
+    """One step of the recurrence: ``(h, c, n, m)``."""
+    m_new = torch.maximum(fg + m, ig)
+    i_p = torch.exp(ig - m_new)
+    f_p = torch.exp(fg + m - m_new)
+    c = f_p * c + i_p * z
+    n = f_p * n + i_p
+    return o * c / torch.clamp_min(n, 1.0), c, n, m_new
 
 
 def _slstm_block(p, x: torch.Tensor, cfg, state=None, conv_state=None):

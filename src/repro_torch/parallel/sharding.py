@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core.packing import PackedTensor
+from ..launch.counting import trips
 
 __all__ = [
     "DEVICE_COLLECTIVES",
@@ -56,11 +57,13 @@ __all__ = [
     "ROUTES",
     "activation_rules",
     "COLLECTIVES",
+    "CollectiveLedger",
     "all_gather",
     "all_reduce",
     "batch_axes",
     "build_mesh",
     "cache_pspec",
+    "counting",
     "current_mesh",
     "enter",
     "make_param_shardings",
@@ -440,10 +443,14 @@ def vocab_share(emb: torch.Tensor, vocab: Optional[int]) -> Optional["Mesh"]:
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a mesh (the reference's ``NamedSharding``)."""
+    """A spec on a mesh (the reference's ``NamedSharding``). ``halves`` > 1
+    marks a leaf whose ``model``-split dim is that many equal parts ``[a |
+    b]``, each cut alike (:data:`TP_PAIRS`' halves): a rank's block holds its
+    slice of every part, the same extent as the spec's contiguous block."""
 
     mesh: Mesh
     spec: Spec
+    halves: int = 1
 
 
 def _children(node):
@@ -518,15 +525,21 @@ def cache_pspec(mesh, cache_shape, prefer: str = "batch") -> Spec:
 
 
 # ------------------------------------------------------ this rank's slices
-def shard_tensor(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+def shard_tensor(x: torch.Tensor, spec: Spec, mesh: Mesh, halves: int = 1) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``spec`` (a view;
-    a dim whose axes do not divide it raises)."""
+    a dim whose axes do not divide it raises); with ``halves`` > 1 the dim
+    over ``model`` is cut part by part (:class:`NamedSharding`), a copy."""
     for dim, names in enumerate(spec):
         if names is None:
             continue
         n = mesh.extent(names)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {names} ({n})")
+        if halves > 1 and "model" in _names(names):
+            x = torch.cat([shard_tensor(part, tuple(names if d == dim else None
+                                                    for d in range(x.dim())), mesh)
+                           for part in x.chunk(halves, dim)], dim)
+            continue
         step = x.shape[dim] // n
         x = x.narrow(dim, mesh.index(names) * step, step)
     return x
@@ -570,9 +583,70 @@ def _route(op: str, x: torch.Tensor, group) -> str:
     return route
 
 
-def _sum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+class CollectiveLedger:
+    """The collectives a step asks for, each ``(kind, operand bytes, axes,
+    calls)`` as the reference's ``hlo_analysis`` counts an HLO collective:
+    the kind by its name there (``all-reduce``, ``all-gather``,
+    ``reduce-scatter`` — a reduce-scatter that gloo composes of an
+    all-reduce is still one reduce-scatter) and the bytes of the operand
+    this rank sends in (an all-gather its block, a reduce-scatter the whole
+    tensor it reduces)."""
+
+    def __init__(self):
+        self.events = []
+
+    def record(self, kind: str, nbytes: int, axes: Tuple[str, ...], calls: int = 1) -> None:
+        self.events.append((kind, int(nbytes), axes, calls))
+
+    @property
+    def bytes(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for kind, nbytes, _, calls in self.events:
+            out[kind] = out.get(kind, 0.0) + nbytes * calls
+        return out
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for kind, _, _, calls in self.events:
+            out[kind] = out.get(kind, 0) + calls
+        return out
+
+
+_LEDGER: contextvars.ContextVar = contextvars.ContextVar("collective_ledger", default=None)
+
+
+@contextlib.contextmanager
+def counting(ledger: CollectiveLedger):
+    """Record every collective of :func:`all_reduce`, :func:`all_gather`,
+    :func:`reduce_scatter` and their backwards into ``ledger``. On a mesh
+    without process groups (one rank's view, :func:`~repro_torch.launch.mesh.production_view`)
+    nothing is sent: each returns a tensor of its result's shape on the
+    input's device (its values are not the collective's). On a mesh with
+    groups the collectives run as they do outside."""
+    token = _LEDGER.set(ledger)
+    try:
+        yield ledger
+    finally:
+        _LEDGER.reset(token)
+
+
+def _counted(kind: Optional[str], x: torch.Tensor, mesh: Mesh, axes) -> bool:
+    """Records ``kind`` on ``x`` in the current ledger; True where nothing
+    is to be sent (counting on a mesh without process groups)."""
+    ledger = _LEDGER.get()
+    if ledger is None:
+        return False
+    if kind is not None:
+        ledger.record(kind, x.numel() * x.element_size(), _names(axes), trips())
+    return not mesh._groups
+
+
+def _sum(x: torch.Tensor, mesh: Mesh, axes, kind: Optional[str] = "all-reduce") -> torch.Tensor:
     import torch.distributed as dist
 
+    if _counted(kind, x, mesh, axes):
+        return x.detach().clone(memory_format=torch.contiguous_format)
     group = mesh.group(axes)
     if _route("all_reduce", x, group) == "host":
         y = x.detach().to("cpu", copy=True)
@@ -586,6 +660,10 @@ def _sum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
 def _gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
+    if _counted("all-gather", x, mesh, axes):
+        shape = list(x.shape)
+        shape[dim] *= mesh.extent(axes)
+        return x.new_zeros(shape)
     group = mesh.group(axes)
     src = x.detach().contiguous()
     if _route("all_gather", x, group) == "host":
@@ -603,10 +681,13 @@ def _scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide over "
                          f"{axes} ({n})")
     step = x.shape[dim] // n
+    if _counted("reduce-scatter", x, mesh, axes):
+        return x.detach().narrow(dim, mesh.index(axes) * step, step).contiguous()
     group = mesh.group(axes)
     route = _route("reduce_scatter", x, group)
     if route == "composed":
-        return _sum(x, mesh, axes).narrow(dim, mesh.index(axes) * step, step).contiguous()
+        return _sum(x, mesh, axes, kind=None).narrow(dim, mesh.index(axes) * step,
+                                                     step).contiguous()
     src = x.detach().movedim(dim, 0).contiguous()
     if route == "host":
         src = src.cpu()

@@ -8,8 +8,9 @@ runs every case on its mesh and writes its results to ``DIR/out_<RANK>.pt``:
 gradients through both expert-parallel regions, tensor-parallel
 ``train_loss`` gradients (the dense and MoE models, and the ``encdec``,
 ``hybrid`` and ``ssm`` families), the vocabulary-parallel ``chunked_kl``,
-a greedy decode with vocabulary-parallel logits, ``build_step`` train and OTP steps, the ZeRO-1 update on given
-gradients. It imports torch and the port only.
+a greedy decode with vocabulary-parallel logits, ``build_step`` train and OTP steps (the
+train steps' collectives recorded by kind; the MoE model's experts over
+``model``), an MoE decode of one sequence, the ZeRO-1 update on given gradients. It imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -37,20 +38,20 @@ def _with_grad(tree):
              and v.is_floating_point() else v) for k, v in tree.items()}
 
 
-def _specs(tree):
+def _specs(tree, halves=False):
     """A tree of shardings as their specs (a mesh holds process groups,
-    which do not pickle)."""
+    which do not pickle); with ``halves`` each as ``(spec, halves)``."""
     from repro_torch.optim.adamw import Q8
     from repro_torch.parallel.sharding import NamedSharding
 
     if isinstance(tree, NamedSharding):
-        return tree.spec
+        return (tree.spec, tree.halves) if halves else tree.spec
     if isinstance(tree, dict):
-        return {k: _specs(v) for k, v in tree.items()}
+        return {k: _specs(v, halves) for k, v in tree.items()}
     if isinstance(tree, Q8):
-        return Q8(*map(_specs, tree))
+        return Q8(*(_specs(v, halves) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map(_specs, tree))
+        return type(tree)(_specs(v, halves) for v in tree)
     return tree
 
 
@@ -194,7 +195,7 @@ def _greedy(inp, mesh):
     return toks
 
 
-def _steps(inp, mesh):
+def _steps(inp, mesh, sub):
     from repro_torch.launch import steps
     from repro_torch.optim.adamw import AdamWConfig
 
@@ -203,7 +204,10 @@ def _steps(inp, mesh):
     for bits in (32, 8):
         art = steps.build_step(tr["cfg"], tr["shape"], mesh, accum=2, state_bits=bits)
         whole = (tr["params"], tr[f"opt{bits}"], tr["batch"])
-        params, opt, loss = art.fn(*steps.shard_args(art, whole, mesh, tr["cfg"]))
+        ledger = steps.shd.CollectiveLedger()
+        with steps.shd.counting(ledger):  # recorded as the step runs them
+            params, opt, loss = art.fn(*steps.shard_args(art, whole, mesh, tr["cfg"]))
+        out[f"ledger{bits}"] = (ledger.bytes, ledger.counts)
         out[f"train{bits}"] = {"params": steps.stack_tree(params), "opt": opt,
                                "loss": float(loss)}
         # the sharded update alone, fed the same gradients as one process
@@ -218,6 +222,29 @@ def _steps(inp, mesh):
                                        AdamWConfig(state_bits=bits), mesh)
         out[f"zero1_{bits}"] = {"params": new, "opt": nst}
         out[f"specs{bits}"] = _specs(art.in_shardings[:2])
+    x = inp["families"]["xlstm"]
+    out["family_steps"] = {}
+    for bits, opt in x["zero1"].items():
+        art = steps.build_step(x["cfg"], x["shape"], mesh, state_bits=bits)
+        params, opt, loss = art.fn(*steps.shard_args(art, (x["params"], opt, x["batch"]), mesh,
+                                                     x["cfg"]))
+        out["family_steps"][bits] = {"params": steps.stack_tree(params), "opt": opt,
+                                     "loss": float(loss),
+                                     "specs": _specs(art.in_shardings[:2], halves=True)}
+    mo = inp["moe"]
+    out["moe_steps"] = {}
+    for key, m, bits in (("sub", sub, 32), ("sub", sub, 8), ("mesh", mesh, 32)):
+        art = steps.build_step(mo["cfg"], mo["shape"], m, accum=2, state_bits=bits)
+        params, opt, loss = art.fn(*steps.shard_args(
+            art, (mo["params"], mo[f"opt{bits}"], mo["batch"]), m, mo["cfg"]))
+        out["moe_steps"][key, bits] = {"params": steps.stack_tree(params), "opt": opt,
+                                       "loss": float(loss),
+                                       "specs": _specs(art.in_shardings[:2], halves=True)}
+    dec = mo["decode"]
+    art = steps.build_step(mo["cfg"], dec["shape"], mesh, precision="bf16")
+    cache, logits = art.fn(*steps.shard_args(
+        art, (mo["params"], dec["cache"], dec["token"], dec["pos"]), mesh, mo["cfg"]))
+    out["moe_decode"] = {"cache": cache, "logits": logits, "specs": _specs(art.in_shardings[1])}
     ot = inp["otp"]
     art = steps.build_step(ot["cfg"], ot["shape"], mesh, train_mode="otp", accum=2)
     args = steps.shard_args(art, (ot["otp"], ot["opt"], ot["frozen"], ot["batch"], ot["u"]),
@@ -245,7 +272,7 @@ def _cases(rank: int, d: str) -> dict:
     out["greedy"] = _greedy(inp, mesh)
     out["kl"] = _kl(inp, mesh)
     build.reset_launches()
-    out.update(_steps(inp, mesh))
+    out.update(_steps(inp, mesh, sub))
     out["routes"] = dict(ROUTES)
     return out
 

@@ -270,6 +270,19 @@ def test_import_leaves_jax_and_repro_out():
     assert int(out.stdout.strip()) >= 20  # every submodule was imported
 
 
+class _Elsewhere(torch.Tensor):
+    """A ``[2, 128]`` tensor on a device no kernel wrapper takes (``xpu``);
+    it runs no op."""
+
+    @staticmethod
+    def __new__(cls):
+        return torch.Tensor._make_wrapper_subclass(cls, (2, 128), device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_engine_refuses_later_slice_settings(served_model):
     _, _, params_t = served_model
     cfg = tget_config("moonshot-v1-16b-a3b").reduced()
@@ -300,6 +313,8 @@ def test_engine_refuses_later_slice_settings(served_model):
         eng.submit(Request(rid=1, prompt=np.zeros(0, np.int32), max_new=4))
     with pytest.raises(InvalidRequest, match="max_new must be"):
         eng.submit(Request(rid=2, prompt=np.zeros(3, np.int32), max_new=0))
+    # a kernel wrapper takes CPU (its plain version), CUDA (the kernel) and
+    # meta (the dry run's count) tensors, and refuses any other device
+    from repro_torch.kernels.quant_matmul import quant_matmul
     with pytest.raises(ValueError, match="unsupported device"):
-        from repro_torch.kernels.quant_matmul import quant_matmul
-        quant_matmul(torch.zeros(2, 128, device="meta"), None, None, None, bits=4)
+        quant_matmul(_Elsewhere(), None, None, None, bits=4)

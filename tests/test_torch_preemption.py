@@ -224,19 +224,101 @@ def test_recompute_resume_matches_reference_and_unpressured(pmq, dense_bf16, dty
     trace as the reference engine does, token for token; every request's
     tokens are those of the same requests on a pool that never preempts.
     (The bf16 PMQ model's routing gauges differ from the reference's on the
-    CPU in swap mode too, resume or not: ``ROADMAP.md`` §3.)"""
+    CPU in swap mode too, resume or not, on a gate near-tie:
+    :func:`test_bf16_pmq_routing_gauges_flip_on_a_gate_near_tie`.)"""
     m = pmq if dtype == "float32" else dense_bf16
-    rng = np.random.default_rng(11)
-    trace = Trace(tuple(int(x) for x in rng.integers(2, 9, 6)),
-                  tuple(int(x) for x in rng.integers(6, 11, 6)), (0, 0, 0, 1, 1, 2), 0,
-                  "recompute", max_slots=3, horizon=4)
-    trace = dataclasses.replace(trace, pool_blocks=trace.min_pool)
+    trace = _recompute_trace()
     te = _both(m, trace)
     assert te.metrics.counters()["preemptions"]
     assert any(e["name"] == "prefill_chunk" and e["args"]["resume"] for e in te.tracer.events)
     calm = _run(T, m, dataclasses.replace(trace, pool_blocks=trace.demand))
     assert not calm.metrics.counters()["preemptions"]
     assert te.results == calm.results
+
+
+def _recompute_trace():
+    """The 6-request recompute trace of the resume tests, on its tightest
+    pool."""
+    rng = np.random.default_rng(11)
+    trace = Trace(tuple(int(x) for x in rng.integers(2, 9, 6)),
+                  tuple(int(x) for x in rng.integers(6, 11, 6)), (0, 0, 0, 1, 1, 2), 0,
+                  "recompute", max_slots=3, horizon=4)
+    return dataclasses.replace(trace, pool_blocks=trace.min_pool)
+
+
+def test_bf16_pmq_routing_gauges_flip_on_a_gate_near_tie(pmq, monkeypatch):
+    """The PMQ + OTP model with every float leaf cast to bf16 on the recompute
+    trace: tokens and ``counters()`` equal the reference engine's, but its
+    routing gauges differ — a divergence by design (``ROADMAP.md`` §3). The
+    first step whose ``slot_counts`` differ moves one pick between two
+    slots, and in the port that step's router, at that layer, gives one
+    token exactly those two experts with top-2 gates less than one bf16 ulp
+    at 0.5 (2⁻⁸) apart (0.5016 / 0.4984: 0.80 ulp): the OTP mask keeps the
+    stronger of the two, and which one is stronger turns on bf16 roundings
+    that XLA's fused CPU program and torch's per-op kernels place
+    differently."""
+    import jax
+
+    from repro.serving import trace as jtrace
+    from repro_torch import interop
+    from repro_torch.core import compressed_moe as tcm
+    from repro_torch.serving import trace as ttrace
+
+    jcfg, _, params_j, _ = pmq
+    jcfg = dataclasses.replace(jcfg, dtype="bfloat16")
+    params_j = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
+                            if jnp.issubdtype(a.dtype, jnp.floating) else a, params_j)
+    flat, meta = control.flatten_reference(params_j)
+    m = (jcfg, TModelConfig(**dataclasses.asdict(jcfg)), params_j,
+         interop.params_from_reference(flat, meta, device="cpu"))
+    counts = {"J": [], "T": []}
+    routes = []  # the port's router calls and counts, in order
+    for key, mod in (("J", jtrace), ("T", ttrace)):
+        def update(self, c, _key=key, _orig=mod.ExpertRoutingTelemetry.update):
+            counts[_key].append(np.asarray(c).copy())
+            if _key == "T":
+                routes.append(("counts", len(counts["T"]) - 1))
+            return _orig(self, c)
+        monkeypatch.setattr(mod.ExpertRoutingTelemetry, "update", update)
+    route_topk = tcm.route_topk
+
+    def recorded(router_p, x2, k):
+        out = route_topk(router_p, x2, k)
+        routes.append(("route", out[1].clone(), out[2].clone()))
+        return out
+
+    monkeypatch.setattr(tcm, "route_topk", recorded)
+    trace = _recompute_trace()
+    je = _run(J, m, trace)
+    te = _run(T, m, trace)
+    assert te.results == je.results
+    assert te.metrics.counters() == je.metrics.counters()
+    gauges = [[e["args"] for e in eng.tracer.events if e["name"] == "routing"]
+              for eng in (je, te)]
+    assert gauges[0] != gauges[1]
+    step = next(i for i, (a, b) in enumerate(zip(counts["J"], counts["T"]))
+                if not np.array_equal(a, b))
+    layer = next(l for l in range(jcfg.num_layers)
+                 if not np.array_equal(counts["J"][step][l], counts["T"][step][l]))
+    delta = counts["T"][step][layer].astype(int) - counts["J"][step][layer].astype(int)
+    assert sorted(delta[delta != 0].tolist()) == [-1, 1]  # one pick moved
+    slots = {int(np.flatnonzero(delta == 1)[0]), int(np.flatnonzero(delta == -1)[0])}
+    # the router calls of that step: each program's calls (layer by layer,
+    # step by step) come before its steps' counts
+    pending, calls = [], None
+    for ev in routes:
+        if ev[0] == "route":
+            pending.append(ev[1:])
+            continue
+        if ev[1] == step:
+            calls = pending[:jcfg.num_layers]
+            break
+        pending = pending[jcfg.num_layers:]
+    idx, gates = calls[layer]
+    slot_of = te.params["layers"][layer]["moe_ce"].slot_of_expert
+    ties = [float(g[0] - g[1]) for i, g in zip(idx, gates)
+            if {int(slot_of[e]) for e in i} == slots]
+    assert ties and min(ties) < 2.0 ** -8, ties
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -178,11 +178,14 @@ def test_step_names_and_meta_on_the_dryrun_cells():
 
 # ------------------------------------------------------- the steps, 1 × 1
 def flat_tree(node, prefix=""):
-    """A reference tree (dicts and NamedTuples) as ``{path: numpy}``."""
+    """A reference tree (dicts, lists and NamedTuples) as ``{path: numpy}``."""
     out = {}
     if isinstance(node, dict):
         for k, v in node.items():
             out.update(flat_tree(v, f"{prefix}/{k}" if prefix else k))
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            out.update(flat_tree(v, f"{prefix}/{i}" if prefix else str(i)))
     elif hasattr(node, "_fields"):
         for f in node._fields:
             out.update(flat_tree(getattr(node, f), f"{prefix}/{f}"))
@@ -205,7 +208,8 @@ def port_state(tree, prefix=""):
 
 
 def stacked_numpy(params):
-    return {p: (torch.stack(v) if p.startswith("blocks/") else v[0]).detach().float().numpy()
+    stacked = tsteps.stacked_paths(params)
+    return {p: (torch.stack(v) if p in stacked else v[0]).detach().float().numpy()
             for p, v in tsteps.stack_tree(params).items()}
 
 
@@ -224,30 +228,57 @@ def check_state(got, want):
                                        err_msg=p)
 
 
+#: layers of a reduced config where the default misses a block list
+#: (recurrentgemma's two trailing blocks, ``tail/0`` and ``tail/1``)
+LAYERS = {"recurrentgemma-2b": 5}
+
+
 def _train_case(arch, accum, bits):
     jcfg, tcfg = jreg.get_config(arch).reduced(), treg.get_config(arch).reduced()
-    art = jsteps.build_step(jcfg, jbase.ShapeConfig("train_4k", 32, 4, "train"), _auto_mesh(),
-                            accum=accum, state_bits=bits)
+    if arch in LAYERS:
+        jcfg = dataclasses.replace(jcfg, num_layers=LAYERS[arch])
+        tcfg = dataclasses.replace(tcfg, num_layers=LAYERS[arch])
+    shape = jbase.ShapeConfig("train_4k", 32, 4, "train")
+    art = jsteps.build_step(jcfg, shape, _auto_mesh(), accum=accum, state_bits=bits)
     tart = tsteps.build_step(tcfg, tbase.ShapeConfig("train_4k", 32, 4, "train"),
                              accum=accum, state_bits=bits)
     params = jget_model(jcfg).init(jax.random.PRNGKey(0))
     state = jadamw.adamw_init(params, jadamw.AdamWConfig(state_bits=bits))
-    tok = np.random.default_rng(1).integers(0, jcfg.vocab_size, (4, 32)).astype(np.int32)
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, jcfg.vocab_size, (4, 32)).astype(np.int32)
     batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=1)}
+    spec = jget_model(jcfg).batch_specs(shape, "train")
+    if "frames" in spec:  # whisper's encoder input
+        batch["frames"] = rng.standard_normal(spec["frames"].shape).astype(np.float32)
     return jcfg, tcfg, art, tart, params, state, batch
 
 
 @pytest.mark.parametrize("arch,accum,bits", [("tinyllama-1.1b", 1, 32),
-                                             ("moonshot-v1-16b-a3b", 2, 8)])
+                                             ("moonshot-v1-16b-a3b", 2, 8),
+                                             ("whisper-small", 1, 32),
+                                             ("recurrentgemma-2b", 1, 32),
+                                             ("xlstm-350m", 1, 32),
+                                             ("xlstm-350m", 2, 8)])
 def test_train_step_matches_the_reference(arch, accum, bits, torch_one_thread):
+    """Every family's full training: the transformers' ``blocks/...``, whisper's
+    ``enc_blocks``/``dec_blocks``, recurrentgemma's ``groups`` and its list
+    ``tail``, xlstm's ``groups`` — stacked paths and flatten order the
+    reference's."""
     jcfg, tcfg, art, tart, params, state, batch = _train_case(arch, accum, bits)
     jp, jst, jloss = jax.jit(art.fn)(params, state, {k: jnp.asarray(v) for k, v in batch.items()})
-    flat, meta = flatten_reference(params)
+    if "blocks" in params:
+        flat, meta = flatten_reference(params)
+        want = flatten_reference(jp)[0]
+    else:
+        flat, meta, want = flat_tree(params), {}, flat_tree(jp)
     tp = interop.params_from_reference(flat, meta, device="cpu")
     tst = interop.opt_state_from_reference(flat_tree(state), device="cpu")
     tp, tst, tloss = tart.fn(tp, tst, {k: torch.from_numpy(v.copy()) for k, v in batch.items()})
     assert abs(float(tloss) - float(jloss)) <= 1e-5
-    check_params(stacked_numpy(tp), flatten_reference(jp)[0])
+    check_params(stacked_numpy(tp), want)
+    order = ["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+             for path, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert list(tsteps.stack_tree(tp)) == order  # the reference's flatten order
     check_state(port_state(tst), flat_tree(jst))
     assert int(tst["step"]) == 1
 

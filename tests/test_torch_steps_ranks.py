@@ -36,14 +36,19 @@ runs it. Held:
   the vocabulary shards: the single process's tokens, a tie planted across
   the first shard boundary taken by the lower index;
 * ``build_step`` train steps (``accum=2``, ZeRO-1, 32- and 8-bit moments) of
-  the dense model and one OTP step of a PMQ model (tensor-parallel 4-bit
+  the dense model, of the MoE model on 1 × 4 (its experts two a rank over
+  ``model``; on 2 × 4 too, there with each rank's expert moments non-zero
+  alone, its load-balance term being each data shard's), and one OTP step of a PMQ model (tensor-parallel 4-bit
   attention and shared experts, ETP experts): the ranks' parameters,
   all-gathered, and their optimizer-state blocks, concatenated, against the
   single process's step — loss 1e-5, parameters and moments 1e-4 × max,
   8-bit codes at most one apart (gradients summed in another order); each
   rank's 32-bit state an eighth of the whole but for the norms, which only
   ``data`` splits; the ZeRO-1 update alone, fed the single process's
-  gradients, equal to it byte for byte.
+  gradients, equal to it byte for byte;
+* a bf16 decode of the MoE model on one sequence, a batch that does not
+  divide over data: the cache's batch whole, its KV heads split over
+  model; logits and cache the single process's.
 """
 import dataclasses
 import json
@@ -92,6 +97,8 @@ WIDE = dict(num_kv_heads=4)
 FAMILIES = {"whisper": ("whisper-small", dict(num_kv_heads=4, vocab_size=513)),
             "recurrentgemma": ("recurrentgemma-2b", {}),
             "xlstm": ("xlstm-350m", {})}
+#: the shape of the families' batch (``build_step``'s xlstm step)
+FAMILY_SHAPE = ShapeConfig("train_4k", 16, 4, "train")
 #: the greedy decode's tie: two equal unembedding rows either side of the
 #: first vocabulary shard boundary at model = 4, scaled so they win
 TIE_ROW = 512 // 4 - 1
@@ -264,6 +271,35 @@ def _train_inputs():
              "grads": {p: torch.from_numpy(v) for p, v in g.items()}}, single)
 
 
+def _moe_inputs(tcfg, params):
+    """The reduced MoE model's inputs (8 experts, two a rank at model = 4)
+    and the single process's results: a ``build_step`` train step at each
+    state width, and a bf16 decode of one sequence after its prefill."""
+    rng = np.random.default_rng(10)
+    tok = rng.integers(0, tcfg.vocab_size, (8, 16)).astype(np.int32)
+    batch = {"tokens": _t(tok).long(), "labels": _t(np.roll(tok, -1, 1)).long()}
+    shape = ShapeConfig("train_4k", 16, 8, "train")
+    inp, single = {"cfg": tcfg, "shape": shape, "params": params, "batch": batch}, {}
+    for bits in (32, 8):
+        art = tsteps.build_step(tcfg, shape, accum=2, state_bits=bits)
+        inp[f"opt{bits}"] = tsteps.init_opt_blocks(art, "cpu")
+        single[bits] = art.fn(tsteps._own(params), tsteps._own(inp[f"opt{bits}"]), batch)
+    s = 16
+    pre = tsteps.build_step(tcfg, ShapeConfig("prefill_32k", s, 1, "prefill"), precision="bf16")
+    dshape = ShapeConfig("decode_32k", s, 1, "decode")
+    dec = tsteps.build_step(tcfg, dshape, precision="bf16")
+    cache, logits = pre.fn(params, {"tokens": _t(rng.integers(0, tcfg.vocab_size, (1, s - 1))
+                                                 .astype(np.int32))})
+    pad = (0, 0, 0, 0, 0, 1)  # one more row on the sequence axis for the decoded token
+    cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                 v=torch.nn.functional.pad(cache["v"], pad))
+    token = logits[:, -1].argmax(-1, keepdim=True).int()
+    pos = torch.tensor(s - 1, dtype=torch.int32)
+    inp["decode"] = {"shape": dshape, "cache": cache, "token": token, "pos": pos}
+    single["decode"] = dec.fn(params, tsteps._own(cache), token, pos)
+    return inp, single
+
+
 def _otp_inputs():
     cfg = dataclasses.replace(tget_config(MOE).reduced(), **WIDE)
     cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, group=32))
@@ -311,6 +347,15 @@ def _family_inputs():
         loss, grads = tsteps.tree_gradients(tcfg, params, batch)
         out[name] = {"cfg": tcfg, "params": params, "batch": batch,
                      "port": (float(loss), grads)}
+    # one build_step ZeRO-1 step of xlstm (its halves leaves) at each state
+    # width: the zero state the ranks cut, and the single process's step
+    x = out["xlstm"]
+    x["zero1"], x["single"], x["shape"] = {}, {}, FAMILY_SHAPE
+    for bits in (32, 8):
+        art = tsteps.build_step(x["cfg"], FAMILY_SHAPE, state_bits=bits)
+        x["zero1"][bits] = tsteps.init_opt_blocks(art, "cpu")
+        x["single"][bits] = art.fn(tsteps._own(x["params"]), tsteps._own(x["zero1"][bits]),
+                                   x["batch"])
     return out
 
 
@@ -347,14 +392,16 @@ def spawn(tmp_path_factory):
                     "batch": {k: _t(v).long() for k, v in batch.items()}}
         ref[name] = {"jax": _jax_grads(jcfg, jparams, batch),
                      "port": _port_grads(tcfg, params, batch)}
+    moe, ref["moe_steps"] = _moe_inputs(tp["moe"]["cfg"], tp["moe"]["params"])
     train, ref["train"] = _train_inputs()
     otp, ref["otp"] = _otp_inputs()
     families = _family_inputs()
     greedy, ref["greedy"] = _greedy_inputs()
     kl = {n: _t(ref["mesh"][f"kl/{n}"]) for n in ("hs", "ht", "emb")}
     ref["families"] = {name: f.pop("port") for name, f in families.items()}
+    ref["family_steps"] = families["xlstm"].pop("single")
     torch.save({"ep": ep, "tp": tp, "train": train, "otp": otp, "families": families,
-                "greedy": greedy, "kl": kl}, d / "inputs.pt")
+                "greedy": greedy, "kl": kl, "moe": moe}, d / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_steps_worker.py"),
                                str(r), str(WORLD), str(d)], env=env, stdout=subprocess.PIPE,
@@ -606,14 +653,15 @@ def test_greedy_decode_on_the_ranks_matches_one_process(spawn):
 
 
 # ------------------------------------------------------------ the steps
-def _assemble(outs, get, spec):
+def _assemble(outs, get, spec, halves=1):
     """The whole tensor from the ranks' blocks under ``spec`` (replicas:
-    the first rank's)."""
+    the first rank's; a halves leaf's parts put back in order)."""
     from repro_torch.parallel.sharding import Mesh
 
     blocks, sizes = {}, {}
     for o in outs:
-        m = Mesh(("data", "model"), (2, 4), coord=(o["coord"]["data"], o["coord"]["model"]))
+        m = Mesh(("data", "model"), o.get("mesh_shape", (2, 4)),
+                 coord=(o["coord"]["data"], o["coord"]["model"]))
         key = tuple(0 if n is None else m.index(n) for n in spec)
         sizes = {ax: m.extent(n) for ax, n in enumerate(spec) if n is not None}
         blocks.setdefault(key, get(o))
@@ -625,7 +673,13 @@ def _assemble(outs, get, spec):
         parts = [build(prefix + (i,)) for i in range(sizes.get(ax, 1))]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
 
-    return build(())
+    whole = build(())
+    if halves > 1:  # [a_0 b_0 | a_1 b_1 | ...] -> [a_0 a_1 ... | b_0 b_1 ...]
+        ax = next(ax for ax, n in enumerate(spec) if n is not None and "model" in n)
+        m = sizes[ax]
+        whole = whole.unflatten(ax, (m, halves, whole.shape[ax] // (m * halves)))
+        whole = whole.transpose(ax, ax + 1).flatten(ax, ax + 2)
+    return whole
 
 
 def _state_leaves(tree, prefix=""):
@@ -646,10 +700,19 @@ def _stacked(flat, path):
     return torch.stack(v) if path.startswith("blocks/") else v[0]
 
 
-def _check_state(outs, key, specs, want, exact=False):
+def _spec_halves(entry):
+    """``(spec, halves)`` of a worker's spec entry (a bare spec: 1)."""
+    if len(entry) == 2 and isinstance(entry[1], int):
+        return entry
+    return entry, 1
+
+
+def _check_state(outs, key, specs, want, exact=False, get=None):
     sh = _state_leaves(specs)
+    get = get or (lambda o: o[key])
     for path, w in _state_leaves(want).items():
-        got = _assemble(outs, lambda o, p=path: _state_leaves(o[key]["opt"])[p], sh[path])
+        spec, halves = _spec_halves(sh[path])
+        got = _assemble(outs, lambda o, p=path: _state_leaves(get(o)["opt"])[p], spec, halves)
         if exact:
             assert torch.equal(got, w), path
         elif w.dtype == torch.int8:
@@ -684,6 +747,28 @@ def test_train_step_on_the_mesh_matches_one_process(spawn, bits):
 
 
 @pytest.mark.parametrize("bits", [32, 8])
+def test_dry_run_counts_each_ranks_collectives(spawn, bits):
+    """Each rank's train step (``accum=2``) recorded its collectives by kind
+    as it ran them over gloo; the dry run of the same step on ``meta`` at
+    that rank's coordinate of a ``2 × 4`` view without processes counts the
+    same calls and operand bytes to the byte (a reduce-scatter that gloo
+    composes of an all-reduce counted as the reduce-scatter it is)."""
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.parallel.sharding import Mesh
+
+    _, outs, train, _ = spawn
+    for o in outs:
+        mesh = Mesh(("data", "model"), (2, 4), coord=(o["coord"]["data"], o["coord"]["model"]))
+        with torch.device("meta"):
+            art = tsteps.build_step(train["cfg"], train["shape"], mesh, accum=2, state_bits=bits)
+            s = analyze_step(art.fn, tsteps.shard_args(art, art.arg_specs, mesh, train["cfg"]))
+        assert (s.collective_bytes, s.num_collectives) == o[f"ledger{bits}"], o["coord"]
+    # ZeRO-1's gradient reduction: a reduce-scatter a leaf on 32-bit state,
+    # an all-reduce of the whole leaf for 8-bit moments' chunks
+    assert ("reduce-scatter" in outs[0][f"ledger{bits}"][1]) == (bits == 32)
+
+
+@pytest.mark.parametrize("bits", [32, 8])
 def test_zero1_update_on_the_mesh_is_one_process_bytewise(spawn, bits):
     _, outs, train, _ = spawn
     cfg = train["cfg"]
@@ -701,6 +786,97 @@ def test_zero1_update_on_the_mesh_is_one_process_bytewise(spawn, bits):
         got = _assemble(outs, lambda o, p=path: _stacked(o[key]["params"], p), spec)
         assert torch.equal(got, _stacked(new, path)), path
     _check_state(outs, key, outs[0][f"specs{bits}"][1], nst, exact=True)
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_family_zero1_step_on_the_mesh_matches_one_process(spawn, bits):
+    """xlstm's ``build_step`` train step on 2 × 4 against the single
+    process's: its ``groups/...`` stacked, the halves leaves (``[u | z]``,
+    ``[ĩ | f̃]``, ``[u | v]``) cut part by part with their 32-bit state
+    following the parameter's block, their 8-bit moments whole on every
+    rank; loss within 1e-5, parameters 1e-4 × max, moments as the dense
+    step's."""
+    ref, outs, _, _ = spawn
+    params1, opt1, loss1 = ref["family_steps"][bits]
+    got = [o["family_steps"][bits] for o in outs]
+    for g in got:
+        assert abs(g["loss"] - float(loss1)) <= 1e-5
+    p_sh = tsteps.stack_tree(got[0]["specs"][0])
+    stacked = tsteps.stacked_paths(params1)
+    flat1 = tsteps.stack_tree(params1)
+    want = {p: torch.stack(v) if p in stacked else v[0] for p, v in flat1.items()}
+    scale = max(float(v.abs().max()) for v in want.values())
+    halved = 0
+    for path, w in want.items():
+        spec, halves = _spec_halves(p_sh[path][0])
+        spec = ((None,) + tuple(spec)) if path in stacked else tuple(spec)
+        halved += halves > 1
+        g = _assemble(outs, lambda o, p=path: tsteps._stack(
+            o["family_steps"][bits]["params"][p], p in stacked), spec, halves)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4 * scale, err_msg=path)
+    assert halved == 4  # the mLSTM's proj_in and w_if, the sLSTM's w_if, its FFN's proj_in
+    _check_state(outs, None, got[0]["specs"][1], opt1, get=lambda o: o["family_steps"][bits])
+
+
+def _expert_moments(opt):
+    """The first moments of a state's expert leaves (8-bit: their codes)."""
+    return {p: t for p, t in _state_leaves(opt).items()
+            if "/moe/experts/" in p and (p.endswith("/m") or p.endswith("/m/q"))}
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_moe_train_step_on_the_mesh_matches_one_process(spawn, bits):
+    """The MoE model's ``build_step`` train step (``accum=2``), its experts
+    two a rank over ``model`` as ``shard_params`` cuts them. On 1 × 4 (each
+    half of the world a replica) against the single process's: loss within
+    1e-5, parameters 1e-4 × max, moments as the dense step's. On 2 × 4 the
+    load-balance term is each data shard's (the reference's under its mesh,
+    ``test_tp_moe_loss_and_gradients``), so the step is not the single
+    process's there. On both, every rank's expert moments are non-zero (the
+    experts' gradients reach the rank that holds them)."""
+    ref, outs, _, _ = spawn
+    params1, opt1, loss1 = ref["moe_steps"][bits]
+    sub = [dict(o, coord=o["sub"], mesh_shape=(1, 4), moe=o["moe_steps"]["sub", bits])
+           for o in outs[:4]]
+    for o in sub:
+        assert abs(o["moe"]["loss"] - float(loss1)) <= 1e-5
+    p_sh = tsteps.stack_tree(sub[0]["moe"]["specs"][0])
+    assert p_sh["blocks/moe/experts/w_gate"][0] == (("model", None, None), 1)
+    stacked = tsteps.stacked_paths(params1)
+    want = {p: torch.stack(v) if p in stacked else v[0]
+            for p, v in tsteps.stack_tree(params1).items()}
+    scale = max(float(v.abs().max()) for v in want.values())
+    for path, w in want.items():
+        spec, halves = _spec_halves(p_sh[path][0])
+        spec = ((None,) + tuple(spec)) if path in stacked else tuple(spec)
+        g = _assemble(sub, lambda o, p=path: tsteps._stack(o["moe"]["params"][p], p in stacked),
+                      spec, halves)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4 * scale, err_msg=path)
+    _check_state(sub, "moe", sub[0]["moe"]["specs"][1], opt1)
+    assert len(_expert_moments(opt1)) == 3
+    got = [o["moe"] for o in sub]
+    if bits == 32:
+        got += [o["moe_steps"]["mesh", 32] for o in outs]
+    for g in got:
+        assert np.isfinite(g["loss"])
+        for path, m in _expert_moments(g["opt"]).items():
+            assert m.numel() and bool(m.ne(0).any()), path
+
+
+def test_moe_decode_of_a_batch_that_does_not_divide(spawn):
+    """A decode of one sequence on 2 × 4: the batch does not divide over
+    data, so the cache's batch stays whole and its KV heads still split over
+    model, a head a rank; the logits and the updated cache are the single
+    process's (1e-4 × max)."""
+    ref, outs, _, _ = spawn
+    cache1, logits1 = ref["moe_steps"]["decode"]
+    for o in outs:
+        _close(o["moe_decode"]["logits"], logits1.numpy(), 1e-4)
+    specs = outs[0]["moe_decode"]["specs"]
+    assert tuple(specs["k"]) == tuple(specs["v"]) == (None, None, None, "model", None)
+    for key in ("k", "v"):
+        got = _assemble(outs, lambda o, k=key: o["moe_decode"]["cache"][k], specs[key])
+        _close(got, cache1[key].numpy(), 1e-4, key)
 
 
 def test_otp_step_on_the_mesh_matches_one_process(spawn):
