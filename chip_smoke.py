@@ -92,7 +92,10 @@ Phases (each failure exits non-zero):
    tokens, counted on ``meta`` and run on the card: each kernel's counted
    launches equal its ``LAUNCHES`` on the card, the counted peak over the
    card's within ``DRYRUN_PEAK_BAND``, the roofline time printed beside the
-   step's; then full-width serving of the two workloads of ``repro_torch.launch.workload``
+   step's ((c) and (d), the first steps of ``TRAIN`` and of the xlstm
+   training, counted on ``meta`` and run on the card, come with those
+   paths below: the counted peak over the card's within
+   ``DRYRUN_TRAIN_BAND``); then full-width serving of the two workloads of ``repro_torch.launch.workload``
    (``moonshot-v1-16b-a3b`` at full width and all 48 layers in bf16, one
    set of weights) through ``PagedServingEngine``, each path with the
    launch counts set to 0 just before it and read just after:
@@ -188,7 +191,7 @@ Phases (each failure exits non-zero):
    beside its prediction, the time a step, mask ratio and KL of the first
    and last five steps), (i) the fp workload served twice with the trained
    routers (``FP_PATH``'s kernels, tokens identical, OTP activation below
-   1.0, the oracle gate); then three more of the reference's configs at full
+   1.0, the oracle gate); then four more of the reference's configs at full
    width, each built after the previous model is freed and served twice on
    its workload (``paged_attention`` alone, or ``FP_PATH``'s kernels for the
    compressed one, and no other; tokens identical; each request's agreement
@@ -197,7 +200,9 @@ Phases (each failure exits non-zero):
    prefill of 2880 patch embeddings ahead of a 64-token prompt, ``pos`` =
    2944, 16 greedy tokens identical on a second run, no kernel launched),
    ``WINDOWED`` (``gemma3-27b``, 62 layers, 2 requests of 1088 + 32 tokens
-   past its 1024-token window) and ``WIDE_MOE`` (``kimi-k2-1t-a32b`` at 2
+   past its 1024-token window), ``COMMAND_R`` (``command-r-35b``, all 40
+   layers, 60.6 GB; the dry run's count of a prefill step of the same 4 ×
+   64 tokens printed beside its peak) and ``WIDE_MOE`` (``kimi-k2-1t-a32b`` at 2
    of its 61 layers, PMQ + OTP, 384 experts: expert bytes, OTP activation
    and the drop-free dispatch buffer printed); then the three
    non-transformer families at full width in bf16, each built after the
@@ -213,7 +218,8 @@ Phases (each failure exits non-zero):
    wall and tokens/s printed; then ``xlstm-350m`` in f32 (its first 12
    layers) trained 3 steps of 4 × 256 tokens through
    ``launch.train.train_step`` (finite losses, the peak beside its
-   prediction); and last ``TRAIN``: ``tinyllama-1.1b`` at full width in
+   prediction; ``DRYRUN`` (d) on its first step); and last ``TRAIN``
+   (``DRYRUN`` (c) on its first step): ``tinyllama-1.1b`` at full width in
    f32 (its first 11 layers) trained for 20 steps of 8 × 128
    tokens through ``launch.train.train_step`` (AdamW, 32-bit moments)
    under ``torch.use_deterministic_algorithms``: the loss falls; the state
@@ -1538,7 +1544,8 @@ def tiny_families():
 FP_PATH = WIDE_MOE_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention")
 INT8_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm", "paged_attention_quant")
 # every linear is a bf16 matmul
-DENSE_PATH = UNCOMPRESSED_MOE_PATH = VLM_PATH = WINDOWED_PATH = ("paged_attention",)
+DENSE_PATH = COMMAND_R_PATH = UNCOMPRESSED_MOE_PATH = VLM_PATH = WINDOWED_PATH = \
+    ("paged_attention",)
 # the per-expert scan runs every expert matrix through quant_matmul
 SCAN_PATH = ("quant_matmul", "paged_attention")
 
@@ -2521,11 +2528,13 @@ def oracle_agreement(name, eng, params, reqs, out) -> str:
     return f"{name}: paged tokens against the dense-cache oracle's: " + "; ".join(parts)
 
 
-def plain_path(name, cfg, params, ecfg, needed, reqs=workload.requests):
+def plain_path(name, cfg, params, ecfg, needed, reqs=workload.requests, counted=None):
     """A model served twice with ``ecfg`` on ``reqs(cfg)`` (the fp workload's
     requests by default), each request also decoded through the dense-cache
     oracle (:func:`oracle_agreement`): its launches, its expert bytes per
-    decode step and in all, its tokens and the first engine's summary."""
+    decode step and in all, its tokens and the first engine's summary.
+    ``counted = (what, bytes)``: a dry run's count of the bytes above the
+    weights, printed beside the served peak."""
     weights = weight_bytes(params)
     eng, out, launches, peak = _drive(name, cfg, params, ecfg, reqs(cfg), needed)
     _, out2 = _serve(cfg, params, ecfg, reqs(cfg))
@@ -2542,6 +2551,11 @@ def plain_path(name, cfg, params, ecfg, needed, reqs=workload.requests):
         f"= {s['decode_tokens_per_s']:.1f} tokens/s; launches {launches}; second engine "
         f"({cfg.num_layers} layers) tokens identical")
     log(f"full width serving summary ({name}): " + json.dumps(s))
+    if counted is not None:
+        log(f"{name}: the dry run's count of {counted[0]}: {counted[1] / 1e9:.3f} GB above "
+            f"the {weights / 1e9:.3f} GB of weights, {(weights + counted[1]) / 1e9:.3f} GB in "
+            f"all, beside the served peak {peak / 1e9:.3f} GB (counted / measured "
+            f"{(weights + counted[1]) / peak:.3f})")
     log(oracle_agreement(name, eng, params, reqs(cfg), out))
     return launches, experts, out, s
 
@@ -2822,6 +2836,27 @@ def windowed_path():
     return launches
 
 
+def command_r_path():
+    """``COMMAND_R``: ``command-r-35b`` at full width (all 40 layers, bf16,
+    :func:`workload.build_command_r`) served on ``ENGINE``'s geometry by
+    :func:`plain_path`, beside the dry run's count of a bf16 ``prefill_step``
+    of the same 4 × 64 tokens on ``meta`` (most of it the f32 copy of the
+    tied table that each logits call makes). Returns the launches."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.op_analysis import analyze_step
+
+    cfg = get_config(workload.COMMAND_R_ARCH)
+    shape = ShapeConfig("prefill_32k", workload.PROMPT_LEN, workload.NUM_REQUESTS, "prefill")
+    art = steps.build_step(cfg, shape, None, precision="bf16")
+    s = analyze_step(art.fn, art.arg_specs)
+    what = f"a bf16 prefill_step of {workload.NUM_REQUESTS} × {workload.PROMPT_LEN} tokens"
+    launches, _, _, _ = plain_path("command-r path", *build_logged(workload.build_command_r),
+                                   workload.COMMAND_R, COMMAND_R_PATH,
+                                   counted=(what, s.peak_bytes))
+    return launches
+
+
 def wide_moe_path():
     """``WIDE_MOE``: ``kimi-k2-1t-a32b`` at 2 layers (PMQ + OTP) on the fp
     workload, twice, the dense-cache oracle beside it: its expert bytes, OTP
@@ -2935,11 +2970,20 @@ def xlstm_train():
     pred = xlstm_memory_prediction(cfg, nparams, bsz, seq)
     begin_path()
     opt = adamw_init(params, ocfg)
+
+    def step(params, opt, batch):
+        return train_step(bundle.train_loss, params, opt, batch, ocfg, warmup=10,
+                          total=workload.XLSTM_TRAIN_STEPS + 1)
+
     losses, times = [], []
     for i in range(workload.XLSTM_TRAIN_STEPS):
-        (params, opt, loss), t = _timed(lambda: train_step(
-            bundle.train_loss, params, opt, batch_to(loader.batch_at(i), DEV), ocfg, warmup=10,
-            total=workload.XLSTM_TRAIN_STEPS + 1))
+        batch = batch_to(loader.batch_at(i), DEV)
+        if i == 0:
+            (params, opt, loss), t = dryrun_train_step("d", f"{cfg.name} f32, {cfg.num_layers} "
+                                                       f"layers, {bsz} × {seq}", step,
+                                                       (params, opt, batch))
+        else:
+            (params, opt, loss), t = _timed(lambda: step(params, opt, batch))
         losses.append(float(loss))
         times.append(t)
     launches = dict(build.LAUNCHES)
@@ -2997,7 +3041,14 @@ def train_path():
                 bundle.init(torch.Generator(device=DEV).manual_seed(0))))
             losses, times = [], []
             for i in range(n):
-                (params, opt, loss), t_step = _timed(lambda: step(params, opt, i))
+                if i == 0:
+                    (params, opt, loss), t_step = dryrun_train_step(
+                        "c", f"{cfg.name} f32, {cfg.num_layers} layers, {workload.TRAIN_BATCH} × "
+                        f"{workload.TRAIN_SEQ}", lambda p, o, b: train_step(
+                            bundle.train_loss, p, o, b, ocfg, **step_kw),
+                        (params, opt, batch_to(loader.batch_at(0), DEV)))
+                else:
+                    (params, opt, loss), t_step = _timed(lambda: step(params, opt, i))
                 losses.append(float(loss))
                 times.append(t_step)
             peak = torch.cuda.max_memory_allocated()
@@ -3105,6 +3156,43 @@ DRYRUN_BATCH = 4
 #: allocates above what its arguments hold (``PERF.md`` §6, stated before
 #: the call that first tested it)
 DRYRUN_PEAK_BAND = (0.75, 1.33)
+#: (c), (d): the same ratio for the first training step of ``TRAIN`` and of
+#: the xlstm training (``PERF.md`` §6, stated before the call that first
+#: tested it)
+DRYRUN_TRAIN_BAND = (0.95, 1.05)
+
+
+def dryrun_train_step(tag: str, name: str, step, args):
+    """``DRYRUN`` (c) and (d): a training path's first ``step(*args)``
+    counted by the op counter on ``meta`` copies of its arguments, then run
+    on the card, its peak above the arguments measured (the peak zeroed and
+    the base taken just before it). The counted peak over the measured must
+    lie in :data:`DRYRUN_TRAIN_BAND`. Returns the step's result and its
+    seconds."""
+    from repro_torch.launch.op_analysis import analyze_step
+
+    t0 = time.perf_counter()
+    s = analyze_step(step, tuple(to_device(a, "meta") for a in args))
+    count_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    ratio = s.peak_bytes / peak
+    log(f"DRYRUN ({tag}) {name}, the first training step: counted on meta in {count_s:.1f} s "
+        f"— {s.flops / 1e12:.4f} TFLOP, {s.hbm_bytes / 1e9:.3f} GB of HBM traffic, peak "
+        f"{s.peak_bytes / 1e9:.4f} GB above the {base / 1e9:.3f} GB allocated (the arguments); "
+        f"on the card: peak {peak / 1e9:.4f} GB above them (counted / measured {ratio:.3f}), "
+        f"{dt:.3f} s")
+    lo, hi = DRYRUN_TRAIN_BAND
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"DRYRUN ({tag}): counted peak {s.peak_bytes} B over the card's "
+                             f"{peak} B = {ratio:.3f}, outside {DRYRUN_TRAIN_BAND}")
+    return out, dt
 
 
 def dryrun_path():
@@ -3191,8 +3279,8 @@ def full_width():
     five paths, then — the compressed
     model freed — the dense model's, then the uncompressed MoE's and, on the
     same weights, the pipeline's, then the VLM's, the sliding-window
-    model's and the 384-expert model's, each model freed before the next is
-    built. Returns each path's launches."""
+    model's, command-r's and the 384-expert model's, each model freed before
+    the next is built. Returns each path's launches."""
     dryrun_launches = walled("DRYRUN", dryrun_path)
     free_model()
     fp_launches, q_launches, mix_launches, preempt_launches, offload_launches, scan_launches, \
@@ -3225,6 +3313,8 @@ def full_width():
     free_model()
     windowed_launches = walled("windowed", windowed_path)
     free_model()
+    command_r_launches = walled("command-r", command_r_path)
+    free_model()
     wide_launches = walled("wide MoE", wide_moe_path)
     free_model()
     family_launches = {}
@@ -3251,6 +3341,7 @@ def full_width():
             "OTP training": otp_train_launches, "OTP-trained serving": otp_launches,
             "dense training": train_launches,
             "vlm serving": vlm_launches, "windowed serving": windowed_launches,
+            "command-r serving": command_r_launches,
             "wide MoE serving": wide_launches, **family_launches}
 
 

@@ -33,12 +33,12 @@ every ATen op the card would run, and counts:
   backward stays live until the graph lets it go).
 
 A loop that would run its body thousands of times on ``meta`` (the
-attention's chunk sweep, the xLSTM recurrences) runs it once inside
-:func:`~repro_torch.launch.counting.repeated`, which multiplies its ops'
-counts and the bytes one run keeps for the backward. What that misses: the
-autograd engine's sums of the per-iteration gradients of a loop's inputs
-(one gradient reaches a region's input where the loop's iterations each
-send one), a few percent of a step's bytes.
+attention's chunk sweep, the xLSTM recurrences) is a
+:func:`~repro_torch.launch.counting.scan`, which runs two iterations there
+and charges what the others would count and hold, forward and backward:
+on the reduced families a train step counts on ``meta`` what it counts on
+CPU tensors, where every iteration runs (FLOPs equal, peak and bytes within
+1.2 %, ``tests/test_torch_op_analysis.py``).
 """
 from __future__ import annotations
 
@@ -126,12 +126,16 @@ class _Counter(TorchDispatchMode):
             self.by_dtype[key] = self.by_dtype.get(key, 0.0) + flops
 
     def hold(self, n: int) -> None:
-        """Bytes a repeated region's runs not made would keep alive."""
+        """Bytes a scan's iterations not run would keep alive."""
         self.live += n
         self.peak = max(self.peak, self.live)
 
     def release(self, n: int) -> None:
         self.live -= n
+
+    def traffic(self, n: float) -> None:
+        """HBM bytes of ops a scan's iterations not run would dispatch."""
+        self.hbm += n
 
     def _freed(self, key: int, n: int) -> None:
         self.seen.discard(key)
@@ -188,8 +192,7 @@ def analyze_step(fn, args, kwargs: Optional[Dict] = None) -> OpSummary:
     and count its FLOPs, HBM bytes, collectives, kernel launches and peak
     live bytes; ``result`` holds what it returned. Each call counts from 1×
     (:func:`~repro_torch.launch.counting.accounting`), whatever an earlier
-    one left, and raises if ``fn`` leaves a repeated region's multiplier
-    open."""
+    one left, and raises if ``fn`` leaves a scan's multiplier open."""
     counter = _Counter()
     ledger = shd.CollectiveLedger()
     sink: list = []

@@ -39,8 +39,11 @@ Layouts:
   ``model`` where the rank holds the whole leaf and the blocks divide, and
   stays whole on every rank otherwise (logged);
 * with ``accum > 1`` a rank's block of a batch leaf is its share of each
-  microbatch: the spec applies to the microbatch view ``[accum, B / accum,
-  ...]``, as the reference's scan carries it.
+  microbatch where the microbatch divides over the batch axes (the spec
+  applies to the microbatch view ``[accum, B / accum, ...]``); otherwise it
+  is the rank's rows of the whole batch, and each microbatch — the
+  reference's rows ``[m·B/accum, (m+1)·B/accum)`` — runs on the ranks that
+  hold its rows, empty on the others (:func:`_micro_rows`).
 
 Under a mesh, gradients reach each rank as its contribution to the global
 loss (the losses sum over the batch axes); the step sums them over the batch
@@ -309,22 +312,48 @@ def _replicated(mesh, tree):
     return one(tree)
 
 
-def _batch_shardings(mesh, batch_spec, accum: int = 1):
+def _batch_shardings(mesh, batch_spec):
     """Each batch leaf over the batch axes on dim 0, replicated where they
-    do not divide it (with ``accum > 1``: its microbatch)."""
+    do not divide it (the reference's); with ``accum > 1`` the rows a rank
+    holds are :func:`_micro_rows`'."""
     ba = shd._entry(batch_axes(mesh))
 
     def one(leaf):
         nd = leaf.dim()
         spec = (ba,) + (None,) * (nd - 1) if nd >= 1 else ()
-        shape = tuple(leaf.shape)
-        if accum > 1 and nd >= 1:
-            shape = (shape[0] // accum,) + shape[1:]
-        if not shd._divides(shape, spec, mesh):
+        if not shd._divides(tuple(leaf.shape), spec, mesh):
             spec = (None,) * nd
         return NamedSharding(mesh, spec)
 
     return {k: one(v) for k, v in batch_spec.items()}
+
+
+def _micro_major(rows: int, accum: int, mesh) -> bool:
+    """Whether a batch of ``rows`` rows is cut microbatch by microbatch: each
+    of its ``accum`` microbatches divides over the batch axes, and a rank
+    holds its share of each, in order."""
+    return accum > 1 and (rows // accum) % mesh.extent(batch_axes(mesh)) == 0
+
+
+def _micro_rows(rows: int, accum: int, mesh) -> List[slice]:
+    """This rank's rows of each microbatch in its block of a ``rows``-row
+    batch. Microbatch ``m`` is the reference's rows ``[m·rows/accum,
+    (m+1)·rows/accum)``. Cut microbatch by microbatch (:func:`_micro_major`),
+    the block holds the rank's share of each in turn; otherwise the block is
+    the rank's contiguous rows of the whole batch (all of them where the
+    batch axes do not divide it), and a microbatch is the rows it shares
+    with them — none on a rank whose block it misses."""
+    mb = rows // accum
+    nb = mesh.extent(batch_axes(mesh))
+    if _micro_major(rows, accum, mesh):
+        per = mb // nb
+        return [slice(m * per, (m + 1) * per) for m in range(accum)]
+    lo, hi = 0, rows
+    if rows % nb == 0:
+        lo = mesh.index(batch_axes(mesh)) * (rows // nb)
+        hi = lo + rows // nb
+    return [slice(min(max(m * mb, lo), hi) - lo, min(max((m + 1) * mb, lo), hi) - lo)
+            for m in range(accum)]
 
 
 def _cache_model_axes(params, mesh, cfg) -> Dict[str, int]:
@@ -633,10 +662,23 @@ def _zero1_update(plans: Dict[str, _Leaf], params_flat: Dict[str, List],
     return params_flat, opt_state
 
 
-def _micro(batch: Dict, accum: int) -> List[Dict]:
-    """The rank's share of each microbatch (its block is micro-major)."""
-    return [{k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(accum)]
+def _rows_of_micros(cfg, mesh, batch_spec: Dict, accum: int) -> List[slice]:
+    """:func:`_micro_rows` of a train step's batch. An MoE model whose
+    batch divides over the batch axes but whose microbatch does not is
+    refused: there the reference's layer leaves its EP region for GSPMD's
+    global path."""
+    rows = next(iter(batch_spec.values())).shape[0]
+    nb = mesh.extent(batch_axes(mesh))
+    if cfg.is_moe and rows % nb == 0 and accum > 1 and not _micro_major(rows, accum, mesh):
+        raise shd.EPRegionError(f"{cfg.name}: a microbatch of {rows // accum} rows does not "
+                                f"divide over the batch axes ({nb} ranks)")
+    return _micro_rows(rows, accum, mesh)
+
+
+def _micro(batch: Dict, rows: List[slice]) -> List[Dict]:
+    """The rank's microbatches: its block's rows ``rows[m]`` of microbatch
+    ``m`` (:func:`_micro_rows`)."""
+    return [{k: v[sl] for k, v in batch.items()} for sl in rows]
 
 
 def _grad_step(loss_fn: Callable, params_flat: Dict[str, List], plans: Dict[str, _Leaf],
@@ -740,6 +782,7 @@ def _build_full_train(cfg, mesh, bundle, kwargs, meta, accum, state_bits):
     opt_spec = _opt_spec(params_spec, ocfg)
     batch_spec = kwargs["batch"]
     meta["accum"] = accum
+    rows = _rows_of_micros(cfg, mesh, batch_spec, accum)
     plans, p_sh = _train_layout(params_spec, mesh, cfg, state_bits)
 
     def gradients(params, batch):
@@ -750,7 +793,7 @@ def _build_full_train(cfg, mesh, bundle, kwargs, meta, accum, state_bits):
             with _rules(mesh):
                 return bundle.train_loss(live, mb)
 
-        micros = _micro(batch, accum) if accum > 1 else [batch]
+        micros = _micro(batch, rows)
         grads, loss, _ = _grad_step(loss_fn, flat, plans, micros, mesh)
         return loss, grads, flat
 
@@ -763,7 +806,7 @@ def _build_full_train(cfg, mesh, bundle, kwargs, meta, accum, state_bits):
     return StepArtifacts(name="train_step", fn=train_step,
                          arg_specs=(params_spec, opt_spec, batch_spec),
                          in_shardings=(p_sh, _opt_shardings(mesh, opt_spec, plans),
-                                       _batch_shardings(mesh, batch_spec, accum)),
+                                       _batch_shardings(mesh, batch_spec)),
                          donate_argnums=(0, 1), meta=meta,
                          grads=lambda params, batch: gradients(params, batch)[:2])
 
@@ -820,6 +863,7 @@ def _build_otp_train(cfg, mesh, bundle, kwargs, meta, avg_bits, accum=1):
     opt_spec = _opt_spec(otp_spec, ocfg)
     batch_spec = {"tokens": kwargs["batch"]["tokens"]}
     meta["accum"] = accum
+    rows = _rows_of_micros(cfg, mesh, batch_spec, accum)
     plans, p_sh = _train_layout(otp_spec, mesh, cfg, 32)
 
     def otp_train_step(otp_params, opt_state, frozen, batch, draws):
@@ -827,7 +871,7 @@ def _build_otp_train(cfg, mesh, bundle, kwargs, meta, avg_bits, accum=1):
         live = unstack_tree(otp_params, flat)
         student = dict(frozen, layers=[dict(p, otp=o) for p, o in zip(frozen["layers"], live)])
         loss_fn = _otp_loss_fn(cfg, mesh, student, frozen, draws)
-        micros = _micro(batch, accum) if accum > 1 else [batch]
+        micros = _micro(batch, rows)
         grads, loss, aux = _grad_step(loss_fn, flat, plans, micros, mesh)
         with torch.no_grad():
             _zero1_update(plans, flat, grads, opt_state, ocfg, mesh)
@@ -840,7 +884,7 @@ def _build_otp_train(cfg, mesh, bundle, kwargs, meta, avg_bits, accum=1):
                                                  * batch_spec["tokens"].shape[1], cfg.top_k),
                                                 device="meta")),
                          in_shardings=(p_sh, _opt_shardings(mesh, opt_spec, plans), f_sh,
-                                       _batch_shardings(mesh, batch_spec, accum),
+                                       _batch_shardings(mesh, batch_spec),
                                        NamedSharding(mesh, (None, None))),
                          donate_argnums=(0, 1), meta=meta)
 
@@ -923,7 +967,7 @@ def _cut_batch(batch: Dict, sh: Dict, accum: int) -> Dict:
     out = {}
     for k, v in batch.items():
         spec = sh[k].spec
-        if accum > 1 and spec and spec[0] is not None:
+        if spec and spec[0] is not None and _micro_major(v.shape[0], accum, sh[k].mesh):
             view = v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
             cut = shd.shard_tensor(view, (None,) + tuple(spec), sh[k].mesh)
             out[k] = cut.reshape(-1, *v.shape[1:]).contiguous()

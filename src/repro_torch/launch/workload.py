@@ -78,12 +78,17 @@ PMQ + OTP weights from seed 0 (:func:`build_synthetic`).
   ``ENGINE``'s geometry and :func:`requests`. :func:`tiny_pipeline` runs the
   same steps on the reduced model, to hold one device against another.
 
-Two more models serve ``ENGINE``'s geometry and :func:`requests` (bf16, fp
+Three more models serve ``ENGINE``'s geometry and :func:`requests` (bf16, fp
 KV, random weights from seed 0, :func:`build_uncompressed`):
 
 * ``DENSE`` (:func:`build_dense`): ``qwen3-14b`` at full width, all 40
   layers — d_model 5120, 40 query and 8 KV heads of 128 (G = 5), d_ff
   17408, vocab 151936, ``qk_norm``; ~29.5 GB.
+* ``COMMAND_R`` (:func:`build_command_r`): ``command-r-35b`` at full width,
+  all 40 layers — d_model 8192, 64 query and 8 KV heads of 128 (G = 8),
+  d_ff 22528, tied vocab 256000; 60.567 GB (30.28 B parameters, derived).
+  Each logits call makes an f32 copy of the tied table (8.389 GB,
+  ``models/layers.py: logits``).
 * ``UNCOMPRESSED_MOE`` (:func:`build_uncompressed_moe`):
   ``moonshot-v1-16b-a3b`` at full width and all 48 layers without PMQ or
   OTP — the model MC# compresses; ~57.8 GB. Expert capacity is drop-free,
@@ -182,6 +187,8 @@ from ..serving import EngineConfig, FaultPlan, FaultSpec, PagedServingEngine, Re
 
 __all__ = [
     "ARCH",
+    "COMMAND_R",
+    "COMMAND_R_ARCH",
     "COMPRESS",
     "CUT_LAYERS",
     "DENSE",
@@ -212,6 +219,7 @@ __all__ = [
     "XLSTM_TRAIN_SEQ",
     "XLSTM_TRAIN_STEPS",
     "build",
+    "build_command_r",
     "build_dense",
     "build_family",
     "build_uncompressed_moe",
@@ -247,9 +255,10 @@ SYSTEM_PROMPT_LEN = 48
 #: prefill chunks and COW page copies of SHARED_PREFIX under the reference's rules
 SHARED_PREFIX_CHUNKS, SHARED_PREFIX_COW_COPIES = 6, 1
 DENSE_ARCH = "qwen3-14b"
-#: the dense, uncompressed-MoE and pipeline-compressed paths serve the fp
-#: workload's geometry
-DENSE = UNCOMPRESSED_MOE = COMPRESS = ENGINE
+COMMAND_R_ARCH = "command-r-35b"
+#: the dense, command-r, uncompressed-MoE and pipeline-compressed paths
+#: serve the fp workload's geometry
+DENSE = COMMAND_R = UNCOMPRESSED_MOE = COMPRESS = ENGINE
 VLM_ARCH, WINDOWED_ARCH, WIDE_MOE_ARCH = ("llava-next-mistral-7b", "gemma3-27b",
                                           "kimi-k2-1t-a32b")
 #: the llava and kimi-k2 paths serve the fp workload's geometry too
@@ -492,6 +501,13 @@ def build(device="cuda") -> Tuple[object, Dict]:
 def build_dense(device="cuda") -> Tuple[object, Dict]:
     """``(cfg, params)`` of the full-width dense model, built on ``device``."""
     cfg = get_config(DENSE_ARCH)
+    return cfg, build_uncompressed(cfg, seed=0, device=device)
+
+
+def build_command_r(device="cuda") -> Tuple[object, Dict]:
+    """``(cfg, params)`` of ``command-r-35b`` at full width, all its layers,
+    built on ``device``."""
+    cfg = get_config(COMMAND_R_ARCH)
     return cfg, build_uncompressed(cfg, seed=0, device=device)
 
 

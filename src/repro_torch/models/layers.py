@@ -26,7 +26,7 @@ import torch.utils.checkpoint as ckpt
 
 from ..core.packing import PackedTensor
 from ..kernels import ops
-from ..launch.counting import repeated
+from ..launch.counting import recompute, scan
 from ..parallel.sharding import (all_gather, all_reduce, batch_axes, current_mesh, enter,
                                  tp_share, vocab_share)
 
@@ -213,29 +213,16 @@ def _sweep_end(l, acc, dtype):
 def _online_attn(q, k, v, q_pos, kv_pos, *, causal, window, kv_chunk, dtype):
     """One q chunk against kv chunks with an online softmax (f32).
 
-    ``q [B, qc, Hkv, G, dh]``; ``k/v [B, Skv, Hkv, dh]``. Returns
-    ``[B, qc, Hkv, G, dh]`` in ``dtype``.
+    ``q [B, qc, Hkv, G, dh]``; ``k/v [B, Skv, Hkv, dh]``, ``Skv`` whole kv
+    chunks. Returns ``[B, qc, Hkv, G, dh]`` in ``dtype``.
     """
-    q32, m, l, acc = _sweep_start(q)
-    for c0 in range(0, k.shape[1], kv_chunk):
-        q32, m, l, acc = _sweep_chunk(q32, m, l, acc, k[:, c0:c0 + kv_chunk],
-                                      v[:, c0:c0 + kv_chunk], q_pos,
-                                      kv_pos[c0:c0 + kv_chunk], causal=causal, window=window)
+    def chunk(j, st, k, v):
+        c0 = j * kv_chunk
+        return _sweep_chunk(*st, k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk], q_pos,
+                            kv_pos[c0:c0 + kv_chunk], causal=causal, window=window), None
+
+    (_, _, l, acc), _ = scan(k.shape[1] // kv_chunk, chunk, _sweep_start(q), (k, v))
     return _sweep_end(l, acc, dtype)
-
-
-def _counted_sweep(q5, k, v, q_pos, kv_pos, *, qc, kvc, causal, window, dtype):
-    """The sweep on ``meta`` tensors: one q chunk's start and end and one
-    chunk pair, each slicing its inputs as the loop does, counted for all of
-    them (:func:`~repro_torch.launch.counting.repeated`); the chunks' outputs
-    allocated as the sweep keeps them."""
-    nq, nk = q5.shape[1] // qc, k.shape[1] // kvc
-    st = repeated(nq, lambda q5: _sweep_start(q5[:, :qc]), q5)
-    st = repeated(nq * nk, lambda q32, m, l, acc, k, v: _sweep_chunk(
-        q32, m, l, acc, k[:, :kvc], v[:, :kvc], q_pos[:qc], kv_pos[:kvc], causal=causal,
-        window=window), *st, k, v)
-    out, = repeated(nq, lambda l, acc: (_sweep_end(l, acc, dtype),), st[2], st[3])
-    return [out] + [torch.empty_like(out) for _ in range(nq - 1)]
 
 
 def _pad_rows(x: torch.Tensor, pad: int, dim: int, value=0) -> torch.Tensor:
@@ -309,14 +296,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
     kv_pos = _pad_rows(kv_pos, kv_pad, 0, value=-1)
     sq = s + s_pad
     q5 = q.reshape(b, sq, hkv, g, dh)
-    if q.is_meta:  # the dry run: one chunk pair counted for all
-        outs = _counted_sweep(q5, k, v, q_pos, kv_pos, qc=qc, kvc=kvc, causal=causal,
-                              window=window, dtype=dtype)
-    else:
-        outs = [_online_attn(q5[:, i:i + qc], k, v, q_pos[i:i + qc], kv_pos, causal=causal,
-                             window=window, kv_chunk=kvc, dtype=dtype)
-                for i in range(0, sq, qc)]
-    return torch.cat(outs, dim=1).reshape(b, sq, hq * dh)[:, :s]
+
+    def q_chunk(i, _, q5, k, v):
+        i0 = i * qc
+        return (), _online_attn(q5[:, i0:i0 + qc], k, v, q_pos[i0:i0 + qc], kv_pos,
+                                causal=causal, window=window, kv_chunk=kvc, dtype=dtype)
+
+    _, out = scan(sq // qc, q_chunk, (), (q5, k, v), stack=1)
+    return out.reshape(b, sq, hq * dh)[:, :s]
 
 
 def decode_attention(p, x: torch.Tensor, cfg, *, k_cache: torch.Tensor,
@@ -392,8 +379,11 @@ def _chunk_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _recomputed(fn, *args):
     """``fn(*args)``, its intermediates recomputed in the backward pass when
-    a graph is recorded (the reference's ``jax.checkpoint`` of the chunk)."""
+    a graph is recorded (the reference's ``jax.checkpoint`` of the chunk; on
+    ``meta`` the dry run's stand-in, :func:`~repro_torch.launch.counting.recompute`)."""
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        if args[0].is_meta:
+            return recompute(fn, *args)
         return ckpt.checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 

@@ -69,12 +69,11 @@ def _cross_kv(p_cross, enc_out: torch.Tensor, cfg):
     """The cross-attention K/V ``[B, S_enc, Hkv, dh]`` of the encoder's
     states (this rank's KV heads where ``cross`` is split by heads: the
     encoder's states enter the rank's share there)."""
-    b, s, _ = enc_out.shape
     mesh = tp_share(p_cross, "attn", cfg.num_heads * cfg.head_dim, cfg)
     if mesh is not None:
         enc_out = enter(enc_out, mesh, "model")
-    return (L.linear(p_cross["wk"], enc_out).reshape(b, s, -1, cfg.head_dim),
-            L.linear(p_cross["wv"], enc_out).reshape(b, s, -1, cfg.head_dim))
+    return (L.linear(p_cross["wk"], enc_out).unflatten(-1, (-1, cfg.head_dim)),
+            L.linear(p_cross["wv"], enc_out).unflatten(-1, (-1, cfg.head_dim)))
 
 
 def _embed(params, tokens: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:

@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..launch.counting import repeated
+from ..launch.counting import scan
 from ..parallel.sharding import all_gather, all_reduce, enter, tp_share
 from . import layers as L
 from .transformer import _dtype, _logits
@@ -57,8 +57,8 @@ def _mlstm_steps(c, n, m, q, k, v, ig, fg):
     """The stabilized recurrence over the time axis of ``q/k/v [T, B, H,
     dh]``, ``ig/fg [T, B, H]`` (f32) from ``(c, n, m)``: ``(h [T, B, H,
     dh], c, n, m)``."""
-    hs = []
-    for t in range(q.shape[0]):
+    def step(t, state, q, k, v, ig, fg):
+        c, n, m = state
         qt, kt, it, ft = q[t], k[t], ig[t], fg[t]
         m_new = torch.maximum(ft + m, it)
         i_p = torch.exp(it - m_new)
@@ -68,9 +68,10 @@ def _mlstm_steps(c, n, m, q, k, v, ig, fg):
         n = f_p[..., None] * n + i_p[..., None] * kt
         num = torch.matmul(c, qt[..., None])[..., 0]
         den = torch.clamp_min(torch.abs((n * qt).sum(dim=-1)), 1.0)
-        hs.append(num / den[..., None])
-        m = m_new
-    return torch.stack(hs), c, n, m
+        return (c, n, m_new), num / den[..., None]
+
+    (c, n, m), hs = scan(q.shape[0], step, (c, n, m), (q, k, v, ig, fg), stack=0)
+    return hs, c, n, m
 
 
 def _mlstm_scan(q, k, v, ig, fg, state=None):
@@ -88,33 +89,20 @@ def _mlstm_scan(q, k, v, ig, fg, state=None):
         m = torch.full((b, h), M_INIT, device=q.device)
     else:
         c, n, m = state
-    if q.is_meta:  # the dry run: one step counted for all (one chunk slice for all chunks)
-        def step(c, n, m, *xs):  # the first step, its inputs selected as the loop does
-            xs = [t[:1] for t in xs]
-            if s <= MLSTM_CHUNK:
-                return _mlstm_steps(c, n, m, *xs)
-            return L._recomputed(_mlstm_steps, c, n, m, *xs)
-
-        n_steps = s
-        if s > MLSTM_CHUNK:
-            xs = [torch.cat([t, t.new_zeros(((-s) % MLSTM_CHUNK, *t.shape[1:]))]) for t in xs]
-            n_steps = xs[0].shape[0]
-            xs = repeated(n_steps // MLSTM_CHUNK, lambda *a: tuple(t[:MLSTM_CHUNK] for t in a),
-                          *xs)
-        hs, c, n, m = repeated(n_steps, step, c, n, m, *xs)
-        return hs.expand(s, *hs.shape[1:]).transpose(0, 1).to(q.dtype), (c, n, m)
     if s <= MLSTM_CHUNK:
         hs, c, n, m = _mlstm_steps(c, n, m, *xs)
         return hs.transpose(0, 1).to(q.dtype), (c, n, m)
     pad = (-s) % MLSTM_CHUNK
     if pad:
         xs = [torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) for t in xs]
-    outs = []
-    for c0 in range(0, s + pad, MLSTM_CHUNK):
-        hs, c, n, m = L._recomputed(_mlstm_steps, c, n, m,
-                                    *(t[c0:c0 + MLSTM_CHUNK] for t in xs))
-        outs.append(hs)
-    return torch.cat(outs)[:s].transpose(0, 1).to(q.dtype), (c, n, m)
+
+    def chunk(i, state, *xs):
+        c0 = i * MLSTM_CHUNK
+        hs, c, n, m = L._recomputed(_mlstm_steps, *state, *(t[c0:c0 + MLSTM_CHUNK] for t in xs))
+        return (c, n, m), hs
+
+    (c, n, m), hs = scan((s + pad) // MLSTM_CHUNK, chunk, (c, n, m), tuple(xs), stack=0)
+    return hs.flatten(0, 1)[:s].transpose(0, 1).to(q.dtype), (c, n, m)
 
 
 def _columns(t: torch.Tensor, mesh, width: int) -> torch.Tensor:
@@ -202,15 +190,13 @@ def _slstm_seq(z, o, ig, fg, state=None):
     else:
         c, n, m = state
     z, o, ig, fg = (t.float() for t in (z, o, ig, fg))
-    if z.is_meta:  # the dry run: one step counted for all
-        h, c, n, m = repeated(s, lambda c, n, m, *xs: _slstm_step(c, n, m, *(t[:, 0] for t in xs)),
-                              c, n, m, z, o, ig, fg)
-        return h[:, None].expand(b, s, d).contiguous(), (c, n, m)
-    hs = []
-    for t in range(s):
-        h, c, n, m = _slstm_step(c, n, m, z[:, t], o[:, t], ig[:, t], fg[:, t])
-        hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, m)
+
+    def step(t, state, z, o, ig, fg):
+        h, c, n, m = _slstm_step(*state, z[:, t], o[:, t], ig[:, t], fg[:, t])
+        return (c, n, m), h
+
+    (c, n, m), hs = scan(s, step, (c, n, m), (z, o, ig, fg), stack=1)
+    return hs, (c, n, m)
 
 
 def _slstm_step(c, n, m, z, o, ig, fg):

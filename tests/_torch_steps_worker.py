@@ -222,6 +222,20 @@ def _steps(inp, mesh, sub):
                                        AdamWConfig(state_bits=bits), mesh)
         out[f"zero1_{bits}"] = {"params": new, "opt": nst}
         out[f"specs{bits}"] = _specs(art.in_shardings[:2])
+    mi = tr["micro"]
+    art = steps.build_step(tr["cfg"], mi["shape"], mesh, accum=2)
+    args = steps.shard_args(art, (tr["params"], mi["opt"], mi["batch"]), mesh, tr["cfg"])
+    grads_loss, grads = art.grads(args[0], args[2])
+    plans, _ = steps._train_layout(art.arg_specs[0], mesh, tr["cfg"], 32)
+    want = {p: steps.shd.shard_tensor(mi["grads"][p], plan.state_spec, mesh)
+            for p, plan in plans.items()}
+    rows = steps._micro_rows(mi["batch"]["tokens"].shape[0], 2, mesh)
+    params, opt, loss = art.fn(*args)
+    out["micro"] = {"rows": tuple(args[2]["tokens"].shape),
+                    "micro_rows": [(r.start, r.stop) for r in rows],
+                    "grads_loss": float(grads_loss), "grads": grads, "want": want,
+                    "params": steps.stack_tree(params), "opt": opt, "loss": float(loss),
+                    "specs": _specs(art.in_shardings[:2])}
     x = inp["families"]["xlstm"]
     out["family_steps"] = {}
     for bits, opt in x["zero1"].items():

@@ -2,10 +2,12 @@
 of ``tests/test_hlo_analysis.py``, held to hand counts:
 
 * a plain matmul: FLOPs exact, bytes at least operands plus result;
-* a loop of 7 layers counts 7× (run, and as one body in
-  ``launch.counting.repeated``, forward and backward alike);
-* nested loops of 5 × 3;
-* a region whose backward fails, or runs its exit but not its entry,
+* a loop of 7 layers counts 7× (run, and as a ``launch.counting.scan``
+  that runs two of them on ``meta``, forward and backward alike), and the
+  scan on ``meta`` counts what it counts on CPU tensors — FLOPs, bytes and
+  peak;
+* nested loops of 5 × 3, as scans too;
+* a scan whose backward fails, or runs its exit but not its entry,
   fails its own count alone: the next counts 1×;
 * a process-less ``2 × 4`` rank view (``launch.mesh.production_view``'s
   kind of mesh): per-rank FLOPs ``4·2·4·256·64`` and collective bytes by
@@ -14,6 +16,10 @@ of ``tests/test_hlo_analysis.py``, held to hand counts:
   and dtype, one launch, and bytes equal to ``nbytes`` of its tensors at
   ``PERF.md`` §6's shapes (the grouped GEMMs at their static capacity); a
   CPU tensor still runs the plain version and counts nothing;
+* a train step of each reduced family counted on ``meta`` as on CPU
+  tensors (FLOPs equal, peak and HBM bytes within 5 %), and the multi-pod
+  batch block of command-r's ``train_4k``: 8 rows a rank, each microbatch
+  the reference's rows;
 * FLOP parity with the reference's ``analyze_hlo`` of ``jit(train_loss)``
   and ``jit(value_and_grad(train_loss, has_aux=True))`` without a mesh, on
   the five reduced families (4 × 64 tokens), each built once a file: the
@@ -24,6 +30,7 @@ of ``tests/test_hlo_analysis.py``, held to hand counts:
   XLA keeps the last chunk's forward, and xlstm's scan adds its
   recurrence's backward products).
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -43,6 +50,8 @@ from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_swiglu  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.launch import counting  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.launch.mesh import production_view  # noqa: E402
 from repro_torch.launch.op_analysis import analyze_step  # noqa: E402
 from repro_torch.models.registry import get_model as tget_model  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
@@ -72,31 +81,55 @@ def _layers(w, x):
     return x
 
 
+def _scanned(w, x):
+    """:func:`_layers` as a :func:`~repro_torch.launch.counting.scan`."""
+    (x,), _ = counting.scan(len(w), lambda i, c, w: ((torch.tanh(c[0] @ w[i]),), None), (x,),
+                            (w,))
+    return x
+
+
+def _grads(body):
+    def fn(w, x):
+        w, x = w.detach().requires_grad_(), x.detach().requires_grad_()
+        return torch.autograd.grad(body(w, x).sum(), (w, x))
+    return fn
+
+
+def _on_cpu(*shapes):
+    gen = torch.Generator().manual_seed(0)
+    return tuple(torch.randn(s, generator=gen) for s in shapes)
+
+
+def _same_count(a, b):
+    assert (a.flops, a.hbm_bytes, a.peak_bytes) == (b.flops, b.hbm_bytes, b.peak_bytes)
+
+
 def test_loop_multiplies_body_flops():
     """Seven layers run: 7× one layer's FLOPs and bytes, each layer's weight
-    read; the same body once under ``repeated(7, ...)`` counts the same,
-    and so does its backward."""
+    read; the same loop as a ``scan`` (two iterations run on ``meta``) counts
+    the same, and so does its backward; on ``meta`` the scan counts what it
+    counts on CPU tensors, where all seven run — FLOPs, bytes and peak."""
     w, x = meta(7, 64, 64), meta(8, 64)
     s = analyze_step(_layers, (w, x))
     expect = 7 * 2 * 8 * 64 * 64
     assert s.flops == expect
     assert s.hbm_bytes >= 7 * 64 * 64 * 4
-    once = analyze_step(lambda w, x: counting.repeated(
-        7, lambda w, x: (_layers(w[:1], x),), w, x), (w, x))
+    once = analyze_step(_scanned, (w, x))
     assert once.flops == s.flops and once.hbm_bytes == s.hbm_bytes
-
-    def grads(body):
-        def fn(w, x):
-            w, x = w.detach().requires_grad_(), x.detach().requires_grad_()
-            return torch.autograd.grad(body(w, x).sum(), (w, x))
-        return fn
-
-    full = analyze_step(grads(_layers), (w, x))
-    rep = analyze_step(grads(lambda w, x: counting.repeated(
-        7, lambda w, x: (_layers(w[:1], x),), w, x)[0]), (w, x))
+    full = analyze_step(_grads(_layers), (w, x))
+    rep = analyze_step(_grads(_scanned), (w, x))
     assert full.flops == 3 * expect  # forward, and the x and w products back
     assert rep.flops == full.flops
+    for fn in (_scanned, _grads(_scanned)):
+        _same_count(analyze_step(fn, (w, x)), analyze_step(fn, _on_cpu((7, 64, 64), (8, 64))))
     assert counting.trips() == 1
+
+
+def _nested_scan(x):
+    def inner(x):
+        return counting.scan(3, lambda i, c: ((torch.tanh(c[0] @ c[0]),), None), (x,))[0][0]
+
+    return counting.scan(5, lambda i, c: ((inner(c[0]),), None), (x,))[0][0]
 
 
 def test_nested_loops():
@@ -108,9 +141,12 @@ def test_nested_loops():
 
     expect = 5 * 3 * 2 * 32 * 32 * 32
     assert analyze_step(f, (meta(32, 32),)).flops == expect
-    nested = analyze_step(lambda x: counting.repeated(5, lambda x: counting.repeated(
-        3, lambda x: (torch.tanh(x @ x),), x), x), (meta(32, 32),))
-    assert nested.flops == expect
+    assert analyze_step(_nested_scan, (meta(32, 32),)).flops == expect
+    back = _grads(lambda w, x: _nested_scan(x @ w[0]))
+    _same_count(analyze_step(_nested_scan, (meta(32, 32),)),
+                analyze_step(_nested_scan, _on_cpu((32, 32))))
+    _same_count(analyze_step(back, (meta(1, 32, 32), meta(32, 32))),
+                analyze_step(back, _on_cpu((1, 32, 32), (32, 32))))
 
 
 class _Raises(torch.autograd.Function):
@@ -124,21 +160,22 @@ class _Raises(torch.autograd.Function):
 
 
 def test_a_failed_or_unbalanced_region_leaves_the_next_count_at_one():
-    """A region's backward that raises inside it (its exit run, its entry
-    not) fails that count alone; so does a backward that needs the region's
-    exit but not its entry (a gradient of a weight the body closes over,
-    none of its inputs'), which raises instead of multiplying what is
+    """A scan's backward that raises inside it (its exit run, its entry
+    not) fails that count alone; so does a backward that needs the scan's
+    exit but not its entry (a gradient of tensors the body closes over,
+    none of its carry's), which raises instead of multiplying what is
     counted after it. The next count is 1×."""
     w, x = meta(7, 64, 64), meta(8, 64)
 
     def raising(w, x):
         w, x = w.detach().requires_grad_(), x.detach().requires_grad_()
-        y = counting.repeated(7, lambda w, x: (_Raises.apply(_layers(w[:1], x)),), w, x)[0]
+        (y,), _ = counting.scan(7, lambda i, c, w: ((_Raises.apply(torch.tanh(c[0] @ w[i])),),
+                                                    None), (x,), (w,))
         return torch.autograd.grad(y.sum(), (w, x))
 
     def unbalanced(w, x):
         w, x = w.detach().requires_grad_(), x.detach().requires_grad_()
-        y = counting.repeated(7, lambda x: (torch.tanh(x @ w[0]),), x)[0]
+        (y,), _ = counting.scan(7, lambda i, c: ((torch.tanh(x @ w[0]),), None), (x,))
         return torch.autograd.grad(y.sum(), (w,))
 
     for fn, msg in ((raising, "backward failed"), (unbalanced, "still open")):
@@ -321,3 +358,62 @@ def test_flops_match_the_reference_analyzer(arch, reference_counts, torch_one_th
     assert abs(fwd.flops / jfwd - 1) <= 1e-3, (fwd.flops, jfwd)
     assert 1.0 <= bwd.flops / jboth <= 1.06, (bwd.flops, jboth)
     assert fwd.flops_by_dtype == {"float32": fwd.flops}  # the reduced configs run f32
+
+
+# ------------------------------------------- a train step: meta against CPU
+#: ``(batch, seq)`` of each family's train step counted on ``meta`` and on
+#: CPU tensors: every loop runs more than the two iterations a ``scan`` runs
+#: on ``meta`` (32-token attention chunks: 3 × 3 chunk pairs; xlstm: 3
+#: recomputed chunks of 64 mLSTM steps, 192 sLSTM steps)
+COUNTED_STEPS = {"tinyllama-1.1b": (1, 96), "moonshot-v1-16b-a3b": (1, 96),
+                 "whisper-small": (1, 96), "recurrentgemma-2b": (1, 96),
+                 "xlstm-350m": (1, 192)}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_step_counts_on_meta_as_on_cpu(arch, torch_one_thread):
+    """``build_step``'s f32 train step of each reduced family counted on its
+    ``meta`` argument specs and on CPU tensors of the same shapes, where
+    every loop iteration runs: FLOPs equal, peak live bytes and HBM bytes
+    within 5 %."""
+    cfg = treg.get_config(arch).reduced()
+    b, s = COUNTED_STEPS[arch]
+    art = tsteps.build_step(cfg, tbase.ShapeConfig("train_4k", s, b, "train"))
+    on_meta = analyze_step(art.fn, art.arg_specs)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, tuple(v.shape)))
+             if not v.is_floating_point() else
+             torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32))
+             for k, v in art.arg_specs[2].items()}
+    params = tget_model(cfg).init(torch.Generator().manual_seed(0))
+    on_cpu = analyze_step(art.fn, (params, tsteps.init_opt_blocks(art, "cpu"), batch))
+    assert on_meta.flops == on_cpu.flops
+    assert abs(on_meta.peak_bytes / on_cpu.peak_bytes - 1) <= 0.05, \
+        (on_meta.peak_bytes, on_cpu.peak_bytes)
+    assert abs(on_meta.hbm_bytes / on_cpu.hbm_bytes - 1) <= 0.05, \
+        (on_meta.hbm_bytes, on_cpu.hbm_bytes)
+
+
+def test_multi_pod_microbatches_are_cut_not_replicated():
+    """command-r-35b's ``train_4k`` on the multi-pod view (the reference's
+    ``accum`` 16: 16-row microbatches over 32 batch ranks), on ``meta`` specs
+    only, no step run: each rank's batch block is its 8 rows of the 256, and
+    over the 32 ranks each microbatch is the reference's rows ``[16m, 16m +
+    16)``, every row on one rank alone."""
+    cfg = treg.get_config("command-r-35b")
+    mesh = production_view(True)
+    with torch.device("meta"):
+        art = tsteps.build_step(cfg, tbase.SHAPES["train_4k"], mesh, accum=0)
+        block = tsteps._cut_batch(art.arg_specs[2], art.in_shardings[2], art.meta["accum"])
+    rows, accum = art.arg_specs[2]["tokens"].shape[0], art.meta["accum"]
+    assert (rows, accum) == (256, 16)
+    assert {k: tuple(v.shape) for k, v in block.items()} == {"tokens": (8, 4096),
+                                                             "labels": (8, 4096)}
+    held = [[] for _ in range(accum)]
+    for pod in range(2):
+        for data in range(16):
+            view = production_view(True, coord=(pod, data, 0))
+            r = view.index(("pod", "data"))
+            for m, sl in enumerate(tsteps._micro_rows(rows, accum, view)):
+                held[m] += [8 * r + i for i in range(sl.start, sl.stop)]
+    assert held == [list(range(16 * m, 16 * m + 16)) for m in range(accum)]

@@ -283,15 +283,24 @@ def test_train_step_matches_the_reference(arch, accum, bits, torch_one_thread):
     assert int(tst["step"]) == 1
 
 
+@pytest.fixture(scope="module")
+def moonshot_grads():
+    """The reference's gradients of the reduced moonshot's ``train_loss`` at
+    :func:`_train_case`'s parameters and batch (the same at either state
+    width), compiled once a file."""
+    jcfg, _, _, _, params, _, batch = _train_case("moonshot-v1-16b-a3b", 1, 32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    return jax.jit(jax.grad(lambda p: jget_model(jcfg).train_loss(p, jbatch)[0]))(params)
+
+
 @pytest.mark.parametrize("bits", [32, 8])
-def test_zero1_update_is_the_reference_adamw_bytewise(bits, torch_one_thread):
+def test_zero1_update_is_the_reference_adamw_bytewise(bits, moonshot_grads, torch_one_thread):
     """The reference's gradients fed to the port's sharded update (on one
     rank, its blocks are the leaves): parameters within 1e-6 and moments
     1e-6 relative, as ``test_torch_substrate.py`` holds one
     ``adamw_update``; int8 codes byte for byte."""
     jcfg, tcfg, art, tart, params, state, batch = _train_case("moonshot-v1-16b-a3b", 1, bits)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    grads = jax.grad(lambda p: jget_model(jcfg).train_loss(p, jbatch)[0])(params)
+    grads = moonshot_grads
     ocfg = jadamw.AdamWConfig(state_bits=bits)
     jp, jst = jadamw.adamw_update(params, grads, state, ocfg)  # eager: op by op, unfused
     flat, meta = flatten_reference(params)

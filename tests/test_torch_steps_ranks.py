@@ -48,7 +48,11 @@ runs it. Held:
   gradients, equal to it byte for byte;
 * a bf16 decode of the MoE model on one sequence, a batch that does not
   divide over data: the cache's batch whole, its KV heads split over
-  model; logits and cache the single process's.
+  model; logits and cache the single process's;
+* one-row microbatches (the dense model, batch 2, ``accum`` 2) over
+  ``data`` = 2: each rank's block one row, a microbatch run by the rank that
+  holds it and empty on the other; loss, gradients and update the single
+  process's.
 """
 import dataclasses
 import json
@@ -266,9 +270,17 @@ def _train_inputs():
         # the step writes into its donated arguments: it gets copies
         single[bits] = (art.fn(tsteps._own(params), tsteps._own(opt), batch), opt)
     _, g = _port_grads(tcfg, params, {k: v.numpy() for k, v in batch.items()})
+    # the first two rows at accum 2: one-row microbatches over data = 2
+    micro = {"shape": ShapeConfig("train_4k", 16, 2, "train"),
+             "batch": {k: v[:2].clone() for k, v in batch.items()}}
+    art = tsteps.build_step(tcfg, micro["shape"], accum=2)
+    micro["opt"] = tsteps.init_opt_blocks(art, "cpu")
+    micro["grads"] = art.grads(params, micro["batch"])[1]
+    single["micro"] = (art.fn(tsteps._own(params), tsteps._own(micro["opt"]), micro["batch"]),
+                       micro["opt"])
     return ({"cfg": tcfg, "shape": shape, "params": params, "batch": batch,
              "opt32": single[32][1], "opt8": single[8][1],
-             "grads": {p: torch.from_numpy(v) for p, v in g.items()}}, single)
+             "grads": {p: torch.from_numpy(v) for p, v in g.items()}, "micro": micro}, single)
 
 
 def _moe_inputs(tcfg, params):
@@ -721,14 +733,14 @@ def _check_state(outs, key, specs, want, exact=False, get=None):
             _close(got, w.numpy(), 1e-4, path)
 
 
-@pytest.mark.parametrize("bits", [32, 8])
-def test_train_step_on_the_mesh_matches_one_process(spawn, bits):
-    _, outs, train, single = spawn[0], spawn[1], spawn[2], spawn[0]["train"]
-    (params1, opt1, loss1), _ = single[bits]
-    key = f"train{bits}"
+def _check_train_step(outs, key, specs, single):
+    """The ranks' train step ``o[key]`` (``specs``: its parameter and state
+    shardings) against the single process's: loss within 1e-5, parameters
+    and moments 1e-4 × max."""
+    (params1, opt1, loss1), _ = single
     for o in outs:
         assert abs(o[key]["loss"] - float(loss1)) <= 1e-5
-    p_sh = tsteps.stack_tree(outs[0][f"specs{bits}"][0])
+    p_sh = tsteps.stack_tree(specs[0])
     want = {p: _stacked(tsteps.stack_tree(params1), p) for p in p_sh}
     scale = max(float(v.abs().max()) for v in want.values())
     for path, w in want.items():
@@ -737,13 +749,41 @@ def test_train_step_on_the_mesh_matches_one_process(spawn, bits):
         got = _assemble(outs, lambda o, p=path: _stacked(o[key]["params"], p), spec)
         np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=1e-4 * scale,
                                    err_msg=path)
-    _check_state(outs, key, outs[0][f"specs{bits}"][1], opt1)
+    _check_state(outs, key, specs[1], opt1)
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_train_step_on_the_mesh_matches_one_process(spawn, bits):
+    _, outs, train, single = spawn[0], spawn[1], spawn[2], spawn[0]["train"]
+    key = f"train{bits}"
+    _check_train_step(outs, key, outs[0][f"specs{bits}"], single[bits])
+    (_, opt1, _), _ = single[bits]
     if bits == 32:  # ZeRO-1 over data × model: an eighth of each moment, data only for norms
         mine = _state_leaves(outs[0][key]["opt"]["per_param"])
         whole = _state_leaves(opt1["per_param"])
         for path, w in whole.items():
             norm = any(n in path for n in ("ln1", "ln2", "final_norm"))
             assert mine[path].numel() * (2 if norm else 8) == w.numel(), path
+
+
+def test_one_row_microbatches_are_cut_not_replicated(spawn):
+    """Two rows at ``accum`` 2 over ``data`` = 2: each rank's batch block is
+    its one row of the batch, which is the whole of one microbatch and none
+    of the other (a rank with no row runs its microbatch empty and joins the
+    collectives); the loss, each rank's gradient block (``art.grads``, the
+    ZeRO-1 state's layout) and the update equal the single process's."""
+    ref, outs, _, _ = spawn
+    single = ref["train"]["micro"]
+    for o in outs:
+        mi, d = o["micro"], o["coord"]["data"]
+        assert mi["rows"] == (1, 16)
+        assert mi["micro_rows"] == ([(0, 1), (1, 1)] if d == 0 else [(0, 0), (0, 1)])
+        assert abs(mi["grads_loss"] - float(single[0][2])) <= 1e-5
+        scale = max(float(w.abs().max()) for w in mi["want"].values())
+        for path, g in mi["grads"].items():
+            np.testing.assert_allclose(g.numpy(), mi["want"][path].numpy(), rtol=0,
+                                       atol=1e-4 * scale, err_msg=path)
+    _check_train_step(outs, "micro", outs[0]["micro"]["specs"], single)
 
 
 @pytest.mark.parametrize("bits", [32, 8])
