@@ -226,9 +226,11 @@ Phases (each failure exits non-zero):
    is checkpointed and restored into a fresh trainer whose next step's loss
    and params equal the uninterrupted run's bit for bit (no kernel of the
    port runs on the dense training path); then the same 20 steps with 8-bit
-   moments, their losses reported beside the 32-bit ones, not gated. The
-   host wall of the build, of phases 1-4 and of each path of phase 5 is
-   printed;
+   moments, their losses reported beside the 32-bit ones, not gated; and
+   ``DRYRUN`` (e): one step of the same model in bf16, counted and run as
+   (c). Every training path runs under the full configs' ``remat="block"``
+   and prints its peak and s a step beside those before it. The host wall of the
+   build, of phases 1-4 and of each path of phase 5 is printed;
 6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
    ``binary_matmul`` has no serving caller (as in the reference), so its
    launches are those of phase 3.
@@ -2153,8 +2155,10 @@ STEPS_WORLD = 4
 STEPS_OTP_GRAD_TOL = 0.1
 STEPS_OTP_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm")
 STEPS_TRAIN_ARCH, STEPS_TRAIN_STEPS, STEPS_ACCUM = "tinyllama-1.1b", 2, 2
-#: (b)'s depth: 22 layers left four ranks and the single process's
-#: parameters, gradients and two steps' results no room on the card
+#: (b)'s depth: 22 layers leave four ranks and the single process's
+#: parameters, gradients and two steps' results no room on the card, with
+#: ``remat="block"`` too (a rank ran out at 12.0 GiB of its own, 78.9 GiB
+#: in use on the card; ``PERF.md`` §6)
 STEPS_TRAIN_LAYERS = 11
 STEPS_TRAIN_BATCH, STEPS_TRAIN_SEQ = 8, 128
 #: (c): the other families at full width in f32, one training step on
@@ -2329,7 +2333,8 @@ def steps_path(otp_cfg=None, train_cfg=None, families_cfgs=None):
         f"{[o['otp']['update_bitwise'] for o in res]}; loss {float(loss1):.6f}, kl "
         f"{float(kl1):.6f}; step s (the step alone) by "
         f"rank {[round(o['otp']['step_s'], 3) for o in res]}; peak device memory by rank (GB) "
-        f"{[round((o['otp_peak'] or 0) / 1e9, 3) for o in res]}; launches (all ranks) {launches}")
+        f"{[round((o['otp_peak'] or 0) / 1e9, 3) for o in res]}; launches (all ranks) {launches}; "
+        f"{beside_pre_remat('STEPS (a)', cfg)}")
     log(f"STEPS train ({tcfg.name}, {tcfg.num_layers} layers, f32, data=2 x model="
         f"{STEPS_WORLD // 2}, accum={STEPS_ACCUM}, ZeRO-1, 32-bit moments, {STEPS_TRAIN_STEPS} "
         f"steps of {STEPS_TRAIN_BATCH} x {tshape.seq_len} tokens): single process "
@@ -2348,7 +2353,8 @@ def steps_path(otp_cfg=None, train_cfg=None, families_cfgs=None):
         f"{sum(whole_state.values())}; step s by rank "
         f"{[[round(x, 3) for x in o['train']['step_s']] for o in res]}; peak device memory by "
         f"rank (GB) {[round((o['train_peak'] or 0) / 1e9, 3) for o in res]}; spawn to results "
-        f"{ranks_s:.1f} s; collective routes {res[0]['routes']}")
+        f"{ranks_s:.1f} s; collective routes {res[0]['routes']}; "
+        f"{beside_pre_remat('STEPS (b)', tcfg)}")
     del payload, res, params, final, frozen, otp, opt, params1, tgrads
     faults += steps_families(families_cfgs)
     if faults:
@@ -2415,6 +2421,7 @@ def steps_families(cfgs=None):
             f"{[round(x['families'][name]['step_s'], 3) for x in res]}")
     log(f"STEPS (c): single process {single_s:.1f} s, spawn to results {ranks_s:.1f} s; peak "
         f"device memory by rank (GB) {[round((o['peak'] or 0) / 1e9, 3) for o in res]}; "
+        f"{beside_pre_remat('STEPS (c)', cases[0]['cfg'])}; "
         f"collective routes {res[0]['routes']}")
     return faults
 
@@ -2702,20 +2709,25 @@ OTP_TRAIN_PATH = ("quant_matmul", "moe_gmm_swiglu", "moe_gmm")
 def otp_memory_prediction(cfg, t: int) -> dict:
     """Bytes the OTP training adds on top of the model (derived before the
     first run): what the port's autograd keeps per layer (the SwiGLU's
-    compacted input and the capacity layout, ~24 [T, D] bf16 activations),
-    the f32 logits (student, teacher, softmax) and the f32 copy of the
-    output embedding the logits keep for the backward, and the backward's
-    dequantized expert slices; beside it what autograd through the plain
-    grouped GEMMs would keep: each GEMM's gathered ``[blocks, K, N]`` f32
-    weights, three GEMMs a layer."""
+    compacted input and the capacity layout, ~24 [T, D] bf16 activations;
+    under ``remat="block"`` a layer's input and its attention's output, and
+    one layer's whole at a time while it is recomputed), the f32 logits
+    (student, teacher, softmax) and the f32 copy of the output embedding the
+    logits keep for the backward, and the backward's dequantized expert
+    slices; beside it what autograd through the plain grouped GEMMs would
+    keep: each GEMM's gathered ``[blocks, K, N]`` f32 weights, three GEMMs a
+    layer."""
     d, f, v = cfg.d_model, cfg.d_ff_expert, cfg.vocab_size
     cap = dispatch_capacity(cfg, t)
     rows = cfg.num_experts * cap
     layer = rows * (d + f) * 2 + 24 * t * d * 2
+    kept = layer
+    if cfg.remat == "block":
+        kept = 2 * t * d * 2 + layer / cfg.num_layers
     logits = 3 * t * v * 4 + v * d * 4
     transient = 2 * 4 * grad_mod.SLICE_ELEMENTS  # two operands' slices, f32 and its temporaries
     plain_layer = 3 * (rows // gmm_block_rows(cap)) * d * f * 4
-    return dict(activations=cfg.num_layers * layer, logits=logits, transient=transient,
+    return dict(activations=cfg.num_layers * kept, logits=logits, transient=transient,
                 plain=cfg.num_layers * plain_layer)
 
 
@@ -2756,7 +2768,8 @@ def otp_path(cfg, params_c):
         f"backward (activations {pred['activations'] / 1e9:.3f}, logits and f32 embedding "
         f"{pred['logits'] / 1e9:.3f}) and up to {pred['transient'] / 1e9:.3f} GB of dequantized "
         f"expert slices; autograd through the plain GEMMs would keep "
-        f"{pred['plain'] / 1e9:.1f} GB; launches {train_launches}")
+        f"{pred['plain'] / 1e9:.1f} GB; launches {train_launches}; "
+        f"{beside_pre_remat('OTP (h)', cfg)}")
     ratio = [[round(h["mask_ratio"], 4) for h in hs] for hs in (first, last)]
     kl = [[float(f"{h['kl']:.4g}") for h in hs] for hs in (first, last)]
     log(f"OTP (h) mask ratio first five {ratio[0]}, last five {ratio[1]} (mean "
@@ -3000,8 +3013,29 @@ def xlstm_train():
         f"boundaries + one chunk's recompute = "
         f"{(pred['states'] + pred['boundaries'] + pred['recompute']) / 1e9:.3f} GB plus the "
         f"other activations, where C at every step alone would be "
-        f"{pred['every_step'] / 1e9:.3f} GB; launches {launches}")
+        f"{pred['every_step'] / 1e9:.3f} GB; launches {launches}; "
+        f"{beside_pre_remat('xlstm training', cfg)}")
     return launches
+
+
+#: each training path on the card before the port read ``cfg.remat``
+#: (every path trains under the full configs' ``"block"`` since),
+#: recomputed attention chunks, stepped the recurrences over rows and kept
+#: the loss chunks' table in bf16 (``PERF.md`` §6; NVIDIA H100 80GB HBM3,
+#: 700.00 W): ``(peak, s a step)`` as each path prints them
+PRE_REMAT_TRAINING = {"TRAIN": ("18.351 GB", "0.1413 s (median)"),
+                 "xlstm training": ("6.758 GB", "7.455, 5.332, 5.085 s"),
+                 "OTP (h)": ("14.758 GB", "0.511 s"),
+                 "STEPS (a)": ("2.044 GB a rank", "1.436-1.437 s"),
+                 "STEPS (b)": ("6.864-6.868 GB a rank", "5.31-5.34, 5.04-5.05 s"),
+                 "STEPS (c)": ("5.999 GB a rank", "whisper 10.10, recurrentgemma 0.400-0.403, "
+                               "xlstm 0.327-0.329 s")}
+
+
+def beside_pre_remat(path: str, cfg) -> str:
+    """This run's ``remat`` and the path's readings before it, for its log line."""
+    peak, step = PRE_REMAT_TRAINING[path]
+    return f"remat={cfg.remat!r}; before remat: peak {peak}, {step} a step"
 
 
 def _bitwise_tree(a, b) -> bool:
@@ -3085,7 +3119,7 @@ def train_path():
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {[round(x, 4) for x in losses[:5]]}, "
         f"last five {[round(x, 4) for x in losses[-5:]]}); peak device memory "
         f"{peak / 1e9:.3f} GB (predicted {pred / 1e9:.3f} GB plus activations); launches "
-        f"{launches}")
+        f"{launches}; {beside_pre_remat('TRAIN', cfg)}")
     log(f"train checkpoint: {size / 1e9:.3f} GB written in {t_save:.3f} s ({free / 1e9:.1f} GB "
         f"free in TMPDIR), restored into a fresh trainer in {t_load:.3f} s; step {n} after the "
         f"restore: loss {float(loss_b):.6f} against {float(loss_a):.6f} uninterrupted, loss "
@@ -3125,6 +3159,35 @@ def train_8bit(bundle, loader, ocfg8, step_kw, losses32):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
 
+def dryrun_bf16_step():
+    """``DRYRUN`` (e): ``TRAIN``'s model in bf16 (its first
+    ``workload.TRAIN_LAYERS`` layers; the loss chunks' logits from the bf16
+    table through one product with an f32 result), one ``train_step`` of
+    ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens counted and run as (c) is: the
+    counted peak over the card's within :data:`DRYRUN_TRAIN_BAND`, the loss
+    finite. Returns the launches (none)."""
+    cfg = dataclasses.replace(get_config(workload.TRAIN_ARCH), num_layers=workload.TRAIN_LAYERS)
+    bundle = get_model(cfg)
+    ocfg = AdamWConfig(lr=workload.TRAIN_LR)
+    loader = HostDataLoader(vocab=cfg.vocab_size, global_batch=workload.TRAIN_BATCH,
+                            seq_len=workload.TRAIN_SEQ, seed=0)
+    begin_path()
+    params = bundle.init(torch.Generator(device=DEV).manual_seed(0))
+    opt = adamw_init(params, ocfg)
+    (_, _, loss), _ = dryrun_train_step(
+        "e", f"{cfg.name} {cfg.dtype}, {cfg.num_layers} layers, {workload.TRAIN_BATCH} × "
+        f"{workload.TRAIN_SEQ}, remat={cfg.remat!r}",
+        lambda p, o, b: train_step(bundle.train_loss, p, o, b, ocfg, warmup=10,
+                                   total=workload.TRAIN_STEPS + 1),
+        (params, opt, batch_to(loader.batch_at(0), DEV)))
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"DRYRUN (e): loss {float(loss)}")
+    launches = dict(build.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"DRYRUN (e): kernels launched: {launches}")
+    return launches
+
+
 WALLS: dict = {}
 
 
@@ -3156,14 +3219,14 @@ DRYRUN_BATCH = 4
 #: allocates above what its arguments hold (``PERF.md`` §6, stated before
 #: the call that first tested it)
 DRYRUN_PEAK_BAND = (0.75, 1.33)
-#: (c), (d): the same ratio for the first training step of ``TRAIN`` and of
-#: the xlstm training (``PERF.md`` §6, stated before the call that first
-#: tested it)
+#: (c), (d), (e): the same ratio for the first training step of ``TRAIN``,
+#: of the xlstm training and of ``TRAIN``'s model in bf16 (``PERF.md`` §6,
+#: stated before the call that first tested it)
 DRYRUN_TRAIN_BAND = (0.95, 1.05)
 
 
 def dryrun_train_step(tag: str, name: str, step, args):
-    """``DRYRUN`` (c) and (d): a training path's first ``step(*args)``
+    """``DRYRUN`` (c), (d) and (e): a training path's first ``step(*args)``
     counted by the op counter on ``meta`` copies of its arguments, then run
     on the card, its peak above the arguments measured (the peak zeroed and
     the base taken just before it). The counted peak over the measured must
@@ -3325,6 +3388,8 @@ def full_width():
     free_model()
     train_launches = walled("train", train_path)
     free_model()
+    bf16_launches = walled("DRYRUN bf16", dryrun_bf16_step)
+    free_model()
     if ORACLE_FAULTS:
         raise AssertionError(f"divergences from the dense-cache oracle with no near-tie within "
                              f"{ORACLE_GAP_ULPS} bf16 ulps: {ORACLE_FAULTS}")
@@ -3339,7 +3404,7 @@ def full_width():
             "uncompressed MoE serving": moe_launches,
             "compressed (pipeline) serving": compress_launches,
             "OTP training": otp_train_launches, "OTP-trained serving": otp_launches,
-            "dense training": train_launches,
+            "dense training": train_launches, "DRYRUN bf16 training step": bf16_launches,
             "vlm serving": vlm_launches, "windowed serving": windowed_launches,
             "command-r serving": command_r_launches,
             "wide MoE serving": wide_launches, **family_launches}

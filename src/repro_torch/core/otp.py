@@ -20,6 +20,7 @@ import torch.nn.functional as F
 __all__ = [
     "candidate_masks",
     "dm_logits",
+    "fixed_uniforms",
     "gumbel_uniforms",
     "init_otp_router",
     "mask_ratio",
@@ -62,6 +63,18 @@ def gumbel_uniforms(gen: torch.Generator, shape, device=None) -> torch.Tensor:
     then moved to ``device``."""
     u = torch.rand(shape, generator=gen, device=gen.device) * (U_MAX - U_MIN) + U_MIN
     return u.to(device or gen.device)
+
+
+def fixed_uniforms(rng: Optional[Union[torch.Tensor, torch.Generator]], t: int, k: int,
+                   device=None) -> Optional[torch.Tensor]:
+    """``rng`` for a region that may run again (a recomputation in the
+    backward): a generator's uniforms ``[t, k]`` drawn now, as
+    :func:`sample_mask_gumbel` would draw them, so that every run reads the
+    same draws (torch's checkpoint restores its default generators' state,
+    not an explicit generator's); uniforms or None as they are."""
+    if isinstance(rng, torch.Generator):
+        return gumbel_uniforms(rng, (t, k), device)
+    return rng
 
 
 def sample_mask_gumbel(rng: Union[torch.Tensor, torch.Generator], logits: torch.Tensor, k: int,

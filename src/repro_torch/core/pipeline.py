@@ -35,7 +35,7 @@ import torch
 from ..models import layers as L
 from ..models.moe import moe_layer, route_topk
 from ..models.transformer import layer_windows_static
-from . import pmq, significance
+from . import otp as otp_mod, pmq, significance
 from .compressed_moe import CompressedExperts, build_compressed_experts, compressed_moe_layer
 from .gptq import gptq_quantize, hessian_from_inputs
 from .packing import PackedTensor
@@ -71,13 +71,27 @@ class CalibrationResult:
     hidden_final: torch.Tensor  # [T, D] f32 (for distillation targets)
 
 
-def _block_parts(p_l, x, cfg, window: int):
-    """Attention half of a block; returns ``(x_after_attn, h_pre_ffn)``."""
+def _attn_part(p_l, x, cfg, window: int):
+    """Attention half of a block: ``x`` after it."""
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     h = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
     a, _ = L.attention(p_l["attn"], h, cfg, positions=pos, causal=True, window=window)
-    x = x + a
+    return x + a
+
+
+def _block_parts(p_l, x, cfg, window: int):
+    """Attention half of a block; returns ``(x_after_attn, h_pre_ffn)``."""
+    x = _attn_part(p_l, x, cfg, window)
     return x, L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+
+
+def _moe_part(p_l, x, cfg, otp_params, otp_rng, otp_tau: float):
+    """The compressed MoE half of a block: ``(x after it, its OTP mask or
+    None)``."""
+    h = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    y, info = compressed_moe_layer(p_l["moe"], p_l["moe_ce"], h, cfg, otp_params=otp_params,
+                                   otp_rng=otp_rng, otp_tau=otp_tau)
+    return x + y, info["mask"]
 
 
 @torch.no_grad()
@@ -278,22 +292,24 @@ def compressed_forward(blocks_c, top, tokens: torch.Tensor, cfg,
 
     The argmax forward runs without autograd, as inference does; the Gumbel
     branch records the graph, so the routers (the only tensors that
-    require grad) receive the Eq. 14 gradients."""
+    require grad) receive the Eq. 14 gradients. Under ``cfg.remat ==
+    "block"`` each layer's attention half and MoE half are recomputed in the
+    backward, each for its own (the transformer's ``_block``; a generator's
+    uniforms are drawn before the MoE half, ``otp.fixed_uniforms``; the
+    reference's loop here checkpoints nothing but its attention chunks)."""
     with torch.set_grad_enabled(otp_rngs is not None and torch.is_grad_enabled()):
         x = L.embed_tokens(top["embed"], tokens)
         windows = layer_windows_static(cfg, tokens.shape[1])
         masks = []
         for l, p_l in enumerate(blocks_c):
-            x, h2 = _block_parts(p_l, x, cfg, int(windows[l]))
-            y, info = compressed_moe_layer(
-                p_l["moe"], p_l["moe_ce"], h2, cfg,
-                otp_params=otp_params[l] if otp_params is not None else None,
-                otp_rng=otp_rngs[l] if otp_rngs is not None else None,
-                otp_tau=otp_tau,
-            )
-            x = x + y
-            if collect_masks and info["mask"] is not None:
-                masks.append(info["mask"])
+            x = L.remat_block(cfg, _attn_part, p_l, x, cfg, int(windows[l]))
+            op = otp_params[l] if otp_params is not None else None
+            rng = otp_rngs[l] if otp_rngs is not None else None
+            if op is not None:
+                rng = otp_mod.fixed_uniforms(rng, x.shape[0] * x.shape[1], cfg.top_k, x.device)
+            x, mask = L.remat_block(cfg, _moe_part, p_l, x, cfg, op, rng, otp_tau)
+            if collect_masks and mask is not None:
+                masks.append(mask)
         return L.rms_norm(x, top["final_norm"], cfg.norm_eps), masks
 
 

@@ -17,12 +17,14 @@ real run are then missing, and this module supplies them:
   backward), and the op counter's account (:func:`accounting`) is charged
   what the iterations not run would hold: their outputs, the bytes they
   keep for the backward, their share of the summed gradients of the loop's
-  shared inputs. A checkpointed region (:func:`recompute`) recomputes its
-  forward inside its own backward, so its loops' bytes are charged and let
-  go there, as the real recomputation holds them.
+  shared inputs, the gradients of their rows of the loop's ``xs``. A
+  checkpointed region (:func:`checkpoint`) recomputes its forward inside
+  its own backward, so its loops' bytes are charged there and let go with
+  their backward, as the real recomputation holds them.
 
 The models, the kernel wrappers and ``parallel.sharding``'s collectives
-read this module; on any other device than ``meta`` nothing here acts.
+read this module; on any other device than ``meta`` only :func:`scan`'s
+plain loop and :func:`checkpoint`'s ``torch.utils.checkpoint`` act.
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ import contextvars
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
-__all__ = ["Work", "accounting", "count_meta", "nbytes", "recompute", "recording", "scan",
+__all__ = ["Work", "accounting", "checkpoint", "count_meta", "nbytes", "recording", "scan",
            "trips"]
 
 
@@ -87,7 +91,8 @@ def count_meta(name: str, work: Work) -> None:
 _TRIPS: List[int] = [1]
 #: the op counter's account while a dry run counts, else None: ``live`` and
 #: ``peak`` bytes, ``hold(n)`` / ``release(n)`` of bytes no storage stands
-#: for, ``traffic(n)`` HBM bytes of ops not dispatched
+#: for, ``traffic(n)`` HBM bytes of ops not dispatched, ``work()`` /
+#: ``charge(before, after, scale)`` to repeat what was counted
 _ACCOUNT: List = [None]
 
 
@@ -118,8 +123,10 @@ def accounting(account):
 
 class _Begin(torch.autograd.Function):
     """A scan's inputs: its backward runs after every node of the scan (all
-    made after this one), when the real loop's backward has let go of what
-    the iterations kept; the bytes held for the iterations not run go then."""
+    made after this one), when the real loop's backward has used the
+    gradients of the iterations' rows; the bytes held for those of the
+    iterations not run go then (``held``: what those iterations keep for the
+    backward, if not let go yet, and their rows' gradients)."""
 
     @staticmethod
     def forward(ctx, held, *xs):
@@ -129,32 +136,49 @@ class _Begin(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         account = _ACCOUNT[-1]
-        if account is not None and ctx.held[0]:
-            account.release(ctx.held[0])
+        if account is not None and sum(ctx.held):
+            account.release(sum(ctx.held))
         return (None,) + gs
 
 
 class _Enter(torch.autograd.Function):
-    """The second iteration's inputs: its backward closes the iteration's
+    """The second iteration's inputs (``n_carry`` carries, ``n_rows`` rows of
+    the ``xs``, the shared inputs): its backward closes the iteration's
     multiplier ``n`` (the engine runs the iteration's nodes, all made after
     this one and before :class:`_Exit`, between the two). The gradient of a
     shared input that reaches it stands for ``n`` iterations' gradients,
     which the real loop adds up one by one: the traffic of those ``n - 1``
-    additions is charged (the scan's first iteration makes the last one)."""
+    additions is charged (the scan's first iteration makes the last one).
+    By now the real loop's backward has let go of what the iterations it
+    stands for kept, and made their rows' gradients, which it keeps until
+    the ``xs``' backward reads them: the first go now, the second are held
+    until :class:`_Begin`'s backward."""
 
     @staticmethod
-    def forward(ctx, n, n_carry, *xs):
-        ctx.n, ctx.n_carry = n, n_carry
+    def forward(ctx, n, n_carry, n_rows, held, *xs):
+        ctx.n, ctx.n_carry, ctx.n_rows, ctx.held = n, n_carry, n_rows, held
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *gs):
         _TRIPS.pop()
         account = _ACCOUNT[-1]
+        rows = ctx.n_carry + ctx.n_rows
+        shared = nbytes(*(g for g in gs[rows:] if g is not None))
+        if account is not None and ctx.held[0]:
+            # the real loop's first addition of shared gradients (the sum,
+            # the addend and the result at once) ran while the n - 2
+            # iterations before it held what they kept: here the n - 2 held
+            # and the first iteration's
+            kept = ctx.held[0] // (ctx.n - 1)
+            account.peak = max(account.peak, account.live - kept + 2 * shared)
+            account.release(ctx.held[0])
+            ctx.held[0] = 0
         if account is not None and ctx.n > 1:
-            shared = nbytes(*(g for g in gs[ctx.n_carry:] if g is not None))
             account.traffic(3 * shared * (ctx.n - 1) * trips())
-        return (None, None) + gs
+            ctx.held[1] = nbytes(*(g for g in gs[ctx.n_carry:rows] if g is not None)) * (ctx.n - 1)
+            account.hold(ctx.held[1])
+        return (None,) * 4 + gs
 
 
 class _Exit(torch.autograd.Function):
@@ -169,13 +193,43 @@ class _Exit(torch.autograd.Function):
         return (None,) + gs
 
 
+class _Rows(torch.autograd.Function):
+    """Rows 0 and 1 of a scan's ``xs`` tensor on ``meta``, where the real
+    loop unbinds all its rows: the backward makes the tensor's gradient from
+    the rows' as ``unbind``'s does (one tensor written, every row's
+    gradient read)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        ctx.shape, ctx.dtype, ctx.device = x.shape, x.dtype, x.device
+        return x[0], x[1]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = torch.zeros(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        account = _ACCOUNT[-1]
+        if account is not None:
+            account.traffic(nbytes(out) * trips())
+        return out
+
+
 def scan(n: int, body: Callable, carry: Tuple = (), shared: Tuple = (),
-         stack: Optional[int] = None) -> Tuple[Tuple, Optional[torch.Tensor]]:
-    """``for i in range(n): carry, y = body(i, carry, *shared)``: the last
-    carry (a tuple of tensors) and, with ``stack`` a dim, the ``n`` outputs
-    ``y`` stacked on it (``torch.stack``; without it ``y`` is None). ``body``
-    reads every tensor that needs a gradient through ``carry`` or
-    ``shared``, never by closure.
+         stack: Optional[int] = None, xs: Tuple = (),
+         remat: bool = False) -> Tuple[Tuple, Optional[torch.Tensor]]:
+    """``for i in range(n): carry, y = body(i, carry, *(x[i] for x in xs),
+    *shared)``: the last carry (a tuple of tensors) and, with ``stack`` a dim,
+    the ``n`` outputs ``y`` stacked on it (``torch.stack``; without it ``y``
+    is None). ``body`` reads every tensor that needs a gradient through
+    ``carry``, ``xs`` or ``shared``, never by closure.
+
+    ``xs`` are tensors of ``n`` rows (dim 0), unbound once: iteration ``i``
+    reads its rows as tensors of their own, so the backward writes each
+    row's gradient once (a body that indexed a shared tensor would write a
+    gradient of the whole tensor every iteration: O(n²) bytes). With
+    ``remat`` each iteration runs under :func:`checkpoint`: the loop keeps
+    its iterations' inputs and outputs, and the backward recomputes one
+    iteration's intermediates at a time.
 
     On ``meta`` tensors (the dry run's) with ``n > 2``, two iterations run:
     the first as itself, the second (``i = 1``) standing for the other
@@ -184,44 +238,84 @@ def scan(n: int, body: Callable, carry: Tuple = (), shared: Tuple = (),
     the peak of the last iteration above the ``n - 2`` iterations' growth
     not run, their outputs (one ``empty`` stand-in, which the stacking reads
     as it would read them), the bytes they keep for the backward until the
-    scan's backward is done, and the traffic of summing their gradients of
-    the shared inputs. The real loop's iterations must be alike."""
-    xs = tuple(carry) + tuple(shared)
-    if n <= 2 or not any(x.is_meta for x in xs):
+    scan's backward is done, the gradients of their rows of ``xs``, and the
+    traffic of summing their gradients of the shared inputs. The real
+    loop's iterations must be alike."""
+    step = body
+    if remat:
+        def step(i, c, *rest):
+            return checkpoint(body, i, c, *rest)
+    xs = tuple(xs)
+    if n <= 2 or not any(x.is_meta for x in (*carry, *xs, *shared)):
+        rows = [x.unbind(0) for x in xs]
         ys = []
         for i in range(n):
-            carry, y = body(i, carry, *shared)
+            carry, y = step(i, carry, *(r[i] for r in rows), *shared)
             ys.append(y)
         return carry, (None if stack is None else torch.stack(ys, stack))
     account = _ACCOUNT[-1]
-    grad = torch.is_grad_enabled() and any(x.requires_grad for x in xs)
-    held = [0]
-    nc = len(carry)
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*carry, *xs, *shared))
+    rows = [_Rows.apply(x) if grad and x.requires_grad else (x[0], x[1]) for x in xs]
+    held = [0, 0]
+    region = _REGIONS[-1] if _REGIONS and grad else None
+    again = region is not None and not isinstance(region, list)
+    if again:  # a recomputation: charge the first run's scan
+        held = next(region)
+    elif region is not None:
+        region.append(held)
+        if _DROPPED:
+            _DROPPED[-1].append(held)
+    nc, nr = len(carry), len(xs)
+    first, second = tuple(r[0] for r in rows), tuple(r[1] for r in rows)
     if grad:
-        xs = _Begin.apply(held, *xs)
-        carry, shared = xs[:nc], xs[nc:]
-    carry, y1 = body(0, carry, *shared)
+        ins = _Begin.apply(held, *carry, *first, *second, *shared)
+        carry, first = ins[:nc], ins[nc:nc + nr]
+        second, shared = ins[nc + nr:nc + 2 * nr], ins[nc + 2 * nr:]
+    del rows
+    live0 = account.live if account is not None else 0
+    work0 = account.work() if account is not None and again else None
+    carry, y1 = step(0, carry, *first, *shared)
     live1 = account.live if account is not None else 0
+    work1 = account.work() if work0 is not None else None
     if account is not None:
         outer_peak, account.peak = account.peak, live1
-    xs = tuple(carry) + tuple(shared)
-    if grad:
-        xs = _Enter.apply(n - 1, nc, *xs)
-    _TRIPS.append(_TRIPS[-1] * (n - 1))
     try:
-        carry, y2 = body(1, xs[:nc], *xs[nc:])
-    finally:
-        _TRIPS.pop()
-    del xs
-    if grad:
-        out = _Exit.apply(n - 1, *carry, *(() if y2 is None else (y2,)))
-        carry, y2 = out[:nc], (None if y2 is None else out[nc])
-    grow = account.live - live1 if account is not None else 0
+        ins = (*carry, *second, *shared)
+        if grad:
+            ins = _Enter.apply(n - 1, nc, nr, held, *ins)
+        _TRIPS.append(_TRIPS[-1] * (n - 1))
+        try:
+            carry, y2 = step(1, ins[:nc], *ins[nc:])
+        finally:
+            _TRIPS.pop()
+        del ins
+        if grad:
+            out = _Exit.apply(n - 1, *carry, *(() if y2 is None else (y2,)))
+            carry, y2 = out[:nc], (None if y2 is None else out[nc])
+        grow = account.live - live1 if account is not None else 0
+        last_peak = account.peak if account is not None else 0
+    except Exception:
+        # ``torch.utils.checkpoint`` stops a recomputation once the region's
+        # last saved tensor is made again, here in the second iteration: the
+        # real loop stops in its last one, having run n - 1 iterations whole
+        # (here the first, and the second's part counted n - 1 times) and
+        # holding what they keep
+        if account is not None:
+            kept = (n - 2) * max(live1 - live0, 0) if again else 0
+            account.peak = max(outer_peak, account.peak + kept)
+            held[0] += kept
+            account.hold(kept)
+            if again:
+                work2 = account.work()
+                account.charge(work0, work1, n - 2)
+                account.charge(work1, work2, -(n - 2) / (n - 1))
+        raise
     if account is not None:
-        account.peak = max(outer_peak, account.peak + (n - 2) * max(grow, 0))
+        account.peak = max(outer_peak, last_peak + (n - 2) * max(grow, 0))
     if grad and grow > nbytes(y2):
-        held[0] = (grow - nbytes(y2)) * (n - 2)
-        account.hold(held[0])
+        kept = (grow - nbytes(y2)) * (n - 2)
+        held[0] += kept
+        account.hold(kept)
     ys = None
     if stack is not None:
         rest = torch.empty((*y2.shape[:stack], n - 2, *y2.shape[stack:]), dtype=y2.dtype,
@@ -230,41 +324,82 @@ def scan(n: int, body: Callable, carry: Tuple = (), shared: Tuple = (),
     return carry, ys
 
 
-class _Recompute(torch.autograd.Function):
-    """:func:`recompute`'s region: the forward without a graph, the inputs
-    kept; the backward runs the forward again with one and differentiates
-    through it (its scans charge and let go of their bytes there)."""
+def checkpoint(fn: Callable, *args):
+    """``fn(*args)`` with its intermediates recomputed in the backward (the
+    reference's ``jax.checkpoint``): a non-reentrant
+    ``torch.utils.checkpoint``, on ``meta`` as on the card, where a graph is
+    recorded through a tensor of ``args`` (trees of tensors and other
+    values), else ``fn(*args)`` as it is. No RNG state is kept: no region
+    the port checkpoints draws from torch's default generators. The
+    recomputation runs in the context variables of the first run (the
+    mesh of ``parallel.sharding.sharding_rules``, the ledgers), wherever
+    autograd runs it.
 
-    @staticmethod
-    def forward(ctx, fn, *args):
-        ctx.fn = fn
-        ctx.save_for_backward(*args)
-        with torch.no_grad():
-            out = fn(*args)
-        return out if isinstance(out, torch.Tensor) else tuple(out)
+    On ``meta`` the region is counted as the card runs it: its
+    recomputation (triggered in the backward by the first saved tensor read,
+    stopped after the last one is made again) counts at the multiplier of
+    its first run, and the bytes a recomputed :func:`scan` holds for its
+    iterations not run go with the first run's scan's backward."""
+    leaves, spec = tree_flatten(args)
+    tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return fn(*args)
+    # the tensors go to torch's checkpoint one by one: an argument that holds
+    # tensors (a tuple, a dict) would be kept whole, its tensors with it,
+    # where a nested region keeps its tensors only as its outer one's holders
+    is_tensor = [isinstance(t, torch.Tensor) for t in leaves]
+    others = [None if k else t for t, k in zip(leaves, is_tensor)]
 
-    @staticmethod
-    def backward(ctx, *gs):
-        args = [a.detach().requires_grad_(a.requires_grad) for a in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = _outputs(ctx.fn(*args))
-        pairs = [(o, g) for o, g in zip(outs, gs) if o.requires_grad]
-        wrt = [a for a in args if a.requires_grad]
-        if not (pairs and wrt):
-            return (None,) * (len(args) + 1)
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
-                                       allow_unused=True))
-        return (None,) + tuple(next(got) if a.requires_grad else None for a in args)
+    def flat(*ts):
+        it = iter(ts)
+        return fn(*tree_unflatten([next(it) if k else o for o, k in zip(others, is_tensor)],
+                                  spec))
 
-
-def _outputs(out) -> Tuple:
-    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    return ckpt.checkpoint(_region(flat, any(t.is_meta for t in tensors)), *tensors,
+                           use_reentrant=False, preserve_rng_state=False)
 
 
-def recompute(fn: Callable, *args: torch.Tensor):
-    """``fn(*args)`` (a tuple of tensors out), its intermediates recomputed
-    in the backward: on ``meta`` the dry run's stand-in for a non-reentrant
-    ``torch.utils.checkpoint``, whose recomputation would run a
-    :func:`scan`'s forward again outside any backward that could let go of
-    its bytes. Returns what ``fn`` returns (a tensor or a tuple)."""
-    return _Recompute.apply(fn, *args)
+#: the checkpointed regions running on ``meta``, innermost last: a region's
+#: first run lists the ``held`` accounts of its scans (a list), a
+#: recomputation takes them back in the same order (an iterator)
+_REGIONS: List = []
+#: for each recomputation running, the ``held`` accounts of the scans of the
+#: regions it runs for the first time: their graph is the recomputation's,
+#: which autograd drops when it is done, and their bytes go with it
+_DROPPED: List = []
+
+
+def _region(fn: Callable, meta: bool) -> Callable:
+    """``fn`` as :func:`checkpoint` runs it: first in the forward, then in
+    each recomputation, in the first run's context."""
+    ctx = contextvars.copy_context()
+    scans: List = []
+    runs = [0]
+    entry = trips()
+
+    def counted(again: bool, *args):
+        if not meta:
+            return fn(*args)
+        _REGIONS.append(iter(list(scans)) if again else scans)
+        if again:
+            _TRIPS.append(entry)
+            _DROPPED.append([])
+        try:
+            return fn(*args)
+        finally:
+            _REGIONS.pop()
+            if again:
+                _TRIPS.pop()
+                account = _ACCOUNT[-1]
+                for held in _DROPPED.pop():
+                    if account is not None and sum(held):
+                        account.release(sum(held))
+                    held[:] = [0, 0]
+
+    def run(*args):
+        runs[0] += 1
+        if runs[0] == 1:
+            return counted(False, *args)
+        return ctx.run(counted, True, *args)
+
+    return run

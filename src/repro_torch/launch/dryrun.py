@@ -23,6 +23,7 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
         --shape train_4k --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --shape train_4k --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 """
 from __future__ import annotations
@@ -188,11 +189,12 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
-    if args.all:
-        cells = [(arch, s) for arch in ARCH_IDS for s in supported_shapes(get_config(arch))]
+    if args.all or (args.shape and not args.arch):  # --shape alone: every arch that runs it
+        cells = [(arch, s) for arch in ARCH_IDS for s in supported_shapes(get_config(arch))
+                 if args.all or s == args.shape]
     else:
         if not (args.arch and args.shape):
-            p.error("--arch and --shape, or --all")
+            p.error("--arch and --shape, --shape alone, or --all")
         cells = [(args.arch, args.shape)]
     failures = []
     t0 = time.time()

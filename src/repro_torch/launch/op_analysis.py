@@ -137,6 +137,19 @@ class _Counter(TorchDispatchMode):
         """HBM bytes of ops a scan's iterations not run would dispatch."""
         self.hbm += n
 
+    def work(self):
+        """What is counted so far: ``(FLOPs by op, FLOPs by dtype, HBM
+        bytes)``, a copy."""
+        return dict(self.flops), dict(self.by_dtype), self.hbm
+
+    def charge(self, before, after, scale: float) -> None:
+        """Add ``scale`` times the work counted between two :meth:`work`
+        readings (a recomputation's iterations not run)."""
+        for mine, a, b in zip((self.flops, self.by_dtype), before, after):
+            for key, v in b.items():
+                mine[key] = mine.get(key, 0.0) + scale * (v - a.get(key, 0.0))
+        self.hbm += scale * (after[2] - before[2])
+
     def _freed(self, key: int, n: int) -> None:
         self.seen.discard(key)
         self.live -= n

@@ -22,11 +22,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint as ckpt
 
 from ..core.packing import PackedTensor
 from ..kernels import ops
-from ..launch.counting import recompute, scan
+from ..launch.counting import checkpoint, scan
 from ..parallel.sharding import (all_gather, all_reduce, batch_axes, current_mesh, enter,
                                  tp_share, vocab_share)
 
@@ -44,6 +43,7 @@ __all__ = [
     "linear",
     "logits",
     "mlp",
+    "remat_block",
     "rms_norm",
     "sinusoidal_positions",
 ]
@@ -183,14 +183,15 @@ def _mask_chunk(q_pos, kv_pos, causal: bool, window: Optional[int]):
 
 
 def _sweep_start(q):
-    """A q chunk's online-softmax state: ``(q32, m, l, acc)``."""
+    """A q chunk's scaled f32 queries and online-softmax state ``(m, l,
+    acc)``."""
     b, qc, hkv, g, dh = q.shape
-    return (q.float() * dh**-0.5, torch.full((b, hkv, g, qc), NEG_INF, device=q.device),
-            torch.zeros((b, hkv, g, qc), device=q.device),
-            torch.zeros((b, hkv, g, qc, dh), device=q.device))
+    return q.float() * dh**-0.5, (torch.full((b, hkv, g, qc), NEG_INF, device=q.device),
+                                  torch.zeros((b, hkv, g, qc), device=q.device),
+                                  torch.zeros((b, hkv, g, qc, dh), device=q.device))
 
 
-def _sweep_chunk(q32, m, l, acc, k, v, q_pos, kv_pos, *, causal, window):
+def _sweep_chunk(m, l, acc, k, v, q32, q_pos, kv_pos, *, causal, window):
     """The state after one kv chunk ``k/v [B, kc, Hkv, dh]``."""
     kc, vc = k.float(), v.float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc)
@@ -201,7 +202,7 @@ def _sweep_chunk(q32, m, l, acc, k, v, q_pos, kv_pos, *, causal, window):
     p = torch.exp(s - m_new[..., None])
     l = l * alpha + p.sum(dim=-1)
     acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
-    return q32, m_new, l, acc
+    return m_new, l, acc
 
 
 def _sweep_end(l, acc, dtype):
@@ -210,18 +211,28 @@ def _sweep_end(l, acc, dtype):
     return out.permute(0, 3, 1, 2, 4).to(dtype)
 
 
+def _chunks(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` with ``dim`` cut into chunks of ``size`` rows, the chunk index
+    first (a view): a :func:`~repro_torch.launch.counting.scan`'s ``xs``."""
+    return t.unflatten(dim, (t.shape[dim] // size, size)).movedim(dim, 0)
+
+
 def _online_attn(q, k, v, q_pos, kv_pos, *, causal, window, kv_chunk, dtype):
-    """One q chunk against kv chunks with an online softmax (f32).
+    """One q chunk against kv chunks with an online softmax (f32), each kv
+    chunk's scores and probabilities recomputed in the backward, never kept
+    (the reference's checkpointed scan body).
 
     ``q [B, qc, Hkv, G, dh]``; ``k/v [B, Skv, Hkv, dh]``, ``Skv`` whole kv
     chunks. Returns ``[B, qc, Hkv, G, dh]`` in ``dtype``.
     """
-    def chunk(j, st, k, v):
+    def chunk(j, st, k, v, q32):
         c0 = j * kv_chunk
-        return _sweep_chunk(*st, k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk], q_pos,
-                            kv_pos[c0:c0 + kv_chunk], causal=causal, window=window), None
+        return _sweep_chunk(*st, k, v, q32, q_pos, kv_pos[c0:c0 + kv_chunk], causal=causal,
+                            window=window), None
 
-    (_, _, l, acc), _ = scan(k.shape[1] // kv_chunk, chunk, _sweep_start(q), (k, v))
+    q32, state = _sweep_start(q)
+    (_, l, acc), _ = scan(k.shape[1] // kv_chunk, chunk, state, (q32,),
+                          xs=(_chunks(k, 1, kv_chunk), _chunks(v, 1, kv_chunk)), remat=True)
     return _sweep_end(l, acc, dtype)
 
 
@@ -281,7 +292,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
     against ``k``/``v`` ``[B, Skv, Hkv, dh]`` at positions ``q_pos [S]`` and
     ``kv_pos [Skv]`` (``< 0`` padding), swept in q chunks × kv chunks with an
     online softmax. Returns the heads ``[B, S, Hq·dh]`` in ``dtype``, before
-    ``wo``."""
+    ``wo``. The backward is the reference's flash-style one in every mode:
+    each q chunk keeps only its output (its sweep recomputed), and each kv
+    chunk's scores are recomputed again in the sweep's backward."""
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -297,12 +310,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tenso
     sq = s + s_pad
     q5 = q.reshape(b, sq, hkv, g, dh)
 
-    def q_chunk(i, _, q5, k, v):
+    def q_chunk(i, _, q, k, v):
         i0 = i * qc
-        return (), _online_attn(q5[:, i0:i0 + qc], k, v, q_pos[i0:i0 + qc], kv_pos,
-                                causal=causal, window=window, kv_chunk=kvc, dtype=dtype)
+        return (), _online_attn(q, k, v, q_pos[i0:i0 + qc], kv_pos, causal=causal,
+                                window=window, kv_chunk=kvc, dtype=dtype)
 
-    _, out = scan(sq // qc, q_chunk, (), (q5, k, v), stack=1)
+    _, out = scan(sq // qc, q_chunk, (), (k, v), stack=1, xs=(_chunks(q5, 1, qc),), remat=True)
     return out.reshape(b, sq, hq * dh)[:, :s]
 
 
@@ -362,6 +375,18 @@ def mlp(p, x: torch.Tensor, d_ff: Optional[int] = None) -> torch.Tensor:
     return linear(p["w_down"], F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
 
 
+def remat_block(cfg, fn, *args):
+    """``fn(*args)``, one block of a layer loop, under ``cfg.remat``: with
+    ``"block"`` (the full configs' default) its intermediates are recomputed
+    in the backward (:func:`~repro_torch.launch.counting.checkpoint`, the
+    reference's ``jax.checkpoint`` of its scanned layer body), so a training
+    step keeps each block's inputs and outputs only; any other value keeps
+    them all, as the reference's ``"none"`` does."""
+    if cfg.remat == "block":
+        return checkpoint(fn, *args)
+    return fn(*args)
+
+
 # ------------------------------------------------------------------- loss
 def _divisor_chunk(s: int, chunk: int) -> int:
     """Largest divisor of ``s`` that is ≤ chunk (streaming chunk size)."""
@@ -371,21 +396,53 @@ def _divisor_chunk(s: int, chunk: int) -> int:
     return chunk
 
 
+#: vocabulary rows of a bf16 table cast to f32 at a time by the loss chunks'
+#: logits where no product with an f32 result from bf16 operands runs
+#: (the CPU), and by their backward everywhere
+VOCAB_BLOCK = 8192
+
+
+class _WideLogits(torch.autograd.Function):
+    """``h @ wᵀ`` in f32 of ``h [N, D]`` and a table ``w [V, D]`` in one
+    narrower dtype, with no f32 copy of the table: on the card (and on
+    ``meta``, as the card runs it) one product of the narrow operands with
+    an f32 result, elsewhere :data:`VOCAB_BLOCK` rows cast at a time. The
+    backward — ``g @ w`` and ``gᵀ @ h`` in f32, each cast to its operand's
+    dtype — casts the table by blocks as well."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        if h.device.type in ("cuda", "meta"):
+            return torch.ops.aten.mm.dtype(h, w.t(), torch.float32)
+        out = h.new_empty((h.shape[0], w.shape[0]), dtype=torch.float32)
+        hf = h.float()
+        for v0 in range(0, w.shape[0], VOCAB_BLOCK):
+            out[:, v0:v0 + VOCAB_BLOCK] = hf @ w[v0:v0 + VOCAB_BLOCK].float().t()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        hf = h.float()
+        gh = torch.zeros_like(hf)
+        gw = torch.empty_like(w)
+        for v0 in range(0, w.shape[0], VOCAB_BLOCK):
+            gb = g[:, v0:v0 + VOCAB_BLOCK]
+            gh.addmm_(gb, w[v0:v0 + VOCAB_BLOCK].float())
+            gw[v0:v0 + VOCAB_BLOCK] = (gb.t() @ hf).to(w.dtype)
+        return gh.to(h.dtype), gw
+
+
 def _chunk_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ wᵀ`` in f32 from operands in ``w``'s dtype (the reference's
-    einsum with an f32 result; bf16 products are exact in f32)."""
-    return torch.matmul(h.to(w.dtype).float(), w.float().t())
-
-
-def _recomputed(fn, *args):
-    """``fn(*args)``, its intermediates recomputed in the backward pass when
-    a graph is recorded (the reference's ``jax.checkpoint`` of the chunk; on
-    ``meta`` the dry run's stand-in, :func:`~repro_torch.launch.counting.recompute`)."""
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        if args[0].is_meta:
-            return recompute(fn, *args)
-        return ckpt.checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    einsum with an f32 result; bf16 products are exact in f32). A bf16
+    table is never copied whole to f32 (the reference keeps it bf16, as a
+    global f32 cast would gather it): :class:`_WideLogits`."""
+    if w.dtype == torch.float32:
+        return torch.matmul(h.float(), w.t())
+    lead = h.shape[:-1]
+    return _WideLogits.apply(h.to(w.dtype).reshape(-1, h.shape[-1]), w).reshape(*lead, w.shape[0])
 
 
 def _xent_chunk(h, w, y):
@@ -435,10 +492,10 @@ def chunked_xent(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     for c0 in range(0, s, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if vmesh is None:
-            t, c = _recomputed(_xent_chunk, h, emb, y)
+            t, c = checkpoint(_xent_chunk, h, emb, y)
         else:
             v0 = vmesh.index("model") * emb.shape[0]
-            lse, picked = _recomputed(_xent_shard_chunk, h, emb, torch.where(y >= 0, y - v0, -1))
+            lse, picked = checkpoint(_xent_shard_chunk, h, emb, torch.where(y >= 0, y - v0, -1))
             nll = _global_lse(lse, vmesh, "split") - all_reduce(picked, vmesh, "model")
             valid = (y >= 0).float()
             t, c = (nll * valid).sum(), valid.sum()
@@ -484,11 +541,11 @@ def chunked_kl(hidden_s: torch.Tensor, hidden_t: torch.Tensor, emb: torch.Tensor
     for c0 in range(0, s, chunk):
         hs, ht = hidden_s[:, c0:c0 + chunk], hidden_t[:, c0:c0 + chunk]
         if vmesh is None:
-            tot = tot + _recomputed(_kl_chunk, hs, ht, emb)
+            tot = tot + checkpoint(_kl_chunk, hs, ht, emb)
             continue
         lse_s, lse_t = (_global_lse(v, vmesh, "reduce_scatter")
-                        for v in _recomputed(_lse_pair, hs, ht, emb))
-        tot = tot + all_reduce(_recomputed(_kl_shard_chunk, hs, ht, emb, lse_s, lse_t), vmesh,
+                        for v in checkpoint(_lse_pair, hs, ht, emb))
+        tot = tot + all_reduce(checkpoint(_kl_shard_chunk, hs, ht, emb, lse_s, lse_t), vmesh,
                                "model")
     mesh = current_mesh()
     if mesh is not None:

@@ -181,21 +181,31 @@ def init_recurrent(gen: torch.Generator, cfg) -> Dict:
             "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=dev)}
 
 
+def _group(p_g, x: torch.Tensor, cfg, pos: torch.Tensor):
+    """One (R, R, A) group: ``(x, (conv1, h1, conv2, h2, k, v))``."""
+    x, st1 = _rg_block(p_g["rg1"], x, cfg)
+    x, st2 = _rg_block(p_g["rg2"], x, cfg)
+    x, kv = _attn_block(p_g["attn"], x, cfg, pos)
+    return x, (*st1, *st2, *kv)
+
+
 def _forward(params, tokens: torch.Tensor, cfg, collect_cache: bool = False):
     """All blocks over ``tokens [B, S]``: ``(hidden [B, S, D], cache |
-    None)``; the cache (without ``pos``) as the module docstring lays out."""
+    None)``; the cache (without ``pos``) as the module docstring lays out.
+    Under ``cfg.remat == "block"`` each group and each trailing block is
+    recomputed in the backward (:func:`~repro_torch.models.layers.remat_block`;
+    the reference checkpoints its groups and runs the two trailing blocks
+    plain)."""
     x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)
     states = []
     for p_g in params["groups"]:
-        x, st1 = _rg_block(p_g["rg1"], x, cfg)
-        x, st2 = _rg_block(p_g["rg2"], x, cfg)
-        x, kv = _attn_block(p_g["attn"], x, cfg, pos)
-        states.append((*st1, *st2, *kv))
+        x, st = L.remat_block(cfg, _group, p_g, x, cfg, pos)
+        states.append(st)
     tail = []
     for p_rg in params["tail"]:
-        x, st = _rg_block(p_rg, x, cfg)
+        x, st = L.remat_block(cfg, _rg_block, p_rg, x, cfg)
         tail.append(st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if not collect_cache:

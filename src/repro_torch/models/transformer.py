@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.compressed_moe import compressed_moe_layer
+from ..core.otp import fixed_uniforms
 from ..core.quantizers import dequantize_kv_rows, quantize_kv_rows
 from ..kernels import ops
 from . import layers as L
@@ -174,16 +175,45 @@ def _ffn_delta(p, h, cfg, *, use_otp: bool = True, count_weight=None, ffn_backen
 
 
 # ------------------------------------------------------- dense-cache path
-def _block(p, x, cfg, *, positions, window: int, ffn_backend=None, **hooks):
-    """One transformer block over a whole sequence: ``(x, aux, (k, v))``
-    with ``aux`` :func:`_ffn_delta`'s (``hooks``: its OTP options)."""
+def _attn_half(p, x, cfg, positions, window: int):
+    """The attention half of a block over a whole sequence: ``(x after the
+    attention, (k, v))``."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, kv = L.attention(p["attn"], h, cfg, positions=positions, causal=True,
                                window=window)
-    x = x + attn_out
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    delta, _, _, aux = _ffn_delta(p, h, cfg, ffn_backend=ffn_backend, **hooks)
-    return x + delta, aux, kv
+    return x + attn_out, kv
+
+
+def _ffn_half(p, x, cfg, ffn_backend=None, **hooks):
+    """The FFN half of a block: ``(x after the FFN, aux)`` (``hooks``:
+    :func:`_ffn_delta`'s OTP options)."""
+    delta, _, _, aux = _ffn_delta(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                                  ffn_backend=ffn_backend, **hooks)
+    return x + delta, aux
+
+
+def _block(p, x, cfg, *, positions, window: int, ffn_backend=None, **hooks):
+    """One transformer block over a whole sequence: ``(x, aux, (k, v))``
+    with ``aux`` :func:`_ffn_delta`'s (``hooks``: its OTP options), under
+    ``cfg.remat``. With ``"block"`` the block is recomputed in the backward
+    (:func:`~repro_torch.models.layers.remat_block`); a PMQ layer's in two
+    pieces, the attention half and the FFN half, so that the MoE region's
+    output is saved across the attention's recomputation (the reference's
+    ``moe_out``) and the region reruns only for its own backward, on the
+    Gumbel draws of its first run (:func:`~repro_torch.core.otp.fixed_uniforms`)."""
+    if "moe_ce" not in p:
+        def whole(p, x):
+            x, kv = _attn_half(p, x, cfg, positions, window)
+            return (*_ffn_half(p, x, cfg, ffn_backend, **hooks), kv)
+
+        return L.remat_block(cfg, whole, p, x)
+    x, kv = L.remat_block(cfg, _attn_half, p, x, cfg, positions, window)
+    if hooks.get("use_otp", True) and p.get("otp") is not None:
+        hooks = dict(hooks, otp_rng=fixed_uniforms(hooks.get("otp_rng"), x.shape[0] * x.shape[1],
+                                                   cfg.top_k, x.device))
+    x, aux = L.remat_block(cfg, lambda p, x, hooks: _ffn_half(p, x, cfg, ffn_backend, **hooks),
+                           p, x, hooks)
+    return x, aux, kv
 
 
 def _embed_inputs(params, cfg, tokens, patch_embeds=None):

@@ -54,15 +54,21 @@ def _positions(n: int, device) -> torch.Tensor:
 
 
 def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
-    """``frames [B, S_enc, D]`` (stub embeddings) → the encoder's states."""
+    """``frames [B, S_enc, D]`` (stub embeddings) → the encoder's states.
+    Under ``cfg.remat == "block"`` each encoder and decoder block is
+    recomputed in the backward (:func:`~repro_torch.models.layers.remat_block`)."""
     pos = _positions(frames.shape[1], frames.device)
     x = frames + L.sinusoidal_positions(pos, cfg.d_model)[None].to(frames.dtype)
     for p_l in params["enc_blocks"]:
-        a, _ = L.attention(p_l["attn"], L.rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
-                           positions=pos, causal=False, rope=False)
-        x = x + a
-        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff)
+        x = L.remat_block(cfg, _enc_block, p_l, x, cfg, pos)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_block(p_l, x: torch.Tensor, cfg, pos: torch.Tensor) -> torch.Tensor:
+    a, _ = L.attention(p_l["attn"], L.rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
+                       positions=pos, causal=False, rope=False)
+    x = x + a
+    return x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff)
 
 
 def _cross_kv(p_cross, enc_out: torch.Tensor, cfg):
@@ -89,19 +95,26 @@ def _dec_stack(params, x: torch.Tensor, cfg, enc_out: torch.Tensor, positions: t
     enc_pos = _positions(enc_out.shape[1], enc_out.device)
     ys = []
     for p_l in params["dec_blocks"]:
-        a, kv = L.attention(p_l["attn"], L.rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
-                            positions=positions, causal=True, rope=False)
-        x = x + a
-        ck, cv = _cross_kv(p_l["cross"], enc_out, cfg)
-        a, _ = L.attention(p_l["cross"], L.rms_norm(x, p_l["lnx"], cfg.norm_eps), cfg,
-                           positions=positions, causal=False, rope=False,
-                           kv_override=(ck, cv, enc_pos))
-        x = x + a
-        x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff)
+        x, kv = L.remat_block(cfg, _dec_block, p_l, x, cfg, enc_out, positions, enc_pos)
         if collect_cache:
-            ys.append((*kv, ck, cv))
+            ys.append(kv)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, (tuple(torch.stack(t) for t in zip(*ys)) if collect_cache else None)
+
+
+def _dec_block(p_l, x: torch.Tensor, cfg, enc_out: torch.Tensor, positions: torch.Tensor,
+               enc_pos: torch.Tensor):
+    """One decoder block: ``(x, (k, v, cross_k, cross_v))``."""
+    a, kv = L.attention(p_l["attn"], L.rms_norm(x, p_l["ln1"], cfg.norm_eps), cfg,
+                        positions=positions, causal=True, rope=False)
+    x = x + a
+    ck, cv = _cross_kv(p_l["cross"], enc_out, cfg)
+    a, _ = L.attention(p_l["cross"], L.rms_norm(x, p_l["lnx"], cfg.norm_eps), cfg,
+                       positions=positions, causal=False, rope=False,
+                       kv_override=(ck, cv, enc_pos))
+    x = x + a
+    return x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg.d_ff), \
+        (*kv, ck, cv)
 
 
 def _forward(params, batch, cfg, collect_cache: bool = False):

@@ -5,6 +5,8 @@
 the max-state stabilizer, stepped over time (:func:`_mlstm_scan`); above 64
 steps the sequence runs in 64-step chunks whose inner steps are recomputed
 in the backward pass, so autograd keeps ``C`` at chunk boundaries only.
+Under ``cfg.remat == "block"`` each (mLSTM, sLSTM) group is recomputed in
+the backward as well, as the reference's checkpointed scan body.
 ``sLSTM``: a scalar memory per channel with exponential gates and a
 normalizer state, then a gated FFN (width 4/3 · D rounded to 64). Both
 blocks carry a width-4 causal conv (:func:`repro_torch.models.recurrent.
@@ -56,21 +58,21 @@ def _init_mlstm(gen: torch.Generator, cfg, dt) -> Dict:
 def _mlstm_steps(c, n, m, q, k, v, ig, fg):
     """The stabilized recurrence over the time axis of ``q/k/v [T, B, H,
     dh]``, ``ig/fg [T, B, H]`` (f32) from ``(c, n, m)``: ``(h [T, B, H,
-    dh], c, n, m)``."""
-    def step(t, state, q, k, v, ig, fg):
+    dh], c, n, m)``. Each step reads its own rows (the scan's ``xs``), so
+    the backward writes O(T) bytes of input gradients."""
+    def step(t, state, qt, kt, vt, it, ft):
         c, n, m = state
-        qt, kt, it, ft = q[t], k[t], ig[t], fg[t]
         m_new = torch.maximum(ft + m, it)
         i_p = torch.exp(it - m_new)
         f_p = torch.exp(ft + m - m_new)
-        vk = v[t][..., :, None] * kt[..., None, :]
+        vk = vt[..., :, None] * kt[..., None, :]
         c = f_p[..., None, None] * c + i_p[..., None, None] * vk
         n = f_p[..., None] * n + i_p[..., None] * kt
         num = torch.matmul(c, qt[..., None])[..., 0]
         den = torch.clamp_min(torch.abs((n * qt).sum(dim=-1)), 1.0)
         return (c, n, m_new), num / den[..., None]
 
-    (c, n, m), hs = scan(q.shape[0], step, (c, n, m), (q, k, v, ig, fg), stack=0)
+    (c, n, m), hs = scan(q.shape[0], step, (c, n, m), xs=(q, k, v, ig, fg), stack=0)
     return hs, c, n, m
 
 
@@ -96,12 +98,13 @@ def _mlstm_scan(q, k, v, ig, fg, state=None):
     if pad:
         xs = [torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) for t in xs]
 
-    def chunk(i, state, *xs):
-        c0 = i * MLSTM_CHUNK
-        hs, c, n, m = L._recomputed(_mlstm_steps, *state, *(t[c0:c0 + MLSTM_CHUNK] for t in xs))
+    def chunk(i, state, *rows):
+        hs, c, n, m = _mlstm_steps(*state, *rows)
         return (c, n, m), hs
 
-    (c, n, m), hs = scan((s + pad) // MLSTM_CHUNK, chunk, (c, n, m), tuple(xs), stack=0)
+    (c, n, m), hs = scan((s + pad) // MLSTM_CHUNK, chunk, (c, n, m),
+                         xs=tuple(L._chunks(t, 0, MLSTM_CHUNK) for t in xs), stack=0,
+                         remat=True)
     return hs.flatten(0, 1)[:s].transpose(0, 1).to(q.dtype), (c, n, m)
 
 
@@ -181,7 +184,8 @@ def _init_slstm(gen: torch.Generator, cfg, dt) -> Dict:
 
 def _slstm_seq(z, o, ig, fg, state=None):
     """The scalar-memory recurrence over ``[B, S, D]`` inputs (f32 gates):
-    ``(h [B, S, D] f32, (c, n, m))``."""
+    ``(h [B, S, D] f32, (c, n, m))``. Each step reads its own rows (the
+    scan's ``xs``), so the backward writes O(S) bytes of input gradients."""
     b, s, d = z.shape
     if state is None:
         c = torch.zeros((b, d), device=z.device)
@@ -189,13 +193,13 @@ def _slstm_seq(z, o, ig, fg, state=None):
         m = torch.full((b, d), M_INIT, device=z.device)
     else:
         c, n, m = state
-    z, o, ig, fg = (t.float() for t in (z, o, ig, fg))
 
-    def step(t, state, z, o, ig, fg):
-        h, c, n, m = _slstm_step(*state, z[:, t], o[:, t], ig[:, t], fg[:, t])
+    def step(t, state, *rows):
+        h, c, n, m = _slstm_step(*state, *rows)
         return (c, n, m), h
 
-    (c, n, m), hs = scan(s, step, (c, n, m), (z, o, ig, fg), stack=1)
+    (c, n, m), hs = scan(s, step, (c, n, m), stack=1,
+                         xs=tuple(t.float().transpose(0, 1) for t in (z, o, ig, fg)))
     return hs, (c, n, m)
 
 
@@ -259,15 +263,22 @@ def _stack_states(states):
             "s": tuple(torch.stack(t) for t in zip(*sst)), "sconv": torch.stack(sconv)}
 
 
+def _group(p_g, x: torch.Tensor, cfg):
+    """One (mLSTM, sLSTM) group: ``(x, ((m-state, mconv), (s-state, sconv)))``."""
+    x, mst = _mlstm_block(p_g["m"], x, cfg)
+    x, sst = _slstm_block(p_g["s"], x, cfg)
+    return x, (mst, sst)
+
+
 def _forward(params, tokens: torch.Tensor, cfg, collect_cache: bool = False):
     """All blocks over ``tokens [B, S]``: ``(hidden [B, S, D], cache |
-    None)``."""
+    None)``. Under ``cfg.remat == "block"`` each group is recomputed in the
+    backward (:func:`~repro_torch.models.layers.remat_block`)."""
     x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
     states = []
     for p_g in params["groups"]:
-        x, mst = _mlstm_block(p_g["m"], x, cfg)
-        x, sst = _slstm_block(p_g["s"], x, cfg)
-        states.append((mst, sst))
+        x, st = L.remat_block(cfg, _group, p_g, x, cfg)
+        states.append(st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, (_stack_states(states) if collect_cache else None)
 

@@ -17,7 +17,9 @@ of ``tests/test_hlo_analysis.py``, held to hand counts:
   ``PERF.md`` §6's shapes (the grouped GEMMs at their static capacity); a
   CPU tensor still runs the plain version and counts nothing;
 * a train step of each reduced family counted on ``meta`` as on CPU
-  tensors (FLOPs equal, peak and HBM bytes within 5 %), and the multi-pod
+  tensors (FLOPs equal, peak and HBM bytes within 5 %), under
+  ``remat="none"`` and ``"block"``; ``"block"``'s counted peak below
+  ``"none"``'s where the activations make the peak; and the multi-pod
   batch block of command-r's ``train_4k``: 8 rows a rank, each microbatch
   the reference's rows;
 * FLOP parity with the reference's ``analyze_hlo`` of ``jit(train_loss)``
@@ -30,6 +32,8 @@ of ``tests/test_hlo_analysis.py``, held to hand counts:
   XLA keeps the last chunk's forward, and xlstm's scan adds its
   recurrence's backward products).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -370,13 +374,16 @@ COUNTED_STEPS = {"tinyllama-1.1b": (1, 96), "moonshot-v1-16b-a3b": (1, 96),
                  "xlstm-350m": (1, 192)}
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_train_step_counts_on_meta_as_on_cpu(arch, torch_one_thread):
+@pytest.mark.parametrize("arch,remat", [pytest.param(a, "none", id=a) for a in FAMILIES]
+                         + [pytest.param(a, "block", id=f"{a}-block") for a in FAMILIES])
+def test_train_step_counts_on_meta_as_on_cpu(arch, remat, torch_one_thread):
     """``build_step``'s f32 train step of each reduced family counted on its
     ``meta`` argument specs and on CPU tensors of the same shapes, where
     every loop iteration runs: FLOPs equal, peak live bytes and HBM bytes
-    within 5 %."""
-    cfg = treg.get_config(arch).reduced()
+    within 5 % — with the config's ``"none"`` and with ``remat="block"``
+    (each block a ``torch.utils.checkpoint``, its recomputation stopped
+    early, on ``meta`` as on the CPU)."""
+    cfg = dataclasses.replace(treg.get_config(arch).reduced(), remat=remat)
     b, s = COUNTED_STEPS[arch]
     art = tsteps.build_step(cfg, tbase.ShapeConfig("train_4k", s, b, "train"))
     on_meta = analyze_step(art.fn, art.arg_specs)
@@ -392,6 +399,30 @@ def test_train_step_counts_on_meta_as_on_cpu(arch, torch_one_thread):
         (on_meta.peak_bytes, on_cpu.peak_bytes)
     assert abs(on_meta.hbm_bytes / on_cpu.hbm_bytes - 1) <= 0.05, \
         (on_meta.hbm_bytes, on_cpu.hbm_bytes)
+
+
+#: ``(layers, batch, seq)`` of each family's train step whose peak is its
+#: activations' (at the reduced depth and 1 × 96 the optimizer's update
+#: is the peak, the same under either mode)
+LOWER_PEAK = {"tinyllama-1.1b": (4, 2, 128), "moonshot-v1-16b-a3b": (2, 4, 256),
+              "whisper-small": (4, 2, 128), "recurrentgemma-2b": (6, 2, 128),
+              "xlstm-350m": (4, 2, 128)}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_block_remat_lowers_the_counted_peak(arch, torch_one_thread):
+    """A reduced family's train step counted on ``meta``: its peak under
+    ``remat="block"`` below its peak under ``"none"``, FLOPs above
+    (the blocks' forwards run again)."""
+    layers, b, s = LOWER_PEAK[arch]
+    got = {}
+    for remat in ("none", "block"):
+        cfg = dataclasses.replace(treg.get_config(arch).reduced(), remat=remat,
+                                  num_layers=layers)
+        art = tsteps.build_step(cfg, tbase.ShapeConfig("train_4k", s, b, "train"))
+        got[remat] = analyze_step(art.fn, art.arg_specs)
+    assert got["block"].peak_bytes < got["none"].peak_bytes
+    assert got["block"].flops > got["none"].flops
 
 
 def test_multi_pod_microbatches_are_cut_not_replicated():
